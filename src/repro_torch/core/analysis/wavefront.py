@@ -8,18 +8,20 @@ product and the first-reach mask run as one fused kernel
 device. :func:`ecmp_loads_device` is the O(diameter) Brandes dependency
 accumulation behind the exact ECMP saturation-throughput bound, with two
 counting products per level (`kernels.semiring.count_matmul`).
+:func:`squaring_apsp_device` is the weighted-APSP engine: min-plus squaring
+(`kernels.semiring.minplus_matmul`) to convergence.
 
-Each level loop is a Python loop over device tensors. The BFS reads its
-convergence flag once per level — one host sync per level; the telemetry
-(levels run, per-level newly reached pair counts) stays on the device until
-the caller reads it.
+Each loop is a Python loop over device tensors. The BFS reads its
+convergence flag once per level and the squaring once per squaring — one
+host sync each; the telemetry (levels run, per-level newly reached pair
+counts) stays on the device until the caller reads it.
 
 ``use_kernel=False`` runs the same loops with the kernels' plain versions
 on the tensors' device.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +29,8 @@ import torch
 from ... import obs
 from ...kernels import semiring as S
 
-__all__ = ["wavefront_dist_mult", "dist_mult_device", "ecmp_loads_device",
+__all__ = ["wavefront_dist_mult", "wavefront_dist_mult_device",
+           "dist_mult_device", "ecmp_loads_device", "squaring_apsp_device",
            "pad_block", "pad_operand", "telemetry_attrs", "resolve_device"]
 
 _INF = float("inf")
@@ -135,10 +138,11 @@ def telemetry_attrs(aux) -> Dict[str, object]:
     return attrs
 
 
-def _warn_if_inexact(mult: np.ndarray) -> None:
-    """Warn when a count passed 2**24, where f32 stops holding integers."""
-    limit = float(2 ** 24)
-    if mult.size and mult.max() > limit:
+def _warn_if_inexact(mult, limit: float = float(2 ** 24)) -> None:
+    """Warn when a count (numpy array or tensor) passed ``limit``, where the
+    accumulator stops holding integers (2**24 for f32)."""
+    size = mult.numel() if torch.is_tensor(mult) else mult.size
+    if size and float(mult.max()) > limit:
         import warnings
 
         warnings.warn(
@@ -147,10 +151,10 @@ def _warn_if_inexact(mult: np.ndarray) -> None:
             RuntimeWarning, stacklevel=3)
 
 
-def wavefront_dist_mult(adj: np.ndarray, device="cuda",
-                        use_kernel: bool = True
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host convenience wrapper: pad -> device engine -> sliced np arrays.
+def wavefront_dist_mult_device(adj: np.ndarray, device="cuda",
+                               use_kernel: bool = True
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad -> device engine -> the (.., n, n) dist and mult device tensors.
 
     Warns (RuntimeWarning) when a multiplicity exceeds f32's exact-integer
     range — the engine's counts are f32 on the device. Under an enabled
@@ -171,10 +175,20 @@ def wavefront_dist_mult(adj: np.ndarray, device="cuda",
         if tel:
             sp.set(**telemetry_attrs(out[2]))
         sl = (Ellipsis, slice(None, n), slice(None, n))
-        dist = out[0][sl].cpu().numpy()
-        mult = out[1][sl].cpu().numpy()
+        dist = out[0][sl].contiguous()
+        mult = out[1][sl].contiguous()
     _warn_if_inexact(mult)
     return dist, mult
+
+
+def wavefront_dist_mult(adj: np.ndarray, device="cuda",
+                        use_kernel: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host convenience wrapper over :func:`wavefront_dist_mult_device`:
+    the same (dist, mult), as sliced numpy arrays."""
+    dist, mult = wavefront_dist_mult_device(adj, device=device,
+                                            use_kernel=use_kernel)
+    return dist.cpu().numpy(), mult.cpu().numpy()
 
 
 def ecmp_loads_device(dist: torch.Tensor, mult: torch.Tensor,
@@ -207,3 +221,34 @@ def ecmp_loads_device(dist: torch.Tensor, mult: torch.Tensor,
                                                         use_kernel=use_kernel),
                             delta)
     return adj * acc
+
+
+def squaring_apsp_device(d: torch.Tensor, max_squarings: Optional[int] = None,
+                         telemetry: bool = False, use_kernel: bool = True):
+    """Min-plus squaring to convergence on ``d``'s device.
+
+    For *weighted* length matrices (hop-distance problems should use
+    :func:`dist_mult_device`: squaring costs O(log diam) tropical products
+    of p^3 adds and mins each). ``d`` is a (p, p) padded seed (+inf
+    off-graph, 0 on the whole diagonal including padding). Each squaring is
+    one `minplus_matmul` whose kernel also writes a "changed" flag (the
+    product against its input, which is both operands); the loop reads that
+    flag once per squaring, its one host sync, and stops at the first
+    squaring that changes nothing.
+
+    ``max_squarings`` defaults to ceil(log2(p)), always enough to converge.
+    ``telemetry=True`` returns ``(dist, squarings)`` with the executed
+    squaring count. ``use_kernel=False`` runs the same loop on the plain
+    product.
+    """
+    p = d.shape[-1]
+    if max_squarings is None:
+        max_squarings = max(1, int(np.ceil(np.log2(max(2, p)))))
+    d = d.contiguous()
+    squarings = 0
+    while squarings < max_squarings:
+        d, changed = S.minplus_matmul(d, d, use_kernel=use_kernel, compare=d)
+        squarings += 1
+        if not bool(changed):  # the squaring's one host sync
+            break
+    return (d, squarings) if telemetry else d

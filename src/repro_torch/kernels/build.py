@@ -27,7 +27,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "find_nvcc",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its source under ``csrc/``
-SOURCES: Dict[str, str] = {"semiring": "semiring.cu"}
+SOURCES: Dict[str, str] = {"semiring": "semiring.cu", "tropical": "tropical.cu",
+                           "seghist": "seghist.cu"}
 #: ``<checkout>/build/repro_torch_kernels`` (src/repro_torch/kernels -> root)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,14 +88,20 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
             nvcc_command(CSRC / SOURCES[name], tmp, find_nvcc()),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc, time.perf_counter()))
-    for name, out, tmp, proc, t0 in running:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        results[name] = BuildResult(name, out, seconds, log)
+    try:
+        for name, out, tmp, proc, t0 in running:
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
+                                   f"(exit {proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+            results[name] = BuildResult(name, out, seconds, log)
+    finally:
+        for *_, proc, _ in running:  # a failed build stops the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return results
 
 

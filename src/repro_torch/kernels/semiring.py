@@ -1,42 +1,58 @@
-"""The counting-semiring kernels of the sweep: wrappers and plain versions.
+"""The semiring kernels of the analysis stack: wrappers and plain versions.
 
-Two hand-written CUDA kernels (``csrc/semiring.cu``) carry the equal-cost
-sweep's device path:
+Hand-written CUDA kernels carry the device path:
 
-* :func:`frontier_step` — ``where((F@A > 0) & (D == +inf), F@A, 0)``, the
-  fused BFS level step (replaces ``repro/kernels/semiring.py``
-  ``frontier_step_batched_pallas`` and its 2D twin ``frontier_step_pallas``);
-* :func:`count_matmul` — the plain fp32 counting product ``A@B`` (replaces
-  ``semiring_matmul_batched_pallas`` / ``semiring_matmul_pallas`` with
-  ``COUNTING``). ``A`` is read through its strides, so a transposed view
-  costs no copy.
+* :func:`frontier_step` (``csrc/semiring.cu``) —
+  ``where((F@A > 0) & (D == +inf), F@A, 0)``, the fused BFS level step
+  (replaces ``repro/kernels/semiring.py`` ``frontier_step_batched_pallas``
+  and its 2D twin ``frontier_step_pallas``);
+* :func:`count_matmul` (``csrc/semiring.cu``) — the plain fp32 counting
+  product ``A@B`` (replaces ``semiring_matmul_batched_pallas`` /
+  ``semiring_matmul_pallas`` with ``COUNTING``). ``A`` is read through its
+  strides, so a transposed view costs no copy;
+* :func:`minplus_matmul` (``csrc/tropical.cu``) — the tropical product
+  ``min_k a[i,k] + b[k,j]`` (replaces ``minplus_matmul_pallas``, the
+  ``TROPICAL`` instantiation of ``semiring_matmul_pallas``), optionally
+  with a fused "changed" flag for the squaring loop's convergence test;
+* :func:`minplus_count_matmul` (``csrc/tropical.cu``) — the two-field
+  (dist, count) product with counts summed over tying k (replaces
+  ``semiring_matmul_pallas`` with ``TROPICAL_COUNT``).
 
-Both take 2D operands or stacks with a leading batch axis, any M, N, K, and
-fp32 only. A wrapper launches its kernel on a CUDA tensor (or raises), and
-runs the plain version beside it only for tensors on the CPU or when the
-caller passes ``use_kernel=False``. :data:`launches` counts kernel launches
-per wrapper.
+The counting kernels take 2D operands or stacks with a leading batch axis;
+the tropical ones take 2D operands. All take any M, N, K and fp32 only. A
+wrapper launches its kernel on a CUDA tensor (or raises), and runs the
+plain version beside it only for tensors on the CPU or when the caller
+passes ``use_kernel=False``. :data:`launches` counts kernel launches per
+wrapper, for these and for ``kernels.seghist.value_histogram``.
 
 The plain versions keep the names of their ``repro/kernels/ref.py``
-counterparts. They run ``torch.matmul`` in IEEE fp32: on the card that
-requires TF32 to be off, and they raise if it is not.
+counterparts. The counting ones run ``torch.matmul`` in IEEE fp32: on the
+card that requires TF32 to be off, and they raise if it is not. The
+tropical ones evaluate the (rows, k, n) broadcast a block of rows at a
+time, so their working memory stays bounded.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["frontier_step", "count_matmul", "frontier_step_ref",
-           "count_matmul_ref", "batched_count_matmul_ref", "launches",
-           "reset_launches"]
+__all__ = ["frontier_step", "count_matmul", "minplus_matmul",
+           "minplus_count_matmul", "frontier_step_ref", "count_matmul_ref",
+           "batched_count_matmul_ref", "minplus_matmul_ref",
+           "minplus_count_matmul_ref", "launches", "reset_launches"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches: Dict[str, int] = {"frontier_step": 0, "count_matmul": 0}
+launches: Dict[str, int] = {"frontier_step": 0, "count_matmul": 0,
+                            "minplus_matmul": 0, "minplus_count_matmul": 0,
+                            "value_histogram": 0}
 
 _MAX_BATCH = 65535  # gridDim.z
 _MAX_ROWS = 65535 * 128  # gridDim.y times the 128-row tile
+_MAX_TROPICAL_ROWS = 65535 * 32  # gridDim.y times the 32-row tropical tile
+#: elements of one (rows, k, n) broadcast block in the tropical plain versions
+_BROADCAST_BLOCK = 1 << 24
 
 
 def reset_launches() -> None:
@@ -76,12 +92,59 @@ def batched_count_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bik,bkj->bij", a.float(), b.float())
 
 
+def _row_blocks(m: int, k: int, n: int, fields: int = 1):
+    """Row ranges of a (rows, k, n) broadcast within the element budget."""
+    rows = max(1, _BROADCAST_BLOCK // max(1, fields * k * n))
+    return ((lo, min(m, lo + rows)) for lo in range(0, m, rows))
+
+
+def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Tropical (min, +) matrix product: out[i,j] = min_k a[i,k] + b[k,j].
+    An empty k gives +inf, the semiring's zero."""
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.full((m, n), float("inf"), dtype=torch.float32,
+                     device=a.device)
+    if k == 0:
+        return out
+    a, b = a.float(), b.float()
+    for lo, hi in _row_blocks(m, k, n):
+        out[lo:hi] = (a[lo:hi, :, None] + b[None]).amin(dim=1)
+    return out
+
+
+def minplus_count_matmul_ref(da: torch.Tensor, ca: torch.Tensor,
+                             db: torch.Tensor, cb: torch.Tensor):
+    """Fused tropical-with-count product over (dist, count) pairs.
+
+    out_d[i,j] = min_k da[i,k] + db[k,j];
+    out_c[i,j] = sum over minimizing k of ca[i,k] * cb[k,j].
+    Unreachable entries (dist inf) must carry count 0 so inf==inf ties
+    contribute nothing.
+    """
+    m, k = da.shape
+    n = db.shape[1]
+    d = torch.full((m, n), float("inf"), dtype=torch.float32,
+                   device=da.device)
+    c = torch.zeros((m, n), dtype=torch.float32, device=da.device)
+    if k == 0:
+        return d, c
+    da, ca, db, cb = (x.float() for x in (da, ca, db, cb))
+    for lo, hi in _row_blocks(m, k, n, fields=3):
+        s = da[lo:hi, :, None] + db[None]
+        d[lo:hi] = s.amin(dim=1)
+        prod = ca[lo:hi, :, None] * cb[None]
+        c[lo:hi] = torch.where(s == d[lo:hi, None, :], prod, 0.0).sum(dim=1)
+    return d, c
+
+
 # -- the kernels -----------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
+_TROPICAL_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -98,6 +161,21 @@ def _lib() -> ctypes.CDLL:
         lib.repro_count_matmul_f32.restype = _I
         _LIB = lib
     return _LIB
+
+
+def _tropical_lib() -> ctypes.CDLL:
+    global _TROPICAL_LIB
+    if _TROPICAL_LIB is None:
+        from .build import load
+
+        lib = load("tropical")
+        lib.repro_minplus_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+        lib.repro_minplus_f32.restype = _I
+        lib.repro_minplus_count_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
+                                                _I, _I, _P]
+        lib.repro_minplus_count_f32.restype = _I
+        _TROPICAL_LIB = lib
+    return _TROPICAL_LIB
 
 
 def _use_kernel(use_kernel: bool, *xs: torch.Tensor) -> bool:
@@ -156,9 +234,7 @@ def frontier_step(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     if tuple(d.shape) != (*f.shape[:-1], n):
         raise ValueError(f"dist shape {tuple(d.shape)} does not match the "
                          f"product {tuple(f.shape[:-1]) + (n,)}")
-    for name, x in (("f", f), ("a", a), ("d", d)):
-        if not x.is_contiguous():
-            raise ValueError(f"frontier_step needs a contiguous {name}")
+    _contiguous("frontier_step", f=f, a=a, d=d)
     x = torch.empty(d.shape, dtype=torch.float32, device=d.device)
     if x.numel() == 0:
         return x
@@ -180,8 +256,7 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
         return (batched_count_matmul_ref(a, b) if a.ndim == 3
                 else count_matmul_ref(a, b))
     batch, m, n, k = _dims(a, b)
-    if not b.is_contiguous():
-        raise ValueError("count_matmul needs a contiguous b")
+    _contiguous("count_matmul", b=b)
     sb = a.stride(0) if a.ndim == 3 else 0
     c = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
@@ -192,3 +267,86 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
         torch.cuda.current_stream(a.device).cuda_stream), "count_matmul")
     launches["count_matmul"] += 1
     return c
+
+
+def _dims_2d(a: torch.Tensor, b: torch.Tensor):
+    """(m, n, k) of a 2D tropical product; raises on a mismatch."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"tropical operands must be (m, k) x (k, n): "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if m > _MAX_TROPICAL_ROWS:
+        raise ValueError(f"rows {m} exceed the launch grid")
+    return m, n, k
+
+
+def _contiguous(what: str, **xs: torch.Tensor) -> None:
+    for name, x in xs.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{what} needs a contiguous {name}")
+
+
+def minplus_matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = True,
+                   compare: Optional[torch.Tensor] = None):
+    """Tropical product ``min_k a[i,k] + b[k,j]`` of fp32 (m, k) x (k, n).
+
+    Pads (ragged edges) behave as +inf. With ``compare``, an (m, n) tensor,
+    returns ``(out, changed)``: ``changed`` is a one-element int32 tensor on
+    the operands' device, nonzero iff ``out`` differs from ``compare``
+    anywhere. The kernel computes it in its store, so the squaring loop's
+    convergence test costs no extra pass over the matrix.
+    """
+    xs = (a, b) if compare is None else (a, b, compare)
+    if not _use_kernel(use_kernel, *xs):
+        out = minplus_matmul_ref(a, b)
+        if compare is None:
+            return out
+        return out, (out != compare).any().reshape(1).to(torch.int32)
+    m, n, k = _dims_2d(a, b)
+    _contiguous("minplus_matmul", a=a, b=b)
+    if compare is not None:
+        _contiguous("minplus_matmul", compare=compare)
+        if tuple(compare.shape) != (m, n):
+            raise ValueError(f"compare shape {tuple(compare.shape)} is not "
+                             f"the product's {(m, n)}")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    changed = (torch.zeros(1, dtype=torch.int32, device=a.device)
+               if compare is not None else None)
+    if out.numel():
+        _check(_tropical_lib().repro_minplus_f32(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if compare is None else compare.data_ptr(),
+            None if changed is None else changed.data_ptr(), m, n, k,
+            torch.cuda.current_stream(a.device).cuda_stream),
+            "minplus_matmul")
+        launches["minplus_matmul"] += 1
+    return out if compare is None else (out, changed)
+
+
+def minplus_count_matmul(da: torch.Tensor, ca: torch.Tensor,
+                         db: torch.Tensor, cb: torch.Tensor,
+                         use_kernel: bool = True):
+    """Lexicographic min-plus over (dist, count) pairs, fp32 (m, k) x (k, n).
+
+    Returns ``(d, c)``: ``d`` the min-plus product of the dists, ``c`` the
+    sum of ``ca[i,k] * cb[k,j]`` over the k that attain ``d[i,j]``. Pads
+    behave as (+inf, 0), which never contributes. Counts are exact below
+    2**24.
+    """
+    if not _use_kernel(use_kernel, da, ca, db, cb):
+        return minplus_count_matmul_ref(da, ca, db, cb)
+    m, n, k = _dims_2d(da, db)
+    if ca.shape != da.shape or cb.shape != db.shape:
+        raise ValueError("count fields must match their dist fields")
+    _contiguous("minplus_count_matmul", da=da, ca=ca, db=db, cb=cb)
+    d = torch.empty((m, n), dtype=torch.float32, device=da.device)
+    c = torch.empty((m, n), dtype=torch.float32, device=da.device)
+    if d.numel():
+        _check(_tropical_lib().repro_minplus_count_f32(
+            da.data_ptr(), ca.data_ptr(), db.data_ptr(), cb.data_ptr(),
+            d.data_ptr(), c.data_ptr(), m, n, k,
+            torch.cuda.current_stream(da.device).cuda_stream),
+            "minplus_count_matmul")
+        launches["minplus_count_matmul"] += 1
+    return d, c

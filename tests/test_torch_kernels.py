@@ -14,11 +14,15 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ops as rops
-from repro.kernels.semiring import (COUNTING, frontier_step_batched_pallas,
+from repro.kernels.minplus import minplus_matmul_pallas
+from repro.kernels.seghist import value_histogram_pallas
+from repro.kernels.semiring import (COUNTING, TROPICAL_COUNT,
+                                    frontier_step_batched_pallas,
                                     frontier_step_pallas,
                                     semiring_matmul_batched_pallas,
                                     semiring_matmul_pallas)
 from repro_torch.kernels import build
+from repro_torch.kernels import seghist as H
 from repro_torch.kernels import semiring as S
 
 
@@ -41,7 +45,7 @@ def _fresh_counters():
     S.reset_launches()
     yield
     # every call in this file runs on CPU tensors: no kernel may launch
-    assert S.launches == {"frontier_step": 0, "count_matmul": 0}
+    assert not any(S.launches.values()), S.launches
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -137,9 +141,11 @@ def test_build_targets_hopper_without_fast_math(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-O3" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert set(build.SOURCES.values()) == {"semiring.cu"}
-    assert (build.CSRC / "semiring.cu").is_file()
-    assert build._target("semiring").name.startswith("libsemiring_")
+    assert set(build.SOURCES.values()) == {"semiring.cu", "tropical.cu",
+                                           "seghist.cu"}
+    for name, src in build.SOURCES.items():
+        assert (build.CSRC / src).is_file()
+        assert build._target(name).name.startswith(f"lib{name}_")
 
 
 def test_find_nvcc_raises_without_a_toolkit(monkeypatch):
@@ -147,3 +153,114 @@ def test_find_nvcc_raises_without_a_toolkit(monkeypatch):
     monkeypatch.setattr(build.shutil, "which", lambda *a: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
+
+
+# -- the tropical and histogram kernels' plain versions ------------------------
+
+def _lengths(rng, shape, hi=50, p_inf=0.3):
+    """Integer-valued distances with +inf holes (no NaN: not a distance)."""
+    d = rng.integers(0, hi, shape).astype(np.float32)
+    return np.where(rng.random(shape) < p_inf, np.float32(np.inf), d)
+
+
+def test_minplus_matches_pallas():
+    rng = np.random.default_rng(5)
+    a, b = _lengths(rng, (128, 256)), _lengths(rng, (256, 128))
+    a[:2] = np.inf  # unreached rows stay unreached
+    want = np.asarray(minplus_matmul_pallas(jnp.asarray(a), jnp.asarray(b),
+                                            interpret=True))
+    got = S.minplus_matmul(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(got, want)  # tolerance: bit-equal
+    np.testing.assert_array_equal(S.minplus_matmul_ref(_t(a), _t(b)), want)
+    assert np.isinf(want).any() and np.isfinite(want).any()
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 136, 72), (33, 65, 1), (7, 1, 300)])
+def test_minplus_ragged_matches_padding_ops(m, n, k):
+    """The JAX op pads with +inf to its blocks; the port takes the shapes as
+    they are. A fully +inf row stays +inf."""
+    rng = np.random.default_rng(m)
+    a, b = _lengths(rng, (m, k)), _lengths(rng, (k, n))
+    a[0] = np.inf
+    want = np.asarray(rops.minplus_matmul(jnp.asarray(a), jnp.asarray(b)))
+    got = S.minplus_matmul(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got[0]).all()
+
+
+def test_minplus_changed_flag():
+    """The fused convergence flag: 0 exactly when the product equals the
+    matrix it is compared with."""
+    rng = np.random.default_rng(6)
+    d = _lengths(rng, (96, 96), hi=9)
+    np.fill_diagonal(d, 0.0)
+    x = _t(d)
+    out, changed = S.minplus_matmul(x, x, compare=x)
+    assert changed.dtype == torch.int32 and changed.shape == (1,)
+    assert int(changed) == int(not torch.equal(out, x)) == 1
+    while int(changed):
+        x = out
+        out, changed = S.minplus_matmul(x, x, compare=x)
+    np.testing.assert_array_equal(out, x)
+
+
+def _pairs(rng, shape, p_inf=0.3):
+    d = _lengths(rng, shape, hi=4, p_inf=p_inf)
+    c = np.where(np.isfinite(d), rng.integers(1, 4, shape), 0)
+    return d, c.astype(np.float32)
+
+
+@pytest.mark.parametrize("m,n,k", [(128, 128, 256), (200, 72, 136)])
+def test_minplus_count_matches_pallas(m, n, k):
+    """Small integer dists make many ties, so the count sums have many
+    terms; they are exact below 2**24, hence bit-equal."""
+    rng = np.random.default_rng(7)
+    da, ca = _pairs(rng, (m, k))
+    db, cb = _pairs(rng, (k, n))
+    if m % 128 == 0 and n % 128 == 0 and k % 128 == 0:
+        want = semiring_matmul_pallas(
+            TROPICAL_COUNT, (jnp.asarray(da), jnp.asarray(ca)),
+            (jnp.asarray(db), jnp.asarray(cb)), interpret=True)
+    else:
+        want = rops.minplus_count_matmul(*map(jnp.asarray, (da, ca, db, cb)))
+    got = S.minplus_count_matmul(_t(da), _t(ca), _t(db), _t(cb))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].max() > 3  # ties summed
+
+
+def _hist_input(rng, shape, num_bins):
+    x = rng.uniform(-3, num_bins + 3, shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[:4] = [np.nan, np.inf, -np.inf, -0.0]
+    flat[4:6] = [num_bins, num_bins - 0.5]
+    return x
+
+
+def test_value_histogram_matches_pallas():
+    rng = np.random.default_rng(8)
+    x = _hist_input(rng, (256, 512), 65)
+    want = np.asarray(value_histogram_pallas(jnp.asarray(x), 65,
+                                             interpret=True))
+    got = H.value_histogram(_t(x), 65)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)  # integer: bit-equal
+    np.testing.assert_array_equal(H.value_histogram_ref(_t(x), 65), want)
+    assert got.sum() < x.size  # dropped values are not counted
+
+
+@pytest.mark.parametrize("shape", [(300, 77), (5,), (1, 1)])
+def test_value_histogram_any_shape_matches_padding_ops(shape):
+    """The JAX op pads with -1 (dropped); the port takes any shape."""
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-3, 68, shape).astype(np.float32)
+    want = np.asarray(rops.value_histogram(jnp.asarray(x.reshape(
+        x.shape[0], -1)), num_bins=65))
+    np.testing.assert_array_equal(H.value_histogram(_t(x), 65).numpy(), want)
+
+
+def test_value_histogram_refuses_bad_bins():
+    with pytest.raises(ValueError, match="num_bins"):
+        H.value_histogram(torch.zeros(4), 0)
+    with pytest.raises(ValueError, match="num_bins"):
+        H.value_histogram(torch.zeros(4), H.MAX_BINS + 1)

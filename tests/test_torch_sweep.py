@@ -56,7 +56,7 @@ def _carry(r):
 def committed():
     K.reset_launches()
     out = S.sweep(ref=("slimfly", 2000), max_routers=200, device="cpu")
-    assert K.launches == {"frontier_step": 0, "count_matmul": 0}
+    assert not any(K.launches.values()), K.launches
     return out
 
 

@@ -77,7 +77,7 @@ def test_levels_are_diameter_plus_one_and_counts_stay_zero():
     assert len(attrs["levels_per_graph"]) == len(_CASES)
     assert sum(attrs["frontier_sizes"]) == int(
         (torch.isfinite(dist) & (dist > 0)).sum())
-    assert S.launches == {"frontier_step": 0, "count_matmul": 0}
+    assert not any(S.launches.values()), S.launches
 
 
 def test_pad_operand_fills_phantoms():

@@ -12,6 +12,11 @@ kernels the expected number of times. Phase 6 runs the analysis path of
 on six families at ~10k servers and the max-concurrent-flow throughput on
 two at ~2k servers, held to ``experiments/analysis/reference.json`` (made
 by the JAX package), and checks that it went through all five kernels.
+Phase 7 runs the extreme-scale path: the sampled sweep at 4096 routers
+held to ``experiments/extreme/reference.json`` (made by the JAX package),
+six families at ~100k routers with the adjacency resident, dragonfly
+again with it streamed, and the packed wavefront on phase 5's stack, and
+checks that it went through the three narrow-cell kernels.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -347,6 +352,141 @@ def tropical_checks(S, H, part):
     return out
 
 
+# -- phase 3: the narrow-cell kernels --------------------------------------------
+
+#: the extreme path's padded router count (781 x 128, ~100k routers)
+EXTREME_WIDTH = 99_968
+
+
+def _packed_operands(gen, lead, m, n, k, density, hi=4, sat_share=0.0):
+    """Packed-cell operands: an int32 frontier f of sparse counts in
+    [0, hi), with a share ``sat_share`` of cells at or above MULT_SAT; a
+    {0,1} uint8 adjacency a of ``density``, drawn in row blocks so a 10 GB
+    one needs no float copy; int16 distances d, half DIST_UNREACHED."""
+    from repro_torch.kernels.semiring import DIST_UNREACHED, MULT_SAT
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    f = torch.randint(0, hi, (*lead, m, k), generator=gen, device="cuda",
+                      dtype=torch.int32) * (rand(*lead, m, k) < 0.3)
+    if sat_share:
+        f = torch.where(rand(*lead, m, k) < sat_share,
+                        MULT_SAT + torch.randint(0, 8, f.shape, generator=gen,
+                                                 device="cuda",
+                                                 dtype=torch.int32), f)
+    a = torch.empty((*lead, k, n), dtype=torch.uint8, device="cuda")
+    rows = a.view(-1, n)
+    for r0 in range(0, rows.shape[0], 4096):
+        r1 = min(rows.shape[0], r0 + 4096)
+        rows[r0:r1] = rand(r1 - r0, n) < density
+    d = torch.randint(0, 5, (*lead, m, n), generator=gen, device="cuda",
+                      dtype=torch.int16)
+    d = torch.where(rand(*lead, m, n) < 0.5, DIST_UNREACHED, d)
+    return f.to(torch.int32), a, d.to(torch.int16)
+
+
+def packed_checks(S, part):
+    """The packed frontier step (2D and batched) and the narrow counting
+    product against their plain versions, bit-equal: at the extreme path's
+    shapes (a 32-row source tile against a 99,968-wide uint8 adjacency;
+    the pump's (32 x 256) slab against a (256 x 99,968) panel; the
+    sweep's stack, B=12, 2048^3) and at ragged ones, with frontier cells
+    at and above MULT_SAT so the clamp is exercised (the narrow product's
+    inputs keep their sums below 2**24, where fp32 sums are exact in any
+    order). Then times at the main shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    names = ("frontier_step_packed", "frontier_step_packed_batched",
+             "count_matmul_narrow")
+    errs = dict.fromkeys(names, 0.0)
+    k0 = 128
+
+    def step_check(name, f, a, d, tag):
+        x, x_ref = S.frontier_step_packed(f, a, d), S.frontier_step_packed_ref(
+            f, a, d)
+        torch.cuda.synchronize()
+        check(torch.equal(x, x_ref), f"{name} {tag}: not bit-equal")
+        errs[name] = max(errs[name], _abs_err(x, x_ref))
+        sat = int((x_ref == S.MULT_SAT).sum())
+        print(f"  {name} {tag}: bit-equal ({int((x_ref > 0).sum())} new "
+              f"cells, {sat} clamped at MULT_SAT)")
+        return sat
+
+    def narrow_check(f, b, tag):
+        c, c_ref = S.count_matmul(f, b), S.count_matmul_ref(f, b)
+        torch.cuda.synchronize()
+        check(torch.equal(c, c_ref), f"count_matmul_narrow {tag}: not "
+                                     f"bit-equal")
+        errs["count_matmul_narrow"] = max(errs["count_matmul_narrow"],
+                                          _abs_err(c, c_ref))
+        print(f"  count_matmul_narrow {tag}: bit-equal (largest sum "
+              f"{float(c_ref.max()):g})")
+
+    for b, m, n, k in ((3, 40, 136, 72), (2, 33, 65, 1), (1, 1, 1, 100),
+                       (2, 32, 137, 300)):
+        f, a, d = _packed_operands(gen, (b,), m, n, k, 0.2, sat_share=0.02)
+        step_check("frontier_step_packed_batched", f, a, d,
+                   f"B={b} {m}x{n}x{k}")
+        step_check("frontier_step_packed", f[0], a[0], d[0], f"{m}x{n}x{k}")
+        g, _, _ = _packed_operands(gen, (b,), m, 1, 2 * k, 0.2)
+        narrow_check(g[..., k:], a, f"B={b} {m}x{n}x{k} strided")
+        narrow_check(g[0, :, k:], a[0], f"{m}x{n}x{k} strided")
+
+    fb, ab, db = _packed_operands(gen, (12,), 2048, 2048, 2048, 0.05,
+                                  sat_share=1e-4)
+    check(step_check("frontier_step_packed_batched", fb, ab, db,
+                     "B=12 2048x2048x2048") > 0, "no cell clamped at B=12")
+    f, a, d = _packed_operands(gen, (), 32, EXTREME_WIDTH, EXTREME_WIDTH,
+                               1e-3, sat_share=1e-4)
+    check(step_check("frontier_step_packed", f, a, d,
+                     f"32x{EXTREME_WIDTH}x{EXTREME_WIDTH}") > 0,
+          "no cell clamped at the extreme shape")
+    g, _, _ = _packed_operands(gen, (), 32, 1, EXTREME_WIDTH, 1.0)
+    slab, panel = g[:, k0:k0 + 256], a[k0:k0 + 256]
+    check(not slab.is_contiguous(), "the pump's slab should be strided")
+    narrow_check(slab, panel, f"32x{EXTREME_WIDTH}x256 strided slab")
+
+    cases = {  # name -> (kernel, plain, lhs, rhs, library, ops, bytes)
+        "frontier_step_packed": (
+            lambda: S.frontier_step_packed(f, a, d),
+            lambda: S.frontier_step_packed_ref(f, a, d), f, a, torch.mm,
+            2.0 * f.shape[0] * a.shape[0] * a.shape[1],
+            4.0 * f.numel() + a.numel() + (2.0 + 4.0) * d.numel()),
+        "frontier_step_packed_batched": (
+            lambda: S.frontier_step_packed(fb, ab, db),
+            lambda: S.frontier_step_packed_ref(fb, ab, db), fb, ab, torch.bmm,
+            2.0 * 12 * 2048 ** 3,
+            4.0 * fb.numel() + ab.numel() + (2.0 + 4.0) * db.numel()),
+        "count_matmul_narrow": (
+            lambda: S.count_matmul(slab, panel),
+            lambda: S.count_matmul_ref(slab, panel), slab, panel, torch.mm,
+            2.0 * slab.shape[0] * panel.shape[0] * panel.shape[1],
+            4.0 * slab.numel() + panel.numel()
+            + 4.0 * slab.shape[0] * panel.shape[1]),
+    }
+    markers = {"frontier_step_packed": "narrow_gemm<true",
+               "frontier_step_packed_batched": "narrow_gemm<true",
+               "count_matmul_narrow": "narrow_gemm<false"}
+    out = {}
+    for name, (kern, plain, lhs, rhs, library, ops, nbytes) in cases.items():
+        ms, plain_ms = timed_ms(kern), timed_ms(plain)
+        lf, rf = lhs.float(), rhs.float()  # library: the product only
+        library_ms = timed_ms(lambda: library(lf, rf))
+        del lf, rf
+        dev = kernel_device_ms(kern, markers[name], reps=5)
+        bms, by = bound_ms(ops, nbytes, part)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by, max_abs_err=errs[name])
+        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"  {name} {tuple(lhs.shape)}x{tuple(rhs.shape)}: {ms:.4f} ms "
+              f"(plain {plain_ms:.4f}, torch.{library.__name__} "
+              f"{library_ms:.4f}, bound {bms:.4f} by {by}; "
+              f"{ops / ms / 1e9:.1f} TFLOP/s); kernel device time {dev}")
+    del f, a, d, fb, ab, db, g, slab, panel
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phases 4 and 5: the sweep ------------------------------------------------------
 
 _EXACT_COLS = ("routers", "servers", "radix", "diameter", "cables_electrical",
@@ -407,6 +547,9 @@ SPECTRAL_KEYS = ("fiedler_lambda2", "laplacian_lambda_max",
 _TP_EXACT = ("rounds", "converged", "commodities", "dropped_unreachable",
              "demand_pattern")
 _TP_CLOSE = ("throughput", "upper_bound", "gap", "aggregate_throughput")
+#: the kernels the analysis path runs
+ANALYSIS_KERNELS = ("frontier_step", "count_matmul", "minplus_matmul",
+                    "minplus_count_matmul", "value_histogram")
 
 
 def check_report(fam, got, want, spectral_rtol=1e-2):
@@ -509,8 +652,8 @@ def analysis_phase(obs, S, T, AnalysisEngine, paths, ref):
               f"[{res['throughput']:.9g}, {res['upper_bound']:.9g}], "
               f"rounds {res['rounds']}, converged {res['converged']}: "
               f"matches reference.json (rtol 1e-9)")
-    for name, c in counts.items():
-        check(c > 0, f"analysis path: {name} never launched")
+    for name in ANALYSIS_KERNELS:
+        check(counts[name] > 0, f"analysis path: {name} never launched")
 
     # where the device time goes: one report and one throughput again,
     # under the profiler (after the counted run, so it does not count)
@@ -546,6 +689,215 @@ def plain_chain(T, AnalysisEngine, card_reports, ref, fam="hyperx"):
           f"matches the card's report; spectral deviation {worst:.3g}")
 
 
+# -- phase 7: the extreme-scale path ----------------------------------------------
+
+#: the families whose numpy generators build ~100k routers in seconds
+#: (experiments/extreme/time_generators.py times all twelve)
+EXTREME_FAMILIES = ("hammingmesh", "hypercube", "megafly", "dragonfly",
+                    "fattree", "torus")
+#: keeps a ~100k-router uint8 adjacency (10-17 GB) resident on the card
+RESIDENT_BUDGET = 24 << 30
+
+
+def check_same(got, want, what, rtol=1e-9):
+    """Integers, bools, strings and None equal; floats (the CI bounds
+    among them) within ``rtol``; timing keys skipped."""
+    if isinstance(want, dict):
+        keys = set(want) - {"elapsed_s", "peak_rss_mb"}
+        check(set(got) - {"elapsed_s", "peak_rss_mb"} == keys,
+              f"{what}: keys differ")
+        for k in keys:
+            check_same(got[k], want[k], f"{what}.{k}", rtol)
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{what}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_same(g, w, f"{what}[{i}]", rtol)
+    elif isinstance(want, float):
+        check(_close(got, want, rtol), f"{what}: {got} vs {want} (rtol {rtol})")
+    else:
+        check(got == want, f"{what}: {got!r} != {want!r}")
+
+
+def spot_checked(D, packed=True):
+    """Wrap the tiled pump so the first row of every run's first tile is
+    kept; ``verify()`` then holds each kept row to the CSR Brandes oracle,
+    bit-equal after packing (the JAX CLI's spot check), after the timed
+    run."""
+    real = D.tiled_dist_mult_tiles
+    kept = []
+
+    def pump(source, *args, **kw):
+        ids = kw.get("source_ids")
+        first = True
+        for r0, r1, d, m in real(source, *args, **kw):
+            if first:
+                i = int(ids[r0]) if ids is not None else r0
+                kept.append((source, i, d[0].copy(), m[0].copy()))
+                first = False
+            yield r0, r1, d, m
+
+    def verify():
+        for g, i, d, m in kept:
+            od, osig = D.oracle_rows(g, i, packed)
+            check(np.array_equal(d, od) and np.array_equal(m, osig),
+                  f"{g.name}: source {i} differs from the BFS oracle")
+        return [(g, i, int((m == D.S.MULT_SAT).sum())) for g, i, _, m
+                in kept]
+
+    D.tiled_dist_mult_tiles = pump
+    return real, verify
+
+
+def extreme_phase(obs, S, SW, D, WF, ref, stack):
+    """The extreme-scale path on the card, counted: (a) the 4096-router
+    sampled sweep and tiled summary held to ``ref``; (b) six families at
+    ~100k routers, adjacency resident, one sampled source each held to the
+    BFS oracle; (c) dragonfly streamed under the default budget, rows
+    equal to (b)'s; (d) the packed wavefront on phase 5's stack against
+    the fp32 one. Returns the launches."""
+    obs.enable()
+    torch.cuda.synchronize()
+    S.reset_launches()
+    t_phase = time.perf_counter()
+
+    # (a) the reference
+    t0 = time.perf_counter()
+    got = SW.sweep_extreme(device="cuda", **ref["sweep_settings"])
+    check_same(json.loads(json.dumps(got)), ref["sweep"], "sweep@4096")
+    st = ref["tiled_settings"]
+    from repro_torch.core import topology as T
+
+    g = T.make(st["family"], n=st["n"], r=st["r"], seed=st["seed"])
+    summ = D.tiled_summary(g, sources=tuple(st["sources"]),
+                           packed=st["packed"], device="cuda")
+    check_same(json.loads(json.dumps(summ)), ref["tiled_summary"],
+               "tiled_summary")
+    print(f"[7a reference] 12-family sweep at 4096 routers and the "
+          f"{g.name} tiled summary match reference.json "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    # (b) full width, resident
+    real, verify = spot_checked(D)
+    rows = {}
+    try:
+        for fam in EXTREME_FAMILIES:
+            obs.reset()
+            before = dict(S.launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = SW.sweep_extreme([fam], target_routers=100_000,
+                                   k_sources=32, seed=0,
+                                   adjacency_budget=RESIDENT_BUDGET,
+                                   device="cuda")
+            (row,) = res["rows"]
+            check("error" not in row, f"{fam}: {row.get('error')}")
+            rows[fam] = row
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            spans = obs.span_summary()
+            levels = [ev["args"].get("levels") for ev in obs.events()
+                      if ev.get("name") == "tiled.tile"]
+            launched = {k: v - before[k] for k, v in S.launches.items()
+                        if v != before[k]}
+            print(f"[7b 100k resident] {row['family']}: {row['routers']} "
+                  f"routers, diameter >= {row['diameter_lb']}, avg_spl "
+                  f"{row['avg_spl']:.6g}, mult_mean {row['mult_mean']:.6g}, "
+                  f"saturated {row['saturated']}; build "
+                  f"{spans['sweep.extreme.build']['total_ms']:.1f} ms, "
+                  f"levels {levels} in "
+                  f"{spans['tiled.tile']['total_ms']:.1f} ms, family "
+                  f"{spans['sweep.extreme.family']['total_ms']:.1f} ms; "
+                  f"launches {launched}; peak device memory "
+                  f"{peak_gb:.2f} GiB")
+            check(row["sampled_sources"] == 32
+                  and np.isfinite(row["avg_spl"]) and row["avg_spl"] > 1
+                  and 0 < row["reached_frac"] <= 1, f"bad row {row}")
+    finally:
+        D.tiled_dist_mult_tiles = real
+    t0 = time.perf_counter()
+    graphs = {}
+    for g, i, sat in verify():
+        graphs[g.name.split("(")[0]] = g
+        print(f"  {g.name}: sampled source {i} bit-equal to bfs_dist_sigma "
+              f"({sat} cells clamped at MULT_SAT)")
+    print(f"  oracle checks {time.perf_counter() - t0:.2f} s")
+
+    # (c) dragonfly again, streamed through the pinned pump
+    obs.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = S.launches["count_matmul_narrow"]
+    t0 = time.perf_counter()
+    res = SW.sweep_extreme(["dragonfly"], target_routers=100_000,
+                           k_sources=32, seed=0, device="cuda")
+    wall = time.perf_counter() - t0
+    (row,) = res["rows"]
+    check_same(row, rows["dragonfly"], "dragonfly streamed vs resident",
+               rtol=0.0)
+    spans = obs.span_summary()
+    print(f"[7c 100k streamed] {row['family']}: rows equal to the resident "
+          f"run; {wall:.2f} s (family "
+          f"{spans['sweep.extreme.family']['total_ms']:.1f} ms, resident "
+          f"{rows['dragonfly']['elapsed_s']} s in the estimator); "
+          f"{S.launches['count_matmul_narrow'] - before} panel products; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    obs.disable()
+
+    # (d) the packed wavefront on the full-width stack
+    p = WF.pad_block(stack.shape[-1])
+    adj8 = torch.from_numpy(WF.pad_operand(stack, p, 0, np.uint8)).cuda()
+    t0 = time.perf_counter()
+    dp, mp, sat = WF.dist_mult_device(adj8, packed=True)
+    torch.cuda.synchronize()
+    t_packed = time.perf_counter() - t0
+    adj = adj8.float()
+    t0 = time.perf_counter()
+    df, mf = WF.dist_mult_device(adj)
+    torch.cuda.synchronize()
+    t_f32 = time.perf_counter() - t0
+    check(torch.equal(S.unpack_dist(dp), df), "packed stack: dist differs")
+    big = mf >= EXACT
+    check(torch.equal(mp[~big].float(), mf[~big]),
+          "packed stack: mult below 2**24 differs")
+    check(bool((mp[big] == S.MULT_SAT).all()),
+          "packed stack: mult at or above 2**24 not clamped at MULT_SAT")
+    check(bool(sat) == bool(big.any()) and bool(big.any()),
+          "packed stack: the saturation flag is wrong")
+    print(f"[7d packed stack] B={stack.shape[0]} p={p}: dist equal, mult "
+          f"equal below 2**24 and MULT_SAT in all {int(big.sum())} cells at "
+          f"or above it; packed {t_packed:.3f} s, fp32 {t_f32:.3f} s")
+    del adj8, adj, dp, mp, df, mf, big
+
+    counts = dict(S.launches)
+    print(f"[7 extreme] {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{counts}")
+    for name in ("frontier_step_packed", "frontier_step_packed_batched",
+                 "count_matmul_narrow"):
+        check(counts[name] > 0, f"extreme path: {name} never launched")
+
+    # where the device time goes: one 32-source tile of the pump again,
+    # resident and streamed, under the profiler (after the counted run)
+    ids = np.random.default_rng(0).choice(97_000, size=32, replace=False)
+    for label, fam, budget in (("hammingmesh resident", "hammingmesh",
+                                RESIDENT_BUDGET),
+                               ("dragonfly streamed", "dragonfly",
+                                D._ADJ_BUDGET)):
+        rows, wall = profiled(lambda: list(D.tiled_dist_mult_tiles(
+            graphs[fam], source_ids=np.sort(ids), packed=True,
+            adjacency_budget=budget, device="cuda")))
+        busy = sum(t for _, _, t in rows)
+        if busy <= 0:
+            print(f"  profile {label}: device busy share not measured "
+                  f"(no device activity in the profile)")
+            continue
+        print(f"  profile {label}: wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms ({100 * busy / wall:.2f}%), idle "
+              f"{100 * (1 - busy / wall):.2f}%")
+        for name, c, t in rows[:6]:
+            print(f"    {t:9.3f} ms x{c:<5d} {name[:90]}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -559,6 +911,7 @@ def main() -> int:
     from repro_torch.core import sweep as SW
     from repro_torch.core import topology as T
     from repro_torch.core.analysis import AnalysisEngine, paths
+    from repro_torch.core.analysis import distributed as D
     from repro_torch.core.analysis import wavefront as WF
     from repro_torch.kernels import build
     from repro_torch.kernels import seghist as H
@@ -594,6 +947,7 @@ def main() -> int:
     print("[3 kernels] kernel vs plain version on the card")
     kstats = kernel_checks(S, part)
     kstats.update(tropical_checks(S, H, part))
+    kstats.update(packed_checks(S, part))
     print("kernels: " + " ".join(f"{k}=pass" for k in kstats))
 
     # 4. the committed configuration
@@ -664,6 +1018,12 @@ def main() -> int:
                                               paths, ref)
     plain_chain(T, AnalysisEngine, reports, ref)
 
+    # 7. the extreme-scale path, counted
+    xref = json.loads((ROOT / "experiments" / "extreme"
+                       / "reference.json").read_text())
+    extreme_counts = extreme_phase(obs, S, SW, D, WF, xref,
+                                   SW._stack_adjacency(graphs))
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)
         "frontier_step": ("semiring.cu", "src/repro/kernels/semiring.py:343"),
@@ -672,12 +1032,20 @@ def main() -> int:
         "minplus_count_matmul": ("tropical.cu",
                                  "src/repro/kernels/semiring.py:566"),
         "value_histogram": ("seghist.cu", "src/repro/kernels/seghist.py:39"),
+        "frontier_step_packed": ("packed.cu",
+                                 "src/repro/kernels/semiring.py:370"),
+        "frontier_step_packed_batched": ("packed.cu",
+                                         "src/repro/kernels/semiring.py:406"),
+        "count_matmul_narrow": ("packed.cu",
+                                "src/repro/kernels/semiring.py:437"),
     }
     kernels = []
     for kname, st in kstats.items():
-        launches = sweep_counts[kname] + analysis_counts[kname]
+        launches = (sweep_counts[kname] + analysis_counts[kname]
+                    + extreme_counts[kname])
         print(f"  {kname}: {sweep_counts[kname]} launches in the sweep, "
-              f"{analysis_counts[kname]} in the analysis path")
+              f"{analysis_counts[kname]} in the analysis path, "
+              f"{extreme_counts[kname]} in the extreme path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": csrc + sources[kname][0],

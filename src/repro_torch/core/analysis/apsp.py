@@ -45,15 +45,23 @@ def apsp_dense(g: Graph, use_kernel: bool = True, max_squarings: int = 8,
     tropical min-plus squaring oracle (ceil(log2(diameter)) products); it
     is also the ``use_kernel=False`` default, running the plain product.
 
-    ``mesh`` and ``tile_rows`` select the sharded and out-of-core engines,
-    which this package has not ported yet: they raise NotImplementedError
-    (`engine_select.require_ported`).
+    ``tile_rows`` runs the out-of-core tiled engine
+    (`distributed.tiled_dist_mult`: source tiles stream through the
+    kernels, the adjacency is built from CSR) and copies its host result to
+    ``device``. ``mesh`` selects the sharded engines, which are not ported:
+    it raises NotImplementedError (`engine_select.require_ported`).
     """
     from .engine_select import require_ported, resolve_engine
 
     dev = resolve_device(device)
     plan = require_ported(resolve_engine(use_kernel=use_kernel, method=method,
                                          mesh=mesh, tile_rows=tile_rows))
+    if plan.engine == "tiled":
+        from .distributed import tiled_dist_mult
+
+        dist, _ = tiled_dist_mult(g, tile_rows=plan.tile_rows or 512,
+                                  device=dev)
+        return torch.from_numpy(dist).to(dev)
     if plan.engine == "wavefront":
         from .wavefront import wavefront_dist_mult_device
 

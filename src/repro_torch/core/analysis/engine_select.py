@@ -37,9 +37,10 @@ Rejected, with the reason in the error:
     * ``use_kernel=False`` with any of the above — the plain oracle exists
       to check the kernels, not to scale.
 
-The PyTorch port executes the single-device ``wavefront`` engine (without
-packed cells) and ``squaring`` so far; :func:`require_ported` raises
-NotImplementedError for a plan that needs one of the others.
+The PyTorch port executes the single-device engines: ``wavefront`` (fp32
+or packed cells), ``tiled`` (fp32 or packed, resident or streamed) and
+``squaring``. :func:`require_ported` raises NotImplementedError for a plan
+that needs a mesh (``sharded``, ``composed``).
 """
 from __future__ import annotations
 
@@ -127,10 +128,9 @@ def resolve_engine(*, use_kernel: bool = True, method: Optional[str] = None,
 def require_ported(plan: EnginePlan) -> EnginePlan:
     """``plan`` unchanged when the port runs its engine; NotImplementedError
     naming the ROADMAP item that ports it otherwise."""
-    if plan.engine in ("sharded", "tiled", "composed") or plan.packed:
-        what = "packed cells" if plan.packed else f"the {plan.engine} engine"
+    if plan.engine in ("sharded", "composed"):
         raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-            f"6, extreme scale); use the single-device wavefront engine "
-            f"(mesh=None, tile_rows=None, packed=False)")
+            f"the {plan.engine} engine is not ported to repro_torch yet "
+            f"(ROADMAP Queue 1 item 6, second half: the sharded engines on "
+            f"torch.distributed); use the single-device engines (mesh=None)")
     return plan

@@ -44,9 +44,11 @@ class AnalysisEngine:
 
     ``device`` is where the matrices live and the kernels run (``"cuda"``
     by default; ``"cpu"`` runs the kernels' plain versions). The port runs
-    on one device, so ``mesh="auto"`` resolves to no mesh; an explicit
-    mesh, ``tile_rows`` or ``packed`` raise NotImplementedError until the
-    extreme-scale engines are ported.
+    on one device, so ``mesh="auto"`` resolves to no mesh and an explicit
+    mesh raises NotImplementedError. ``tile_rows`` streams source tiles
+    out-of-core and ``packed`` runs the int16/int32 packed-cell engine;
+    their results are unpacked to the f32/inf convention before caching,
+    so every stage downstream is dtype-agnostic.
     """
 
     STAGES = ("distances", "multiplicities", "diversity", "spectral",
@@ -110,11 +112,26 @@ class AnalysisEngine:
                 from .engine_select import require_ported, resolve_engine
                 from .wavefront import wavefront_dist_mult_device
 
-                require_ported(resolve_engine(
+                plan = require_ported(resolve_engine(
                     use_kernel=True, mesh=self._resolved_mesh(),
                     tile_rows=self.tile_rows, packed=self.packed))
-                dist, mult = wavefront_dist_mult_device(
-                    self.g.adjacency_dense(np.float32), device=self.device)
+                if plan.engine == "tiled" or plan.packed:
+                    from ...kernels.semiring import DIST_UNREACHED
+                    from .paths import shortest_path_multiplicity
+
+                    dist, mult = shortest_path_multiplicity(
+                        self.g, use_kernel=True, tile_rows=plan.tile_rows,
+                        packed=plan.packed, device=self.device)
+                    if plan.packed:
+                        dist = np.where(dist == DIST_UNREACHED, np.inf,
+                                        dist).astype(np.float32)
+                        mult = mult.astype(np.float32)
+                    dist, mult = (torch.from_numpy(x).to(self.device)
+                                  for x in (dist, mult))
+                else:
+                    dist, mult = wavefront_dist_mult_device(
+                        self.g.adjacency_dense(np.float32),
+                        device=self.device)
                 self._cache["dist"], self._cache["mult"] = dist, mult
             else:
                 self._cache["dist"] = apsp_dense(self.g, use_kernel=False,

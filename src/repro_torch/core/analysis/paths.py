@@ -121,8 +121,13 @@ def shortest_path_multiplicity(
     computes distances by all-sources BFS and takes the masked branch in
     f64.
 
-    ``mesh``, ``tile_rows`` and ``packed`` select the sharded, out-of-core
-    and packed engines, which this package has not ported yet: they raise
+    ``tile_rows`` runs the out-of-core tiled engine
+    (`distributed.tiled_dist_mult`) and ``packed=True`` the packed-cell
+    engines (uint8 adjacency, int16 dist, counts saturating at 2**24), as
+    `engine_select.resolve_engine` picks them; these return host numpy
+    arrays, as the JAX package does: (f32, f32) tiled, and (int16, uint32)
+    packed, with the DIST_UNREACHED sentinel instead of +inf. ``mesh``
+    selects the sharded engines, which are not ported: it raises
     NotImplementedError (`engine_select.require_ported`).
 
     Every count the kernel path keeps is a sum of nonnegative terms equal
@@ -136,6 +141,16 @@ def shortest_path_multiplicity(
         plan = require_ported(resolve_engine(
             use_kernel=use_kernel, mesh=mesh, tile_rows=tile_rows,
             packed=packed))
+        if plan.engine == "tiled":
+            from .distributed import tiled_dist_mult
+
+            return tiled_dist_mult(g, tile_rows=plan.tile_rows or 512,
+                                   packed=plan.packed, device=dev)
+        if plan.packed:
+            from .wavefront import wavefront_dist_mult
+
+            return wavefront_dist_mult(g.adjacency_dense(np.float32),
+                                       device=dev, packed=True)
         if plan.engine == "wavefront":
             from .wavefront import wavefront_dist_mult_device
 

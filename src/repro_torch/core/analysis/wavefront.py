@@ -4,8 +4,9 @@ Level-synchronous BFS with Brandes' frontier identity gives hop distances
 AND exact shortest-path multiplicities from one counting product per level
 (``x_k = F_k @ A``; pairs first reached at level k+1 carry sigma = x). The
 product and the first-reach mask run as one fused kernel
-(`kernels.semiring.frontier_step`); the dist/mult updates stay on the
-device. :func:`ecmp_loads_device` is the O(diameter) Brandes dependency
+(`kernels.semiring.frontier_step`, or `frontier_step_packed` over
+int16/int32/uint8 cells with ``packed=True``); the dist/mult updates stay
+on the device. :func:`ecmp_loads_device` is the O(diameter) Brandes dependency
 accumulation behind the exact ECMP saturation-throughput bound, with two
 counting products per level (`kernels.semiring.count_matmul`).
 :func:`squaring_apsp_device` is the weighted-APSP engine: min-plus squaring
@@ -67,7 +68,7 @@ def pad_operand(x: np.ndarray, p: int, fill: float,
 
 
 def dist_mult_device(adj: torch.Tensor, telemetry: bool = False,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True, packed: bool = False):
     """Hop distances + shortest-path multiplicities on ``adj``'s device.
 
     ``adj`` is a (p, p) or stacked (B, p, p) {0,1} fp32 adjacency; padding
@@ -80,33 +81,54 @@ def dist_mult_device(adj: torch.Tensor, telemetry: bool = False,
     ``(dist, mult, (levels, sizes))``: ``levels`` the level iterations run
     and ``sizes`` an int32 (p+1,) (or (p+1, B) stacked) device tensor of
     newly reached pair counts per level.
+
+    ``packed=True`` runs the narrow-cell engine (`kernels.semiring.
+    frontier_step_packed`): ``adj`` is a uint8 {0,1} adjacency, dist comes
+    back int16 (DIST_UNREACHED = unreached), mult int32 saturating at
+    MULT_SAT, and a one-element bool device tensor ``sat`` (some count was
+    clamped) is appended: ``(dist, mult, sat)`` or ``(dist, mult, sat,
+    aux)`` with telemetry. The level cap is min(p, 32766), the int16 cell's
+    largest level. Equal, as integers, to the fp32 engine while counts stay
+    below MULT_SAT.
     """
     adj = adj.contiguous()
     p = adj.shape[-1]
     dev = adj.device
-    eye = torch.eye(p, dtype=torch.float32, device=dev).expand(adj.shape)
-    dist = torch.where(eye > 0, 0.0, _INF).contiguous()
-    mult = eye.contiguous()
+    eye = torch.eye(p, dtype=torch.bool, device=dev).expand(adj.shape)
+    if packed:
+        dist = torch.where(eye, 0, S.DIST_UNREACHED).to(S.DIST_DTYPE)
+        mult = eye.to(S.MULT_DTYPE).contiguous()
+        step = S.frontier_step_packed
+        cap = min(p, S.DIST_UNREACHED - 1)
+        sat = torch.zeros(1, dtype=torch.bool, device=dev)
+    else:
+        dist = torch.where(eye, 0.0, _INF)
+        mult = eye.to(torch.float32).contiguous()
+        step = S.frontier_step
+        cap = p
     frontier = mult.clone()
     sizes = (torch.zeros((p + 1, adj.shape[0]) if adj.ndim == 3 else (p + 1,),
                          dtype=torch.int32, device=dev) if telemetry else None)
     level, more = 1, True
-    while more and level <= p:
-        x = S.frontier_step(frontier, adj, dist, use_kernel=use_kernel)
+    while more and level <= cap:
+        x = step(frontier, adj, dist, use_kernel=use_kernel)
         new = x > 0
         # in place: dist and mult are the loop's two (B, p, p) states, and
         # updating them saves a fresh buffer of each per level; newly
         # reached pairs carried 0 in mult, so += is the masked set
-        dist.masked_fill_(new, float(level))
+        dist.masked_fill_(new, level)
         mult.add_(x)
+        if packed:
+            sat |= (x == S.MULT_SAT).any()
         if telemetry:
             sizes[level] = new.sum(dim=(-2, -1), dtype=torch.int32)
         more = bool(new.any())  # the level's one host sync
         frontier = x
         level += 1
+    out = (dist, mult, sat) if packed else (dist, mult)
     if telemetry:
-        return dist, mult, (level - 1, sizes)
-    return dist, mult
+        return (*out, (level - 1, sizes))
+    return out
 
 
 def telemetry_attrs(aux) -> Dict[str, object]:
@@ -152,7 +174,7 @@ def _warn_if_inexact(mult, limit: float = float(2 ** 24)) -> None:
 
 
 def wavefront_dist_mult_device(adj: np.ndarray, device="cuda",
-                               use_kernel: bool = True
+                               use_kernel: bool = True, packed: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pad -> device engine -> the (.., n, n) dist and mult device tensors.
 
@@ -160,6 +182,11 @@ def wavefront_dist_mult_device(adj: np.ndarray, device="cuda",
     range — the engine's counts are f32 on the device. Under an enabled
     `repro_torch.obs` tracer the call is spanned and the device telemetry
     (levels, frontier sizes) lands in the span's attributes.
+
+    ``packed=True`` runs the narrow-cell engine on a uint8 adjacency (a
+    quarter of the f32 upload) and returns (int16 dist, int32 mult) tensors
+    (see `kernels.semiring`), with a RuntimeWarning when a count clamps at
+    MULT_SAT.
     """
     dev = resolve_device(device)
     adj = np.asarray(adj)
@@ -167,28 +194,41 @@ def wavefront_dist_mult_device(adj: np.ndarray, device="cuda",
     p = pad_block(n)
     tel = obs.enabled()
     with obs.span("wavefront.dist_mult", routers=n, padded=p,
-                  batched=adj.ndim == 3) as sp:
-        padded = pad_operand(adj, p, 0.0)
+                  batched=adj.ndim == 3, packed=packed) as sp:
+        padded = pad_operand(adj, p, 0, np.uint8 if packed else np.float32)
         obs.record_h2d(padded.nbytes, "adjacency")
         out = dist_mult_device(torch.from_numpy(padded).to(dev),
-                               telemetry=tel, use_kernel=use_kernel)
+                               telemetry=tel, use_kernel=use_kernel,
+                               packed=packed)
         if tel:
-            sp.set(**telemetry_attrs(out[2]))
+            sp.set(**telemetry_attrs(out[-1]))
         sl = (Ellipsis, slice(None, n), slice(None, n))
         dist = out[0][sl].contiguous()
         mult = out[1][sl].contiguous()
-    _warn_if_inexact(mult)
+    if not packed:
+        _warn_if_inexact(mult)
+    elif bool(out[2]):
+        import warnings
+
+        warnings.warn(
+            "packed wavefront: a shortest-path multiplicity reached "
+            "MULT_SAT (2**24) and was clamped — saturated counts are "
+            "lower bounds, not exact", RuntimeWarning, stacklevel=3)
     return dist, mult
 
 
 def wavefront_dist_mult(adj: np.ndarray, device="cuda",
-                        use_kernel: bool = True
+                        use_kernel: bool = True, packed: bool = False
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """Host convenience wrapper over :func:`wavefront_dist_mult_device`:
-    the same (dist, mult), as sliced numpy arrays."""
+    the same (dist, mult), as sliced numpy arrays. ``packed=True`` returns
+    ``(dist int16, mult uint32)``, as the JAX package does."""
     dist, mult = wavefront_dist_mult_device(adj, device=device,
-                                            use_kernel=use_kernel)
-    return dist.cpu().numpy(), mult.cpu().numpy()
+                                            use_kernel=use_kernel,
+                                            packed=packed)
+    mult = mult.cpu().numpy()
+    return dist.cpu().numpy(), (mult.astype(S.HOST_MULT_DTYPE) if packed
+                                else mult)
 
 
 def ecmp_loads_device(dist: torch.Tensor, mult: torch.Tensor,

@@ -21,11 +21,19 @@ through the hand-written CUDA kernels (`kernels.semiring`), and only the
 final dist/mult/loads matrices come back to the host. ``use_kernel=False``
 runs the same loops with the kernels' plain versions on the same device.
 
+:func:`sweep_extreme` is the extreme-scale mode: every family sized to a
+ROUTER target (100k in the paper's table) and analyzed through the
+sampled-sources estimator on the single-device tiled engine
+(`analysis.estimator.sampled_sources_summary`).
+
 CLI::
 
   python -m repro_torch.core.sweep [--families a,b,... ] [--ref-servers N]
                                    [--budget C] [--max-routers N] [--out DIR]
                                    [--device cuda|cpu] [--no-kernel]
+  python -m repro_torch.core.sweep --extreme 100000 [--sample-sources K]
+                                   [--seed S] [--no-packed] [--tile-rows T]
+                                   [--adjacency-budget BYTES] [--throughput]
   python -m repro_torch.core.sweep --check    # CI gate: sizers + connectivity
 """
 from __future__ import annotations
@@ -44,7 +52,8 @@ from . import topology as topo
 from .analysis import wavefront as WF
 from .graph import Graph
 
-__all__ = ["equal_cost_graphs", "sweep", "format_table", "check_families"]
+__all__ = ["equal_cost_graphs", "sweep", "format_table", "sweep_extreme",
+           "format_extreme_table", "check_families"]
 
 
 # -- equal-cost instantiation -------------------------------------------------
@@ -241,6 +250,143 @@ def _w(fmt: str) -> int:
     return int(digits) if digits else 10
 
 
+def sweep_extreme(families: Optional[Sequence[str]] = None,
+                  target_routers: int = 100_000, k_sources: int = 32,
+                  seed: int = 0, packed: bool = True, mesh=None,
+                  tile_rows: Optional[int] = None,
+                  adjacency_budget: Optional[int] = None,
+                  block_cap: Optional[int] = 16384,
+                  throughput: bool = False, device="cuda") -> Dict:
+    """Extreme-scale sweep: every family sized to ``target_routers``
+    ROUTERS (not servers — at 100k the router count is the analysis cost),
+    analyzed through the sampled-sources estimator.
+
+    Each family runs `analysis.estimator.sampled_sources_summary`:
+    ``k_sources`` exact source rows through the tiled engine
+    (``packed=True`` by default — int16/int32 cells, uint8 adjacency, 4x
+    less resident or streamed than f32) and bootstrap 95% CIs on the
+    aggregates. A family whose parameter ladder cannot reach the target
+    records an ``error`` row instead of aborting the sweep — the table
+    shows the gap. Returns ``{"rows": [...], ...}`` for
+    :func:`format_extreme_table`.
+
+    ``block_cap`` reproduces the JAX package's per-family kernel block
+    (the widest 128-multiple divisor of the padded extent under the cap),
+    which the span records; the CUDA kernels take any shape and ignore it.
+    ``device`` is where the levels run (``"cuda"`` by default, which raises
+    without a card). ``mesh`` with more than one shard raises
+    NotImplementedError (the sharded engines are not ported).
+    """
+    from .analysis.distributed import _pad128, widest_divisor_block
+    from .analysis.estimator import sampled_sources_summary
+
+    families = list(families) if families else topo.families()
+    t0 = time.time()
+    rows: List[Dict] = []
+    with obs.span("sweep.extreme", cat="sweep", target=target_routers,
+                  k=k_sources, packed=packed) as root:
+        for fam in families:
+            try:
+                params = topo.solve(fam, lambda s: s.n_routers,
+                                    target_routers, "closest")
+                with obs.span("sweep.extreme.build", cat="sweep",
+                              family=fam):
+                    g = topo.make(fam, **params)
+            except (ValueError, KeyError) as exc:
+                obs.log("sweep.extreme.skip", family=fam, error=str(exc))
+                rows.append({"family": fam, "error": str(exc)})
+                continue
+            block = (widest_divisor_block(_pad128(g.n), block_cap)
+                     if block_cap else None)
+            with obs.span("sweep.extreme.family", cat="sweep", family=fam,
+                          routers=g.n, block=block):
+                s = sampled_sources_summary(
+                    g, k=k_sources, seed=seed, mesh=mesh,
+                    tile_rows=tile_rows, packed=packed,
+                    adjacency_budget=adjacency_budget, block=block,
+                    throughput=throughput, device=device)
+            spec = g.meta.get("spec")
+            est = s["estimates"]
+            row = {
+                "family": g.name,
+                "routers": g.n,
+                "servers": spec.n_servers if spec is not None else None,
+                "sampled_sources": s["sampled_sources"],
+                "diameter_lb": s["diameter_lb"],
+                "avg_spl": est["avg_spl"]["value"],
+                "avg_spl_ci95": est["avg_spl"]["ci95"],
+                "mult_mean": est["mult_mean"]["value"],
+                "mult_mean_ci95": est["mult_mean"]["ci95"],
+                "frac_multipath": est["frac_multipath"]["value"],
+                "reached_frac": est["reached_frac"]["value"],
+                "saturated": s["saturated"],
+                "elapsed_s": s["elapsed_s"],
+                "peak_rss_mb": s["peak_rss_mb"],
+            }
+            if "ecmp_saturation_throughput_lb" in est:
+                row["ecmp_saturation_throughput_lb"] = (
+                    est["ecmp_saturation_throughput_lb"]["value"])
+                row["ecmp_saturation_throughput_lb_ci95"] = (
+                    est["ecmp_saturation_throughput_lb"]["ci95"])
+            rows.append(row)
+        root.set(families=len(rows),
+                 errors=sum("error" in r for r in rows))
+    return {
+        "target_routers": target_routers,
+        "k_sources": k_sources,
+        "seed": seed,
+        "packed": packed,
+        "rows": rows,
+        "elapsed_s": round(time.time() - t0, 1),
+        "peak_rss_mb": round(obs.peak_rss_mb(), 1),
+    }
+
+
+_XCOLS = (
+    ("family", "<26s", "family"),
+    ("routers", ">9d", "routers"),
+    ("servers", ">10d", "servers"),
+    ("k", ">5d", "sampled_sources"),
+    ("diam>=", ">7d", "diameter_lb"),
+    ("avg_spl", ">9.3f", "avg_spl"),
+    ("+-ci", ">7.3f", "_spl_hw"),
+    ("mult", ">13.2f", "mult_mean"),
+    ("+-ci", ">10.2f", "_mult_hw"),
+    ("multipath", ">10.3f", "frac_multipath"),
+    ("sat", ">4s", "_sat"),
+    ("s", ">8.1f", "elapsed_s"),
+)
+
+
+def format_extreme_table(result: Dict) -> str:
+    """Fixed-width table for the sampled-sources extreme sweep (CIs shown
+    as +- half-widths next to their estimates)."""
+    lines = [f"extreme-scale sampled sweep: target={result['target_routers']}"
+             f" routers, k={result['k_sources']} sources, "
+             f"packed={result['packed']} "
+             f"({result['elapsed_s']}s, peak rss "
+             f"{result.get('peak_rss_mb', 0.0)} MB)"]
+    hdr = "".join(f"{name:>{_w(fmt)}s}" if ">" in fmt else
+                  f"{name:<{_w(fmt)}s}" for name, fmt, _ in _XCOLS)
+    lines.append(hdr)
+    lines.append("-" * len(hdr))
+    for row in sorted(result["rows"], key=lambda r: r["family"]):
+        if "error" in row:
+            lines.append(f"{row['family']:<26s} SKIP: {row['error']}")
+            continue
+        r = dict(row)
+        r["_spl_hw"] = (row["avg_spl_ci95"][1] - row["avg_spl_ci95"][0]) / 2
+        r["_mult_hw"] = (row["mult_mean_ci95"][1]
+                         - row["mult_mean_ci95"][0]) / 2
+        r["_sat"] = "SAT" if row.get("saturated") else ""
+        cells = []
+        for _, fmt, key in _XCOLS:
+            v = r.get(key)
+            cells.append(" " * _w(fmt) if v is None else f"{v:{fmt}}")
+        lines.append("".join(cells))
+    return "\n".join(lines)
+
+
 def check_families(n_servers: int = 300) -> List[str]:
     """CI gate: every registered family must have a working sizer (spec +
     ladder) and produce a connected graph. Returns failure messages."""
@@ -278,10 +424,59 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "file (load in https://ui.perfetto.dev)")
     ap.add_argument("--check", action="store_true",
                     help="CI gate: verify sizers + connectivity, no sweep")
+    ap.add_argument("--extreme", type=int, default=None, metavar="ROUTERS",
+                    help="extreme-scale mode: size every family to this "
+                         "many ROUTERS and run the sampled-sources "
+                         "estimator instead of the equal-cost sweep")
+    ap.add_argument("--sample-sources", type=int, default=32, metavar="K",
+                    help="extreme mode: exact source rows to sample")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-packed", action="store_true",
+                    help="extreme mode: f32 cells instead of int16/int32")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="extreme mode: row-shard over this many devices "
+                         "(not ported: more than 1 raises)")
+    ap.add_argument("--tile-rows", type=int, default=None)
+    ap.add_argument("--adjacency-budget", type=int, default=None,
+                    help="device bytes before adjacency panels stream")
+    ap.add_argument("--block-cap", type=int, default=16384,
+                    help="extreme mode: the JAX package's per-family block "
+                         "cap, recorded in the trace (0: none)")
+    ap.add_argument("--throughput", action="store_true",
+                    help="extreme mode: add the sampled ECMP saturation-"
+                         "throughput estimate (host Brandes, O(E)/source)")
     args = ap.parse_args(argv)
 
     if args.trace:
         obs.enable()
+
+    if args.extreme:
+        if args.shards and args.shards > 1:
+            from .analysis.distributed import _not_ported
+
+            _not_ported("--shards")
+        fams = args.families.split(",") if args.families else None
+        result = sweep_extreme(
+            fams, target_routers=args.extreme,
+            k_sources=args.sample_sources, seed=args.seed,
+            packed=not args.no_packed, tile_rows=args.tile_rows,
+            adjacency_budget=args.adjacency_budget,
+            block_cap=args.block_cap or None,
+            throughput=args.throughput, device=args.device)
+        table = format_extreme_table(result)
+        print(table)
+        if args.out:
+            out = pathlib.Path(args.out)
+            out.mkdir(parents=True, exist_ok=True)
+            (out / "extreme.txt").write_text(table + "\n")
+            (out / "extreme.json").write_text(
+                json.dumps(result, indent=1, default=str))
+            obs.log("sweep.wrote", txt=str(out / "extreme.txt"),
+                    json=str(out / "extreme.json"))
+        if args.trace:
+            obs.export(args.trace)
+            obs.log("sweep.trace", path=args.trace)
+        return 0
 
     if args.check:
         failures = check_families()

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "find_nvcc",
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its source under ``csrc/``
 SOURCES: Dict[str, str] = {"semiring": "semiring.cu", "tropical": "tropical.cu",
-                           "seghist": "seghist.cu"}
+                           "seghist": "seghist.cu", "packed": "packed.cu"}
 #: ``<checkout>/build/repro_torch_kernels`` (src/repro_torch/kernels -> root)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,7 +9,15 @@ Hand-written CUDA kernels carry the device path:
 * :func:`count_matmul` (``csrc/semiring.cu``) — the plain fp32 counting
   product ``A@B`` (replaces ``semiring_matmul_batched_pallas`` /
   ``semiring_matmul_pallas`` with ``COUNTING``). ``A`` is read through its
-  strides, so a transposed view costs no copy;
+  strides, so a transposed view costs no copy. An int32 ``A`` with a uint8
+  ``B`` goes to the narrow kernel (``csrc/packed.cu``), the streamed
+  pump's panel product (``semiring_matmul_pallas`` with a uint32 left and
+  uint8 right operand and ``out_dtype=f32``);
+* :func:`frontier_step_packed` (``csrc/packed.cu``) — the fused BFS step
+  over narrow cells: int32 frontier, uint8 adjacency, int16 distances with
+  the :data:`DIST_UNREACHED` sentinel, counts clamped at :data:`MULT_SAT`
+  (replaces ``frontier_step_packed_pallas`` and
+  ``frontier_step_packed_batched_pallas``);
 * :func:`minplus_matmul` (``csrc/tropical.cu``) — the tropical product
   ``min_k a[i,k] + b[k,j]`` (replaces ``minplus_matmul_pallas``, the
   ``TROPICAL`` instantiation of ``semiring_matmul_pallas``), optionally
@@ -19,11 +27,21 @@ Hand-written CUDA kernels carry the device path:
   ``semiring_matmul_pallas`` with ``TROPICAL_COUNT``).
 
 The counting kernels take 2D operands or stacks with a leading batch axis;
-the tropical ones take 2D operands. All take any M, N, K and fp32 only. A
+the tropical ones take 2D operands. All take any M, N, K; the fp32 ones
+take fp32 only, the narrow ones the dtypes above. A
 wrapper launches its kernel on a CUDA tensor (or raises), and runs the
 plain version beside it only for tensors on the CPU or when the caller
 passes ``use_kernel=False``. :data:`launches` counts kernel launches per
 wrapper, for these and for ``kernels.seghist.value_histogram``.
+
+**Packed cells.** The extreme-scale engines keep distances in int16
+(:data:`DIST_UNREACHED` plays +inf) and multiplicities in a counter that
+saturates at :data:`MULT_SAT` = 2**24, the fp32 exact-integer ceiling: a
+count that reaches it is clamped there, never wrapped. The JAX package
+stores the counter as uint32; torch computes nothing on ``torch.uint32``,
+so the device cell here is int32 (:data:`MULT_DTYPE`), which holds every
+value the uint32 cell can hold, and the host boundary returns
+:data:`HOST_MULT_DTYPE` (uint32) arrays, as the JAX package does.
 
 The plain versions keep the names of their ``repro/kernels/ref.py``
 counterparts. The counting ones run ``torch.matmul`` in IEEE fp32: on the
@@ -34,23 +52,44 @@ time, so their working memory stays bounded.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["frontier_step", "count_matmul", "minplus_matmul",
-           "minplus_count_matmul", "frontier_step_ref", "count_matmul_ref",
+           "minplus_count_matmul", "frontier_step_packed",
+           "frontier_step_ref", "count_matmul_ref",
            "batched_count_matmul_ref", "minplus_matmul_ref",
-           "minplus_count_matmul_ref", "launches", "reset_launches"]
+           "minplus_count_matmul_ref", "frontier_step_packed_ref",
+           "DIST_DTYPE", "MULT_DTYPE", "HOST_MULT_DTYPE", "DIST_UNREACHED",
+           "MULT_SAT", "pack_dist", "unpack_dist", "launches",
+           "reset_launches"]
 
-#: kernel launches per wrapper since the last :func:`reset_launches`
+#: kernel launches per wrapper since the last :func:`reset_launches`; the
+#: packed step counts its 2D and batched launches apart, as the JAX package
+#: has two kernels for them
 launches: Dict[str, int] = {"frontier_step": 0, "count_matmul": 0,
                             "minplus_matmul": 0, "minplus_count_matmul": 0,
-                            "value_histogram": 0}
+                            "value_histogram": 0, "frontier_step_packed": 0,
+                            "frontier_step_packed_batched": 0,
+                            "count_matmul_narrow": 0}
+
+#: packed distance cell; DIST_UNREACHED (int16 max) plays the role of +inf
+DIST_DTYPE = torch.int16
+#: packed multiplicity cell on the device (see the module docstring)
+MULT_DTYPE = torch.int32
+#: packed multiplicities as the host entry points return them
+HOST_MULT_DTYPE = np.uint32
+#: sentinel for "not yet reached" in packed distance cells
+DIST_UNREACHED = 32767
+#: saturation point for packed counts: the f32 exact-integer ceiling
+MULT_SAT = 2 ** 24
 
 _MAX_BATCH = 65535  # gridDim.z
 _MAX_ROWS = 65535 * 128  # gridDim.y times the 128-row tile
 _MAX_TROPICAL_ROWS = 65535 * 32  # gridDim.y times the 32-row tropical tile
+_MAX_NARROW_ROWS = 65535 * 32  # gridDim.y times the 32-row narrow tile
 #: elements of one (rows, k, n) broadcast block in the tropical plain versions
 _BROADCAST_BLOCK = 1 << 24
 
@@ -58,6 +97,17 @@ _BROADCAST_BLOCK = 1 << 24
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def pack_dist(d: torch.Tensor) -> torch.Tensor:
+    """fp32 distances (+inf = unreached) -> int16 (DIST_UNREACHED sentinel)."""
+    return torch.where(torch.isfinite(d), d,
+                       float(DIST_UNREACHED)).to(DIST_DTYPE)
+
+
+def unpack_dist(d: torch.Tensor) -> torch.Tensor:
+    """int16 packed distances -> fp32 with +inf for unreached."""
+    return torch.where(d == DIST_UNREACHED, float("inf"), d.float())
 
 
 # -- plain versions -------------------------------------------------------------
@@ -78,6 +128,19 @@ def frontier_step_ref(f: torch.Tensor, a: torch.Tensor,
     _ieee_fp32(f, a)
     x = torch.matmul(f.float(), a.float())
     return torch.where((x > 0) & (d == float("inf")), x, 0.0)
+
+
+def frontier_step_packed_ref(f: torch.Tensor, a: torch.Tensor,
+                             d: torch.Tensor) -> torch.Tensor:
+    """Packed wavefront step over narrow cells: the fp32 counting product,
+    masked to pairs newly reached (positive count, dist DIST_UNREACHED),
+    clamped at MULT_SAT — saturate, never wrap — and returned as int32.
+    2D or batched."""
+    _ieee_fp32(f, a)
+    x = torch.matmul(f.float(), a.float())
+    new = (x > 0) & (d == DIST_UNREACHED)
+    return torch.where(new, x.clamp(max=float(MULT_SAT)),
+                       0.0).to(MULT_DTYPE)
 
 
 def count_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -145,6 +208,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
 _TROPICAL_LIB = None
+_PACKED_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -178,9 +242,27 @@ def _tropical_lib() -> ctypes.CDLL:
     return _TROPICAL_LIB
 
 
-def _use_kernel(use_kernel: bool, *xs: torch.Tensor) -> bool:
+def _packed_lib() -> ctypes.CDLL:
+    global _PACKED_LIB
+    if _PACKED_LIB is None:
+        from .build import load
+
+        lib = load("packed")
+        lib.repro_frontier_step_packed.argtypes = [_P, _P, _P, _P, _I, _I,
+                                                   _I, _I, _P]
+        lib.repro_frontier_step_packed.restype = _I
+        lib.repro_count_matmul_narrow.argtypes = [_P, _L, _L, _L, _P, _P, _I,
+                                                  _I, _I, _I, _P]
+        lib.repro_count_matmul_narrow.restype = _I
+        _PACKED_LIB = lib
+    return _PACKED_LIB
+
+
+def _use_kernel(use_kernel: bool, *xs: torch.Tensor,
+                dtypes: Optional[Sequence[torch.dtype]] = None) -> bool:
     """Kernel for CUDA tensors, plain version for CPU tensors or on request;
-    anything else (mixed devices, other backends) raises."""
+    anything else (mixed devices, other backends) raises. The kernel takes
+    ``dtypes`` (one per operand; fp32 for all by default)."""
     dev = xs[0].device
     if any(x.device != dev for x in xs):
         raise ValueError(f"operands on different devices: "
@@ -192,9 +274,9 @@ def _use_kernel(use_kernel: bool, *xs: torch.Tensor) -> bool:
     if dev.index not in (None, 0):
         # the library's own CUDA runtime launches on its current device, 0
         raise ValueError(f"kernels launch on cuda:0 only, got {dev}")
-    for x in xs:
-        if x.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32, got {x.dtype}")
+    for x, want in zip(xs, dtypes or (torch.float32,) * len(xs)):
+        if x.dtype != want:
+            raise TypeError(f"kernel takes {want}, got {x.dtype}")
     return True
 
 
@@ -247,26 +329,69 @@ def frontier_step(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
 
 def count_matmul(a: torch.Tensor, b: torch.Tensor,
                  use_kernel: bool = True) -> torch.Tensor:
-    """Counting product ``A@B`` of fp32 counts, 2D or batched.
+    """Counting product ``A@B``, 2D or batched, as fp32.
 
-    ``a`` may be any strided view (a transposed stack needs no copy); ``b``
-    must be contiguous. For another output dtype, cast the result.
+    fp32 operands run the fp32 kernel; an int32 ``a`` with a uint8 ``b``
+    (a packed frontier slab against an adjacency panel) runs the narrow
+    kernel, exact while ``a``'s values stay at or below 2**24. ``a`` may be
+    any strided view (a transposed stack or a column slab needs no copy);
+    ``b`` must be contiguous. For another output dtype, cast the result.
     """
-    if not _use_kernel(use_kernel, a, b):
+    narrow = a.dtype == torch.int32 and b.dtype == torch.uint8
+    dtypes = (torch.int32, torch.uint8) if narrow else None
+    if not _use_kernel(use_kernel, a, b, dtypes=dtypes):
         return (batched_count_matmul_ref(a, b) if a.ndim == 3
                 else count_matmul_ref(a, b))
     batch, m, n, k = _dims(a, b)
+    if narrow and m > _MAX_NARROW_ROWS:
+        raise ValueError(f"rows {m} exceed the launch grid")
     _contiguous("count_matmul", b=b)
     sb = a.stride(0) if a.ndim == 3 else 0
     c = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
         return c
-    _check(_lib().repro_count_matmul_f32(
-        a.data_ptr(), sb, a.stride(-2), a.stride(-1), b.data_ptr(),
-        c.data_ptr(), batch, m, n, k,
-        torch.cuda.current_stream(a.device).cuda_stream), "count_matmul")
-    launches["count_matmul"] += 1
+    name = "count_matmul_narrow" if narrow else "count_matmul"
+    launch = (_packed_lib().repro_count_matmul_narrow if narrow
+              else _lib().repro_count_matmul_f32)
+    _check(launch(a.data_ptr(), sb, a.stride(-2), a.stride(-1), b.data_ptr(),
+                  c.data_ptr(), batch, m, n, k,
+                  torch.cuda.current_stream(a.device).cuda_stream), name)
+    launches[name] += 1
     return c
+
+
+def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                         use_kernel: bool = True) -> torch.Tensor:
+    """One fused wavefront step over packed cells.
+
+    ``f`` is the (.., M, K) int32 multiplicity frontier (values at most
+    MULT_SAT), ``a`` the (.., K, N) uint8 {0,1} adjacency, ``d`` the (.., M,
+    N) int16 running distances (DIST_UNREACHED = unreached); all contiguous
+    on the card. Returns the int32 next frontier: the newly reached pairs
+    with their counts clamped at MULT_SAT (a cell equal to MULT_SAT is a
+    lower bound). Below MULT_SAT it equals :func:`frontier_step` as
+    integers.
+    """
+    if not _use_kernel(use_kernel, f, a, d,
+                       dtypes=(torch.int32, torch.uint8, DIST_DTYPE)):
+        return frontier_step_packed_ref(f, a, d)
+    batch, m, n, k = _dims(f, a)
+    if m > _MAX_NARROW_ROWS:
+        raise ValueError(f"rows {m} exceed the launch grid")
+    if tuple(d.shape) != (*f.shape[:-1], n):
+        raise ValueError(f"dist shape {tuple(d.shape)} does not match the "
+                         f"product {tuple(f.shape[:-1]) + (n,)}")
+    _contiguous("frontier_step_packed", f=f, a=a, d=d)
+    x = torch.empty(d.shape, dtype=MULT_DTYPE, device=d.device)
+    if x.numel() == 0:
+        return x
+    _check(_packed_lib().repro_frontier_step_packed(
+        f.data_ptr(), a.data_ptr(), d.data_ptr(), x.data_ptr(), batch, m, n,
+        k, torch.cuda.current_stream(d.device).cuda_stream),
+        "frontier_step_packed")
+    launches["frontier_step_packed_batched" if f.ndim == 3
+             else "frontier_step_packed"] += 1
+    return x
 
 
 def _dims_2d(a: torch.Tensor, b: torch.Tensor):

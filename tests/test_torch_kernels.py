@@ -18,6 +18,8 @@ from repro.kernels.minplus import minplus_matmul_pallas
 from repro.kernels.seghist import value_histogram_pallas
 from repro.kernels.semiring import (COUNTING, TROPICAL_COUNT,
                                     frontier_step_batched_pallas,
+                                    frontier_step_packed_batched_pallas,
+                                    frontier_step_packed_pallas,
                                     frontier_step_pallas,
                                     semiring_matmul_batched_pallas,
                                     semiring_matmul_pallas)
@@ -142,7 +144,7 @@ def test_build_targets_hopper_without_fast_math(tmp_path):
     assert "-shared" in cmd and "-O3" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert set(build.SOURCES.values()) == {"semiring.cu", "tropical.cu",
-                                           "seghist.cu"}
+                                           "seghist.cu", "packed.cu"}
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file()
         assert build._target(name).name.startswith(f"lib{name}_")
@@ -264,3 +266,110 @@ def test_value_histogram_refuses_bad_bins():
         H.value_histogram(torch.zeros(4), 0)
     with pytest.raises(ValueError, match="num_bins"):
         H.value_histogram(torch.zeros(4), H.MAX_BINS + 1)
+
+
+# -- the narrow-cell kernels -----------------------------------------------------
+
+def _packed_inputs(rng, lead, m, n, k, big=False):
+    """A packed frontier (counts, a share of them near MULT_SAT when
+    ``big``, so sums pass 2**24 and clamp), a {0,1} uint8 adjacency and
+    int16 distances, half unreached."""
+    f = _counts(rng, lead + (m, k)).astype(np.int64)
+    if big:
+        f = np.where(rng.random(f.shape) < 0.05, S.MULT_SAT - f, f)
+    a = (rng.random(lead + (k, n)) < 0.2).astype(np.uint8)
+    d = rng.integers(0, 5, lead + (m, n)).astype(np.int16)
+    d = np.where(rng.random(d.shape) < 0.5, np.int16(S.DIST_UNREACHED), d)
+    return f, a, d
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("big", [False, True], ids=["exact", "saturating"])
+def test_frontier_step_packed_matches_pallas(batched, big):
+    """Bit-equal to the packed Pallas step on uint32 frontier cells; with
+    frontier values near MULT_SAT the clamp is exercised."""
+    rng = np.random.default_rng(5)
+    lead = (2,) if batched else ()
+    f, a, d = _packed_inputs(rng, lead, 128, 256, 128, big=big)
+    pallas = (frontier_step_packed_batched_pallas if batched
+              else frontier_step_packed_pallas)
+    want = np.asarray(pallas(jnp.asarray(f.astype(np.uint32)),
+                             jnp.asarray(a), jnp.asarray(d), interpret=True))
+    ft = _t(f.astype(np.int32))
+    got = S.frontier_step_packed(ft, _t(a), _t(d))
+    assert got.dtype == S.MULT_DTYPE
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    np.testing.assert_array_equal(
+        S.frontier_step_packed_ref(ft, _t(a), _t(d)).numpy(),
+        want.astype(np.int32))
+    assert (want > 0).any() and (want == 0).any()
+    assert (want == S.MULT_SAT).any() == big
+    assert want.max() <= S.MULT_SAT
+
+
+def test_frontier_step_packed_ragged_matches_padded_pallas():
+    """Shapes off every tile (the source tile is 32 rows, widths ragged):
+    the port takes them as they are; the Pallas step runs on the padded
+    operands (phantom rows/cols zero, phantom dists unreached), sliced
+    back."""
+    rng = np.random.default_rng(6)
+    m, n, k = 40, 136, 72
+    f, a, d = _packed_inputs(rng, (3,), m, n, k)
+
+    def pad(x, shape, fill):
+        out = np.full(x.shape[:-2] + shape, fill, x.dtype)
+        out[..., :x.shape[-2], :x.shape[-1]] = x
+        return out
+
+    fp = pad(f.astype(np.uint32), (128, 128), 0)
+    ap = pad(a, (128, 256), 0)
+    dp = pad(d, (128, 256), S.DIST_UNREACHED)
+    want = np.asarray(frontier_step_packed_batched_pallas(
+        jnp.asarray(fp), jnp.asarray(ap), jnp.asarray(dp),
+        interpret=True))[:, :m, :n]
+    got = S.frontier_step_packed(_t(f.astype(np.int32)), _t(a), _t(d))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    got2d = S.frontier_step_packed(_t(f[0].astype(np.int32)), _t(a[0]),
+                                   _t(d[0]))
+    np.testing.assert_array_equal(got2d.numpy().astype(np.uint32), want[0])
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["exact", "saturating"])
+def test_count_matmul_narrow_matches_pallas_on_a_strided_slab(big):
+    """The streamed pump's panel product: an int32 frontier slab
+    ``F[:, k0:k0+kp]`` (a strided view) against a uint8 panel, accumulated
+    in fp32, against the COUNTING Pallas product on uint32 x uint8
+    operands with ``out_dtype=f32``. Bit-equal below 2**24, where every
+    partial sum is an exact integer; at or above it the sum depends on the
+    order of the additions, so both sides are held to lie at or above
+    2**24, which is all the pump's clamp at MULT_SAT reads."""
+    rng = np.random.default_rng(7)
+    f, a, _ = _packed_inputs(rng, (), 32, 384, 512, big=big)
+    k0, kp = 128, 256
+    panel = a[k0:k0 + kp]
+    (want,) = semiring_matmul_pallas(
+        COUNTING, (jnp.asarray(f[:, k0:k0 + kp].astype(np.uint32)),),
+        (jnp.asarray(panel),), bm=32, interpret=True, out_dtype=jnp.float32)
+    want = np.asarray(want)
+    slab = _t(f.astype(np.int32))[:, k0:k0 + kp]
+    assert not slab.is_contiguous()
+    got = S.count_matmul(slab, _t(panel)).numpy()
+    assert got.dtype == np.float32
+    exact = want < S.MULT_SAT
+    np.testing.assert_array_equal(got[exact], want[exact])
+    assert (got[~exact] >= S.MULT_SAT).all()
+    assert (~exact).any() == big
+
+
+def test_narrow_wrappers_refuse_other_devices_and_dtypes():
+    meta_f = torch.empty((4, 4), dtype=torch.int32, device="meta")
+    meta_a = torch.empty((4, 4), dtype=torch.uint8, device="meta")
+    meta_d = torch.empty((4, 4), dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        S.frontier_step_packed(meta_f, meta_a, meta_d)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        S.count_matmul(meta_f, meta_a)
+    with pytest.raises(ValueError, match="different devices"):
+        S.frontier_step_packed(torch.zeros(4, 4, dtype=torch.int32), meta_a,
+                               meta_d)
+

@@ -16,7 +16,17 @@ Phase 7 runs the extreme-scale path: the sampled sweep at 4096 routers
 held to ``experiments/extreme/reference.json`` (made by the JAX package),
 six families at ~100k routers with the adjacency resident, dragonfly
 again with it streamed, and the packed wavefront on phase 5's stack, and
-checks that it went through the three narrow-cell kernels.
+checks that it went through the three narrow-cell kernels. Phase 8 runs
+the kernel library, ``repro_torch.kernels.ops`` (each of its eleven ops
+once against its ``_ref`` alias, on non-fp32 inputs), the sweep's stacked
+min-plus squaring APSP (``core.sweep._apsp_from_stack``) on phase 5's
+stack against the wavefront, and boolean reachability closures against
+the wavefront's ``isfinite(dist)``, and checks that it went through the
+boolean and batched min-plus kernels. Phase 3 holds all ten kernels
+(``csrc/semiring.cu``: frontier step, counting and boolean products;
+``csrc/tropical.cu``: min-plus 2D and batched, tropical count;
+``csrc/seghist.cu``; ``csrc/packed.cu``: packed step 2D and batched,
+narrow product) to their plain versions and times them.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -487,6 +497,109 @@ def packed_checks(S, part):
     return out
 
 
+# -- phase 3: the boolean and batched min-plus kernels ---------------------------
+
+def library_kernel_checks(S, part):
+    """The boolean product (2D and stacked, A also read transposed) and
+    the batched min-plus product against their plain versions, bit-equal:
+    {0,1} masks at three densities at 2048^3 and at ragged shapes; the
+    min-plus at B=12, 2048^3 and a ragged stack with +inf holes and an
+    all-inf row, with and without ``compare`` (a squaring that changes
+    nothing among them). Then times at the main shapes: 2048^3 for the
+    boolean product (phase 8's closure), B=12, 2048^3 for the min-plus
+    (phase 8's stacked squaring)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"reachability_step": 0.0, "batched_minplus_matmul": 0.0}
+
+    def mask(shape, density):
+        return (torch.rand(shape, generator=gen, device="cuda")
+                < density).float()
+
+    for lead, m, n, k in (((), 2048, 2048, 2048), ((3,), 2048, 2048, 2048),
+                          ((2,), 200, 136, 72), ((), 200, 136, 72),
+                          ((2,), 33, 65, 1), ((), 1, 1, 100)):
+        for density in (0.005, 0.02, 0.1):
+            a, b = mask((*lead, m, k), density), mask((*lead, k, n), density)
+            at = a.transpose(-1, -2).contiguous().transpose(-1, -2)
+            r, r_ref = S.reachability_step(a, b), S.reachability_step_ref(a, b)
+            rt = S.reachability_step(at, b)
+            torch.cuda.synchronize()
+            tag = f"{'B=%d ' % lead[0] if lead else '2D '}{m}x{n}x{k} " \
+                  f"density {density}"
+            check(torch.equal(r, r_ref), f"reachability_step {tag}: not "
+                                         f"bit-equal")
+            check(torch.equal(rt, r_ref), f"reachability_step {tag}, "
+                                          f"transposed A: not bit-equal")
+            errs["reachability_step"] = max(errs["reachability_step"],
+                                            _abs_err(r, r_ref))
+            if m == 2048:
+                print(f"  reachability_step {tag}: bit-equal "
+                      f"({float(r_ref.mean()):.4f} of cells set)")
+        if m == 2048 and not lead:
+            main_mask = (a, b)
+    print("  reachability_step ragged shapes: bit-equal")
+
+    for b_, m, n, k in ((12, 2048, 2048, 2048), (3, 200, 136, 72),
+                        (2, 33, 65, 1), (1, 1, 1, 100)):
+        a = _lengths(gen, (b_, m, k), 0.5, integer=True)
+        b = _lengths(gen, (b_, k, n), 0.5, integer=True)
+        a[:, 0] = float("inf")  # an unreached row stays unreached
+        out, out_ref = (S.batched_minplus_matmul(a, b),
+                        S.batched_minplus_matmul_ref(a, b))
+        same, changed_same = S.batched_minplus_matmul(a, b, compare=out_ref)
+        noise = out_ref.clone()
+        noise.view(-1)[-1] = -1.0  # one cell of the whole stack differs
+        _, changed_one = S.batched_minplus_matmul(a, b, compare=noise)
+        torch.cuda.synchronize()
+        tag = f"B={b_} {m}x{n}x{k}"
+        check(torch.equal(out, out_ref) and torch.equal(same, out_ref),
+              f"batched_minplus_matmul {tag}: not bit-equal")
+        check(bool(torch.isinf(out[:, 0]).all()),
+              f"batched_minplus_matmul {tag}: an all-inf row became finite")
+        check(int(changed_same) == 0 and int(changed_one) == 1,
+              f"batched_minplus_matmul {tag}: changed flag "
+              f"{int(changed_same)}/{int(changed_one)}, want 0/1")
+        errs["batched_minplus_matmul"] = max(errs["batched_minplus_matmul"],
+                                             _abs_err(out, out_ref))
+        print(f"  batched_minplus_matmul {tag}: bit-equal, changed flag 0 "
+              f"against itself and 1 against one changed cell")
+        if b_ == 12:
+            main_stack = (a, b)
+
+    ma, mb = main_mask
+    sa, sb = main_stack
+    p, bsz = ma.shape[0], sa.shape[0]
+    cases = {  # name -> (kernel, plain, library, ops, bytes, marker, plain iters)
+        "reachability_step": (
+            lambda: S.reachability_step(ma, mb),
+            lambda: S.reachability_step_ref(ma, mb),
+            lambda: torch.mm(ma, mb) > 0.5,
+            2.0 * p ** 3, 3 * p * p * 4.0, "tile_gemm", 10),
+        # B p^3 adds and B p^3 mins, at the non-FMA rate
+        "batched_minplus_matmul": (
+            lambda: S.batched_minplus_matmul(sa, sb),
+            lambda: S.batched_minplus_matmul_ref(sa, sb), None,
+            2.0 * bsz * p ** 3 / NON_FMA, 3 * bsz * p * p * 4.0,
+            "tropical_tile", 3),
+    }
+    out = {}
+    for name, (kern, plain, library, ops, nbytes, marker,
+               iters) in cases.items():
+        ms = timed_ms(kern)
+        plain_ms = timed_ms(plain, iters=iters, warmup=1)
+        library_ms = timed_ms(library) if library is not None else None
+        bms, by = bound_ms(ops, nbytes, part)
+        dev = kernel_device_ms(kern, marker, reps=10)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by, max_abs_err=errs[name])
+        lib = ("" if library_ms is None
+               else f", torch.mm then > 0.5 {library_ms:.4f}")
+        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}{lib}, bound "
+              f"{bms:.4f} by {by}); kernel device time {dev}")
+    return out
+
+
 # -- phases 4 and 5: the sweep ------------------------------------------------------
 
 _EXACT_COLS = ("routers", "servers", "radix", "diameter", "cables_electrical",
@@ -898,6 +1011,167 @@ def extreme_phase(obs, S, SW, D, WF, ref, stack):
     return counts
 
 
+# -- phase 8: the kernel library ---------------------------------------------------
+
+def _cast_inputs(gen, S):
+    """One operand set per op of ``kernels.ops``, in the dtypes the JAX ops
+    accept besides fp32: int64 counts, bool masks, float64 distances with
+    +inf, a uint32 packed frontier, int64 packed distances."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def counts(*shape):
+        return torch.randint(0, 4, shape, generator=gen,
+                             device="cuda") * (rand(*shape) < 0.3)
+
+    def dist(*shape):
+        x = torch.randint(0, 6, shape, generator=gen, device="cuda").double()
+        return torch.where(rand(*shape) < 0.3, float("inf"), x)
+
+    def packed_dist(*shape):
+        return torch.where(rand(*shape) < 0.5, S.DIST_UNREACHED,
+                           torch.randint(0, 5, shape, generator=gen,
+                                         device="cuda"))
+
+    m, k, n = 300, 200, 260
+    pdist = packed_dist(m, n)
+    da, db = dist(m, k), dist(k, n)
+    return {
+        "minplus_matmul": (dist(m, k), dist(k, n)),
+        "reachability_step": (rand(m, k) < 0.02, rand(k, n) < 0.02),
+        "count_matmul": (counts(m, k), rand(k, n) < 0.1),
+        # unreached entries carry count 0, the pairs' contract
+        "minplus_count_matmul": (da, torch.where(torch.isfinite(da),
+                                                 counts(m, k), 0),
+                                 db, torch.where(torch.isfinite(db),
+                                                 counts(k, n), 0)),
+        "frontier_step": (counts(m, k), rand(k, n) < 0.1, dist(m, n)),
+        "frontier_step_packed": (counts(m, k).to(torch.uint32),
+                                 rand(k, n) < 0.1, pdist),
+        "batched_minplus_matmul": (dist(2, m, k), dist(2, k, n)),
+        "batched_count_matmul": (counts(2, m, k), rand(2, k, n) < 0.1),
+        "batched_frontier_step": (counts(2, m, k), rand(2, k, n) < 0.1,
+                                  dist(2, m, n)),
+        "batched_frontier_step_packed": (counts(2, m, k), rand(2, k, n) < 0.1,
+                                         packed_dist(2, m, n)),
+        "value_histogram": (torch.where(rand(m, n) < 0.1, float("inf"),
+                                        dist(m, n) * 11 - 3),),
+    }
+
+
+def _closure(ops, adj):
+    """Reachability closure of a 2D fp32 adjacency: R <- R (x) R from
+    A + I over the boolean semiring until nothing changes. Returns (R,
+    products)."""
+    eye = torch.eye(adj.shape[-1], device=adj.device)
+    r = ((adj + eye) > 0).float()
+    steps = 0
+    while True:
+        nxt = ops.reachability_step(r, r)
+        steps += 1
+        if torch.equal(nxt, r):
+            return nxt, steps
+        r = nxt
+
+
+def library_phase(S, ops, SW, WF, graphs):
+    """The kernel library on the card, counted: (a) every op of
+    ``kernels.ops`` once against its ``_ref`` alias, on non-fp32 inputs;
+    (b) the stacked min-plus squaring APSP (``_apsp_from_stack`` with
+    ``_batched_minplus(True)``) on phase 5's full-width stack, padded to
+    2048, against the wavefront's distances; (c) the boolean closure of
+    the largest-diameter graph and of a block-diagonal pair of the two
+    largest (disconnected) against ``isfinite(dist)`` of the wavefront.
+    Returns the launches."""
+    torch.cuda.synchronize()
+    S.reset_launches()
+    t_phase = time.perf_counter()
+
+    # (a) every op against its plain alias
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, xs in _cast_inputs(gen, S).items():
+        extra = (65,) if name == "value_histogram" else ()
+        got = getattr(ops, name)(*xs, *extra)
+        want = getattr(ops, f"{name}_ref".replace("batched_frontier_step",
+                                                   "frontier_step"))(
+            *xs, *extra)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        check(all(g.dtype == w.dtype and torch.equal(g, w)
+                  for g, w in zip(got, want)),
+              f"ops.{name}: not bit-equal to its plain version")
+        print(f"  [8a] ops.{name}({', '.join(str(x.dtype)[6:] for x in xs)})"
+              f" -> {', '.join(str(g.dtype)[6:] for g in got)} "
+              f"{tuple(got[0].shape)}: bit-equal to its _ref")
+
+    # (b) stacked min-plus squaring vs the wavefront, full width
+    seed, adj_np = SW._stack_seeds(graphs)
+    p = WF.pad_block(seed.shape[-1])
+    seed = WF.pad_operand(seed, p, np.inf)
+    seed[:, np.arange(p), np.arange(p)] = 0.0  # phantom diagonals
+    adj = torch.from_numpy(WF.pad_operand(adj_np, p, 0.0)).cuda()
+    dw, _ = WF.dist_mult_device(adj)
+    seed_d = torch.from_numpy(seed).cuda()
+    before = S.launches["batched_minplus_matmul"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    da = SW._apsp_from_stack(seed_d, SW._batched_minplus(True))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    squarings = S.launches["batched_minplus_matmul"] - before
+    check(torch.equal(da, dw), "stacked squaring APSP: dist != wavefront")
+    diam = int(torch.where(torch.isfinite(dw), dw, 0.0).max())
+    check(squarings == int(np.ceil(np.log2(diam))) + 1,
+          f"stacked squaring: {squarings} squarings for diameter {diam}")
+    print(f"[8b squaring APSP] B={seed.shape[0]} p={p}: dist bit-equal to "
+          f"the wavefront; {squarings} squarings (diameter {diam}) in "
+          f"{wall:.3f} ms, {wall / squarings:.3f} ms per squaring")
+    del seed_d, da
+
+    # (c) boolean closures against the wavefront's reachability
+    deepest = int(torch.where(torch.isfinite(dw), dw, 0.0).amax(
+        dim=(1, 2)).argmax())
+    t0 = time.perf_counter()
+    r, steps = _closure(ops, adj[deepest])
+    check(torch.equal(r, torch.isfinite(dw[deepest]).float()),
+          f"closure of {graphs[deepest].name}: != isfinite(dist)")
+    print(f"[8c closure] {graphs[deepest].name} ({graphs[deepest].n} "
+          f"routers, p={p}): equal to isfinite(dist) after {steps} boolean "
+          f"products ({(time.perf_counter() - t0) * 1e3:.3f} ms)")
+    i, j = sorted(range(len(graphs)), key=lambda g: -graphs[g].n)[:2]
+    ni, nj = graphs[i].n, graphs[j].n
+    q = WF.pad_block(ni + nj)
+    pair = torch.zeros((q, q), device="cuda")
+    pair[:ni, :ni] = adj[i, :ni, :ni]
+    pair[ni:ni + nj, ni:ni + nj] = adj[j, :nj, :nj]
+    dpair, _ = WF.dist_mult_device(pair)
+    t0 = time.perf_counter()
+    r, steps = _closure(ops, pair)
+    reach = torch.isfinite(dpair).float()
+    check(torch.equal(r, reach), "closure of the disconnected pair: != "
+                                 "isfinite(dist)")
+    check(not bool(reach[:ni, ni:].any()) and bool(reach[:ni, :ni].all()),
+          "disconnected pair: the blocks reach each other")
+    print(f"[8c closure] {graphs[i].name} + {graphs[j].name} "
+          f"({ni} + {nj} routers, p={q}, disconnected): equal to "
+          f"isfinite(dist) after {steps} boolean products "
+          f"({(time.perf_counter() - t0) * 1e3:.3f} ms; "
+          f"{float(reach.mean()):.4f} of pairs reachable)")
+    del adj, dw, pair, dpair, r, reach
+    torch.cuda.empty_cache()
+
+    counts = dict(S.launches)
+    print(f"[8d launches] reachability_step {counts['reachability_step']}, "
+          f"batched_minplus_matmul {counts['batched_minplus_matmul']}")
+    print(f"[8 kernel library] {time.perf_counter() - t_phase:.2f} s; "
+          f"launches {counts}")
+    # the ops cast to fp32, so the narrow panel product is off this path
+    for name in set(counts) - {"count_matmul_narrow"}:
+        check(counts[name] > 0, f"kernel library: {name} never launched")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -913,7 +1187,7 @@ def main() -> int:
     from repro_torch.core.analysis import AnalysisEngine, paths
     from repro_torch.core.analysis import distributed as D
     from repro_torch.core.analysis import wavefront as WF
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import seghist as H
     from repro_torch.kernels import semiring as S
 
@@ -940,7 +1214,8 @@ def main() -> int:
     for res in built.values():
         print(f"  {res.path.name}: nvcc {res.seconds:.2f} s")
         for line in res.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"    {line.strip()}")
 
     # 3. kernel vs plain
@@ -948,6 +1223,7 @@ def main() -> int:
     kstats = kernel_checks(S, part)
     kstats.update(tropical_checks(S, H, part))
     kstats.update(packed_checks(S, part))
+    kstats.update(library_kernel_checks(S, part))
     print("kernels: " + " ".join(f"{k}=pass" for k in kstats))
 
     # 4. the committed configuration
@@ -1024,6 +1300,9 @@ def main() -> int:
     extreme_counts = extreme_phase(obs, S, SW, D, WF, xref,
                                    SW._stack_adjacency(graphs))
 
+    # 8. the kernel library and the stacked squaring APSP, counted
+    library_counts = library_phase(S, ops, SW, WF, graphs)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)
         "frontier_step": ("semiring.cu", "src/repro/kernels/semiring.py:343"),
@@ -1038,14 +1317,19 @@ def main() -> int:
                                          "src/repro/kernels/semiring.py:406"),
         "count_matmul_narrow": ("packed.cu",
                                 "src/repro/kernels/semiring.py:437"),
+        "reachability_step": ("semiring.cu",
+                              "src/repro/kernels/reachability.py:17"),
+        "batched_minplus_matmul": ("tropical.cu",
+                                   "src/repro/kernels/semiring.py:486"),
     }
     kernels = []
     for kname, st in kstats.items():
         launches = (sweep_counts[kname] + analysis_counts[kname]
-                    + extreme_counts[kname])
+                    + extreme_counts[kname] + library_counts[kname])
         print(f"  {kname}: {sweep_counts[kname]} launches in the sweep, "
               f"{analysis_counts[kname]} in the analysis path, "
-              f"{extreme_counts[kname]} in the extreme path")
+              f"{extreme_counts[kname]} in the extreme path, "
+              f"{library_counts[kname]} in the kernel library phase")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": csrc + sources[kname][0],
@@ -1053,6 +1337,8 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
+    check(len(kernels) == len(sources) == 10,
+          f"{len(kernels)} kernels measured, {len(sources)} named")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,12 @@ through the hand-written CUDA kernels (`kernels.semiring`), and only the
 final dist/mult/loads matrices come back to the host. ``use_kernel=False``
 runs the same loops with the kernels' plain versions on the same device.
 
+:func:`batched_apsp` and :func:`batched_dist_mult` are the stacked stages
+on their own: hop distances (and multiplicities) for a whole stack of
+topologies, through the wavefront or, as the oracle, the stacked min-plus
+squaring (`kernels.ops.batched_minplus_matmul`, one launch per squaring
+for the whole stack) and the host-looped level sweep.
+
 :func:`sweep_extreme` is the extreme-scale mode: every family sized to a
 ROUTER target (100k in the paper's table) and analyzed through the
 sampled-sources estimator on the single-device tiled engine
@@ -38,6 +44,7 @@ CLI::
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import time
@@ -47,13 +54,39 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..kernels import ops
 from . import costmodel
 from . import topology as topo
 from .analysis import wavefront as WF
 from .graph import Graph
 
-__all__ = ["equal_cost_graphs", "sweep", "format_table", "sweep_extreme",
-           "format_extreme_table", "check_families"]
+__all__ = ["equal_cost_graphs", "batched_apsp", "batched_dist_mult",
+           "sweep", "format_table", "check_families",
+           "sweep_extreme", "format_extreme_table"]
+
+_INF = np.float32(np.inf)
+
+
+# -- batched products ---------------------------------------------------------
+
+def _batched_minplus(use_kernel: bool):
+    """The stacked (min, +) product of the squaring loop, on its operands'
+    device: ``f(a, b, compare=None)``, `kernels.ops.batched_minplus_matmul`
+    (the kernel on the card; ``use_kernel=False``: its plain version)."""
+    return functools.partial(ops.batched_minplus_matmul, use_kernel=use_kernel)
+
+
+def _batched_count(use_kernel: bool, device="cuda"):
+    """The stacked counting product of the host-looped level sweep, numpy
+    in and out: `kernels.ops.batched_count_matmul` on ``device``, or, with
+    ``use_kernel=False``, the float64 host product (the oracle)."""
+    if not use_kernel:
+        return lambda a, b: np.asarray(a, np.float64) @ np.asarray(b,
+                                                                   np.float64)
+    dev = WF.resolve_device(device)
+    return lambda a, b: ops.batched_count_matmul(
+        torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    ).cpu().numpy()
 
 
 # -- equal-cost instantiation -------------------------------------------------
@@ -88,6 +121,8 @@ def equal_cost_graphs(
     return graphs, float(budget)
 
 
+# -- batched analysis stages --------------------------------------------------
+
 def _stack_adjacency(graphs: Sequence[Graph]) -> np.ndarray:
     """Stack adjacencies padded to the max router count; padding rows are
     isolated phantom routers (all-zero), inert under every product."""
@@ -96,6 +131,100 @@ def _stack_adjacency(graphs: Sequence[Graph]) -> np.ndarray:
     for i, g in enumerate(graphs):
         adj[i, :g.n, :g.n] = g.adjacency_dense(np.float32)
     return adj
+
+
+def _stack_seeds(graphs: Sequence[Graph]) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack distance seeds and adjacencies, padded to the max router count.
+
+    Padding rows/cols are +inf (no edges) with a 0 diagonal — isolated
+    phantom routers that can never shorten a real path, so one stacked
+    squaring loop serves every topology at once.
+    """
+    adj = _stack_adjacency(graphs)
+    nb, p, _ = adj.shape
+    dist = np.full((nb, p, p), _INF, np.float32)
+    for i, g in enumerate(graphs):
+        dist[i, :g.n, :g.n] = g.distance_seed()
+    idx = np.arange(p)
+    dist[:, idx, idx] = 0.0
+    return dist, adj
+
+
+def batched_apsp(graphs: Sequence[Graph], use_kernel: bool = True,
+                 device="cuda") -> np.ndarray:
+    """All-pairs hop distances for a whole stack of topologies at once.
+
+    Kernel path: the wavefront engine (one fused frontier step per level
+    for the whole stack). Oracle path (``use_kernel=False``): stacked
+    min-plus squaring (`_apsp_from_stack`) through the plain product. Both
+    run on ``device``; ``"cuda"`` raises without a card.
+    """
+    if use_kernel:
+        dist, _ = WF.wavefront_dist_mult(_stack_adjacency(graphs),
+                                         device=device)
+        return dist
+    dev = WF.resolve_device(device)
+    dist, _ = _stack_seeds(graphs)
+    return _apsp_from_stack(torch.from_numpy(dist).to(dev),
+                            _batched_minplus(use_kernel)).cpu().numpy()
+
+
+def _apsp_from_stack(dist: torch.Tensor, minplus) -> torch.Tensor:
+    """Stacked min-plus squaring of the (B, p, p) seed ``dist`` to
+    convergence, on its device. Each squaring is one
+    ``minplus(d, d, compare=d)``, whose fused flag is the loop's one host
+    read; the loop stops at the first squaring that changes nothing, or
+    after ceil(log2 p) squarings."""
+    max_squarings = max(1, int(np.ceil(np.log2(max(2, dist.shape[1])))))
+    dist = dist.contiguous()
+    for _ in range(max_squarings):
+        nxt, changed = minplus(dist, dist, compare=dist)
+        if not bool(changed):
+            return nxt
+        dist = nxt
+    return dist
+
+
+def batched_dist_mult(adj: np.ndarray, count=None,
+                      max_levels: Optional[int] = None, device="cuda"):
+    """Hop distances AND shortest-path multiplicities from one stacked
+    counting product per BFS level (Brandes' frontier identity).
+
+    ``x_k = F_k @ A`` extends the level-k multiplicity frontier by one hop;
+    any pair first reached at level k+1 has ``sigma = x_k`` there. Stops as
+    soon as a sweep makes no new pair reachable (= max diameter over the
+    stack, +1 to confirm). Padding rows are isolated phantoms: their
+    frontier never grows.
+
+    With ``count=None`` the whole loop runs on ``device``
+    (`analysis.wavefront.wavefront_dist_mult`). Passing an explicit
+    ``count`` product (numpy in and out, e.g. :func:`_batched_count`) or a
+    ``max_levels`` cap (which the device engine does not expose; the
+    product is then the kernel on ``device``) runs the host-looped
+    reference sweep below. Returns (dist f32, mult f64) numpy stacks.
+    """
+    if count is None:
+        if max_levels is None:
+            dist, mult = WF.wavefront_dist_mult(adj, device=device)
+            return dist, mult.astype(np.float64)
+        count = _batched_count(True, device)  # capped: host loop, kernel
+    nb, p, _ = adj.shape
+    if max_levels is None:
+        max_levels = p
+    dist = np.full((nb, p, p), _INF, np.float32)
+    idx = np.arange(p)
+    dist[:, idx, idx] = 0.0
+    mult = np.where(dist == 0, 1.0, 0.0).astype(np.float64)
+    frontier = mult.astype(adj.dtype)
+    for level in range(1, max_levels + 1):
+        x = np.asarray(count(frontier, adj))
+        new = (x > 0) & ~np.isfinite(dist)
+        if not new.any():
+            break
+        dist[new] = level
+        mult = np.where(new, x, mult)
+        frontier = np.where(new, x, 0.0).astype(adj.dtype)
+    return dist, mult
 
 
 # -- the driver ---------------------------------------------------------------

@@ -1,17 +1,22 @@
-// Counting-semiring GEMMs for Hopper (sm_90a): the fused BFS frontier step
-// and the plain counting product, batched over blockIdx.z.
+// Counting-semiring GEMMs for Hopper (sm_90a): the fused BFS frontier step,
+// the plain counting product and the boolean (reachability) product, all
+// batched over blockIdx.z. One tile body, three epilogues.
 //
 // Replaces (src/repro/kernels/semiring.py):
-//   frontier_step  <- frontier_step_batched_pallas / _frontier_kernel_batched
-//                     (and the 2D frontier_step_pallas / _frontier_kernel, B = 1)
-//   count_matmul   <- semiring_matmul_batched_pallas / _mxu_kernel_batched with
-//                     COUNTING (and the 2D semiring_matmul_pallas, B = 1)
+//   frontier_step      <- frontier_step_batched_pallas / _frontier_kernel_batched
+//                         (and the 2D frontier_step_pallas / _frontier_kernel, B = 1)
+//   count_matmul       <- semiring_matmul_batched_pallas / _mxu_kernel_batched
+//                         with COUNTING (and the 2D semiring_matmul_pallas, B = 1)
+//   reachability_step  <- semiring_matmul_pallas / _mxu_kernel with BOOLEAN,
+//                         via reachability.py reachability_step_pallas: the
+//                         fp32 dot, then acc > 0.5, the counts never stored
 //
 // What bounds it: at the sweep's shape (B = 12, M = N = K = 2048) one launch
 // is 2*B*M*N*K = 2.06e11 fp32 operations (an FMA counts two) against ~0.8 GB
 // of operands, so it is bound by the card's IEEE-fp32 rate, not by memory. The counts must
 // stay exact below 2**24, so no TF32 and no tensor-core path: every product
-// is an fp32 FMA on the CUDA cores.
+// is an fp32 FMA on the CUDA cores. The boolean product does the same work
+// per (i, j, k) and only thresholds at the store.
 //
 // Design: the classic shared-memory tiled SGEMM. A 128x128 output tile per
 // block of 256 threads, K staged through shared memory 8 deep, and an 8x8
@@ -21,8 +26,11 @@
 // each operand element is read from device memory only once per tile row or
 // column. Ragged M, N, K are masked at the loads (zero fill) and at the store,
 // so callers need no padding. The frontier epilogue reads the distance
-// block once and keeps acc only where acc > 0 and dist is +inf. Batch and
-// row offsets are 64-bit. Built without --use_fast_math so isinf is exact.
+// block once and keeps acc only where acc > 0 and dist is +inf; the boolean
+// epilogue stores acc > 0.5 as 1 or 0. For {0,1} masks that threshold cannot
+// depend on summation order: a sum of nonnegative fp32 terms never rounds
+// below its largest term. Batch and row offsets are 64-bit. Built without
+// --use_fast_math so isinf is exact.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,7 +50,11 @@ struct Strided {
   long long sb, sr, sc;
 };
 
-template <bool FRONTIER>
+// What the tile stores: the counts, the counts masked to first reaches, or
+// the boolean threshold of the counts.
+enum Epilogue { kCount, kFrontier, kBoolean };
+
+template <Epilogue EPI>
 __global__ void __launch_bounds__(THREADS)
 tile_gemm(Strided a, const float* __restrict__ b, const float* __restrict__ d,
           float* __restrict__ c, int M, int N, int K) {
@@ -115,20 +127,22 @@ tile_gemm(Strided a, const float* __restrict__ b, const float* __restrict__ d,
       if (col >= N) continue;
       const long long off = cbase + (long long)r * N + col;
       float v = acc[i][j];
-      if (FRONTIER) {
+      if (EPI == kFrontier) {
         const float dv = d[off];
         v = (v > 0.f && isinf(dv) && dv > 0.f) ? v : 0.f;
+      } else if (EPI == kBoolean) {
+        v = v > 0.5f ? 1.f : 0.f;
       }
       c[off] = v;
     }
   }
 }
 
-template <bool FRONTIER>
+template <Epilogue EPI>
 int launch(Strided a, const void* b, const void* d, void* c, int batch, int m,
            int n, int k, void* stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  tile_gemm<FRONTIER><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  tile_gemm<EPI><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const float*>(b), static_cast<const float*>(d),
       static_cast<float*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
@@ -142,7 +156,7 @@ extern "C" int repro_frontier_step_f32(const void* f, const void* a,
                                        const void* d, void* x, int batch,
                                        int m, int n, int k, void* stream) {
   const Strided fv{static_cast<const float*>(f), (long long)m * k, k, 1};
-  return launch<true>(fv, a, d, x, batch, m, n, k, stream);
+  return launch<kFrontier>(fv, a, d, x, batch, m, n, k, stream);
 }
 
 // C = A@B over `batch` problems; A is read through its strides (batch, row,
@@ -153,5 +167,17 @@ extern "C" int repro_count_matmul_f32(const void* a, long long sab,
                                       const void* b, void* c, int batch, int m,
                                       int n, int k, void* stream) {
   const Strided av{static_cast<const float*>(a), sab, sar, sac};
-  return launch<false>(av, b, nullptr, c, batch, m, n, k, stream);
+  return launch<kCount>(av, b, nullptr, c, batch, m, n, k, stream);
+}
+
+// R = (A@B > 0.5) as fp32 {0,1} over `batch` problems: the boolean-semiring
+// product of {0,1} masks. A is read through its strides, as in
+// repro_count_matmul_f32; B and R are contiguous. Returns the launch's
+// cudaError_t.
+extern "C" int repro_reachability_step_f32(const void* a, long long sab,
+                                           long long sar, long long sac,
+                                           const void* b, void* r, int batch,
+                                           int m, int n, int k, void* stream) {
+  const Strided av{static_cast<const float*>(a), sab, sar, sac};
+  return launch<kBoolean>(av, b, nullptr, r, batch, m, n, k, stream);
 }

@@ -1,11 +1,14 @@
 // Tropical (min, +) products for Hopper (sm_90a): the plain min-plus matmul,
-// optionally with a "changed" flag against a reference matrix, and the
-// two-field (dist, count) product that sums counts over tying k.
+// 2D or batched over blockIdx.z, optionally with a "changed" flag against a
+// reference matrix, and the two-field (dist, count) product that sums
+// counts over tying k.
 //
 // Replaces (src/repro/kernels/):
 //   minplus_matmul        <- minplus.py minplus_matmul_pallas, i.e.
 //                            semiring.py semiring_matmul_pallas on the VPU
 //                            path (_vpu_kernel / _vpu_block) with TROPICAL
+//   batched_minplus_matmul <- semiring.py semiring_matmul_batched_pallas on
+//                            the VPU path (_vpu_kernel_batched) with TROPICAL
 //   minplus_count_matmul  <- semiring.py semiring_matmul_pallas with
 //                            TROPICAL_COUNT (_tc_combine / _tc_kreduce /
 //                            _tc_accumulate)
@@ -14,7 +17,9 @@
 // fp32 add and a min (plus a compare and a multiply-add for the counts) on
 // the CUDA cores. At the MWU oracle's shape (p = 384..512) one product is
 // 2 p^3 = 0.11-0.27 GFLOP-equivalent against 3 p^2 * 4 bytes of operands,
-// so it is bound by the fp32 pipes, not by memory.
+// so it is bound by the fp32 pipes, not by memory; at the sweep's stack
+// (B = 12, p = 2048) one batched launch is 2.06e11 adds and mins against
+// 0.6 GB, bound the same way.
 //
 // Design: a SIMT tile through shared memory. A 32x32 output tile per block
 // of 256 threads (16x16), K staged 32 deep, each thread a 2x2 micro-tile
@@ -22,7 +27,9 @@
 // conflict-free (A is a broadcast, B is unit-stride) and the stores
 // coalesce. The small tile keeps 144-256 blocks in flight at p = 384..512.
 // Ragged M, N, K are masked at the loads with the semiring's zero, (+inf)
-// or (+inf, 0), and at the store, so callers need no padding.
+// or (+inf, 0), and at the store, so callers need no padding. The batch
+// index is blockIdx.z, with 64-bit batch offsets; the "changed" flag is one
+// int for the whole stack.
 //
 // Min is exact in any order, so minplus_matmul is bit-equal to any other
 // evaluation order. The count field's sums are exact below 2**24. Inputs
@@ -62,6 +69,18 @@ tropical_tile(const float* __restrict__ da, const float* __restrict__ ca,
   const int row0 = blockIdx.y * TILE;
   const int col0 = blockIdx.x * TILE;
   const float inf = INFINITY;
+  // this block's problem of the stack: the bases move once, so the tile's
+  // own offsets stay those of a 2D product
+  const long long bz = blockIdx.z;
+  da += bz * M * K;
+  db += bz * K * N;
+  od += bz * M * N;
+  if (COUNT) {
+    ca += bz * M * K;
+    cb += bz * K * N;
+    oc += bz * M * N;
+  }
+  if (compare != nullptr) compare += bz * M * N;
 
   float accd[TSUB][TSUB];
   float accc[TSUB][TSUB];
@@ -152,9 +171,9 @@ tropical_tile(const float* __restrict__ da, const float* __restrict__ ca,
 
 template <bool COUNT>
 int launch(const void* da, const void* ca, const void* db, const void* cb,
-           void* od, void* oc, const void* compare, void* changed, int m,
-           int n, int k, void* stream) {
-  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE);
+           void* od, void* oc, const void* compare, void* changed, int batch,
+           int m, int n, int k, void* stream) {
+  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE, batch);
   tropical_tile<COUNT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(da), static_cast<const float*>(ca),
       static_cast<const float*>(db), static_cast<const float*>(cb),
@@ -165,15 +184,24 @@ int launch(const void* da, const void* ca, const void* db, const void* cb,
 
 }  // namespace
 
-// out = min_k a[i,k] + b[k,j] over contiguous (m,k) x (k,n) fp32. When
-// `compare` is not null (a contiguous (m,n) matrix), *changed is set to 1
-// if out differs from it anywhere; the caller zeroes it first. Returns the
-// launch's cudaError_t.
+// out[z] = min_k a[z,i,k] + b[z,k,j] over `batch` contiguous (m,k) x (k,n)
+// fp32 problems. When `compare` is not null (a contiguous (batch,m,n)
+// stack), *changed is set to 1 if out differs from it anywhere in the
+// stack; the caller zeroes it first. Returns the launch's cudaError_t.
+extern "C" int repro_minplus_batched_f32(const void* a, const void* b,
+                                         void* out, const void* compare,
+                                         void* changed, int batch, int m,
+                                         int n, int k, void* stream) {
+  return launch<false>(a, nullptr, b, nullptr, out, nullptr, compare, changed,
+                       batch, m, n, k, stream);
+}
+
+// The 2D product: repro_minplus_batched_f32 with batch 1.
 extern "C" int repro_minplus_f32(const void* a, const void* b, void* out,
                                  const void* compare, void* changed, int m,
                                  int n, int k, void* stream) {
-  return launch<false>(a, nullptr, b, nullptr, out, nullptr, compare, changed,
-                       m, n, k, stream);
+  return repro_minplus_batched_f32(a, b, out, compare, changed, 1, m, n, k,
+                                   stream);
 }
 
 // (od, oc) = lexicographic min-plus over (dist, count) pairs: od the
@@ -184,6 +212,6 @@ extern "C" int repro_minplus_count_f32(const void* da, const void* ca,
                                        const void* db, const void* cb,
                                        void* od, void* oc, int m, int n,
                                        int k, void* stream) {
-  return launch<true>(da, ca, db, cb, od, oc, nullptr, nullptr, m, n, k,
+  return launch<true>(da, ca, db, cb, od, oc, nullptr, nullptr, 1, m, n, k,
                       stream);
 }

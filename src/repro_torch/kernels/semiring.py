@@ -13,6 +13,11 @@ Hand-written CUDA kernels carry the device path:
   ``B`` goes to the narrow kernel (``csrc/packed.cu``), the streamed
   pump's panel product (``semiring_matmul_pallas`` with a uint32 left and
   uint8 right operand and ``out_dtype=f32``);
+* :func:`reachability_step` (``csrc/semiring.cu``) — the boolean-semiring
+  product ``(A@B > 0.5)`` of {0,1} fp32 masks, the same tile as
+  :func:`count_matmul` with a threshold epilogue (replaces
+  ``semiring_matmul_pallas`` with ``BOOLEAN``, i.e. ``reachability.py``
+  ``reachability_step_pallas``);
 * :func:`frontier_step_packed` (``csrc/packed.cu``) — the fused BFS step
   over narrow cells: int32 frontier, uint8 adjacency, int16 distances with
   the :data:`DIST_UNREACHED` sentinel, counts clamped at :data:`MULT_SAT`
@@ -22,13 +27,22 @@ Hand-written CUDA kernels carry the device path:
   ``min_k a[i,k] + b[k,j]`` (replaces ``minplus_matmul_pallas``, the
   ``TROPICAL`` instantiation of ``semiring_matmul_pallas``), optionally
   with a fused "changed" flag for the squaring loop's convergence test;
+* :func:`batched_minplus_matmul` (``csrc/tropical.cu``) — the same
+  tropical product over a stack, (B, M, K) x (B, K, N), with the
+  "changed" flag taken over the whole stack (replaces
+  ``semiring_matmul_batched_pallas`` with ``TROPICAL``);
 * :func:`minplus_count_matmul` (``csrc/tropical.cu``) — the two-field
   (dist, count) product with counts summed over tying k (replaces
   ``semiring_matmul_pallas`` with ``TROPICAL_COUNT``).
 
-The counting kernels take 2D operands or stacks with a leading batch axis;
-the tropical ones take 2D operands. All take any M, N, K; the fp32 ones
-take fp32 only, the narrow ones the dtypes above. A
+The JAX package's ``reachability.py`` and ``minplus.py`` are thin
+instantiations of its generic kernel; their counterparts here are
+:func:`reachability_step` and :func:`minplus_matmul` in this module, and
+the library surface over all of them is ``kernels.ops``.
+
+The counting and boolean kernels take 2D operands or stacks with a leading
+batch axis; the 2D tropical ones take 2D operands. All take any M, N, K;
+the fp32 ones take fp32 only, the narrow ones the dtypes above. A
 wrapper launches its kernel on a CUDA tensor (or raises), and runs the
 plain version beside it only for tensors on the CPU or when the caller
 passes ``use_kernel=False``. :data:`launches` counts kernel launches per
@@ -57,10 +71,12 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["frontier_step", "count_matmul", "minplus_matmul",
+__all__ = ["frontier_step", "count_matmul", "reachability_step",
+           "minplus_matmul", "batched_minplus_matmul",
            "minplus_count_matmul", "frontier_step_packed",
            "frontier_step_ref", "count_matmul_ref",
-           "batched_count_matmul_ref", "minplus_matmul_ref",
+           "batched_count_matmul_ref", "reachability_step_ref",
+           "minplus_matmul_ref", "batched_minplus_matmul_ref",
            "minplus_count_matmul_ref", "frontier_step_packed_ref",
            "DIST_DTYPE", "MULT_DTYPE", "HOST_MULT_DTYPE", "DIST_UNREACHED",
            "MULT_SAT", "pack_dist", "unpack_dist", "launches",
@@ -73,7 +89,8 @@ launches: Dict[str, int] = {"frontier_step": 0, "count_matmul": 0,
                             "minplus_matmul": 0, "minplus_count_matmul": 0,
                             "value_histogram": 0, "frontier_step_packed": 0,
                             "frontier_step_packed_batched": 0,
-                            "count_matmul_narrow": 0}
+                            "count_matmul_narrow": 0, "reachability_step": 0,
+                            "batched_minplus_matmul": 0}
 
 #: packed distance cell; DIST_UNREACHED (int16 max) plays the role of +inf
 DIST_DTYPE = torch.int16
@@ -155,6 +172,16 @@ def batched_count_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bik,bkj->bij", a.float(), b.float())
 
 
+def reachability_step_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean semiring product: out[i,j] = OR_k (a[i,k] AND b[k,j]).
+
+    Inputs/outputs are {0,1}-valued float32 masks, 2D or batched.
+    """
+    _ieee_fp32(a, b)
+    counts = torch.matmul(a.float(), b.float())
+    return (counts > 0.5).float()
+
+
 def _row_blocks(m: int, k: int, n: int, fields: int = 1):
     """Row ranges of a (rows, k, n) broadcast within the element budget."""
     rows = max(1, _BROADCAST_BLOCK // max(1, fields * k * n))
@@ -173,6 +200,16 @@ def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.float(), b.float()
     for lo, hi in _row_blocks(m, k, n):
         out[lo:hi] = (a[lo:hi, :, None] + b[None]).amin(dim=1)
+    return out
+
+
+def batched_minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor
+                               ) -> torch.Tensor:
+    """Stacked tropical product: out[z,i,j] = min_k a[z,i,k] + b[z,k,j]."""
+    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]),
+                      dtype=torch.float32, device=a.device)
+    for z in range(a.shape[0]):
+        out[z] = minplus_matmul_ref(a[z], b[z])
     return out
 
 
@@ -223,6 +260,9 @@ def _lib() -> ctypes.CDLL:
         lib.repro_count_matmul_f32.argtypes = [_P, _L, _L, _L, _P, _P, _I,
                                                _I, _I, _I, _P]
         lib.repro_count_matmul_f32.restype = _I
+        lib.repro_reachability_step_f32.argtypes = [_P, _L, _L, _L, _P, _P,
+                                                    _I, _I, _I, _I, _P]
+        lib.repro_reachability_step_f32.restype = _I
         _LIB = lib
     return _LIB
 
@@ -235,6 +275,9 @@ def _tropical_lib() -> ctypes.CDLL:
         lib = load("tropical")
         lib.repro_minplus_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.repro_minplus_f32.restype = _I
+        lib.repro_minplus_batched_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                                  _I, _I, _P]
+        lib.repro_minplus_batched_f32.restype = _I
         lib.repro_minplus_count_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
                                                 _I, _I, _P]
         lib.repro_minplus_count_f32.restype = _I
@@ -342,22 +385,46 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
     if not _use_kernel(use_kernel, a, b, dtypes=dtypes):
         return (batched_count_matmul_ref(a, b) if a.ndim == 3
                 else count_matmul_ref(a, b))
+    if narrow:
+        if a.shape[-2] > _MAX_NARROW_ROWS:
+            raise ValueError(f"rows {a.shape[-2]} exceed the launch grid")
+        return _strided_product("count_matmul_narrow", lambda: (
+            _packed_lib().repro_count_matmul_narrow), a, b)
+    return _strided_product("count_matmul",
+                            lambda: _lib().repro_count_matmul_f32, a, b)
+
+
+def _strided_product(name: str, kernel, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """Launch ``kernel()``, an entry point that reads ``a`` through its
+    (batch, row, col) strides and ``b`` contiguous, into a new fp32
+    (.., m, n) output; counts the launch under ``name``."""
     batch, m, n, k = _dims(a, b)
-    if narrow and m > _MAX_NARROW_ROWS:
-        raise ValueError(f"rows {m} exceed the launch grid")
-    _contiguous("count_matmul", b=b)
+    _contiguous(name, b=b)
     sb = a.stride(0) if a.ndim == 3 else 0
     c = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
         return c
-    name = "count_matmul_narrow" if narrow else "count_matmul"
-    launch = (_packed_lib().repro_count_matmul_narrow if narrow
-              else _lib().repro_count_matmul_f32)
-    _check(launch(a.data_ptr(), sb, a.stride(-2), a.stride(-1), b.data_ptr(),
-                  c.data_ptr(), batch, m, n, k,
-                  torch.cuda.current_stream(a.device).cuda_stream), name)
+    _check(kernel()(a.data_ptr(), sb, a.stride(-2), a.stride(-1),
+                    b.data_ptr(), c.data_ptr(), batch, m, n, k,
+                    torch.cuda.current_stream(a.device).cuda_stream), name)
     launches[name] += 1
     return c
+
+
+def reachability_step(a: torch.Tensor, b: torch.Tensor,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Boolean-semiring product ``(A@B > 0.5)`` of {0,1} fp32 masks, 2D or
+    batched, as fp32 {0,1}: ``out[i,j] = OR_k (a[i,k] AND b[k,j])``.
+
+    ``a`` may be any strided view, as in :func:`count_matmul`; ``b`` must
+    be contiguous. The counts stay in registers: only the threshold is
+    stored.
+    """
+    if not _use_kernel(use_kernel, a, b):
+        return reachability_step_ref(a, b)
+    return _strided_product("reachability_step",
+                            lambda: _lib().repro_reachability_step_f32, a, b)
 
 
 def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
@@ -422,30 +489,59 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = True,
     anywhere. The kernel computes it in its store, so the squaring loop's
     convergence test costs no extra pass over the matrix.
     """
+    return _minplus(a, b, use_kernel, compare, batched=False)
+
+
+def batched_minplus_matmul(a: torch.Tensor, b: torch.Tensor,
+                           use_kernel: bool = True,
+                           compare: Optional[torch.Tensor] = None):
+    """Stacked tropical product of fp32 (B, m, k) x (B, k, n): one launch
+    for the whole stack. With ``compare``, a (B, m, n) tensor, returns
+    ``(out, changed)`` as :func:`minplus_matmul` does, with one flag for
+    the whole stack: the stacked squaring loop reads one flag per
+    squaring."""
+    return _minplus(a, b, use_kernel, compare, batched=True)
+
+
+def _minplus(a, b, use_kernel, compare, batched):
+    name = "batched_minplus_matmul" if batched else "minplus_matmul"
     xs = (a, b) if compare is None else (a, b, compare)
     if not _use_kernel(use_kernel, *xs):
-        out = minplus_matmul_ref(a, b)
+        out = (batched_minplus_matmul_ref if batched
+               else minplus_matmul_ref)(a, b)
         if compare is None:
             return out
         return out, (out != compare).any().reshape(1).to(torch.int32)
-    m, n, k = _dims_2d(a, b)
-    _contiguous("minplus_matmul", a=a, b=b)
+    if batched:
+        if a.ndim != 3:
+            raise ValueError(f"batched operands must be (B, m, k) x "
+                             f"(B, k, n): {tuple(a.shape)} x "
+                             f"{tuple(b.shape)}")
+        batch, m, n, k = _dims(a, b)
+        if m > _MAX_TROPICAL_ROWS:
+            raise ValueError(f"rows {m} exceed the launch grid")
+    else:
+        batch, (m, n, k) = 1, _dims_2d(a, b)
+    _contiguous(name, a=a, b=b)
+    shape = (*a.shape[:-1], n)
     if compare is not None:
-        _contiguous("minplus_matmul", compare=compare)
-        if tuple(compare.shape) != (m, n):
+        _contiguous(name, compare=compare)
+        if tuple(compare.shape) != shape:
             raise ValueError(f"compare shape {tuple(compare.shape)} is not "
-                             f"the product's {(m, n)}")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+                             f"the product's {shape}")
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
     changed = (torch.zeros(1, dtype=torch.int32, device=a.device)
                if compare is not None else None)
     if out.numel():
-        _check(_tropical_lib().repro_minplus_f32(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if compare is None else compare.data_ptr(),
-            None if changed is None else changed.data_ptr(), m, n, k,
-            torch.cuda.current_stream(a.device).cuda_stream),
-            "minplus_matmul")
-        launches["minplus_matmul"] += 1
+        lib = _tropical_lib()
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                None if compare is None else compare.data_ptr(),
+                None if changed is None else changed.data_ptr())
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _check(lib.repro_minplus_batched_f32(*args, batch, m, n, k, stream)
+               if batched else lib.repro_minplus_f32(*args, m, n, k, stream),
+               name)
+        launches[name] += 1
     return out if compare is None else (out, changed)
 
 

@@ -136,3 +136,93 @@ def test_format_table_covers_all_rows(committed):
     for r in committed["rows"]:
         assert r["family"] in table
     assert "tput-lb" in table.splitlines()[1]
+
+
+# -- the stacked stages: batched_apsp, batched_dist_mult ------------------------
+
+@pytest.fixture(scope="module")
+def stack3():
+    """A 3-family stack of 50-200 routers, built by the JAX package and
+    carried into the port."""
+    rgraphs = [RT.make("slimfly", q=5), RT.make("torus", dims=(10, 12)),
+               RT.make("polarfly", q=13)]
+    assert [g.n for g in rgraphs] == [50, 120, 183]
+    return rgraphs, [_carry(g) for g in rgraphs]
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_batched_apsp_matches_reference(stack3, use_kernel):
+    """Kernel path (the wavefront) and oracle path (stacked min-plus
+    squaring through the plain product): bit-equal to the JAX package's."""
+    rgraphs, graphs = stack3
+    want = RS.batched_apsp(rgraphs, use_kernel=use_kernel)
+    got = S.batched_apsp(graphs, use_kernel=use_kernel, device="cpu")
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)  # tolerance: bit-equal
+    assert np.isinf(got[0, :50, 50:]).all()  # phantoms stay unreached
+
+
+@pytest.mark.parametrize("mode", ["device", "host_count", "kernel_count",
+                                  "max_levels"])
+def test_batched_dist_mult_matches_reference(stack3, mode):
+    """The device loop, the host loop with an explicit count product (the
+    float64 oracle and the kernel product), and a max_levels cap: dist and
+    mult bit-equal to the JAX package's, dtypes included."""
+    rgraphs, graphs = stack3
+    _, adj = RS._stack_seeds(rgraphs)
+    _, got_adj = S._stack_seeds(graphs)
+    np.testing.assert_array_equal(got_adj, adj)
+    if mode == "device":
+        want = RS.batched_dist_mult(adj)
+        got = S.batched_dist_mult(adj, device="cpu")
+    elif mode == "host_count":
+        want = RS.batched_dist_mult(adj, RS._batched_count(False))
+        got = S.batched_dist_mult(adj, S._batched_count(False))
+    elif mode == "kernel_count":
+        want = RS.batched_dist_mult(adj, RS._batched_count(True))
+        got = S.batched_dist_mult(adj, S._batched_count(True, device="cpu"))
+    else:
+        want = RS.batched_dist_mult(adj, max_levels=3)
+        got = S.batched_dist_mult(adj, max_levels=3, device="cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)  # tolerance: bit-equal
+    if mode == "max_levels":
+        assert np.isinf(got[0]).any() and got[0][np.isfinite(got[0])].max() == 3
+
+
+def test_apsp_from_stack_stops_at_the_same_squaring(stack3):
+    """The port's loop reads the product's fused "changed" flag where the
+    JAX package compares on the host: same distances, same squarings."""
+    rgraphs, graphs = stack3
+    seed, _ = RS._stack_seeds(rgraphs)
+    got_seed, _ = S._stack_seeds(graphs)
+    np.testing.assert_array_equal(got_seed, seed)
+    calls = {"jax": 0, "port": 0}
+    jax_minplus, port_minplus = RS._batched_minplus(True), S._batched_minplus(
+        True)
+
+    def jax_counted(a, b):
+        calls["jax"] += 1
+        return jax_minplus(a, b)
+
+    def port_counted(a, b, compare=None):
+        calls["port"] += 1
+        return port_minplus(a, b, compare=compare)
+
+    want = RS._apsp_from_stack(seed, jax_counted)
+    got = S._apsp_from_stack(torch.from_numpy(got_seed), port_counted)
+    np.testing.assert_array_equal(got.numpy(), want)  # bit-equal
+    # torus(10, 12) has diameter 11: 4 squarings reach it, the 5th confirms
+    assert calls["port"] == calls["jax"] == 5
+
+
+def test_batched_stages_default_to_the_card(stack3):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, graphs = stack3
+    for use_kernel in (True, False):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            S.batched_apsp(graphs, use_kernel=use_kernel)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.batched_dist_mult(S._stack_adjacency(graphs), max_levels=2)

@@ -5,5 +5,13 @@
 device); `semiring` and `seghist` hold the kernels' wrappers with their
 plain versions beside them, and `ref` gathers those plain versions under
 the JAX package's names; `build` compiles ``csrc/`` with ``nvcc`` at first
-use. Nothing is compiled or loaded when the package is imported.
+use. The extension point, :class:`Semiring` with
+:func:`semiring_matmul` / :func:`semiring_matmul_batched`, is exported
+here: a spec with device code runs on the card through a kernel generated
+from it. Nothing is compiled or loaded when the package is imported.
 """
+from .semiring import (BOOLEAN, COUNTING, TROPICAL, TROPICAL_COUNT, Semiring,
+                       semiring_matmul, semiring_matmul_batched)
+
+__all__ = ["Semiring", "TROPICAL", "BOOLEAN", "COUNTING", "TROPICAL_COUNT",
+           "semiring_matmul", "semiring_matmul_batched"]

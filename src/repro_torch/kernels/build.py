@@ -7,6 +7,11 @@ checkout, named by a hash of the source and the flags, so an edit to either
 rebuilds and an unchanged tree reuses what is there. Nothing is compiled or
 loaded when this module is imported.
 
+Generated sources (the kernels of user semirings, `kernels.semiring`) go
+the same way: `build_generated` writes each into the build directory and
+compiles it against the header ``csrc/semiring_generic.cuh``, named by a
+hash of the generated text, the header and the flags.
+
 The target is Hopper, ``sm_90a``. The flags leave out ``--use_fast_math``:
 the kernels test ``isinf`` and must keep IEEE fp32 arithmetic.
 """
@@ -20,15 +25,18 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "BuildResult", "find_nvcc",
-           "nvcc_command", "build_all", "load"]
+__all__ = ["SOURCES", "GENERIC_HEADER", "BUILD_DIR", "NVCC_FLAGS",
+           "BuildResult", "find_nvcc", "nvcc_command", "build_all", "load",
+           "generated_target", "build_generated", "load_generated"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its source under ``csrc/``
 SOURCES: Dict[str, str] = {"semiring": "semiring.cu", "tropical": "tropical.cu",
                            "seghist": "seghist.cu", "packed": "packed.cu"}
+#: the template header that generated sources include (no library of its own)
+GENERIC_HEADER = "semiring_generic.cuh"
 #: ``<checkout>/build/repro_torch_kernels`` (src/repro_torch/kernels -> root)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,8 +69,10 @@ def find_nvcc() -> str:
 
 
 def nvcc_command(src: pathlib.Path, out: pathlib.Path,
-                 nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
+                 nvcc: str = "nvcc",
+                 include: Optional[pathlib.Path] = None) -> List[str]:
+    inc = [] if include is None else ["-I", str(include)]
+    return [nvcc, *NVCC_FLAGS, *inc, "-o", str(out), str(src)]
 
 
 def _target(name: str) -> pathlib.Path:
@@ -71,29 +81,36 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
-    """Compile every named source that has no current build, one ``nvcc``
-    per source, all started together. Raises RuntimeError with the
-    compiler's output when a build fails."""
+def generated_target(key: str, source: str) -> pathlib.Path:
+    """Where the library of the generated ``source`` goes: named by ``key``
+    and a hash of the text, the template header and the flags."""
+    digest = hashlib.sha256(source.encode() + (CSRC / GENERIC_HEADER)
+                            .read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{key}_{digest.hexdigest()[:16]}.so"
+
+
+def _compile(jobs) -> Dict[str, BuildResult]:
+    """Build every ``(name, source path, library path, include dir)`` job
+    whose library is missing, one ``nvcc`` per job, all started together.
+    Raises RuntimeError with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: Dict[str, BuildResult] = {}
     running = []
-    for name in names:
-        out = _target(name)
+    for name, src, out, include in jobs:
         if out.exists():
             results[name] = BuildResult(name, out, 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            nvcc_command(CSRC / SOURCES[name], tmp, find_nvcc()),
+            nvcc_command(src, tmp, find_nvcc(), include),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((name, out, tmp, proc, time.perf_counter()))
+        running.append((name, src, out, tmp, proc, time.perf_counter()))
     try:
-        for name, out, tmp, proc, t0 in running:
+        for name, src, out, tmp, proc, t0 in running:
             log, _ = proc.communicate()
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
+                raise RuntimeError(f"nvcc failed on {src.name} "
                                    f"(exit {proc.returncode}):\n{log}")
             os.replace(tmp, out)
             results[name] = BuildResult(name, out, seconds, log)
@@ -105,6 +122,30 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
     return results
 
 
+def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
+    """Compile every named source under ``csrc/`` that has no current
+    build, all in parallel; raises RuntimeError on a failed build."""
+    return _compile([(name, CSRC / SOURCES[name], _target(name), None)
+                     for name in names])
+
+
+def build_generated(sources: Dict[str, str]) -> Dict[str, BuildResult]:
+    """Compile generated sources, ``key -> CUDA text``, that have no current
+    build, all in parallel, each against ``csrc/`` (for
+    :data:`GENERIC_HEADER`); raises RuntimeError on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for key, text in sources.items():
+        out = generated_target(key, text)
+        src = out.with_suffix(".cu")
+        if not out.exists():
+            tmp = src.with_suffix(f".{os.getpid()}.cu.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        jobs.append((key, src, out, CSRC))
+    return _compile(jobs)
+
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -114,3 +155,13 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build_all([name])[name].path))
     return _LOADED[name]
+
+
+def load_generated(key: str, source: str) -> ctypes.CDLL:
+    """The loaded library of the generated ``source``, built first if
+    needed (once per process and text)."""
+    path = generated_target(key, source)
+    if path.name not in _LOADED:
+        built = build_generated({key: source})[key].path
+        _LOADED[path.name] = ctypes.CDLL(str(built))
+    return _LOADED[path.name]

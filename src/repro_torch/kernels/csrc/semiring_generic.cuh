@@ -1,0 +1,334 @@
+// Generic semiring products for Hopper (sm_90a): the blocked product over a
+// user's algebra, 2D or batched over blockIdx.z, on a VPU-style tile
+// (combine / accumulate over NF fields) or an MXU-style tile (an fp32 FMA
+// product with the algebra's epilogue at the store).
+//
+// Replaces (src/repro/kernels/semiring.py):
+//   semiring_matmul         <- semiring_matmul_pallas (_vpu_kernel,
+//                              _mxu_kernel) run with a user's Semiring
+//   semiring_matmul_batched <- semiring_matmul_batched_pallas
+//                              (_vpu_kernel_batched, _mxu_kernel_batched)
+//
+// How it is used: this header is not a library of its own. For each algebra
+// and field types, kernels/semiring.py emits a source that includes it,
+// defines one algebra struct from the Semiring's device code and exports a
+// plain C entry point (repro_semiring_vpu or repro_semiring_mxu);
+// kernels/build.py compiles that source at first use, keyed by a hash of the
+// generated text, this header and the flags. The algebra struct, for the
+// VPU tile:
+//   struct Alg {
+//     using T = float;                // or int: the type of every field
+//     static constexpr int NF = 2;    // fields per element
+//     static SR_FN void pad_a(T (&v)[NF]);   // the semiring's pads and
+//     static SR_FN void pad_b(T (&v)[NF]);   // the accumulator's start
+//     static SR_FN void init(T (&acc)[NF]);
+//     static SR_FN void combine(const T (&a)[NF], const T (&b)[NF],
+//                               T (&out)[NF]);
+//     static SR_FN void accumulate(T (&acc)[NF], const T (&t)[NF]);
+//   };
+// and for the MXU tile:
+//   struct Alg {
+//     using A = unsigned char;        // left operand: float, int or uint8
+//     using B = int;                  // right operand: the same choice
+//     using Out = int;                // output: float or int
+//     static SR_FN float pad_a();     // the pads, as the fp32 the dot sees
+//     static SR_FN float pad_b();
+//     static SR_FN auto epilogue(float acc);  // cast to Out at the store
+//   };
+// The part above `#ifdef __CUDACC__` is plain C++, so a host compiler can
+// build an algebra struct and check its functions without a card.
+//
+// What bounds it: the VPU tile does, per (i, j, k), one combine and one
+// accumulate per field on the CUDA cores, which run an add, a min or a
+// compare at one per lane per clock (33.5 T/s on the H100 SXM): at 2048^3
+// a single-field product is 1.7e10 such operations against 50 MB of
+// operands, ~0.51 ms of operations and ~0.015 ms of bytes, so the pipes
+// bound it. The MXU tile is 2*M*N*K fp32 operations at 67 TFLOP/s (an FMA
+// counts two): ~0.26 ms at 2048^3. Neither uses the tensor cores: the VPU
+// path's algebra is not (+, x), and the MXU path must give IEEE fp32 sums
+// (counts exact below 2**24), which TF32 does not.
+//
+// Design. VPU tile: a SIMT tile through shared memory, as in tropical.cu: a
+// 32x32 output tile per block of 256 threads (16x16), K staged 32 deep (16
+// or 8 deep for algebras of more than 4 or 8 fields, so the staged tiles
+// stay within 48 KB of static shared memory), each thread a 2x2 micro-tile
+// whose rows and columns are 16 apart (shared-memory reads are a broadcast
+// and unit-stride, stores coalesce), with NF accumulators per output in
+// registers. Fields are separate arrays (struct of arrays), as in the JAX
+// package. The accumulator folds `accumulate` over k in order; that is the
+// semiring's reduce, so `accumulate` must be associative and commutative,
+// as the TPU kernel also assumes when it reduces block by block. MXU tile:
+// semiring.cu's tile_gemm (a 128x128 output tile per block of 256 threads,
+// K staged 8 deep, an 8x8 register micro-tile in two 4x4 quadrants 64
+// apart, float4 shared-memory reads), with the operands cast to fp32 on
+// the way into shared memory, as _mxu_kernel casts them in registers, and
+// the epilogue applied at the store. Both tiles mask ragged M, N and K with
+// the algebra's pads at the loads and at the store, so callers need no
+// padding. Each block moves its base pointers once by its 64-bit batch
+// offset; per-load batch offsets spill (tropical.cu's history). Built
+// without --use_fast_math: the pads are often +-inf and must stay IEEE.
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define SR_FN __host__ __device__ __forceinline__
+#else
+#define SR_FN inline
+#endif
+
+// Helpers for device code: the smaller and the larger of two values of any
+// ordered type (for an int field, where fminf/fmaxf do not apply). Neither
+// is defined for NaN.
+template <class T>
+SR_FN T sr_min(T x, T y) { return y < x ? y : x; }
+template <class T>
+SR_FN T sr_max(T x, T y) { return x < y ? y : x; }
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace repro_semiring {
+
+// -- VPU-style tile -------------------------------------------------------------
+
+constexpr int VTILE = 32;                 // output tile edge (BM = BN)
+constexpr int VSUB = 2;                   // micro-tile edge per thread
+constexpr int VSTEP = VTILE / VSUB;       // 16: micro-tile rows/cols 16 apart
+constexpr int VTHREADS = VSTEP * VSTEP;   // 256
+constexpr int VPU_MAX_FIELDS = 16;
+
+template <class Alg>
+struct VpuArgs {
+  const typename Alg::T* a[Alg::NF];
+  const typename Alg::T* b[Alg::NF];
+  typename Alg::T* out[Alg::NF];
+};
+
+template <class Alg>
+__global__ void __launch_bounds__(VTHREADS)
+vpu_tile(VpuArgs<Alg> p, int M, int N, int K) {
+  using T = typename Alg::T;
+  constexpr int NF = Alg::NF;
+  // K staged per step: fewer rows for wide algebras, so the staged tiles
+  // stay at 33,280 bytes of shared memory at most
+  constexpr int BK = NF <= 4 ? 32 : NF <= 8 ? 16 : 8;
+  static_assert(NF >= 1 && NF <= VPU_MAX_FIELDS, "1 to 16 fields");
+  static_assert((VTILE * BK) % VTHREADS == 0, "whole loads per thread");
+  // A tiles are stored transposed ([k][m]) with one column of padding, so
+  // the row-major global reads (neighbouring threads along k) store
+  // without bank conflicts.
+  __shared__ T As[NF][BK][VTILE + 1];
+  __shared__ T Bs[NF][BK][VTILE];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % VSTEP;
+  const int ty = tid / VSTEP;
+  const int row0 = blockIdx.y * VTILE;
+  const int col0 = blockIdx.x * VTILE;
+  // this block's problem of the stack: the bases move once, so the tile's
+  // own offsets stay those of a 2D product
+  const long long bz = blockIdx.z;
+  const T* a[NF];
+  const T* b[NF];
+  T* out[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    a[f] = p.a[f] + bz * M * K;
+    b[f] = p.b[f] + bz * K * N;
+    out[f] = p.out[f] + bz * M * N;
+  }
+  T pad_a[NF], pad_b[NF];
+  Alg::pad_a(pad_a);
+  Alg::pad_b(pad_b);
+
+  T acc[VSUB][VSUB][NF];
+#pragma unroll
+  for (int i = 0; i < VSUB; ++i)
+#pragma unroll
+    for (int j = 0; j < VSUB; ++j) Alg::init(acc[i][j]);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int t = 0; t < (VTILE * BK) / VTHREADS; ++t) {
+      const int idx = tid + t * VTHREADS;
+      // A: neighbouring threads walk k (A's unit-stride axis)
+      const int am = idx / BK, ak = idx % BK;
+      const int gm = row0 + am, gk = k0 + ak;
+      const bool a_in = gm < M && gk < K;
+      const long long aoff = (long long)gm * K + gk;
+      // B: neighbouring threads walk n (B's unit-stride axis)
+      const int bk = idx / VTILE, bn = idx % VTILE;
+      const int gk2 = k0 + bk, gn = col0 + bn;
+      const bool b_in = gk2 < K && gn < N;
+      const long long boff = (long long)gk2 * N + gn;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        As[f][ak][am] = a_in ? a[f][aoff] : pad_a[f];
+        Bs[f][bk][bn] = b_in ? b[f][boff] : pad_b[f];
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      T ra[VSUB][NF], rb[VSUB][NF];
+#pragma unroll
+      for (int i = 0; i < VSUB; ++i)
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          ra[i][f] = As[f][kk][ty + i * VSTEP];
+          rb[i][f] = Bs[f][kk][tx + i * VSTEP];
+        }
+#pragma unroll
+      for (int i = 0; i < VSUB; ++i)
+#pragma unroll
+        for (int j = 0; j < VSUB; ++j) {
+          T t[NF];
+          Alg::combine(ra[i], rb[j], t);
+          Alg::accumulate(acc[i][j], t);
+        }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < VSUB; ++i) {
+    const int r = row0 + ty + i * VSTEP;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < VSUB; ++j) {
+      const int c = col0 + tx + j * VSTEP;
+      if (c >= N) continue;
+      const long long off = (long long)r * N + c;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) out[f][off] = acc[i][j][f];
+    }
+  }
+}
+
+// `batch` contiguous (m,k) x (k,n) products; a, b and out hold NF field
+// pointers each. Returns the launch's cudaError_t.
+template <class Alg>
+int launch_vpu(const void* const* a, const void* const* b, void* const* out,
+               int batch, int m, int n, int k, void* stream) {
+  using T = typename Alg::T;
+  VpuArgs<Alg> p;
+  for (int f = 0; f < Alg::NF; ++f) {
+    p.a[f] = static_cast<const T*>(a[f]);
+    p.b[f] = static_cast<const T*>(b[f]);
+    p.out[f] = static_cast<T*>(out[f]);
+  }
+  const dim3 grid((n + VTILE - 1) / VTILE, (m + VTILE - 1) / VTILE, batch);
+  vpu_tile<Alg><<<grid, VTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- MXU-style tile -------------------------------------------------------------
+
+constexpr int MBM = 128;
+constexpr int MBN = 128;
+constexpr int MBK = 8;
+constexpr int MTM = 8;
+constexpr int MTN = 8;
+constexpr int MTHREADS = (MBM / MTM) * (MBN / MTN);  // 256
+constexpr int MA_PAD = 4;  // keeps the transposed A tile stores conflict free
+
+template <class Alg>
+__global__ void __launch_bounds__(MTHREADS)
+mxu_tile(const typename Alg::A* __restrict__ a,
+         const typename Alg::B* __restrict__ b,
+         typename Alg::Out* __restrict__ c, int M, int N, int K) {
+  using Out = typename Alg::Out;
+  __shared__ __align__(16) float As[MBK][MBM + MA_PAD];
+  __shared__ __align__(16) float Bs[MBK][MBN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (MBN / MTN);
+  const int ty = tid / (MBN / MTN);
+  const int row0 = blockIdx.y * MBM;
+  const int col0 = blockIdx.x * MBN;
+  const long long bz = blockIdx.z;
+  a += bz * M * K;
+  b += bz * K * N;
+  c += bz * M * N;
+  const float pad_a = Alg::pad_a();
+  const float pad_b = Alg::pad_b();
+
+  float acc[MTM][MTN];
+#pragma unroll
+  for (int i = 0; i < MTM; ++i)
+#pragma unroll
+    for (int j = 0; j < MTN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += MBK) {
+#pragma unroll
+    for (int i = 0; i < (MBM * MBK) / MTHREADS; ++i) {
+      const int idx = tid + i * MTHREADS;
+      const int m = idx / MBK;
+      const int k = idx % MBK;
+      const int gm = row0 + m;
+      const int gk = k0 + k;
+      As[k][m] = (gm < M && gk < K)
+                     ? static_cast<float>(a[(long long)gm * K + gk]) : pad_a;
+    }
+#pragma unroll
+    for (int i = 0; i < (MBK * MBN) / MTHREADS; ++i) {
+      const int idx = tid + i * MTHREADS;
+      const int k = idx / MBN;
+      const int n = idx % MBN;
+      const int gk = k0 + k;
+      const int gn = col0 + n;
+      Bs[k][n] = (gk < K && gn < N)
+                     ? static_cast<float>(b[(long long)gk * N + gn]) : pad_b;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < MBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[kk][MBM / 2 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[kk][MBN / 2 + tx * 4]);
+      const float ra[MTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float rb[MTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < MTM; ++i)
+#pragma unroll
+        for (int j = 0; j < MTN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < MTM; ++i) {
+    const int r = row0 + (i < 4 ? ty * 4 + i : MBM / 2 + ty * 4 + (i - 4));
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < MTN; ++j) {
+      const int col = col0 + (j < 4 ? tx * 4 + j : MBN / 2 + tx * 4 + (j - 4));
+      if (col >= N) continue;
+      c[(long long)r * N + col] = static_cast<Out>(Alg::epilogue(acc[i][j]));
+    }
+  }
+}
+
+// `batch` contiguous (m,k) x (k,n) products into `out`, epilogue applied.
+// Returns the launch's cudaError_t.
+template <class Alg>
+int launch_mxu(const void* a, const void* b, void* out, int batch, int m,
+               int n, int k, void* stream) {
+  const dim3 grid((n + MBN - 1) / MBN, (m + MBM - 1) / MBM, batch);
+  mxu_tile<Alg><<<grid, MTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const typename Alg::A*>(a),
+      static_cast<const typename Alg::B*>(b),
+      static_cast<typename Alg::Out*>(out), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro_semiring
+
+#endif  // __CUDACC__

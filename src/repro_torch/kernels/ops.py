@@ -14,8 +14,14 @@ the port's int32 multiplicity cell (`kernels.semiring` documents why)
 where the JAX package returns uint32. Unlike the JAX ops these take no
 block shapes (``bm``/``bn``/``bk``/``sub_k``): each kernel has one tile,
 and the JAX package's block-shape tuner has no counterpart. Ragged shapes
-need no padding: the kernels mask their edges. There is no custom
-``Semiring`` op: a user's algebra has no kernel yet.
+need no padding: the kernels mask their edges.
+
+The extension point is here too: :class:`Semiring`, the four shipped specs
+and :func:`semiring_matmul` / :func:`semiring_matmul_batched` (from
+`kernels.semiring`), the product over any algebra, which on a CUDA tensor
+launches a kernel generated from the spec's device code. ``__all__`` stays
+the JAX ops' list; those names stand beside it, as they stand in the JAX
+package's ``kernels.semiring`` and not in its ``ops``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import torch
 from . import ref
 from . import seghist as H
 from . import semiring as S
+from .semiring import (BOOLEAN, COUNTING, TROPICAL, TROPICAL_COUNT,  # noqa: F401
+                       Semiring, semiring_matmul, semiring_matmul_batched)
 
 __all__ = ["minplus_matmul", "reachability_step", "value_histogram",
            "count_matmul", "minplus_count_matmul", "frontier_step",
@@ -147,3 +155,5 @@ frontier_step_ref = ref.frontier_step_ref
 frontier_step_packed_ref = ref.frontier_step_packed_ref
 batched_minplus_matmul_ref = ref.batched_minplus_matmul_ref
 batched_count_matmul_ref = ref.batched_count_matmul_ref
+semiring_matmul_ref = ref.semiring_matmul_ref
+semiring_matmul_batched_ref = ref.semiring_matmul_batched_ref

@@ -33,7 +33,16 @@ Hand-written CUDA kernels carry the device path:
   ``semiring_matmul_batched_pallas`` with ``TROPICAL``);
 * :func:`minplus_count_matmul` (``csrc/tropical.cu``) — the two-field
   (dist, count) product with counts summed over tying k (replaces
-  ``semiring_matmul_pallas`` with ``TROPICAL_COUNT``).
+  ``semiring_matmul_pallas`` with ``TROPICAL_COUNT``);
+* :func:`semiring_matmul` and :func:`semiring_matmul_batched` — the
+  extension point: the product over any :class:`Semiring` (replaces
+  ``semiring_matmul_pallas`` / ``semiring_matmul_batched_pallas`` run with
+  a user's algebra). A spec carries its algebra twice: as torch callables,
+  which the plain versions run, and as C++ device code, from which a CUDA
+  kernel over ``csrc/semiring_generic.cuh`` is generated and built with
+  ``nvcc`` at its first launch, one library per algebra and dtypes. The
+  four shipped specs :data:`TROPICAL`, :data:`BOOLEAN`, :data:`COUNTING`
+  and :data:`TROPICAL_COUNT` carry device code too.
 
 The JAX package's ``reachability.py`` and ``minplus.py`` are thin
 instantiations of its generic kernel; their counterparts here are
@@ -66,7 +75,10 @@ time, so their working memory stays bounded.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+import dataclasses
+import math
+import re
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,17 +92,22 @@ __all__ = ["frontier_step", "count_matmul", "reachability_step",
            "minplus_count_matmul_ref", "frontier_step_packed_ref",
            "DIST_DTYPE", "MULT_DTYPE", "HOST_MULT_DTYPE", "DIST_UNREACHED",
            "MULT_SAT", "pack_dist", "unpack_dist", "launches",
-           "reset_launches"]
+           "reset_launches", "Semiring", "TROPICAL", "BOOLEAN", "COUNTING",
+           "TROPICAL_COUNT", "semiring_matmul", "semiring_matmul_batched",
+           "semiring_matmul_ref", "semiring_matmul_batched_ref",
+           "device_types", "build_key", "algebra_source", "semiring_source"]
 
 #: kernel launches per wrapper since the last :func:`reset_launches`; the
 #: packed step counts its 2D and batched launches apart, as the JAX package
-#: has two kernels for them
+#: has two kernels for them; ``semiring_matmul`` counts the generated
+#: kernels of every algebra, 2D and batched
 launches: Dict[str, int] = {"frontier_step": 0, "count_matmul": 0,
                             "minplus_matmul": 0, "minplus_count_matmul": 0,
                             "value_histogram": 0, "frontier_step_packed": 0,
                             "frontier_step_packed_batched": 0,
                             "count_matmul_narrow": 0, "reachability_step": 0,
-                            "batched_minplus_matmul": 0}
+                            "batched_minplus_matmul": 0,
+                            "semiring_matmul": 0}
 
 #: packed distance cell; DIST_UNREACHED (int16 max) plays the role of +inf
 DIST_DTYPE = torch.int16
@@ -571,3 +588,421 @@ def minplus_count_matmul(da: torch.Tensor, ca: torch.Tensor,
             "minplus_count_matmul")
         launches["minplus_count_matmul"] += 1
     return d, c
+
+
+# -- the Semiring extension point --------------------------------------------------
+
+Fields = Tuple[torch.Tensor, ...]
+
+#: K slab of the plain VPU version, as the JAX kernel's default ``sub_k``
+_SUB_K = 8
+#: the generic VPU tile's field limit (its shared memory stays under 48 KB)
+_MAX_FIELDS = 16
+_MAX_VPU_ROWS = 65535 * 32  # gridDim.y times the 32-row VPU tile
+#: dtype -> C type of the generated kernels
+_C_TYPES = {torch.float32: "float", torch.int32: "int",
+            torch.uint8: "unsigned char"}
+_SHORT = {torch.float32: "f32", torch.int32: "i32", torch.uint8: "u8"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Semiring:
+    """Spec of one blocked-matmul algebra: the port of the JAX package's
+    ``Semiring``, with the same fields, plus its device form.
+
+    A semiring element is a tuple of ``num_fields`` scalars (one tensor per
+    field at matrix level). ``pad_a``/``pad_b`` are the multiplicative
+    annihilators that ragged edges act as: padding must never win a
+    reduction. ``acc_init`` is the additive identity the accumulator starts
+    from.
+
+    VPU path (``mxu=False``), callables over field tuples of torch tensors:
+      combine(a, b):    elementwise semiring multiply on a broadcast
+                        (rows, sub_k, n) slab; a is (rows, sub_k, 1)-shaped,
+                        b is (1, sub_k, n)-shaped.
+      kreduce(f):       semiring-add reduce over axis 1 -> (rows, n) fields.
+      accumulate(x, y): binary semiring add of two (rows, n) field tuples.
+
+    MXU path (``mxu=True``, single field only): the product is the plain
+    IEEE fp32 dot; ``epilogue`` maps the accumulated fp32 sums to the
+    output.
+
+    **Device code** runs the same algebra in the generated CUDA kernel
+    (``csrc/semiring_generic.cuh``); without it the spec runs only on CPU
+    tensors. Each is a C++ string, compiled with ``nvcc`` at first use:
+      cuda_combine:    a body over ``a[f]`` and ``b[f]`` that writes
+                       ``out[f]`` for every field f (VPU path);
+      cuda_accumulate: a body that folds ``t[f]`` into ``acc[f]`` in place
+                       (VPU path);
+      cuda_epilogue:   an expression in ``float acc`` (MXU path), cast to
+                       the output type.
+    The bodies may use ``T`` (the fields' C type), ``NF``, ``<math.h>`` and
+    the header's ``sr_min``/``sr_max``. ``kreduce`` has no device form:
+    the kernel folds ``accumulate`` over k, which is what a semiring's
+    reduce is, so ``accumulate`` must be associative and commutative (the
+    JAX kernel assumes the same when it reduces block by block).
+    """
+
+    name: str
+    pad_a: Tuple[float, ...]
+    pad_b: Tuple[float, ...]
+    acc_init: Tuple[float, ...]
+    num_fields: int = 1
+    mxu: bool = False
+    combine: Optional[Callable[[Fields, Fields], Fields]] = None
+    kreduce: Optional[Callable[[Fields], Fields]] = None
+    accumulate: Optional[Callable[[Fields, Fields], Fields]] = None
+    epilogue: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    cuda_combine: Optional[str] = None
+    cuda_accumulate: Optional[str] = None
+    cuda_epilogue: Optional[str] = None
+
+    def __post_init__(self):
+        for name in ("pad_a", "pad_b", "acc_init"):
+            values = tuple(float(v) for v in getattr(self, name))
+            if len(values) != self.num_fields:
+                raise ValueError(f"{self.name}: {name} has {len(values)} "
+                                 f"values for {self.num_fields} fields")
+            object.__setattr__(self, name, values)
+        if self.mxu:
+            if self.num_fields != 1:
+                raise ValueError(f"{self.name}: the MXU path is single-field")
+            if self.epilogue is None:
+                raise ValueError(f"{self.name}: the MXU path needs an "
+                                 f"epilogue")
+        elif not (self.combine and self.kreduce and self.accumulate):
+            raise ValueError(f"{self.name}: the VPU path needs combine, "
+                             f"kreduce and accumulate")
+
+
+def _require_device_code(sr: Semiring) -> None:
+    """Raises NotImplementedError, naming the unset fields, when ``sr`` has
+    no device code for its path."""
+    want = ("cuda_epilogue",) if sr.mxu else ("cuda_combine",
+                                              "cuda_accumulate")
+    missing = [f for f in want if not getattr(sr, f)]
+    if missing:
+        raise NotImplementedError(
+            f"Semiring {sr.name!r} has no device code ({', '.join(missing)} "
+            f"unset): it runs on CPU tensors only")
+
+
+def _literal(v: float, dtype: torch.dtype) -> str:
+    """``v`` as a C literal of the field type."""
+    if dtype == torch.float32:
+        v = float(np.float32(v))
+        if math.isnan(v):
+            return "NAN"
+        if math.isinf(v):
+            return "INFINITY" if v > 0 else "(-INFINITY)"
+        return f"({v!r}f)"
+    if not (float(v).is_integer() and -2**31 <= v < 2**31):
+        raise ValueError(f"{v} is not an int32 value")
+    return f"({int(v)})"
+
+
+def _ident(name: str) -> str:
+    return re.sub(r"\W", "_", name)
+
+
+def device_types(sr: Semiring, a: Sequence[torch.Tensor],
+                 b: Sequence[torch.Tensor], out_dtype=None):
+    """The dtypes a generated kernel is built for: ``(field dtype,)`` on
+    the VPU path, ``(a, b, out)`` dtypes on the MXU path. Raises TypeError
+    for dtypes the kernel does not take: VPU fields are float32 or int32,
+    one dtype for every field of both operands; MXU operands float32, int32
+    or uint8, the output float32 or int32."""
+    if sr.mxu:
+        out = out_dtype or a[0].dtype
+        if a[0].dtype not in _C_TYPES or b[0].dtype not in _C_TYPES:
+            raise TypeError(f"{sr.name}: the kernel takes float32, int32 or "
+                            f"uint8 operands, got {a[0].dtype} x "
+                            f"{b[0].dtype}")
+        if out not in (torch.float32, torch.int32):
+            raise TypeError(f"{sr.name}: the kernel writes float32 or int32, "
+                            f"not {out}")
+        return a[0].dtype, b[0].dtype, out
+    dtypes = {x.dtype for x in (*a, *b)}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.int32}:
+        raise TypeError(f"{sr.name}: the kernel takes float32 or int32 "
+                        f"fields, one dtype for all, got {sorted(map(str, dtypes))}")
+    return (dtypes.pop(),)
+
+
+def build_key(sr: Semiring, types: Sequence[torch.dtype]) -> str:
+    """The name of the generated library for ``sr`` and ``types``."""
+    return "_".join(["semiring", _ident(sr.name), *(_SHORT[t] for t in types)])
+
+
+def algebra_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
+    """The C++ algebra struct of ``sr`` for ``types`` (`device_types`), as
+    ``csrc/semiring_generic.cuh`` documents it. Raises NotImplementedError
+    when the spec has no device code."""
+    _require_device_code(sr)
+    name = f"Algebra_{_ident(sr.name)}"
+    if sr.mxu:
+        ta, tb, tout = (_C_TYPES[t] for t in types)
+        return (f"struct {name} {{\n"
+                f"  using A = {ta};\n  using B = {tb};\n  using Out = {tout};\n"
+                f"  static SR_FN float pad_a() {{ return "
+                f"{_literal(sr.pad_a[0], torch.float32)}; }}\n"
+                f"  static SR_FN float pad_b() {{ return "
+                f"{_literal(sr.pad_b[0], torch.float32)}; }}\n"
+                f"  static SR_FN auto epilogue(float acc) {{\n"
+                f"    return ({sr.cuda_epilogue});\n  }}\n}};\n")
+    (dtype,) = types
+    nf = sr.num_fields
+    if nf > _MAX_FIELDS:
+        raise ValueError(f"{sr.name}: the kernel takes at most "
+                         f"{_MAX_FIELDS} fields, not {nf}")
+
+    def fill(var, values):
+        return " ".join(f"{var}[{f}] = {_literal(v, dtype)};"
+                        for f, v in enumerate(values))
+
+    return (f"struct {name} {{\n"
+            f"  using T = {_C_TYPES[dtype]};\n"
+            f"  static constexpr int NF = {nf};\n"
+            f"  static SR_FN void pad_a(T (&v)[NF]) {{ {fill('v', sr.pad_a)} }}\n"
+            f"  static SR_FN void pad_b(T (&v)[NF]) {{ {fill('v', sr.pad_b)} }}\n"
+            f"  static SR_FN void init(T (&acc)[NF]) "
+            f"{{ {fill('acc', sr.acc_init)} }}\n"
+            f"  static SR_FN void combine(const T (&a)[NF], const T (&b)[NF],\n"
+            f"                            T (&out)[NF]) {{\n"
+            f"    {sr.cuda_combine}\n  }}\n"
+            f"  static SR_FN void accumulate(T (&acc)[NF], const T (&t)[NF]) {{\n"
+            f"    {sr.cuda_accumulate}\n  }}\n}};\n")
+
+
+def semiring_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
+    """The CUDA source of ``sr``'s kernel for ``types``: the algebra struct
+    and one C entry point over ``csrc/semiring_generic.cuh``."""
+    struct = algebra_source(sr, types)
+    alg = f"Algebra_{_ident(sr.name)}"
+    if sr.mxu:
+        entry = ("extern \"C\" int repro_semiring_mxu(const void* a, "
+                 "const void* b, void* out,\n    int batch, int m, int n, "
+                 "int k, void* stream) {\n"
+                 f"  return repro_semiring::launch_mxu<{alg}>(a, b, out, "
+                 "batch, m, n, k, stream);\n}\n")
+    else:
+        entry = ("extern \"C\" int repro_semiring_vpu(const void* const* a, "
+                 "const void* const* b,\n    void* const* out, int batch, "
+                 "int m, int n, int k, void* stream) {\n"
+                 f"  return repro_semiring::launch_vpu<{alg}>(a, b, out, "
+                 "batch, m, n, k, stream);\n}\n")
+    return (f"// Generated by repro_torch.kernels.semiring from the Semiring "
+            f"{sr.name!r}\n// ({', '.join(map(str, types))}).\n"
+            f"#include \"semiring_generic.cuh\"\n\n{struct}\n{entry}")
+
+
+#: (spec, dtypes) -> the loaded entry point of its generated kernel
+_GENERATED: Dict[tuple, object] = {}
+
+
+def _generated_kernel(sr: Semiring, types: Tuple[torch.dtype, ...]):
+    fn = _GENERATED.get((sr, types))
+    if fn is None:
+        from .build import load_generated
+
+        lib = load_generated(build_key(sr, types), semiring_source(sr, types))
+        fn = lib.repro_semiring_mxu if sr.mxu else lib.repro_semiring_vpu
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+        fn.restype = _I
+        _GENERATED[(sr, types)] = fn
+    return fn
+
+
+def _pad_slab(x: torch.Tensor, dim: int, width: int, value: float):
+    short = width - x.shape[dim]
+    if short == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = short
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
+
+
+def semiring_matmul_ref(sr: Semiring, a: Sequence[torch.Tensor],
+                        b: Sequence[torch.Tensor], out_dtype=None) -> Fields:
+    """Plain (M, K) x (K, N) product over ``sr``, one tensor per field.
+
+    VPU path in the JAX kernel's order (``_vpu_block``): the accumulator
+    starts at ``acc_init``; each ``sub_k = 8`` slab of K, in order, gives
+    ``acc = accumulate(acc, kreduce(combine(a_slab, b_slab)))``, the last
+    slab padded with ``pad_a``/``pad_b``; a block of rows at a time, so the
+    (rows, 8, N) broadcast stays bounded. Fields keep ``a``'s dtypes. MXU
+    path: ``epilogue(a.float() @ b.float())`` in IEEE fp32, cast to
+    ``out_dtype`` or ``a[0]``'s dtype.
+    """
+    a, b = tuple(a), tuple(b)
+    if sr.mxu:
+        _ieee_fp32(a[0], b[0])
+        acc = torch.matmul(a[0].float(), b[0].float())
+        return (sr.epilogue(acc).to(out_dtype or a[0].dtype),)
+    m, k = a[0].shape
+    n = b[0].shape[1]
+    outs = tuple(torch.empty((m, n), dtype=x.dtype, device=x.device)
+                 for x in a)
+    for lo, hi in _row_blocks(m, _SUB_K, n, sr.num_fields):
+        acc = tuple(torch.full((hi - lo, n), v, dtype=x.dtype, device=x.device)
+                    for v, x in zip(sr.acc_init, a))
+        for k0 in range(0, k, _SUB_K):
+            a_slab = tuple(_pad_slab(x[lo:hi, k0:k0 + _SUB_K], 1, _SUB_K,
+                                     v)[:, :, None]
+                           for x, v in zip(a, sr.pad_a))
+            b_slab = tuple(_pad_slab(x[k0:k0 + _SUB_K], 0, _SUB_K, v)[None]
+                           for x, v in zip(b, sr.pad_b))
+            acc = sr.accumulate(acc, sr.kreduce(sr.combine(a_slab, b_slab)))
+        for o, v in zip(outs, acc):
+            o[lo:hi] = v
+    return outs
+
+
+def semiring_matmul_batched_ref(sr: Semiring, a: Sequence[torch.Tensor],
+                                b: Sequence[torch.Tensor],
+                                out_dtype=None) -> Fields:
+    """Plain (B, M, K) x (B, K, N) product over ``sr``: the MXU path as one
+    batched product, the VPU path one problem of the stack at a time."""
+    a, b = tuple(a), tuple(b)
+    if sr.mxu:
+        return semiring_matmul_ref(sr, a, b, out_dtype)
+    per = [semiring_matmul_ref(sr, tuple(x[z] for x in a),
+                               tuple(x[z] for x in b))
+           for z in range(a[0].shape[0])]
+    if not per:
+        return tuple(torch.empty((0, a[0].shape[1], b[0].shape[2]),
+                                 dtype=x.dtype, device=x.device) for x in a)
+    return tuple(torch.stack([p[f] for p in per])
+                 for f in range(sr.num_fields))
+
+
+def semiring_matmul(sr: Semiring, a: Sequence[torch.Tensor],
+                    b: Sequence[torch.Tensor], out_dtype=None,
+                    use_kernel: bool = True) -> Fields:
+    """Blocked (M, K) x (K, N) product over any ``sr``, one tensor per
+    field (the port of ``semiring_matmul_pallas``).
+
+    Takes any M, N, K: ragged edges act as ``pad_a``/``pad_b``. On CUDA
+    tensors it launches the kernel generated from ``sr``'s device code
+    (built at first use; a spec without device code raises
+    NotImplementedError); on CPU tensors, or with ``use_kernel=False``, it
+    runs :func:`semiring_matmul_ref`. ``out_dtype`` is an MXU-path control.
+    The kernel reads contiguous fields: others are copied first.
+    """
+    return _semiring(sr, a, b, out_dtype, use_kernel, batched=False)
+
+
+def semiring_matmul_batched(sr: Semiring, a: Sequence[torch.Tensor],
+                            b: Sequence[torch.Tensor], out_dtype=None,
+                            use_kernel: bool = True) -> Fields:
+    """Batched (B, M, K) x (B, K, N) product over ``sr``: one launch for the
+    whole stack (the port of ``semiring_matmul_batched_pallas``); otherwise
+    as :func:`semiring_matmul`."""
+    return _semiring(sr, a, b, out_dtype, use_kernel, batched=True)
+
+
+def _semiring(sr, a, b, out_dtype, use_kernel, batched):
+    a, b = tuple(a), tuple(b)
+    nf, ndim = sr.num_fields, 3 if batched else 2
+    if len(a) != nf or len(b) != nf:
+        raise ValueError(f"{sr.name}: {len(a)} x {len(b)} fields, want {nf}")
+    if out_dtype is not None and not sr.mxu:
+        raise ValueError("out_dtype is an MXU-path control")
+    lead = a[0].shape[:-1]
+    if (a[0].ndim != ndim or b[0].ndim != ndim
+            or any(x.shape != a[0].shape for x in a)
+            or any(x.shape != b[0].shape for x in b)
+            or a[0].shape[:-2] != b[0].shape[:-2]
+            or a[0].shape[-1] != b[0].shape[-2]):
+        raise ValueError(f"{sr.name}: fields must be {ndim}D products, one "
+                         f"shape per operand: "
+                         f"{[tuple(x.shape) for x in (*a, *b)]}")
+    if not _use_kernel(use_kernel, *a, *b,
+                       dtypes=[x.dtype for x in (*a, *b)]):
+        return (semiring_matmul_batched_ref if batched
+                else semiring_matmul_ref)(sr, a, b, out_dtype)
+    _require_device_code(sr)
+    types = device_types(sr, a, b, out_dtype)
+    batch, m, n, k = _dims(a[0], b[0])
+    if not sr.mxu and m > _MAX_VPU_ROWS:
+        raise ValueError(f"rows {m} exceed the launch grid")
+    a = tuple(x.contiguous() for x in a)
+    b = tuple(x.contiguous() for x in b)
+    out = tuple(torch.empty((*lead, n), dtype=types[-1] if sr.mxu
+                            else x.dtype, device=x.device) for x in a)
+    if out[0].numel() == 0:
+        return out
+    fn = _generated_kernel(sr, types)
+    stream = torch.cuda.current_stream(a[0].device).cuda_stream
+    if sr.mxu:
+        rc = fn(a[0].data_ptr(), b[0].data_ptr(), out[0].data_ptr(), batch,
+                m, n, k, stream)
+    else:
+        ptrs = [(_P * nf)(*(x.data_ptr() for x in xs)) for xs in (a, b, out)]
+        rc = fn(*ptrs, batch, m, n, k, stream)
+    _check(rc, f"semiring_matmul ({sr.name})")
+    launches["semiring_matmul"] += 1
+    return out
+
+
+def _tc_combine(a: Fields, b: Fields) -> Fields:
+    return (a[0] + b[0], a[1] * b[1])
+
+
+def _tc_kreduce(f: Fields) -> Fields:
+    d = torch.amin(f[0], dim=1)
+    c = torch.where(f[0] == d[:, None, :], f[1], 0.0).sum(dim=1)
+    return (d, c)
+
+
+def _tc_accumulate(x: Fields, y: Fields) -> Fields:
+    d = torch.minimum(x[0], y[0])
+    c = torch.where(x[0] == d, x[1], 0.0) + torch.where(y[0] == d, y[1], 0.0)
+    return (d, c)
+
+
+_INF = float("inf")
+
+#: (min, +) over distances — the APSP hot spot
+TROPICAL = Semiring(
+    name="tropical",
+    pad_a=(_INF,), pad_b=(_INF,), acc_init=(_INF,),
+    combine=lambda a, b: (a[0] + b[0],),
+    kreduce=lambda f: (torch.amin(f[0], dim=1),),
+    accumulate=lambda x, y: (torch.minimum(x[0], y[0]),),
+    cuda_combine="out[0] = a[0] + b[0];",
+    cuda_accumulate="acc[0] = fminf(acc[0], t[0]);",
+)
+
+#: (or, and) over {0,1} masks — the fp32 dot thresholded in the epilogue
+BOOLEAN = Semiring(
+    name="boolean",
+    pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,),
+    mxu=True,
+    epilogue=lambda acc: acc > 0.5,
+    cuda_epilogue="acc > 0.5f",
+)
+
+#: (+, x) over nonneg counts — exact while counts stay below 2**24
+COUNTING = Semiring(
+    name="counting",
+    pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,),
+    mxu=True,
+    epilogue=lambda acc: acc,
+    cuda_epilogue="acc",
+)
+
+#: fused (dist, count) pairs: lexicographic (min, +) on dist with counts
+#: summed over ties; pads (inf, 0) never contribute
+TROPICAL_COUNT = Semiring(
+    name="tropical_count",
+    num_fields=2,
+    pad_a=(_INF, 0.0), pad_b=(_INF, 0.0), acc_init=(_INF, 0.0),
+    combine=_tc_combine,
+    kreduce=_tc_kreduce,
+    accumulate=_tc_accumulate,
+    cuda_combine="out[0] = a[0] + b[0]; out[1] = a[1] * b[1];",
+    cuda_accumulate=("if (t[0] < acc[0]) { acc[0] = t[0]; acc[1] = t[1]; }\n"
+                     "    else if (t[0] == acc[0]) { acc[1] += t[1]; }"),
+)

@@ -1,0 +1,516 @@
+"""The port's Semiring extension point vs the JAX package's, on the CPU.
+
+``repro_torch.kernels.semiring.semiring_matmul`` / ``_batched`` on CPU
+tensors (their plain versions) are held to ``semiring_matmul_pallas`` /
+``semiring_matmul_batched_pallas`` run in interpret mode, for the four
+shipped specs, the JAX test's max-plus algebra, the max-min (bottleneck)
+algebra and MXU-path algebras with narrow operands. Inputs come from a
+seeded numpy generator. Tolerances: bit-equal for min/max algebras (exact
+in any order) and for integer-valued sums (exact below 2**24 in any order);
+float sums of k nonnegative terms within rtol k * 2**-24, the bound on the
+rounding of a k-term sum, since the two packages add in different orders.
+
+The generated CUDA source builds only on the card (``chip_smoke.py`` phase
+9 holds the kernel to these plain versions and to the specialized
+kernels); here each spec's algebra struct is compiled as host C++ and its
+combine / accumulate / epilogue run against the torch callables.
+"""
+import dataclasses
+import shutil
+import subprocess
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import semiring as J
+from repro_torch import kernels as K
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import semiring as S
+
+_INF = float("inf")
+
+# the JAX test's max-plus algebra (tests/test_semiring.py) and the max-min
+# (bottleneck, widest-path) algebra, in both packages
+J_MAXPLUS = J.Semiring(
+    name="maxplus", pad_a=(-_INF,), pad_b=(-_INF,), acc_init=(-_INF,),
+    combine=lambda a, b: (a[0] + b[0],),
+    kreduce=lambda f: (jnp.max(f[0], axis=1),),
+    accumulate=lambda x, y: (jnp.maximum(x[0], y[0]),))
+J_MAXMIN = J.Semiring(
+    name="maxmin", pad_a=(-_INF,), pad_b=(-_INF,), acc_init=(-_INF,),
+    combine=lambda a, b: (jnp.minimum(a[0], b[0]),),
+    kreduce=lambda f: (jnp.max(f[0], axis=1),),
+    accumulate=lambda x, y: (jnp.maximum(x[0], y[0]),))
+J_TWO_WALKS = J.Semiring(
+    name="two_walks", pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,), mxu=True,
+    epilogue=lambda acc: acc >= 2)
+
+MAXPLUS = S.Semiring(
+    name="maxplus", pad_a=(-_INF,), pad_b=(-_INF,), acc_init=(-_INF,),
+    combine=lambda a, b: (a[0] + b[0],),
+    kreduce=lambda f: (torch.amax(f[0], dim=1),),
+    accumulate=lambda x, y: (torch.maximum(x[0], y[0]),),
+    cuda_combine="out[0] = a[0] + b[0];",
+    cuda_accumulate="acc[0] = fmaxf(acc[0], t[0]);")
+MAXMIN = S.Semiring(
+    name="maxmin", pad_a=(-_INF,), pad_b=(-_INF,), acc_init=(-_INF,),
+    combine=lambda a, b: (torch.minimum(a[0], b[0]),),
+    kreduce=lambda f: (torch.amax(f[0], dim=1),),
+    accumulate=lambda x, y: (torch.maximum(x[0], y[0]),),
+    cuda_combine="out[0] = fminf(a[0], b[0]);",
+    cuda_accumulate="acc[0] = fmaxf(acc[0], t[0]);")
+TWO_WALKS = S.Semiring(
+    name="two_walks", pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,), mxu=True,
+    epilogue=lambda acc: acc >= 2, cuda_epilogue="acc >= 2.f")
+
+#: name -> (port spec, JAX spec)
+SPECS = {
+    "tropical": (S.TROPICAL, J.TROPICAL),
+    "boolean": (S.BOOLEAN, J.BOOLEAN),
+    "counting": (S.COUNTING, J.COUNTING),
+    "tropical_count": (S.TROPICAL_COUNT, J.TROPICAL_COUNT),
+    "maxplus": (MAXPLUS, J_MAXPLUS),
+    "maxmin": (MAXMIN, J_MAXMIN),
+}
+
+
+def _rng(*key):
+    """A generator seeded from ``key`` (stable across processes)."""
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _holes(rng, x, share, fill):
+    return np.where(rng.random(x.shape) < share, np.float32(fill),
+                    x).astype(np.float32)
+
+
+def _operands(name, rng, lead, m, n, k):
+    """Field tuples (a, b) for ``name``: lengths with +inf holes (tropical),
+    integer dists and counts (tropical_count), integer counts, {0,1} masks,
+    scores with -inf holes (maxplus), capacities (maxmin)."""
+    sa, sb = (*lead, m, k), (*lead, k, n)
+    if name == "tropical":
+        return ((_holes(rng, 0.5 + 3.5 * rng.random(sa), 0.3, _INF),),
+                (_holes(rng, 0.5 + 3.5 * rng.random(sb), 0.3, _INF),))
+    if name == "tropical_count":
+        da = _holes(rng, rng.integers(0, 4, sa), 0.3, _INF)
+        db = _holes(rng, rng.integers(0, 4, sb), 0.3, _INF)
+        ca = np.where(np.isfinite(da), rng.integers(1, 4, sa), 0)
+        cb = np.where(np.isfinite(db), rng.integers(1, 4, sb), 0)
+        return ((da, ca.astype(np.float32)), (db, cb.astype(np.float32)))
+    if name == "counting":
+        return ((_holes(rng, rng.integers(1, 4, sa), 0.7, 0),),
+                (_holes(rng, rng.integers(1, 4, sb), 0.7, 0),))
+    if name == "boolean":
+        return (((rng.random(sa) < 0.05).astype(np.float32),),
+                ((rng.random(sb) < 0.05).astype(np.float32),))
+    if name == "maxplus":
+        return ((_holes(rng, 10 * rng.random(sa), 0.1, -_INF),),
+                (_holes(rng, 10 * rng.random(sb), 0.1, -_INF),))
+    assert name == "maxmin"
+    return ((10 * rng.random(sa, dtype=np.float32),),
+            (10 * rng.random(sb, dtype=np.float32),))
+
+
+def _jax(spec, a, b, batched, out_dtype=None):
+    fn = (J.semiring_matmul_batched_pallas if batched
+          else J.semiring_matmul_pallas)
+    out = fn(spec, tuple(map(jnp.asarray, a)), tuple(map(jnp.asarray, b)),
+             interpret=True, out_dtype=out_dtype)
+    return [np.asarray(x) for x in out]
+
+
+def _port(spec, a, b, batched, out_dtype=None):
+    fn = S.semiring_matmul_batched if batched else S.semiring_matmul
+    out = fn(spec, tuple(map(torch.from_numpy, a)),
+             tuple(map(torch.from_numpy, b)), out_dtype=out_dtype)
+    assert all(x.device.type == "cpu" for x in out)
+    return [x.numpy() for x in out]
+
+
+@pytest.fixture
+def no_launches():
+    S.reset_launches()
+    yield
+    assert not any(S.launches.values()), S.launches
+
+
+# -- the specs ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["tropical", "boolean", "counting",
+                                  "tropical_count"])
+def test_shipped_specs_match_the_jax_specs(name):
+    port, jax_spec = SPECS[name]
+    assert port.name == jax_spec.name
+    assert port.num_fields == jax_spec.num_fields
+    assert port.mxu == jax_spec.mxu
+    for key in ("pad_a", "pad_b", "acc_init"):
+        assert getattr(port, key) == tuple(map(float, getattr(jax_spec, key)))
+    # well formed, as the JAX package's test_shipped_semiring_specs_well_formed
+    assert (len(port.pad_a) == len(port.pad_b) == len(port.acc_init)
+            == port.num_fields)
+    if port.mxu:
+        assert port.num_fields == 1 and port.epilogue and port.cuda_epilogue
+    else:
+        assert port.combine and port.kreduce and port.accumulate
+        assert port.cuda_combine and port.cuda_accumulate
+    assert getattr(ops, name.upper()) is port
+    assert getattr(K, name.upper()) is port
+
+
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(mxu=True, num_fields=2, pad_a=(0, 0), pad_b=(0, 0),
+          acc_init=(0, 0), epilogue=abs), "single-field"),
+    (dict(mxu=True, pad_a=(0,), pad_b=(0,), acc_init=(0,)), "epilogue"),
+    (dict(pad_a=(0,), pad_b=(0,), acc_init=(0,), combine=max,
+          accumulate=max), "kreduce"),
+    (dict(pad_a=(0, 0), pad_b=(0,), acc_init=(0,), combine=max,
+          kreduce=max, accumulate=max), "pad_a has 2 values"),
+])
+def test_malformed_specs_raise(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        S.Semiring(name="bad", **kwargs)
+
+
+# -- against the JAX package ----------------------------------------------------------
+
+def _assert_close(got, want, name, k):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (g.dtype, w.dtype)
+        if name == "counting_float":
+            np.testing.assert_allclose(g, w, rtol=k * 2.0 ** -24, atol=0)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (256, 128, 384)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", list(SPECS) + ["counting_float"])
+def test_matches_pallas(name, shape, batched, no_launches):
+    m, n, k = shape
+    rng = _rng(name, shape, batched)
+    lead = (2,) if batched else ()
+    if name == "counting_float":  # non-integer sums: rtol k * 2**-24
+        port, jax_spec = SPECS["counting"]
+        a = (rng.random((*lead, m, k), dtype=np.float32),)
+        b = (rng.random((*lead, k, n), dtype=np.float32),)
+    else:
+        port, jax_spec = SPECS[name]
+        a, b = _operands(name, rng, lead, m, n, k)
+    want = _jax(jax_spec, a, b, batched)
+    got = _port(port, a, b, batched)
+    _assert_close(got, want, name, k)
+
+
+def _pad(x, rows, cols, fill):
+    """``x`` padded at its last two axes to (rows, cols) with ``fill``."""
+    widths = [(0, 0)] * (x.ndim - 2) + [(0, rows - x.shape[-2]),
+                                        (0, cols - x.shape[-1])]
+    return np.pad(x, widths, constant_values=np.float32(fill))
+
+
+def _up(x, block=128):
+    return -(-x // block) * block
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("shape", [(100, 200, 60), (33, 17, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", list(SPECS))
+def test_ragged_shapes_act_as_the_pads(name, shape, batched, no_launches):
+    """Any M, N, K: the port masks ragged edges with pad_a/pad_b; the JAX
+    kernel gets inputs padded with them to its blocks, then sliced."""
+    m, n, k = shape
+    rng = _rng(name, shape, batched)
+    lead = (2,) if batched else ()
+    port, jax_spec = SPECS[name]
+    a, b = _operands(name, rng, lead, m, n, k)
+    ap = tuple(_pad(x, _up(m), _up(k), v) for x, v in zip(a, port.pad_a))
+    bp = tuple(_pad(x, _up(k), _up(n), v) for x, v in zip(b, port.pad_b))
+    want = [x[..., :m, :n] for x in _jax(jax_spec, ap, bp, batched)]
+    got = _port(port, a, b, batched)
+    _assert_close(got, want, name, k)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("algebra", ["counting", "two_walks"])
+def test_mxu_path_with_narrow_operands_and_out_dtype(algebra, batched,
+                                                     no_launches):
+    """uint8 x int32 operands, cast to fp32 for the dot, int32 output."""
+    port, jax_spec = ((S.COUNTING, J.COUNTING) if algebra == "counting"
+                      else (TWO_WALKS, J_TWO_WALKS))
+    rng = np.random.default_rng(5)
+    lead = (2,) if batched else ()
+    a = ((rng.random((*lead, 128, 256)) < 0.01).astype(np.uint8),)
+    b = (rng.integers(0, 3, (*lead, 256, 128)).astype(np.int32),)
+    want = _jax(jax_spec, a, b, batched, out_dtype=jnp.int32)
+    got = _port(port, a, b, batched, out_dtype=torch.int32)
+    assert got[0].dtype == np.int32
+    np.testing.assert_array_equal(got[0], want[0])
+    values = set(np.unique(got[0]).tolist())
+    assert {0, 1} == values if algebra == "two_walks" else {0, 2} < values
+    # without out_dtype the output takes the left operand's dtype, as in JAX
+    assert _port(port, a, b, batched)[0].dtype == np.uint8
+
+
+# -- the plain versions ------------------------------------------------------------------
+
+def test_plain_vpu_version_folds_slabs_in_order():
+    """The slab order of the plain version gives the broadcast definition,
+    and an empty K gives acc_init."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(10 * rng.random((37, 21), dtype=np.float32))
+    b = torch.from_numpy(10 * rng.random((21, 45), dtype=np.float32))
+    (got,) = S.semiring_matmul_ref(MAXPLUS, (a,), (b,))
+    torch.testing.assert_close(got, (a[:, :, None] + b[None]).amax(dim=1),
+                               rtol=0, atol=0)
+    (empty,) = S.semiring_matmul(MAXPLUS, (a[:, :0],), (b[:0],))
+    assert empty.shape == (37, 45) and bool((empty == -_INF).all())
+    d, c = S.semiring_matmul_batched(S.TROPICAL_COUNT, (a[None], a[None]),
+                                     (b[None], b[None]))
+    d_ref, c_ref = S.minplus_count_matmul_ref(a, a, b, b)
+    assert torch.equal(d[0], d_ref) and torch.equal(c[0], c_ref)
+
+
+def test_use_kernel_false_and_ref_aliases():
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.random((16, 24), dtype=np.float32))
+    b = torch.from_numpy(rng.random((24, 8), dtype=np.float32))
+    (x,) = S.semiring_matmul(S.TROPICAL, (a,), (b,), use_kernel=False)
+    assert torch.equal(x, S.minplus_matmul_ref(a, b))
+    assert ref.semiring_matmul_ref is S.semiring_matmul_ref
+    assert ref.semiring_matmul_batched_ref is S.semiring_matmul_batched_ref
+    assert ops.semiring_matmul is S.semiring_matmul
+    assert ops.semiring_matmul_batched is S.semiring_matmul_batched
+    assert ops.semiring_matmul_ref is S.semiring_matmul_ref
+    assert K.Semiring is S.Semiring is ops.Semiring
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda a: S.semiring_matmul(S.TROPICAL_COUNT, (a,), (a, a)), "fields"),
+    (lambda a: S.semiring_matmul(S.TROPICAL, (a,), (a[:3],)), "products"),
+    (lambda a: S.semiring_matmul_batched(S.TROPICAL, (a,), (a,)), "3D"),
+    (lambda a: S.semiring_matmul(S.TROPICAL, (a,), (a,),
+                                 out_dtype=torch.int32), "MXU-path"),
+])
+def test_wrappers_refuse_malformed_operands(call, match):
+    with pytest.raises(ValueError, match=match):
+        call(torch.zeros(4, 4))
+
+
+# -- the device path, without a card ---------------------------------------------------------
+
+NO_DEVICE_CODE = dataclasses.replace(MAXPLUS, cuda_combine=None,
+                                     cuda_accumulate=None)
+
+
+def test_a_spec_without_device_code_raises_on_the_kernel_path(monkeypatch):
+    """Asked for the kernel, a spec without device code raises and names
+    the unset fields; it never falls back to the plain version."""
+    with pytest.raises(NotImplementedError, match="cuda_combine, "
+                                                  "cuda_accumulate"):
+        S.semiring_source(NO_DEVICE_CODE, (torch.float32,))
+    with pytest.raises(NotImplementedError, match="cuda_epilogue"):
+        S.algebra_source(dataclasses.replace(TWO_WALKS, cuda_epilogue=None),
+                         (torch.float32,) * 3)
+    # the wrapper's kernel path, as a CUDA tensor would take it
+    monkeypatch.setattr(S, "_use_kernel", lambda *a, **kw: True)
+    monkeypatch.setattr(S, "semiring_matmul_ref", None)
+    x = torch.zeros(4, 4)
+    with pytest.raises(NotImplementedError, match="maxplus"):
+        S.semiring_matmul(NO_DEVICE_CODE, (x,), (x,))
+    with pytest.raises(TypeError, match="float32 or int32 fields"):
+        S.semiring_matmul(MAXPLUS, (x.double(),), (x.double(),))
+    with pytest.raises(TypeError, match="float32 or int32 fields"):
+        S.semiring_matmul(S.TROPICAL_COUNT, (x, x.int()), (x, x.int()))
+    with pytest.raises(TypeError, match="writes float32 or int32"):
+        S.semiring_matmul(S.COUNTING, (x.to(torch.uint8),), (x,))
+    # on the CPU, without the kernel, the same spec runs
+    monkeypatch.undo()
+    (y,) = S.semiring_matmul(NO_DEVICE_CODE, (x,), (x,))
+    assert torch.equal(y, x)
+
+
+def test_generated_source_holds_the_device_code():
+    for sr in (S.TROPICAL, S.TROPICAL_COUNT, MAXPLUS, MAXMIN):
+        src = S.semiring_source(sr, (torch.float32,))
+        assert sr.cuda_combine in src and sr.cuda_accumulate in src
+        assert '#include "semiring_generic.cuh"' in src
+        assert "repro_semiring_vpu" in src and f"struct Algebra_{sr.name}" in src
+    for sr in (S.BOOLEAN, S.COUNTING, TWO_WALKS):
+        src = S.semiring_source(sr, (torch.uint8, torch.int32, torch.int32))
+        assert sr.cuda_epilogue in src and "repro_semiring_mxu" in src
+        assert "using A = unsigned char;" in src and "using Out = int;" in src
+    assert (build.CSRC / build.GENERIC_HEADER).is_file()
+    assert build.GENERIC_HEADER not in build.SOURCES.values()
+    # an int32 field cannot hold an infinite pad
+    with pytest.raises(ValueError, match="int32"):
+        S.semiring_source(S.TROPICAL, (torch.int32,))
+
+
+def test_build_target_follows_the_device_code():
+    types = (torch.float32,)
+    key = S.build_key(MAXPLUS, types)
+    assert key == "semiring_maxplus_f32"
+    target = build.generated_target(key, S.semiring_source(MAXPLUS, types))
+    assert target.parent == build.BUILD_DIR
+    assert target.name.startswith("libsemiring_maxplus_f32_")
+    same = build.generated_target(key, S.semiring_source(MAXPLUS, types))
+    edited = dataclasses.replace(
+        MAXPLUS, cuda_accumulate="acc[0] = fmaxf(t[0], acc[0]);")
+    other = build.generated_target(key, S.semiring_source(edited, types))
+    assert same == target and other != target
+    assert S.build_key(TWO_WALKS, (torch.uint8, torch.int32, torch.int32)) \
+        == "semiring_two_walks_u8_i32_i32"
+    cmd = build.nvcc_command(target.with_suffix(".cu"), target,
+                             include=build.CSRC)
+    assert cmd[cmd.index("-I") + 1] == str(build.CSRC)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+
+
+# -- the device code as host C++ ------------------------------------------------------------
+
+_HARNESS_VPU = r"""
+#include <cstdio>
+#include "semiring_generic.cuh"
+%s
+using Alg = %s;
+static void get(float& v) { std::scanf("%%a", &v); }
+static void get(int& v) { std::scanf("%%d", &v); }
+static void put(float v) { std::printf("%%a\n", (double)v); }
+static void put(int v) { std::printf("%%d\n", v); }
+int main() {
+  using T = Alg::T;
+  constexpr int NF = Alg::NF;
+  int s;
+  std::scanf("%%d", &s);
+  T v[NF];
+  Alg::pad_a(v); for (int f = 0; f < NF; ++f) put(v[f]);
+  Alg::pad_b(v); for (int f = 0; f < NF; ++f) put(v[f]);
+  Alg::init(v); for (int f = 0; f < NF; ++f) put(v[f]);
+  for (int i = 0; i < s; ++i) {
+    T a[NF], b[NF], acc[NF], t[NF];
+    for (int f = 0; f < NF; ++f) get(a[f]);
+    for (int f = 0; f < NF; ++f) get(b[f]);
+    for (int f = 0; f < NF; ++f) get(acc[f]);
+    Alg::combine(a, b, t);
+    for (int f = 0; f < NF; ++f) put(t[f]);
+    Alg::accumulate(acc, t);
+    for (int f = 0; f < NF; ++f) put(acc[f]);
+  }
+}
+"""
+
+_HARNESS_MXU = r"""
+#include <cstdio>
+#include "semiring_generic.cuh"
+%s
+using Alg = %s;
+static void put(float v) { std::printf("%%a\n", (double)v); }
+static void put(int v) { std::printf("%%d\n", v); }
+int main() {
+  int s;
+  std::scanf("%%d", &s);
+  put(Alg::pad_a());
+  put(Alg::pad_b());
+  for (int i = 0; i < s; ++i) {
+    float acc;
+    std::scanf("%%a", &acc);
+    put(static_cast<Alg::Out>(Alg::epilogue(acc)));
+  }
+}
+"""
+
+
+def _run_host(tmp_path, sr, types, harness, stdin):
+    exe = tmp_path / f"algebra_{sr.name}"
+    src = exe.with_suffix(".cpp")
+    src.write_text(harness % (S.algebra_source(sr, types),
+                              f"Algebra_{sr.name}"))
+    built = subprocess.run(["g++", "-std=c++17", "-O1", "-I", str(build.CSRC),
+                            "-o", str(exe), str(src)],
+                           capture_output=True, text=True, timeout=120)
+    assert built.returncode == 0, built.stderr
+    out = subprocess.run([str(exe)], input=stdin, capture_output=True,
+                         text=True, timeout=60, check=True).stdout.split()
+    return out
+
+
+def _word(x, dtype):
+    return str(int(x)) if dtype == torch.int32 else float(x).hex()
+
+
+def _value(word, dtype):
+    return int(word) if dtype == torch.int32 else float.fromhex(word)
+
+
+INT_MAXMIN = S.Semiring(
+    name="maxmin_int", pad_a=(-2**31,), pad_b=(-2**31,), acc_init=(-2**31,),
+    combine=lambda a, b: (torch.minimum(a[0], b[0]),),
+    kreduce=lambda f: (torch.amax(f[0], dim=1),),
+    accumulate=lambda x, y: (torch.maximum(x[0], y[0]),),
+    cuda_combine="out[0] = sr_min(a[0], b[0]);",
+    cuda_accumulate="acc[0] = sr_max(acc[0], t[0]);")
+
+
+@pytest.mark.parametrize("sr, dtype", [
+    (S.TROPICAL, torch.float32), (S.TROPICAL_COUNT, torch.float32),
+    (MAXPLUS, torch.float32), (MAXMIN, torch.float32),
+    (INT_MAXMIN, torch.int32)], ids=lambda x: getattr(x, "name", str(x)))
+def test_vpu_device_code_agrees_with_the_callables_on_the_host(
+        tmp_path, sr, dtype):
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    rng = np.random.default_rng(8)
+    s, nf = 64, sr.num_fields
+    # small integers, so ties are common, with the holes of each algebra's
+    # domain: +inf for distances, -inf for max-plus scores, both for
+    # max-min. Nothing makes a NaN (inf - inf), which is in no algebra's
+    # domain: fminf/fmaxf drop it where torch.minimum/maximum keep it.
+    vals = rng.integers(-3, 4, (3, s, nf)).astype(np.float64)
+    if dtype == torch.float32:
+        if sr is not MAXPLUS:
+            vals[rng.random(vals.shape) < 0.15] = _INF
+        if sr in (MAXPLUS, MAXMIN):
+            vals[rng.random(vals.shape) < 0.1] = -_INF
+        if sr is S.TROPICAL_COUNT:  # counts: finite, 0 where dist is inf
+            vals[..., 1] = np.where(np.isinf(vals[..., 0]), 0,
+                                    rng.integers(0, 4, (3, s)))
+    stdin = " ".join([str(s)] + [_word(x, dtype) for i in range(s)
+                                 for part in vals[:, i] for x in part])
+    out = _run_host(tmp_path, sr, (dtype,), _HARNESS_VPU, stdin)
+    got = [_value(w, dtype) for w in out]
+    head = list(sr.pad_a) + list(sr.pad_b) + list(sr.acc_init)
+    assert got[:3 * nf] == [_value(_word(v, dtype), dtype) for v in head]
+    body = np.array(got[3 * nf:]).reshape(s, 2, nf)
+    a, b, acc = (tuple(torch.tensor(vals[j][:, f], dtype=dtype)
+                       for f in range(nf)) for j in range(3))
+    t = sr.combine(a, b)
+    folded = sr.accumulate(acc, t)
+    for f in range(nf):
+        np.testing.assert_array_equal(body[:, 0, f], t[f].to(dtype).numpy())
+        np.testing.assert_array_equal(body[:, 1, f],
+                                      folded[f].to(dtype).numpy())
+
+
+@pytest.mark.parametrize("sr, out", [
+    (S.BOOLEAN, torch.float32), (S.COUNTING, torch.float32),
+    (TWO_WALKS, torch.int32)], ids=lambda x: getattr(x, "name", str(x)))
+def test_mxu_epilogue_agrees_with_the_callable_on_the_host(tmp_path, sr, out):
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    accs = np.array([0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 7.0,
+                     2.0 ** 24, 123.0], dtype=np.float32)
+    stdin = " ".join([str(len(accs))] + [float(x).hex() for x in accs])
+    words = _run_host(tmp_path, sr, (torch.float32, torch.float32, out),
+                      _HARNESS_MXU, stdin)
+    assert [float.fromhex(w) for w in words[:2]] == [sr.pad_a[0],
+                                                    sr.pad_b[0]]
+    got = np.array([_value(w, out) for w in words[2:]])
+    want = sr.epilogue(torch.from_numpy(accs)).to(out).numpy()
+    np.testing.assert_array_equal(got, want)

@@ -33,7 +33,16 @@ raises on the card, and times it. Phase 3 holds all ten kernels
 (``csrc/semiring.cu``: frontier step, counting and boolean products;
 ``csrc/tropical.cu``: min-plus 2D and batched, tropical count;
 ``csrc/seghist.cu``; ``csrc/packed.cu``: packed step 2D and batched,
-narrow product) to their plain versions and times them.
+narrow product) to their plain versions and times them. The counting
+products run on two tiles, picked on the device from whether the right
+operand is exact in bf16: phase 3 holds the SIMT tile bit-equal to the
+generic COUNTING kernel on a float operand, the tensor-core tile
+bit-equal to the plain version with sums in [2**23, 2**24) and within
+rtol 1e-5 on the float z x adj product, and sends an inexact or
+non-finite right operand to the SIMT tile; phase 5 reads the per-tile
+device counters of the sweep. Phases 3 and 9 feed NaN to the min-plus
+kernels and the generic TROPICAL / TROPICAL_COUNT kernels, NaN-equal to
+their plain versions.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -167,11 +176,15 @@ def _inputs(gen, b, m, n, k):
 def kernel_checks(S, part):
     """Both kernels, 2D and batched, at the sweep's shape and two ragged
     ones: bit-equal to the plain version on integer inputs, rtol 1e-5 on
-    the float ECMP-like operand (read transposed, through its strides).
-    Then times at the sweep's shape."""
+    the float ECMP-like operand, read transposed through its strides
+    (g^T x z, the SIMT tile) and as a contiguous left operand against the
+    adjacency (z x a, the tensor-core tile). Then times at the sweep's
+    shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gen_z = torch.Generator(device="cuda").manual_seed(1)
     main_ops = None
-    errs = {"frontier_step": 0.0, "count_matmul": 0.0}
+    errs = {"frontier_step": 0.0, "count_matmul": 0.0,
+            "count_matmul (z, adj)": 0.0}
     for b, m, n, k in ((12, 2048, 2048, 2048), (3, 200, 200, 200),
                        (2, 200, 136, 72)):
         ops = _inputs(gen, b, m, n, k)
@@ -184,21 +197,35 @@ def kernel_checks(S, part):
             c_ref = (S.batched_count_matmul_ref(f, a) if batched
                      else S.count_matmul_ref(f, a))
             ct, ct_ref = S.count_matmul(gt, z), S.count_matmul_ref(gt, z)
+            # the second Brandes product's form: a float left operand like z,
+            # (.., m, k), against the {0,1} adjacency
+            zl = torch.rand(f.shape, generator=gen_z, device="cuda") * (
+                torch.rand(f.shape, generator=gen_z, device="cuda") < 0.25)
+            cz, cz_ref = S.count_matmul(zl, a), S.count_matmul_ref(zl, a)
             torch.cuda.synchronize()
             check(torch.equal(x, x_ref), f"frontier_step {tag}: not bit-equal")
             check(bool((x > 0).any()), f"frontier_step {tag}: all zero")
             check(torch.equal(c, c_ref), f"count_matmul {tag}: not bit-equal")
             check(torch.allclose(ct, ct_ref, rtol=1e-5, atol=0.0),
                   f"count_matmul {tag} transposed float: beyond rtol 1e-5")
+            check(torch.allclose(cz, cz_ref, rtol=1e-5, atol=0.0),
+                  f"count_matmul {tag} (z, adj): beyond rtol 1e-5")
+            err_z = float((cz - cz_ref).abs().max())
+            rel_z = float(((cz - cz_ref).abs() / cz_ref.abs().clamp_min(
+                torch.finfo(torch.float32).tiny)).max())
+            errs["count_matmul (z, adj)"] = max(errs["count_matmul (z, adj)"],
+                                                err_z)
             err_f = float((x - x_ref).abs().max())
             err_c = max(float((c - c_ref).abs().max()),
                         float((ct - ct_ref).abs().max()))
             errs["frontier_step"] = max(errs["frontier_step"], err_f)
             errs["count_matmul"] = max(errs["count_matmul"], err_c)
             print(f"  {tag:22s} frontier_step max_abs_err={err_f:g}  "
-                  f"count_matmul max_abs_err={err_c:g}")
+                  f"count_matmul max_abs_err={err_c:g}  (z, adj) "
+                  f"max_abs_err={err_z:g} max_rel_err={rel_z:g}")
             if batched and main_ops is None:
                 main_ops = (f, gt, a, d, z)
+    tile_checks(S, main_ops)
 
     f, gt, a, d, z = main_ops
     m, k, n = f.shape[-2], f.shape[-1], a.shape[-1]
@@ -211,30 +238,168 @@ def kernel_checks(S, part):
         bsz = ff.shape[0] if batched else 1
         library = torch.bmm if batched else torch.mm
         flops = 2.0 * bsz * m * n * k
-        cases = {
+        cases = {  # name -> (kernel, plain, lhs, rhs, bytes, tile)
             "frontier_step": (lambda: S.frontier_step(ff, aa, dd),
                               lambda: S.frontier_step_ref(ff, aa, dd), ff, aa,
-                              4.0 * (ff.numel() + aa.numel() + 2 * dd.numel())),
+                              4.0 * (ff.numel() + aa.numel() + 2 * dd.numel()),
+                              "tensor"),
             "count_matmul": (lambda: S.count_matmul(gg, zz),
                              lambda: S.count_matmul_ref(gg, zz), gg, zz,
-                             4.0 * (gg.numel() + zz.numel() + dd.numel())),
+                             4.0 * (gg.numel() + zz.numel() + dd.numel()),
+                             "simt"),
+            # Z x A, the second Brandes product: contiguous left operand, a
+            # {0,1} right one, so the tensor-core tile
+            "count_matmul (z, adj)": (lambda: S.count_matmul(zz, aa),
+                                      lambda: S.count_matmul_ref(zz, aa), zz,
+                                      aa, 4.0 * (zz.numel() + aa.numel()
+                                                 + dd.numel()), "tensor"),
         }
-        for name, (kern, plain, lhs, rhs, nbytes) in cases.items():
+        for name, (kern, plain, lhs, rhs, nbytes, tile) in cases.items():
+            before = tile_counts(S)
             ms, plain_ms = timed_ms(kern), timed_ms(plain)
+            took = {t: n for t, n in tile_counts(S).items() if n > before[t]}
+            key = name.split(" ")[0]
+            check(set(t for (e, t) in took if e == key) == {tile},
+                  f"{name}: ran on tiles {took}, expected {tile}")
             library_ms = timed_ms(lambda: library(lhs, rhs))
-            bms, by = bound_ms(flops, nbytes, part)
-            if batched:
-                out[name] = dict(ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bms,
-                                 bound_by=by, max_abs_err=errs[name])
+            bms, by = tile_bound_ms(tile, flops, nbytes, part)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bms, bound_by=by, max_abs_err=errs[name],
+                       tile=tile)
+            if batched and name == "count_matmul (z, adj)":
+                out["count_matmul"]["tensor_route"] = row
+            elif batched:
+                out[name] = row
             shape = (f"B={bsz} " if batched else "2D ") + f"{m}x{n}x{k}"
-            print(f"  {name} {shape}: {ms:.3f} ms (plain {plain_ms:.3f}, "
-                  f"torch.{library.__name__} {library_ms:.3f}, bound "
-                  f"{bms:.3f} by {by}; {flops / ms / 1e9:.1f} TFLOP/s)")
-    ms = timed_ms(lambda: S.count_matmul(z, a))
-    print(f"  count_matmul B={f.shape[0]} {m}x{n}x{k}, contiguous left "
-          f"operand: {ms:.3f} ms")
+            # device time of the call's three kernels: the bf16 copy of B,
+            # the tile that ran, the other tile's launch that returns at once
+            other = "tc" if tile == "simt" else "simt"
+            dev = [kernel_device_ms(kern, marker, reps=5) for marker in
+                   ("to_bf16", f"{'tc' if tile == 'tensor' else 'simt'}_tile",
+                    f"{other}_tile")]
+            dev = ", ".join("not measured" if t is None else f"{t:.4f} ms"
+                            for t in dev)
+            print(f"  {name} {shape}, tile {tile}: {ms:.3f} ms (plain "
+                  f"{plain_ms:.3f}, torch.{library.__name__} "
+                  f"{library_ms:.3f}, bound {bms:.3f} by {by}; fp32-equivalent "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s); device: bf16 copy, "
+                  f"tile, empty launch of the other tile {dev}")
     return out
+
+
+#: tensor-core peak of the bf16 products (dense, H100 SXM data sheet)
+BF16_PEAK = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+
+
+def tile_bound_ms(tile, flops, nbytes, part):
+    """The bound of a counting product on the route its tile takes: fp32
+    FMAs on the CUDA cores (simt), or three bf16 passes on the tensor cores
+    (tensor), against the bytes either way."""
+    if tile == "simt":
+        return bound_ms(flops, nbytes, part)
+    t_ops = 3.0 * flops / BF16_PEAK[part] * 1e3
+    t_bytes = nbytes / PEAKS[part][1] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tile_counts(S):
+    """(entry point, tile) -> launches, from the device counters (one host
+    sync: outside timed windows)."""
+    return {(e, t): n for e, c in S.tile_launches().items()
+            for t, n in c.items()}
+
+
+def tile_checks(S, main_ops):
+    """The two counting tiles against the plain version and each other:
+    (a) the SIMT tile on the float transposed operand (gt, z) bit-equal to
+    the generic COUNTING kernel, whose k order it keeps; (b) the
+    tensor-core tile on integer counts whose sums land in [2**23, 2**24)
+    bit-equal to the plain version, 2D and B=12; a right operand that is
+    not exact in bf16 forced onto tile (a). Each case reads the device
+    counters to see which tile ran."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f, gt, a, d, z = main_ops
+
+    def ran(fn):
+        before = tile_counts(S)
+        out = fn()
+        after = tile_counts(S)
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    ct, took = ran(lambda: S.count_matmul(gt, z))
+    generic = S.semiring_matmul_batched(S.COUNTING, (gt.contiguous(),), (z,))
+    torch.cuda.synchronize()
+    check(took == {("count_matmul", "simt"): 1},
+          f"count_matmul (gt, z): tiles {took}, expected simt")
+    check(torch.equal(ct, generic[0]), "tile (a) (gt, z): not bit-equal to "
+                                       "the generic COUNTING kernel")
+    print(f"  tile (a) B={gt.shape[0]} count_matmul(gt, z), column-major "
+          f"float operand: bit-equal to the generic COUNTING kernel")
+
+    for lead in ((12,), ()):
+        p = a.shape[-1]
+        big = torch.randint(2 ** 23 // p, 2 ** 24 // p, (*lead, p, p),
+                            generator=gen, device="cuda").float()
+        dense = (torch.rand((*lead, p, p), generator=gen, device="cuda")
+                 < 0.9).float()
+        dist = torch.where(torch.rand((*lead, p, p), generator=gen,
+                                      device="cuda") < 0.5, float("inf"), 1.0)
+        c, took_c = ran(lambda: S.count_matmul(big, dense))
+        x, took_x = ran(lambda: S.frontier_step(big, dense, dist))
+        c_ref = S.count_matmul_ref(big, dense)
+        torch.cuda.synchronize()
+        tag = (f"B={lead[0]} " if lead else "2D ") + f"{p}^3"
+        check(took_c == {("count_matmul", "tensor"): 1}
+              and took_x == {("frontier_step", "tensor"): 1},
+              f"tile (b) {tag}: tiles {took_c} {took_x}")
+        check(torch.equal(c, c_ref), f"tile (b) {tag}: count_matmul near "
+                                     f"2**24 not bit-equal")
+        check(torch.equal(x, S.frontier_step_ref(big, dense, dist)),
+              f"tile (b) {tag}: frontier_step near 2**24 not bit-equal")
+        share = float(((c_ref >= 2 ** 23) & (c_ref < 2 ** 24)).float().mean())
+        check(share > 0.5 and float(c_ref.max()) < 2 ** 24,
+              f"tile (b) {tag}: sums not in [2**23, 2**24)")
+        print(f"  tile (b) {tag} count_matmul and frontier_step: bit-equal, "
+              f"{100 * share:.1f}% of sums in [2**23, 2**24), largest "
+              f"{float(c_ref.max()):.0f}")
+    del big, dense, dist, c, x, c_ref
+
+    # a right operand bf16 cannot hold: the device flag sends it to tile (a)
+    weighted = a[0].clone()
+    weighted.view(-1)[::7919] = 1.0 + 2.0 ** -10
+    c, took = ran(lambda: S.count_matmul(f[0], weighted))
+    generic = S.semiring_matmul(S.COUNTING, (f[0],), (weighted,))
+    torch.cuda.synchronize()
+    check(took == {("count_matmul", "simt"): 1},
+          f"count_matmul, inexact right operand: tiles {took}, expected simt")
+    check(torch.equal(c, generic[0]), "forced tile (a): not bit-equal to the "
+                                      "generic COUNTING kernel")
+    print("  forced tile (a): a right operand with 1 + 2**-10 took the SIMT "
+          "tile, bit-equal to the generic COUNTING kernel")
+
+    # a right operand with +-inf and NaN cells, bf16-exact in their top 16
+    # bits: the device flag sends it to tile (a), where fmaf gives inf (the
+    # tensor cores would meet zero limbs: 0 * inf = NaN)
+    special = a.clone()
+    for i, v in enumerate((float("inf"), -float("inf"), float("nan"))):
+        special.view(-1)[i * 104729::3 * 104729] = v
+    for lhs, rhs, tag in ((f[0], special[0], "2D"),
+                          (f, special, f"B={f.shape[0]}")):
+        c, took = ran(lambda: S.count_matmul(lhs, rhs))
+        c_ref = S.count_matmul_ref(lhs, rhs)
+        torch.cuda.synchronize()
+        check(took == {("count_matmul", "simt"): 1},
+              f"count_matmul {tag}, non-finite right operand: tiles {took}, "
+              f"expected simt")
+        check(nan_equal(c, c_ref), f"count_matmul {tag}, non-finite right "
+                                   f"operand: differs from its plain version")
+        check(bool(torch.isinf(c_ref).any()) and bool(torch.isnan(c_ref).any()),
+              f"count_matmul {tag}, non-finite right operand: no inf and NaN "
+              f"in the plain version")
+        print(f"  non-finite right operand {tag}: took the SIMT tile, "
+              f"NaN-equal to the plain version ({int(torch.isinf(c).sum())} "
+              f"inf, {int(torch.isnan(c).sum())} NaN cells)")
 
 
 def _abs_err(x, y):
@@ -308,6 +473,8 @@ def tropical_checks(S, H, part):
                 "minplus_matmul changed flag: 0 before convergence")
             main = (a, b, da, ca, db, cb)
 
+    tropical_nan_checks(S, gen)
+
     specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
                              -0.0, -0.5, -3.0, 64.999, 65.0, 1e9, 0.0],
                             device="cuda")
@@ -368,6 +535,52 @@ def tropical_checks(S, H, part):
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}{lib}, bound "
               f"{bms:.4f} by {by}); kernel device time {dev}")
     return out
+
+
+def nan_equal(x, y):
+    """Equal, NaN matching NaN."""
+    return torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(
+        x.nan_to_num(0.0, 0.0, 0.0), y.nan_to_num(0.0, 0.0, 0.0))
+
+
+def with_nans(gen, x, share=0.005):
+    return torch.where(torch.rand(x.shape, generator=gen, device="cuda")
+                       < share, float("nan"), x)
+
+
+def tropical_nan_checks(S, gen):
+    """The three tropical.cu kernels on NaN inputs against their plain
+    versions, NaN-aware: a NaN sum anywhere along k makes the distance NaN
+    and its count 0, as the JAX package's jnp.min / jnp.minimum give."""
+    for m, n, k in ((512, 512, 512), (200, 136, 72)):
+        a = with_nans(gen, _lengths(gen, (m, k), 0.3))
+        b = with_nans(gen, _lengths(gen, (k, n), 0.3))
+        out, out_ref = S.minplus_matmul(a, b), S.minplus_matmul_ref(a, b)
+        sa = with_nans(gen, _lengths(gen, (3, m, k), 0.3))
+        sb = with_nans(gen, _lengths(gen, (3, k, n), 0.3))
+        bout = S.batched_minplus_matmul(sa, sb)
+        bref = S.batched_minplus_matmul_ref(sa, sb)
+        da = with_nans(gen, _lengths(gen, (m, k), 0.3, integer=True))
+        db = with_nans(gen, _lengths(gen, (k, n), 0.3, integer=True))
+        ca = torch.where(torch.isfinite(da), 2.0, 0.0)
+        cb = torch.where(torch.isfinite(db), 3.0, 0.0)
+        d, c = S.minplus_count_matmul(da, ca, db, cb)
+        d_ref, c_ref = S.minplus_count_matmul_ref(da, ca, db, cb)
+        torch.cuda.synchronize()
+        tag = f"{m}x{n}x{k}"
+        check(nan_equal(out, out_ref), f"minplus_matmul NaN {tag}: differs")
+        check(nan_equal(bout, bref), f"batched_minplus_matmul NaN {tag}: "
+                                     f"differs")
+        check(nan_equal(d, d_ref) and nan_equal(c, c_ref),
+              f"minplus_count_matmul NaN {tag}: differs")
+        nan = torch.isnan(d_ref)
+        check(bool(torch.isnan(out_ref).any()) and bool(nan.any())
+              and not bool(c_ref[nan].any()),
+              f"NaN {tag}: no NaN reached the output")
+        print(f"  {tag:14s} NaN inputs: minplus_matmul, batched and "
+              f"minplus_count_matmul NaN-equal to their plain versions "
+              f"({int(torch.isnan(out_ref).sum())}, "
+              f"{int(torch.isnan(bref).sum())}, {int(nan.sum())} NaN cells)")
 
 
 # -- phase 3: the narrow-cell kernels --------------------------------------------
@@ -582,7 +795,7 @@ def library_kernel_checks(S, part):
             lambda: S.reachability_step(ma, mb),
             lambda: S.reachability_step_ref(ma, mb),
             lambda: torch.mm(ma, mb) > 0.5,
-            2.0 * p ** 3, 3 * p * p * 4.0, "tile_gemm", 10),
+            2.0 * p ** 3, 3 * p * p * 4.0, "tc_tile", 10),
         # B p^3 adds and B p^3 mins, at the non-FMA rate
         "batched_minplus_matmul": (
             lambda: S.batched_minplus_matmul(sa, sb),
@@ -598,8 +811,12 @@ def library_kernel_checks(S, part):
         library_ms = timed_ms(library) if library is not None else None
         bms, by = bound_ms(ops, nbytes, part)
         dev = kernel_device_ms(kern, marker, reps=10)
+        if name == "reachability_step":  # {0,1} masks: tile (b)
+            bms, by = tile_bound_ms("tensor", ops, nbytes, part)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bms, bound_by=by, max_abs_err=errs[name])
+        if name == "reachability_step":
+            out[name]["tile"] = "tensor"
         lib = ("" if library_ms is None
                else f", torch.mm then > 0.5 {library_ms:.4f}")
         dev = "not measured" if dev is None else f"{dev:.4f} ms"
@@ -1306,6 +1523,35 @@ def semiring_phase(S, build, seed, part):
         if m == 512:
             main["tc"] = (da, ca, db, cb)
 
+    # (b') NaN inputs: the shipped TROPICAL and TROPICAL_COUNT device code
+    # propagates NaN as the plain versions (and the JAX package) do
+    for m, n, k in ((512, 512, 512), (300, 200, 260)):
+        a = with_nans(gen_t, _lengths(gen_t, (m, k), 0.3))
+        b = with_nans(gen_t, _lengths(gen_t, (k, n), 0.3))
+        got = gen(S.TROPICAL, (a,), (b,))
+        want = S.semiring_matmul_ref(S.TROPICAL, (a,), (b,))
+        sa = with_nans(gen_t, _lengths(gen_t, (2, m, k), 0.3))
+        sb = with_nans(gen_t, _lengths(gen_t, (2, k, n), 0.3))
+        bgot = gen(S.TROPICAL, (sa,), (sb,))
+        bwant = S.semiring_matmul_batched_ref(S.TROPICAL, (sa,), (sb,))
+        da = with_nans(gen_t, _lengths(gen_t, (m, k), 0.3, integer=True))
+        db = with_nans(gen_t, _lengths(gen_t, (k, n), 0.3, integer=True))
+        ca = torch.where(torch.isfinite(da), 2.0, 0.0)
+        cb = torch.where(torch.isfinite(db), 3.0, 0.0)
+        tc = gen(S.TROPICAL_COUNT, (da, ca), (db, cb))
+        tc_want = S.semiring_matmul_ref(S.TROPICAL_COUNT, (da, ca), (db, cb))
+        torch.cuda.synchronize()
+        tag = f"{m}x{n}x{k}"
+        check(nan_equal(got[0], want[0]) and nan_equal(bgot[0], bwant[0]),
+              f"[9b] TROPICAL NaN {tag}: differs from its plain version")
+        check(all(nan_equal(g, w) for g, w in zip(tc, tc_want)),
+              f"[9b] TROPICAL_COUNT NaN {tag}: differs from its plain version")
+        check(bool(torch.isnan(want[0]).any())
+              and bool(torch.isnan(tc_want[0]).any()),
+              f"[9b] NaN {tag}: no NaN reached the output")
+        print(f"  [9b] TROPICAL (2D, B=2) and TROPICAL_COUNT {tag} on NaN "
+              f"inputs: NaN-equal to their plain versions")
+
     # (c) the user algebras against their plain versions
     def scores(*shape):
         x = 10 * torch.rand(shape, generator=gen_t, device="cuda")
@@ -1483,6 +1729,9 @@ def main() -> int:
                     or "Compiling entry" in line):
                 print(f"    {line.strip()}")
 
+    print(f"  counting tiles' dynamic shared memory per block: "
+          f"{S._counting_smem_bytes()}")
+
     # 3. kernel vs plain
     print("[3 kernels] kernel vs plain version on the card")
     kstats = kernel_checks(S, part)
@@ -1508,6 +1757,7 @@ def main() -> int:
     full = SW.sweep(ref=("slimfly", 10000), max_routers=2048, device="cuda")
     wall_k = time.perf_counter() - t0
     counts = dict(S.launches)
+    tiles = S.tile_launches()  # read after the timed window
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     spans = obs.span_summary()
     obs.disable()
@@ -1523,6 +1773,13 @@ def main() -> int:
           f"frontier launches {counts['frontier_step']} != diameter+1 {diam + 1}")
     check(counts["count_matmul"] == 2 * diam,
           f"counting launches {counts['count_matmul']} != 2*diameter {2 * diam}")
+    print(f"  counting tiles: {tiles}")
+    # every frontier step and every Z x A is against the {0,1} adjacency
+    # (tensor-core tile); every F_a^T x Z has a float right operand (SIMT)
+    want = {"frontier_step": {"simt": 0, "tensor": diam + 1},
+            "count_matmul": {"simt": diam, "tensor": diam},
+            "reachability_step": {"simt": 0, "tensor": 0}}
+    check(tiles == want, f"counting tiles {tiles}, expected {want}")
     for r in full["rows"]:
         check(r["routers"] <= 2048 and np.isfinite(r["tput_lb"])
               and 0 < r["tput_lb"] <= 1, f"bad row {r}")
@@ -1549,6 +1806,22 @@ def main() -> int:
               f"{r['family']}.tput_lb kernel vs plain")
     graphs, _ = SW.equal_cost_graphs(ref=("slimfly", 10000), max_routers=2048)
     compare_chains(WF, S, SW._stack_adjacency(graphs))
+    # the host spans (build, download, rows) vary between runs by more than
+    # the kernels save, so the pair runs again in the other order: kernel,
+    # plain, plain, kernel in all (these two untraced)
+    walls = {}
+    for label, use_kernel in (("plain", False), ("kernel", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SW.sweep(ref=("slimfly", 10000), max_routers=2048, device="cuda",
+                 use_kernel=use_kernel)
+        walls[label] = time.perf_counter() - t0
+    mean_k = (wall_k + walls["kernel"]) / 2
+    mean_p = (wall_p + walls["plain"]) / 2
+    print(f"[5 full width] again, untraced: plain sweep {walls['plain']:.3f} "
+          f"s, kernel sweep {walls['kernel']:.3f} s; kernel mean {mean_k:.3f} "
+          f"s against plain mean {mean_p:.3f} s "
+          f"({100 * (mean_k - mean_p) / mean_p:+.1f}%)")
 
     sweep_counts = counts
 
@@ -1606,7 +1879,13 @@ def main() -> int:
             "replaces": sources[kname][1], "launches": launches,
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-            "bound_by": st["bound_by"], "library_ms": st["library_ms"]})
+            "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+            "tile": st.get("tile")})
+        if "tensor_route" in st:
+            kernels[-1]["tensor_route"] = {
+                k: st["tensor_route"][k] for k in
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "max_abs_err")}
     # the generic kernel: launches in phase 9, times of the 2D max-plus
     st = semiring_stats
     print(f"  semiring_matmul: {semiring_launches} launches in the semiring "
@@ -1618,7 +1897,7 @@ def main() -> int:
         "launches": semiring_launches, "max_abs_err": st["max_abs_err"],
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": st["library_ms"]})
+        "library_ms": st["library_ms"], "tile": None})
     check(len(kernels) == len(sources) + 1 == 11,
           f"{len(kernels)} kernels measured, {len(sources)} named")
     print(smi)

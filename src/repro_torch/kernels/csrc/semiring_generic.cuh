@@ -85,6 +85,19 @@ SR_FN T sr_min(T x, T y) { return y < x ? y : x; }
 template <class T>
 SR_FN T sr_max(T x, T y) { return x < y ? y : x; }
 
+// fminf that propagates NaN, as jnp.minimum and torch.minimum do: NaN if
+// either input is NaN, else fminf(x, y) (on the card one min.NaN.f32, which
+// orders -0 and +0 as min.f32, fminf's instruction, does).
+SR_FN float sr_fmin_nan(float x, float y) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+#else
+  return (x != x || y != y) ? NAN : fminf(x, y);
+#endif
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 

@@ -32,11 +32,16 @@
 // int for the whole stack.
 //
 // Min is exact in any order, so minplus_matmul is bit-equal to any other
-// evaluation order. The count field's sums are exact below 2**24. Inputs
-// are distances: NaN is not a distance, and fminf would drop it where a
-// reduction over the broadcast would propagate it. Built without
-// --use_fast_math, so the +inf arithmetic and the compares keep IEEE
-// semantics.
+// evaluation order. The count field's sums are exact below 2**24. NaN
+// propagates as in the JAX package's jnp.min / jnp.minimum: the min is
+// min.NaN.f32 (NaN if either input is, and otherwise the same result as
+// fminf's min.f32, -0 and +0 included), so a NaN sum anywhere along k makes
+// the output NaN. The count product keeps its lexicographic update as it
+// was (a NaN sum takes neither branch) and a NaN-propagating min of the
+// sums beside it, one instruction per (i, j, k); at the store a NaN there
+// makes the pair (NaN, 0), as the reference's where(x == d, ...) sums give.
+// Built without --use_fast_math, so the +inf arithmetic and the compares
+// keep IEEE semantics.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,6 +52,13 @@ constexpr int BK = 32;    // K staged through shared memory per step
 constexpr int TSUB = 2;   // micro-tile edge per thread
 constexpr int THREADS = (TILE / TSUB) * (TILE / TSUB);  // 256
 constexpr int STEP = TILE / TSUB;  // 16: micro-tile rows/cols are 16 apart
+
+// NaN if either input is NaN, else fminf(x, y)
+__device__ __forceinline__ float fmin_nan(float x, float y) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
 
 template <bool COUNT>
 __global__ void __launch_bounds__(THREADS)
@@ -84,12 +96,14 @@ tropical_tile(const float* __restrict__ da, const float* __restrict__ ca,
 
   float accd[TSUB][TSUB];
   float accc[TSUB][TSUB];
+  float sums_min[TSUB][TSUB];  // count path: NaN once any sum is NaN
 #pragma unroll
   for (int i = 0; i < TSUB; ++i)
 #pragma unroll
     for (int j = 0; j < TSUB; ++j) {
       accd[i][j] = inf;
       accc[i][j] = 0.f;
+      sums_min[i][j] = inf;
     }
 
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -142,8 +156,9 @@ tropical_tile(const float* __restrict__ da, const float* __restrict__ ca,
             } else if (s == accd[i][j]) {
               accc[i][j] += c;
             }
+            sums_min[i][j] = fmin_nan(sums_min[i][j], s);
           } else {
-            accd[i][j] = fminf(accd[i][j], s);
+            accd[i][j] = fmin_nan(accd[i][j], s);
           }
         }
     }
@@ -160,6 +175,10 @@ tropical_tile(const float* __restrict__ da, const float* __restrict__ ca,
       const int c = col0 + tx + j * STEP;
       if (c >= N) continue;
       const long long off = (long long)r * N + c;
+      if (COUNT && sums_min[i][j] != sums_min[i][j]) {  // a NaN sum
+        accd[i][j] = sums_min[i][j];
+        accc[i][j] = 0.f;
+      }
       od[off] = accd[i][j];
       if (COUNT) oc[off] = accc[i][j];
       if (compare != nullptr && accd[i][j] != compare[off]) differs = true;

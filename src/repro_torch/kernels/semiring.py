@@ -44,6 +44,27 @@ Hand-written CUDA kernels carry the device path:
   four shipped specs :data:`TROPICAL`, :data:`BOOLEAN`, :data:`COUNTING`
   and :data:`TROPICAL_COUNT` carry device code too.
 
+**The counting tiles.** :func:`frontier_step`, :func:`count_matmul` (fp32)
+and :func:`reachability_step` share two tiles of ``csrc/semiring.cu``.
+Each call converts ``B`` to a bf16 scratch copy and, on the card, sets a
+flag if any value of ``B`` is not finite or not exact in bf16
+(:func:`_takes_simt_tile`). With the flag, the fp32
+SIMT tile runs: a pipelined fp32 FMA tile, one ``fmaf`` per k in order
+from 0, as the generic MXU tile of :func:`semiring_matmul` sums, so the
+two agree bit for bit. Without it, the tensor-core tile runs: ``A`` split into
+three bf16 limbs (:func:`_split_bf16_limbs`), three exact bf16 products
+per k step, summed in fp32 (:func:`_limbed_matmul_ref` on the CPU): on a
+{0,1} adjacency it is bit-equal to the SIMT tile wherever the partial
+sums are integers below 2**24. The choice costs no host sync; each tile
+counts its launches on the card (:func:`tile_launches`). ``A``'s layout
+(row-major, column-major, any strides) picks the loader
+(:func:`_a_layout`).
+
+**NaN.** The min-plus kernels, their plain versions and the shipped
+``TROPICAL`` / ``TROPICAL_COUNT`` device code propagate NaN as the JAX
+package's ``jnp.min``/``jnp.minimum`` do: a NaN sum anywhere along k
+makes the distance NaN, and its tropical count 0.
+
 The JAX package's ``reachability.py`` and ``minplus.py`` are thin
 instantiations of its generic kernel; their counterparts here are
 :func:`reachability_step` and :func:`minplus_matmul` in this module, and
@@ -90,6 +111,7 @@ __all__ = ["frontier_step", "count_matmul", "reachability_step",
            "batched_count_matmul_ref", "reachability_step_ref",
            "minplus_matmul_ref", "batched_minplus_matmul_ref",
            "minplus_count_matmul_ref", "frontier_step_packed_ref",
+           "tile_launches",
            "DIST_DTYPE", "MULT_DTYPE", "HOST_MULT_DTYPE", "DIST_UNREACHED",
            "MULT_SAT", "pack_dist", "unpack_dist", "launches",
            "reset_launches", "Semiring", "TROPICAL", "BOOLEAN", "COUNTING",
@@ -129,8 +151,12 @@ _BROADCAST_BLOCK = 1 << 24
 
 
 def reset_launches() -> None:
+    """Zero :data:`launches` and the counting tiles' device counters
+    (:func:`tile_launches`)."""
     for name in launches:
         launches[name] = 0
+    if _TILE_COUNTS is not None:
+        _TILE_COUNTS.zero_()
 
 
 def pack_dist(d: torch.Tensor) -> torch.Tensor:
@@ -199,6 +225,67 @@ def reachability_step_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (counts > 0.5).float()
 
 
+#: clears an fp32's low 16 bits: what is left is exact in bf16
+_BF16_MASK = -(1 << 16)  # 0xffff0000 as an int32
+
+
+def _split_bf16_limbs(x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 limbs ``(hi, mid, lo)`` of fp32 ``x``, as fp32
+    tensors, as ``csrc/semiring.cu``'s tensor-core tile forms them in
+    registers: ``hi`` is ``x`` with its low 16 bits cleared (bf16 rounded
+    toward zero), ``mid`` the same of ``x - hi``, ``lo = x - hi - mid``;
+    a zero limb carries ``x``'s sign. ``hi + mid + lo == x`` bit for bit
+    for every finite ``x``, and each limb is exact in bf16 where ``|x| >=
+    2**-110``, zero included (below that ``lo`` can hold bits under
+    bf16's smallest subnormal, 2**-133, which the card's bf16 copy drops).
+    A non-finite ``x`` splits as ``(x, 0, 0)``, NaN as the canonical NaN.
+    """
+    x = x.float()
+    hi = (x.view(torch.int32) & _BF16_MASK).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & _BF16_MASK).view(torch.float32)
+    lo = r - mid
+    sign = x.view(torch.int32) & torch.iinfo(torch.int32).min
+    finite = torch.isfinite(x)
+    zero = torch.zeros_like(x)
+    hi = torch.where(finite, hi, torch.where(torch.isnan(x), float("nan"), x))
+    mid = torch.where(finite, (mid.view(torch.int32) | sign)
+                      .view(torch.float32), zero)
+    lo = torch.where(finite, (lo.view(torch.int32) | sign)
+                     .view(torch.float32), zero)
+    return hi, mid, lo
+
+
+def _takes_simt_tile(b: torch.Tensor) -> bool:
+    """Whether a counting product with right operand ``b`` runs on
+    ``csrc/semiring.cu``'s SIMT tile, as its ``to_bf16`` pass decides on the
+    card: some value of ``b`` is not exact in bf16 (low 16 bits set) or is
+    not finite. A non-finite ``b`` would meet zero limbs on the tensor cores
+    and give 0 * inf = NaN where ``fmaf`` gives inf."""
+    bits = b.float().contiguous().view(torch.int32)
+    inexact = (bits & 0xffff) != 0
+    return bool((inexact | ~torch.isfinite(b.float())).any())
+
+
+def _limbed_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product ``a @ b`` (2D or batched) as ``csrc/semiring.cu``'s
+    tensor-core tile sums it, for a ``b`` exact in bf16: per 16-deep k
+    step, the three limb products of :func:`_split_bf16_limbs` summed in
+    float64, rounded to fp32 and added to an fp32 accumulator that starts
+    at 0. Where the card's step sums are exact (every partial sum an
+    integer below 2**24), this is the card's answer bit for bit."""
+    limbs = [x.double() for x in _split_bf16_limbs(a)]
+    b = b.double()
+    k = a.shape[-1]
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, k, 16):
+        part = sum(x[..., k0:k0 + 16] @ b[..., k0:k0 + 16, :] for x in limbs)
+        acc = acc + part.float()
+    return acc
+
+
 def _row_blocks(m: int, k: int, n: int, fields: int = 1):
     """Row ranges of a (rows, k, n) broadcast within the element budget."""
     rows = max(1, _BROADCAST_BLOCK // max(1, fields * k * n))
@@ -262,6 +349,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LIB = None
 _TROPICAL_LIB = None
+#: the entry points of ``csrc/semiring.cu``, which share one pair of tiles
+_COUNTING_TILES = ("frontier_step", "count_matmul", "reachability_step")
+_TILE_COUNTS: Optional[torch.Tensor] = None
 _PACKED_LIB = None
 
 
@@ -271,15 +361,11 @@ def _lib() -> ctypes.CDLL:
         from .build import load
 
         lib = load("semiring")
-        lib.repro_frontier_step_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                _I, _P]
-        lib.repro_frontier_step_f32.restype = _I
-        lib.repro_count_matmul_f32.argtypes = [_P, _L, _L, _L, _P, _P, _I,
-                                               _I, _I, _I, _P]
-        lib.repro_count_matmul_f32.restype = _I
-        lib.repro_reachability_step_f32.argtypes = [_P, _L, _L, _L, _P, _P,
-                                                    _I, _I, _I, _I, _P]
-        lib.repro_reachability_step_f32.restype = _I
+        for name in _COUNTING_TILES:
+            fn = getattr(lib, f"repro_{name}_f32")
+            fn.argtypes = [_I, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _P]
+            fn.restype = _I
         _LIB = lib
     return _LIB
 
@@ -377,14 +463,7 @@ def frontier_step(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"dist shape {tuple(d.shape)} does not match the "
                          f"product {tuple(f.shape[:-1]) + (n,)}")
     _contiguous("frontier_step", f=f, a=a, d=d)
-    x = torch.empty(d.shape, dtype=torch.float32, device=d.device)
-    if x.numel() == 0:
-        return x
-    _check(_lib().repro_frontier_step_f32(
-        f.data_ptr(), a.data_ptr(), d.data_ptr(), x.data_ptr(), batch, m, n,
-        k, torch.cuda.current_stream(d.device).cuda_stream), "frontier_step")
-    launches["frontier_step"] += 1
-    return x
+    return _counting_gemm("frontier_step", f, a, d)
 
 
 def count_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -407,8 +486,7 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"rows {a.shape[-2]} exceed the launch grid")
         return _strided_product("count_matmul_narrow", lambda: (
             _packed_lib().repro_count_matmul_narrow), a, b)
-    return _strided_product("count_matmul",
-                            lambda: _lib().repro_count_matmul_f32, a, b)
+    return _counting_gemm("count_matmul", a, b)
 
 
 def _strided_product(name: str, kernel, a: torch.Tensor,
@@ -429,6 +507,99 @@ def _strided_product(name: str, kernel, a: torch.Tensor,
     return c
 
 
+#: A's layouts in ``csrc/semiring.cu`` (its ``Layout`` enum)
+_ROW_MAJOR, _COL_MAJOR, _STRIDED = 0, 1, 2
+#: the counting tiles' K step and M, N tile; the bf16 copy of B is padded to
+#: the K step and the N tile
+_TILE_K, _TILE_N = 32, 128
+
+
+def _a_layout(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Which of ``csrc/semiring.cu``'s left-operand loaders reads ``a``
+    (2D or a stack) in a product with the contiguous ``b``: _ROW_MAJOR (unit
+    stride along k) or _COL_MAJOR (unit stride along m), whose 16-byte
+    copies need the other strides, the unit axis's extent, N and both
+    bases' byte offsets to be multiples of 4 elements (16 bytes), or
+    _STRIDED (4-byte copies) for any other view."""
+    sr, sc = a.stride(-2), a.stride(-1)
+    sb = a.stride(0) if a.ndim == 3 else 0
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    vec = (n % 4 == 0 and sb % 4 == 0 and a.data_ptr() % 16 == 0
+           and b.data_ptr() % 16 == 0)
+    if vec and sc == 1 and k % 4 == 0 and (sr % 4 == 0 or m == 1):
+        return _ROW_MAJOR
+    if vec and sr == 1 and m % 4 == 0 and (sc % 4 == 0 or k == 1):
+        return _COL_MAJOR
+    return _STRIDED
+
+
+def _tile_counts(device: torch.device) -> torch.Tensor:
+    """The device counters of the counting tiles: one (simt, tensor) pair
+    per entry point, in :data:`_COUNTING_TILES` order."""
+    global _TILE_COUNTS
+    if _TILE_COUNTS is None:
+        _TILE_COUNTS = torch.zeros((len(_COUNTING_TILES), 2),
+                                   dtype=torch.int32, device=device)
+    return _TILE_COUNTS
+
+
+def tile_launches() -> Dict[str, Dict[str, int]]:
+    """Launches of each counting tile since the last :func:`reset_launches`,
+    per entry point: ``{"frontier_step": {"simt": n, "tensor": m}, ...}``.
+    The counters live on the card and are read here, one host sync: call it
+    outside timed windows. All zero before the first launch."""
+    counts = (np.zeros((len(_COUNTING_TILES), 2), np.int64)
+              if _TILE_COUNTS is None else _TILE_COUNTS.cpu().numpy())
+    return {name: {"simt": int(c[0]), "tensor": int(c[1])}
+            for name, c in zip(_COUNTING_TILES, counts)}
+
+
+def _counting_smem_bytes() -> Dict[str, Dict[str, int]]:
+    """Dynamic shared memory of one block of each counting tile, per
+    left-operand layout: ``{"simt": {"row-major": bytes, ...}, "tensor":
+    {...}}``, from the tile constants of ``csrc/semiring.cu`` (its
+    ``simt_smem_bytes`` / ``tc_smem_bytes``)."""
+    bm = bn = _TILE_N
+    bk, stages = _TILE_K, 3
+    a_floats = {"row-major": bm * (bk + 4), "column-major": bk * (bm + 4),
+                "strided": bk * (bm + 4)}
+    return {"simt": {name: stages * (af + bk * bn) * 4
+                     for name, af in a_floats.items()},
+            "tensor": {name: stages * (af + bk * (bn + 8) // 2) * 4
+                       + 3 * bm * (bk + 8) * 2
+                       for name, af in a_floats.items()}}
+
+
+def _counting_gemm(name: str, a: torch.Tensor, b: torch.Tensor,
+                   d: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One call of ``csrc/semiring.cu``'s entry point ``name``: ``a`` read
+    through its strides in the layout :func:`_a_layout` picks, ``b`` (and
+    ``d``) contiguous; a new fp32 (.., m, n) output. The kernel converts
+    ``b`` into a bf16 scratch copy and picks its tile on the device;
+    counts the launch under ``name``."""
+    batch, m, n, k = _dims(a, b)
+    _contiguous(name, b=b)
+    out = torch.empty((*a.shape[:-1], n), dtype=torch.float32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    kp = -(-k // _TILE_K) * _TILE_K
+    np_ = -(-n // _TILE_N) * _TILE_N
+    b16 = torch.empty(batch * kp * np_, dtype=torch.bfloat16,
+                      device=a.device)
+    flag = torch.empty(1, dtype=torch.int32, device=a.device)
+    counters = _tile_counts(a.device)[_COUNTING_TILES.index(name)]
+    sb = a.stride(0) if a.ndim == 3 else 0
+    _check(getattr(_lib(), f"repro_{name}_f32")(
+        _a_layout(a, b), a.data_ptr(), sb, a.stride(-2), a.stride(-1),
+        b.data_ptr(), None if d is None else d.data_ptr(), out.data_ptr(),
+        b16.data_ptr(), flag.data_ptr(), counters.data_ptr(), batch, m, n, k,
+        torch.cuda.current_stream(a.device).cuda_stream), name)
+    launches[name] += 1
+    return out
+
+
 def reachability_step(a: torch.Tensor, b: torch.Tensor,
                       use_kernel: bool = True) -> torch.Tensor:
     """Boolean-semiring product ``(A@B > 0.5)`` of {0,1} fp32 masks, 2D or
@@ -440,8 +611,7 @@ def reachability_step(a: torch.Tensor, b: torch.Tensor,
     """
     if not _use_kernel(use_kernel, a, b):
         return reachability_step_ref(a, b)
-    return _strided_product("reachability_step",
-                            lambda: _lib().repro_reachability_step_f32, a, b)
+    return _counting_gemm("reachability_step", a, b)
 
 
 def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
@@ -972,7 +1142,7 @@ TROPICAL = Semiring(
     kreduce=lambda f: (torch.amin(f[0], dim=1),),
     accumulate=lambda x, y: (torch.minimum(x[0], y[0]),),
     cuda_combine="out[0] = a[0] + b[0];",
-    cuda_accumulate="acc[0] = fminf(acc[0], t[0]);",
+    cuda_accumulate="acc[0] = sr_fmin_nan(acc[0], t[0]);",
 )
 
 #: (or, and) over {0,1} masks — the fp32 dot thresholded in the epilogue
@@ -1004,5 +1174,6 @@ TROPICAL_COUNT = Semiring(
     accumulate=_tc_accumulate,
     cuda_combine="out[0] = a[0] + b[0]; out[1] = a[1] * b[1];",
     cuda_accumulate=("if (t[0] < acc[0]) { acc[0] = t[0]; acc[1] = t[1]; }\n"
-                     "    else if (t[0] == acc[0]) { acc[1] += t[1]; }"),
+                     "    else if (t[0] == acc[0]) { acc[1] += t[1]; }\n"
+                     "    else if (t[0] != t[0]) { acc[0] = t[0]; acc[1] = 0; }"),
 )

@@ -373,3 +373,201 @@ def test_narrow_wrappers_refuse_other_devices_and_dtypes():
         S.frontier_step_packed(torch.zeros(4, 4, dtype=torch.int32), meta_a,
                                meta_d)
 
+
+
+# -- the counting tiles: the tensor-core tile's limbs and product -------------------
+
+def _bits(x):
+    return torch.as_tensor(x, dtype=torch.float32).view(torch.int32)
+
+
+_LIMB_CASES = {
+    "integers": np.concatenate([np.arange(0, 300), 2.0 ** np.arange(0, 41),
+                                2.0 ** np.arange(1, 41) - 1,
+                                [2 ** 24 - 1, 2 ** 24 + 2, 16_777_215 * 3]]),
+    "non_integers": np.concatenate([
+        np.random.default_rng(20).random(500) * 10.0 ** np.random.default_rng(
+            21).integers(-30, 30, 500), [0.1, 1 / 3, np.pi, -2.5e-7]]),
+    "zeros": np.array([0.0, -0.0]),
+    "subnormals": np.array([2.0 ** -149, 2.0 ** -130, -2.0 ** -127, 1e-40,
+                            -3e-39, 2.0 ** -126 * (1 - 2.0 ** -23)]),
+    "small_normals": np.array([2.0 ** -110, 2.0 ** -126, 1.5e-33,
+                               -2.0 ** -100 * 1.2345]),
+    "non_finite": np.array([np.inf, -np.inf, np.nan]),
+}
+
+
+@pytest.mark.parametrize("case", list(_LIMB_CASES))
+def test_bf16_limbs_sum_to_x_bit_for_bit(case):
+    """hi + mid + lo == x bit for bit for every finite x (both signs,
+    -0.0 too); each limb is exact in bf16 where |x| >= 2**-110 (and at
+    0); below that only lo can hold bits under 2**-133; a non-finite x
+    splits as (x, 0, 0)."""
+    v = _LIMB_CASES[case]
+    x = torch.from_numpy(np.concatenate([v, -v]).astype(np.float32))
+    hi, mid, lo = S._split_bf16_limbs(x)
+    finite = torch.isfinite(x)
+    assert torch.equal(_bits(hi + mid + lo)[finite], _bits(x)[finite])
+    exact = finite & ((x.abs() >= 2.0 ** -110) | (x == 0))
+    for limb in (hi, mid, lo):
+        back = limb.to(torch.bfloat16).float()
+        assert torch.equal(_bits(back)[exact], _bits(limb)[exact])
+    for limb in (hi, mid):  # cleared low bits: always bf16
+        assert torch.equal(_bits(limb)[finite] & 0xFFFF,
+                           torch.zeros_like(_bits(limb)[finite]))
+    if case == "subnormals":
+        assert not torch.equal(_bits(lo) & 0xFFFF, torch.zeros_like(_bits(lo)))
+    if case == "non_finite":
+        assert torch.equal(torch.isnan(hi), torch.isnan(x))
+        assert torch.equal(hi[~torch.isnan(x)], x[~torch.isnan(x)])
+        assert not mid.any() and not lo.any()
+    if case == "integers":  # three 8-bit limbs: integers up to 2**24 need
+        big = x.abs() < 2 ** 24  # no lo below 1, and hi carries the top
+        assert torch.equal(hi[x.abs() < 256], x[x.abs() < 256])
+        assert torch.equal(torch.frac(lo[big]), torch.zeros_like(lo[big]))
+
+
+def _near_limit_counts(rng, lead, m, k):
+    """Integer counts whose products against a dense {0,1} adjacency sum to
+    [2**23, 2**24): values below 2**24 / k, one row a single 2**24 - 1."""
+    f = rng.integers(2 ** 23 // k, 2 ** 24 // k, lead + (m, k))
+    f[..., 0, :] = 0
+    f[..., 0, 3] = 2 ** 24 - 1
+    return f.astype(np.float32)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+def test_limbed_product_is_bit_equal_near_two_to_the_24(batched):
+    """The tensor-core tile's sum (three exact limb products per 16-deep k
+    step, the step added in fp32) against count_matmul_ref and JAX's
+    COUNTING kernel in interpret mode: bit-equal, with sums up to
+    2**24 - 1."""
+    rng = np.random.default_rng(22)
+    lead = (2,) if batched else ()
+    m, n, k = 128, 128, 128
+    f = _near_limit_counts(rng, lead, m, k)
+    a = (rng.random(lead + (k, n)) < 0.9).astype(np.float32)
+    got = S._limbed_matmul_ref(_t(f), _t(a)).numpy()
+    ref = S.batched_count_matmul_ref if batched else S.count_matmul_ref
+    mm = semiring_matmul_batched_pallas if batched else semiring_matmul_pallas
+    (want,) = mm(COUNTING, (jnp.asarray(f),), (jnp.asarray(a),),
+                 interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))  # bit-equal
+    np.testing.assert_array_equal(got, ref(_t(f), _t(a)).numpy())
+    assert got.max() == 2 ** 24 - 1 and (got >= 2 ** 23).mean() > 0.5
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+def test_limbed_frontier_step_matches_pallas(batched):
+    """The frontier epilogue over the limbed sum, against JAX's
+    frontier_step kernel in interpret mode: bit-equal."""
+    rng = np.random.default_rng(23)
+    lead = (2,) if batched else ()
+    f = _near_limit_counts(rng, lead, 128, 128)
+    f[rng.random(f.shape) < 0.1] = 0
+    a = (rng.random(lead + (128, 256)) < 0.9).astype(np.float32)
+    d = _dist(rng, lead + (128, 256))
+    x = S._limbed_matmul_ref(_t(f), _t(a))
+    got = torch.where((x > 0) & (_t(d) == float("inf")), x, 0.0).numpy()
+    pallas = frontier_step_batched_pallas if batched else frontier_step_pallas
+    want = np.asarray(pallas(jnp.asarray(f), jnp.asarray(a), jnp.asarray(d),
+                             interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, S.frontier_step_ref(_t(f), _t(a), _t(d)).numpy())
+    assert (want >= 2 ** 23).any() and (want == 0).any()
+
+
+def _layout_cases():
+    """(view, b, expected loader): the callers' views and the edges of the
+    16-byte paths."""
+    def t(*shape):
+        return torch.zeros(shape)
+
+    z = t(2, 64, 64)
+    return {
+        "frontier F (B, p, p)": (z, t(2, 64, 64), S._ROW_MAJOR),
+        "Z in Z x A": (z[0], t(64, 64), S._ROW_MAJOR),
+        "F_a^T (stacked transpose)": (z.transpose(-1, -2), t(2, 64, 64),
+                                      S._COL_MAJOR),
+        "2D transpose": (t(16, 8).T, t(16, 12), S._COL_MAJOR),
+        "aligned column slab": (t(8, 20)[:, 4:20], t(16, 12), S._ROW_MAJOR),
+        "misaligned column slab": (t(8, 20)[:, 1:17], t(16, 12), S._STRIDED),
+        "K not a multiple of 4": (t(8, 10), t(10, 12), S._STRIDED),
+        "N not a multiple of 4": (t(8, 16), t(16, 10), S._STRIDED),
+        "every other column": (t(8, 32)[:, ::2], t(16, 12), S._STRIDED),
+        "M not a multiple of 4 (transposed)": (t(16, 6).T, t(16, 12),
+                                               S._STRIDED),
+        "one row": (t(1, 16), t(16, 12), S._ROW_MAJOR),
+    }
+
+
+@pytest.mark.parametrize("case", list(_layout_cases()))
+def test_a_layout_picks_the_loader_for_each_view(case):
+    a, b, want = _layout_cases()[case]
+    assert S._a_layout(a, b) == want
+    # every layout's plain version gives the same product
+    np.testing.assert_array_equal(S.count_matmul(a, b).numpy(),
+                                  S.count_matmul_ref(a.contiguous(), b))
+
+
+def _routing_cases():
+    """(right operand, whether it takes the SIMT tile)."""
+    rng = np.random.default_rng(24)
+    adj = (rng.random((64, 64)) < 0.1).astype(np.float32)
+
+    def with_cell(value):
+        b = adj.copy()
+        b[5, 7] = value
+        return b
+
+    return {
+        "{0,1} adjacency": (adj, False),
+        "bf16-exact integers": (rng.integers(0, 256, (64, 64)) * 2.0 ** 8,
+                                False),
+        "-0.0": (with_cell(-0.0), False),
+        "1 + 2**-10": (with_cell(1 + 2.0 ** -10), True),
+        "+inf": (with_cell(np.inf), True),
+        "-inf": (with_cell(-np.inf), True),
+        "NaN": (with_cell(np.nan), True),
+        "float z": (rng.random((64, 64)) * (rng.random((64, 64)) < 0.25),
+                    True),
+    }
+
+
+@pytest.mark.parametrize("case", list(_routing_cases()))
+def test_right_operand_picks_the_tile(case):
+    """A right operand that is not exact in bf16, or not finite, takes the
+    SIMT tile. On the tensor-core tile a non-finite value would meet x's
+    zero limbs (0 * inf = NaN) where fmaf and the plain version give inf."""
+    b, want = _routing_cases()[case]
+    b = _t(np.asarray(b, np.float32))
+    assert S._takes_simt_tile(b) == want
+    f = torch.full((4, 64), 3.0)
+    if case in ("+inf", "-inf"):
+        ref = S.count_matmul_ref(f, b)
+        assert torch.isinf(ref[:, 7]).all()
+        assert torch.isnan(S._limbed_matmul_ref(f, b)[:, 7]).all()
+    elif not want:
+        assert torch.equal(S._limbed_matmul_ref(f, b),
+                           S.count_matmul_ref(f, b))
+
+
+def test_counting_tiles_fit_two_blocks_per_sm():
+    """Each tile's dynamic shared memory, for every layout, leaves room for
+    two blocks of 256 threads on one H100 SM (228 KiB, 1 KiB reserved per
+    block; 227 KiB at most per block)."""
+    sizes = S._counting_smem_bytes()
+    assert set(sizes) == {"simt", "tensor"}
+    for per_layout in sizes.values():
+        assert set(per_layout) == {"row-major", "column-major", "strided"}
+        for size in per_layout.values():
+            assert 48 * 1024 < size and 2 * (size + 1024) <= 228 * 1024
+
+
+def test_tile_launches_are_zero_without_a_card():
+    S.reset_launches()
+    counts = S.tile_launches()
+    assert set(counts) == {"frontier_step", "count_matmul",
+                           "reachability_step"}
+    assert all(c == {"simt": 0, "tensor": 0} for c in counts.values())

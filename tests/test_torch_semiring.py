@@ -514,3 +514,99 @@ def test_mxu_epilogue_agrees_with_the_callable_on_the_host(tmp_path, sr, out):
     got = np.array([_value(w, out) for w in words[2:]])
     want = sr.epilogue(torch.from_numpy(accs)).to(out).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# -- NaN: the min-plus products propagate it as the JAX package does ----------------
+
+def _nan_lengths(rng, shape, integer=False):
+    """Distances with +inf holes and a few NaN cells (1%)."""
+    x = (rng.integers(0, 4, shape) if integer
+         else 0.5 + 3.5 * rng.random(shape)).astype(np.float32)
+    x = _holes(rng, x, 0.3, _INF)
+    return _holes(rng, x, 0.01, np.nan)
+
+
+def _nan_case(op, rng):
+    """(port result, JAX result) of one min-plus product on NaN inputs."""
+    from repro.kernels import ops as rops
+
+    m, n, k = 128, 128, 128
+    if op in ("minplus_matmul", "batched_minplus_matmul"):
+        lead = (2,) if op.startswith("batched") else ()
+        a = _nan_lengths(rng, lead + (m, k))
+        b = _nan_lengths(rng, lead + (k, n))
+        got = getattr(S, op)(torch.from_numpy(a), torch.from_numpy(b))
+        return [got.numpy()], [np.asarray(getattr(rops, op)(
+            jnp.asarray(a), jnp.asarray(b)))]
+    if op == "minplus_count_matmul":
+        da, db = _nan_lengths(rng, (m, k), True), _nan_lengths(rng, (k, n), True)
+        ca = np.where(np.isfinite(da), rng.integers(1, 4, (m, k)), 0)
+        cb = np.where(np.isfinite(db), rng.integers(1, 4, (k, n)), 0)
+        args = [x.astype(np.float32) for x in (da, ca, db, cb)]
+        got = S.minplus_count_matmul(*map(torch.from_numpy, args))
+        want = rops.minplus_count_matmul(*map(jnp.asarray, args))
+        return [x.numpy() for x in got], [np.asarray(x) for x in want]
+    name, batched = op.rsplit("_", 1)
+    port, jax_spec = SPECS[name]
+    lead = (2,) if batched == "batched" else ()
+    a, b = _operands(name, rng, lead, m, n, k)
+    a = (_holes(rng, a[0], 0.01, np.nan),) + a[1:]
+    b = (_holes(rng, b[0], 0.01, np.nan),) + b[1:]
+    return (_port(port, a, b, batched == "batched"),
+            _jax(jax_spec, a, b, batched == "batched"))
+
+
+@pytest.mark.parametrize("op", [
+    "minplus_matmul", "batched_minplus_matmul", "minplus_count_matmul",
+    "tropical_2d", "tropical_batched", "tropical_count_2d",
+    "tropical_count_batched"])
+def test_nan_propagates_as_in_the_jax_ops(op, no_launches):
+    """A NaN sum anywhere along k makes the distance NaN (jnp.min /
+    jnp.minimum propagate it) and its tropical count 0; elsewhere the
+    results stay bit-equal. NaN-aware equality."""
+    got, want = _nan_case(op, _rng("nan", op))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)  # NaN equals NaN here
+    nan = np.isnan(want[0])
+    assert nan.any() and np.isfinite(want[0]).any()
+    if len(want) == 2:
+        assert not want[1][nan].any()
+
+
+@pytest.mark.parametrize("sr, jax_sr", [(S.TROPICAL, J.TROPICAL),
+                                        (S.TROPICAL_COUNT, J.TROPICAL_COUNT)],
+                         ids=["tropical", "tropical_count"])
+def test_tropical_device_code_propagates_nan_on_the_host(tmp_path, sr, jax_sr):
+    """The shipped TROPICAL / TROPICAL_COUNT device code, compiled as host
+    C++, folds NaN as the torch callables and the JAX package's algebra do:
+    NaN-aware equality. The pairs keep the algebra's contract: a count is
+    0 where its distance is +inf or NaN."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    rng = np.random.default_rng(9)
+    s, nf = 96, sr.num_fields
+    vals = rng.integers(-3, 4, (3, s, nf)).astype(np.float64)
+    vals[..., 0][rng.random((3, s)) < 0.15] = _INF
+    vals[..., 0][rng.random((3, s)) < 0.25] = np.nan
+    if nf == 2:
+        vals[..., 1] = np.where(np.isfinite(vals[..., 0]),
+                                rng.integers(0, 4, (3, s)), 0)
+    stdin = " ".join([str(s)] + [float(x).hex() for i in range(s)
+                                 for part in vals[:, i] for x in part])
+    out = _run_host(tmp_path, sr, (torch.float32,), _HARNESS_VPU, stdin)
+    body = np.array([float.fromhex(w) for w in out[3 * nf:]]).reshape(
+        s, 2, nf).astype(np.float32)
+    a, b, acc = (tuple(vals[j][:, f].astype(np.float32) for f in range(nf))
+                 for j in range(3))
+    t = sr.combine(tuple(map(torch.from_numpy, a)),
+                   tuple(map(torch.from_numpy, b)))
+    folded = sr.accumulate(tuple(map(torch.from_numpy, acc)), t)
+    jt = jax_sr.combine(tuple(map(jnp.asarray, a)), tuple(map(jnp.asarray, b)))
+    jfolded = jax_sr.accumulate(tuple(map(jnp.asarray, acc)), jt)
+    for f in range(nf):
+        np.testing.assert_array_equal(body[:, 0, f], t[f].numpy())
+        np.testing.assert_array_equal(body[:, 1, f], folded[f].numpy())
+        np.testing.assert_array_equal(body[:, 1, f], np.asarray(jfolded[f]))
+    assert np.isnan(body[:, 1, 0]).sum() > s // 4

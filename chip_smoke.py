@@ -33,7 +33,10 @@ raises on the card, and times it. Phase 3 holds all ten kernels
 (``csrc/semiring.cu``: frontier step, counting and boolean products;
 ``csrc/tropical.cu``: min-plus 2D and batched, tropical count;
 ``csrc/seghist.cu``; ``csrc/packed.cu``: packed step 2D and batched,
-narrow product) to their plain versions and times them. The counting
+narrow product, on the int8 tensor cores) to their plain versions and
+times them; the packed ones also at a uint8 right operand up to 255 past
+33,025 k (the limb sums fold), frontier cells at 2**31 - 1 and bases off
+the 16-byte grid. The counting
 products run on two tiles, picked on the device from whether the right
 operand is exact in bf16: phase 3 holds the SIMT tile bit-equal to the
 generic COUNTING kernel on a float operand, the tensor-core tile
@@ -289,6 +292,9 @@ def kernel_checks(S, part):
 
 #: tensor-core peak of the bf16 products (dense, H100 SXM data sheet)
 BF16_PEAK = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+#: tensor-core peak of the int8 products, dense (NVIDIA H100 data sheet:
+#: SXM 3,958, PCIe 3,026, NVL 3,341 TOPS with sparsity, halved)
+INT8_PEAK = {"SXM": 1979e12, "PCIe": 1513e12, "NVL": 1670.5e12}
 
 
 def tile_bound_ms(tile, flops, nbytes, part):
@@ -617,15 +623,105 @@ def _packed_operands(gen, lead, m, n, k, density, hi=4, sat_share=0.0):
     return f.to(torch.int32), a, d.to(torch.int16)
 
 
+def packed_limb_ops(S, f, n, k):
+    """The int8 operations of ``csrc/packed.cu`` on the left operand ``f``
+    (.., M, k) against a (k, n) right operand: 2 n k per row and limb pass,
+    over the limbs each 32-row tile does not skip (``S._limb_passes``)."""
+    passes = S._limb_passes(f).double()
+    m = f.shape[-2]
+    rows = torch.clamp(m - 32 * torch.arange(passes.shape[-1],
+                                             device=passes.device), max=32)
+    return 2.0 * n * k * float((passes * rows).sum())
+
+
+def packed_bound_ms(limb_ops, nbytes, part):
+    """The bound of a packed kernel: its int8 limb products on the tensor
+    cores (``packed_limb_ops``), against the bytes."""
+    t_ops = limb_ops / INT8_PEAK[part] * 1e3
+    t_bytes = nbytes / PEAKS[part][1] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _unaligned(x, offset):
+    """A contiguous copy of ``x`` whose base lies ``offset`` elements past
+    an aligned allocation."""
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    y = flat[offset:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def packed_edge_checks(S, gen, step_check, narrow_check):
+    """The int8 GEMM's edges: a uint8 B up to 255 at K past 33,025 (the
+    limb sums fold), sums below 2**24 and, with a dense frontier of 255s,
+    above it; frontier cells at 2**31 - 1 against a sparse B (clamped at
+    MULT_SAT); bases off the 16-byte grid."""
+    m, n, k = 32, 384, 40_000
+    # values 192..255: 255 * sum_k b passes 2**31 for a row of 255s
+    b = torch.randint(192, 256, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.uint8)
+    f = (torch.rand((m, k), generator=gen, device="cuda") < 0.01).to(
+        torch.int32) * torch.randint(0, 3, (m, k), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+    d = torch.where(torch.rand((m, n), generator=gen, device="cuda") < 0.5,
+                    S.DIST_UNREACHED, 1).to(torch.int16)
+    step_check("frontier_step_packed", f, b, d, f"u8 B <= 255, K={k}")
+    narrow_check(f, b, f"u8 B <= 255, K={k}")
+    big = f.clone()
+    big[:8] = 255  # limb 0's sum alone passes 2**31 without a fold
+    check(step_check("frontier_step_packed", big, b, d,
+                     f"u8 B <= 255, K={k}, rows of 255s") > 0,
+          "no cell clamped with rows of 255s")
+    c, c_ref = S.count_matmul(big, b), S.count_matmul_ref(big, b)
+    torch.cuda.synchronize()
+    small = c_ref < EXACT
+    check(torch.equal(c[small], c_ref[small])
+          and bool((c[~small] >= EXACT).all()) and bool((~small).any()),
+          "count_matmul_narrow rows of 255s: not exact below 2**24 or not "
+          ">= 2**24 above it")
+    # above 2**24 the card's sum is the limb emulation's, bit for bit
+    emu = S._limbed_u8_matmul_ref(big[:10].cpu(), b.cpu()).float()
+    check(torch.equal(c[:10].cpu(), emu), "count_matmul_narrow rows of "
+          "255s: not bit-equal to the limb emulation")
+    print(f"  count_matmul_narrow u8 B <= 255, K={k}, rows of 255s: "
+          f"bit-equal below 2**24, >= 2**24 in all {int((~small).sum())} "
+          f"cells above; rows 0-9 bit-equal to the limb emulation (one "
+          f"fold)")
+
+    m, n, k = 40, 520, 3000
+    f = torch.where(torch.rand((m, k), generator=gen, device="cuda") < 0.002,
+                    2 ** 31 - 1, 0).to(torch.int32)
+    a = (torch.rand((k, n), generator=gen, device="cuda") < 0.01).to(
+        torch.uint8)
+    d = torch.full((m, n), S.DIST_UNREACHED, dtype=torch.int16,
+                   device="cuda")
+    check(step_check("frontier_step_packed", f, a, d,
+                     "cells at 2**31 - 1, sparse B") > 0,
+          "no cell at 2**31 - 1 clamped")
+
+    f, a, d = _packed_operands(gen, (2,), 33, 272, 200, 0.2, sat_share=0.02)
+    fu, au, du = _unaligned(f, 1), _unaligned(a, 1), _unaligned(d, 1)
+    check(au.data_ptr() % 16 and du.data_ptr() % 8 and fu.data_ptr() % 16,
+          "the unaligned copies are aligned")
+    step_check("frontier_step_packed_batched", fu, au, du,
+               "B=2 33x272x200, unaligned bases")
+    step_check("frontier_step_packed", fu[1], au[1], du[1],
+               "33x272x200, unaligned bases")
+    g, _, _ = _packed_operands(gen, (2,), 33, 1, 400, 0.2)
+    narrow_check(_unaligned(g, 3)[..., 200:], au,
+                 "B=2 33x272x200 strided, unaligned bases")
+
+
 def packed_checks(S, part):
     """The packed frontier step (2D and batched) and the narrow counting
     product against their plain versions, bit-equal: at the extreme path's
     shapes (a 32-row source tile against a 99,968-wide uint8 adjacency;
     the pump's (32 x 256) slab against a (256 x 99,968) panel; the
-    sweep's stack, B=12, 2048^3) and at ragged ones, with frontier cells
+    sweep's stack, B=12, 2048^3), at ragged ones, with frontier cells
     at and above MULT_SAT so the clamp is exercised (the narrow product's
     inputs keep their sums below 2**24, where fp32 sums are exact in any
-    order). Then times at the main shapes."""
+    order), and at the int8 GEMM's edges (``packed_edge_checks``). Then
+    times at the main shapes, with the split pass's device time apart."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = ("frontier_step_packed", "frontier_step_packed_batched",
              "count_matmul_narrow")
@@ -663,6 +759,8 @@ def packed_checks(S, part):
         narrow_check(g[..., k:], a, f"B={b} {m}x{n}x{k} strided")
         narrow_check(g[0, :, k:], a[0], f"{m}x{n}x{k} strided")
 
+    packed_edge_checks(S, gen, step_check, narrow_check)
+
     fb, ab, db = _packed_operands(gen, (12,), 2048, 2048, 2048, 0.05,
                                   sat_share=1e-4)
     check(step_check("frontier_step_packed_batched", fb, ab, db,
@@ -695,9 +793,9 @@ def packed_checks(S, part):
             4.0 * slab.numel() + panel.numel()
             + 4.0 * slab.shape[0] * panel.shape[1]),
     }
-    markers = {"frontier_step_packed": "narrow_gemm<true",
-               "frontier_step_packed_batched": "narrow_gemm<true",
-               "count_matmul_narrow": "narrow_gemm<false"}
+    markers = {"frontier_step_packed": "packed_gemm<true",
+               "frontier_step_packed_batched": "packed_gemm<true",
+               "count_matmul_narrow": "packed_gemm<false"}
     out = {}
     for name, (kern, plain, lhs, rhs, library, ops, nbytes) in cases.items():
         ms, plain_ms = timed_ms(kern), timed_ms(plain)
@@ -705,14 +803,19 @@ def packed_checks(S, part):
         library_ms = timed_ms(lambda: library(lf, rf))
         del lf, rf
         dev = kernel_device_ms(kern, markers[name], reps=5)
-        bms, by = bound_ms(ops, nbytes, part)
+        split = kernel_device_ms(kern, "split_limbs", reps=5)
+        limb_ops = packed_limb_ops(S, lhs, rhs.shape[-1], rhs.shape[-2])
+        bms, by = packed_bound_ms(limb_ops, nbytes, part)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bms, bound_by=by, max_abs_err=errs[name])
-        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        dev, split = ("not measured" if t is None else f"{t:.4f} ms"
+                      for t in (dev, split))
         print(f"  {name} {tuple(lhs.shape)}x{tuple(rhs.shape)}: {ms:.4f} ms "
               f"(plain {plain_ms:.4f}, torch.{library.__name__} "
               f"{library_ms:.4f}, bound {bms:.4f} by {by}; "
-              f"{ops / ms / 1e9:.1f} TFLOP/s); kernel device time {dev}")
+              f"{limb_ops / ops:g} limb passes, {limb_ops / ms / 1e9:.1f} "
+              f"int8 TOP/s, {nbytes / ms / 1e9:.3f} TB/s); "
+              f"device: GEMM {dev}, split pass {split}")
     del f, a, d, fb, ab, db, g, slab, panel
     torch.cuda.empty_cache()
     return out
@@ -1134,6 +1237,8 @@ def extreme_phase(obs, S, SW, D, WF, ref, stack):
             spans = obs.span_summary()
             levels = [ev["args"].get("levels") for ev in obs.events()
                       if ev.get("name") == "tiled.tile"]
+            per_level = (spans["tiled.tile"]["total_ms"]
+                         / max(1, sum(v or 0 for v in levels)))
             launched = {k: v - before[k] for k, v in S.launches.items()
                         if v != before[k]}
             print(f"[7b 100k resident] {row['family']}: {row['routers']} "
@@ -1142,7 +1247,8 @@ def extreme_phase(obs, S, SW, D, WF, ref, stack):
                   f"saturated {row['saturated']}; build "
                   f"{spans['sweep.extreme.build']['total_ms']:.1f} ms, "
                   f"levels {levels} in "
-                  f"{spans['tiled.tile']['total_ms']:.1f} ms, family "
+                  f"{spans['tiled.tile']['total_ms']:.1f} ms "
+                  f"({per_level:.3f} ms a level), family "
                   f"{spans['sweep.extreme.family']['total_ms']:.1f} ms; "
                   f"launches {launched}; peak device memory "
                   f"{peak_gb:.2f} GiB")
@@ -1730,7 +1836,8 @@ def main() -> int:
                 print(f"    {line.strip()}")
 
     print(f"  counting tiles' dynamic shared memory per block: "
-          f"{S._counting_smem_bytes()}")
+          f"{S._counting_smem_bytes()}; packed GEMM's: "
+          f"{S._packed_smem_bytes()} B")
 
     # 3. kernel vs plain
     print("[3 kernels] kernel vs plain version on the card")

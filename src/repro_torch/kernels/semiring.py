@@ -22,7 +22,11 @@ Hand-written CUDA kernels carry the device path:
   over narrow cells: int32 frontier, uint8 adjacency, int16 distances with
   the :data:`DIST_UNREACHED` sentinel, counts clamped at :data:`MULT_SAT`
   (replaces ``frontier_step_packed_pallas`` and
-  ``frontier_step_packed_batched_pallas``);
+  ``frontier_step_packed_batched_pallas``). It and the narrow
+  :func:`count_matmul` share one int8 tensor-core GEMM: the frontier is
+  split into four u8 limbs (:func:`_u8_limbs`), the limb products are
+  summed exactly in int32 and folded into a total every 32,256 k
+  (:func:`_limbed_u8_matmul_ref` is its CPU emulation);
 * :func:`minplus_matmul` (``csrc/tropical.cu``) — the tropical product
   ``min_k a[i,k] + b[k,j]`` (replaces ``minplus_matmul_pallas``, the
   ``TROPICAL`` instantiation of ``semiring_matmul_pallas``), optionally
@@ -146,6 +150,11 @@ _MAX_BATCH = 65535  # gridDim.z
 _MAX_ROWS = 65535 * 128  # gridDim.y times the 128-row tile
 _MAX_TROPICAL_ROWS = 65535 * 32  # gridDim.y times the 32-row tropical tile
 _MAX_NARROW_ROWS = 65535 * 32  # gridDim.y times the 32-row narrow tile
+#: ``csrc/packed.cu``'s row tile and k stage: the limb scratch's padding
+_NARROW_BM, _NARROW_BK = 32, 64
+#: k between two folds of ``csrc/packed.cu``'s limb sums (504 stages of 64):
+#: 255 * 255 * 32,256 plus a carry of 2**24 stays below 2**31
+_FOLD_K = 32_256
 #: elements of one (rows, k, n) broadcast block in the tropical plain versions
 _BROADCAST_BLOCK = 1 << 24
 
@@ -286,6 +295,43 @@ def _limbed_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _u8_limbs(f: torch.Tensor) -> torch.Tensor:
+    """The four u8 limbs of int32 ``f`` read as uint32 bits, bits 0-7,
+    8-15, 16-23 and 24-31, stacked on a new leading axis (as int64), as
+    ``csrc/packed.cu``'s split pass forms them: ``sum_l limbs[l] << 8 l ==
+    f`` for every nonnegative ``f``."""
+    bits = f.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([(bits >> (8 * l)) & 0xFF for l in range(4)])
+
+
+def _limbed_u8_matmul_ref(f: torch.Tensor, b: torch.Tensor,
+                          chunk: int = _FOLD_K) -> torch.Tensor:
+    """The product ``f @ b`` (int32 ``f``, uint8 ``b``, 2D or batched) as
+    ``csrc/packed.cu`` sums it, as int64: per ``chunk`` of k, each limb of
+    :func:`_u8_limbs` times ``b`` summed in an int32 register (wrapping as
+    the card's would), limb 0's starting from the carry; at the end of a
+    chunk that is not the last the four sums fold into a total clamped at
+    MULT_SAT, the next chunk's carry. The last fold is returned unclamped.
+    With the card's chunk (:data:`_FOLD_K`) no limb sum can wrap, so the
+    result is ``f @ b`` wherever that is below MULT_SAT and at least
+    MULT_SAT elsewhere; a chunk past 33,025 k can wrap."""
+    limbs = _u8_limbs(f)
+    b = b.to(torch.int64)
+    k = f.shape[-1]
+    carry = torch.zeros((*f.shape[:-1], b.shape[-1]), dtype=torch.int64,
+                        device=f.device)
+    total = carry
+    for k0 in range(0, k, chunk):
+        sums = [limbs[l][..., k0:k0 + chunk] @ b[..., k0:k0 + chunk, :]
+                for l in range(4)]
+        sums[0] = sums[0] + carry
+        # what an int32 register holds after the same adds
+        sums = [(s + 2 ** 31) % 2 ** 32 - 2 ** 31 for s in sums]
+        total = sum(s << (8 * l) for l, s in enumerate(sums))
+        carry = total.clamp(max=MULT_SAT)
+    return total
+
+
 def _row_blocks(m: int, k: int, n: int, fields: int = 1):
     """Row ranges of a (rows, k, n) broadcast within the element budget."""
     rows = max(1, _BROADCAST_BLOCK // max(1, fields * k * n))
@@ -394,11 +440,11 @@ def _packed_lib() -> ctypes.CDLL:
         from .build import load
 
         lib = load("packed")
-        lib.repro_frontier_step_packed.argtypes = [_P, _P, _P, _P, _I, _I,
-                                                   _I, _I, _P]
+        lib.repro_frontier_step_packed.argtypes = [_P, _P, _P, _P, _P, _I,
+                                                   _I, _I, _I, _P]
         lib.repro_frontier_step_packed.restype = _I
-        lib.repro_count_matmul_narrow.argtypes = [_P, _L, _L, _L, _P, _P, _I,
-                                                  _I, _I, _I, _P]
+        lib.repro_count_matmul_narrow.argtypes = [_P, _L, _L, _L, _P, _P, _P,
+                                                  _I, _I, _I, _I, _P]
         lib.repro_count_matmul_narrow.restype = _I
         _PACKED_LIB = lib
     return _PACKED_LIB
@@ -472,7 +518,9 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
 
     fp32 operands run the fp32 kernel; an int32 ``a`` with a uint8 ``b``
     (a packed frontier slab against an adjacency panel) runs the narrow
-    kernel, exact while ``a``'s values stay at or below 2**24. ``a`` may be
+    kernel: for a nonnegative ``a`` it is exact (bit-equal to the plain
+    version) wherever the sum is below 2**24, and at least 2**24 wherever
+    the sum is at or above it. ``a`` may be
     any strided view (a transposed stack or a column slab needs no copy);
     ``b`` must be contiguous. For another output dtype, cast the result.
     """
@@ -482,27 +530,54 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
         return (batched_count_matmul_ref(a, b) if a.ndim == 3
                 else count_matmul_ref(a, b))
     if narrow:
-        if a.shape[-2] > _MAX_NARROW_ROWS:
-            raise ValueError(f"rows {a.shape[-2]} exceed the launch grid")
-        return _strided_product("count_matmul_narrow", lambda: (
-            _packed_lib().repro_count_matmul_narrow), a, b)
+        return _narrow_product(a, b)
     return _counting_gemm("count_matmul", a, b)
 
 
-def _strided_product(name: str, kernel, a: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
-    """Launch ``kernel()``, an entry point that reads ``a`` through its
-    (batch, row, col) strides and ``b`` contiguous, into a new fp32
-    (.., m, n) output; counts the launch under ``name``."""
+def _limb_scratch(batch: int, m: int, k: int,
+                  device: torch.device) -> torch.Tensor:
+    """The u8 scratch of ``csrc/packed.cu``'s split pass: four limbs of the
+    (batch, m, k) left operand, padded to the GEMM's row tile and k stage,
+    then one 32-bit flag word per row tile (its nonzero limbs)."""
+    mp = -(-m // _NARROW_BM) * _NARROW_BM
+    kp = -(-k // _NARROW_BK) * _NARROW_BK
+    return torch.empty(batch * 4 * mp * kp + batch * (mp // _NARROW_BM) * 4,
+                       dtype=torch.uint8, device=device)
+
+
+def _limb_passes(f: torch.Tensor) -> torch.Tensor:
+    """The limb products ``csrc/packed.cu`` runs for the left operand ``f``
+    (.., M, K): per row tile of 32 rows, limb 0 and each other u8 limb
+    (:func:`_u8_limbs`) that is not zero somewhere in the tile; shape
+    (.., ceil(M / 32)). The other limbs' products are skipped."""
+    limbs = _u8_limbs(f)  # (4, .., M, K)
+    m = f.shape[-2]
+    mp = -(-m // _NARROW_BM) * _NARROW_BM
+    pad = torch.zeros((*limbs.shape[:-2], mp - m, limbs.shape[-1]),
+                      dtype=limbs.dtype, device=limbs.device)
+    tiles = torch.cat([limbs, pad], dim=-2).unflatten(
+        -2, (mp // _NARROW_BM, _NARROW_BM))
+    return 1 + (tiles[1:] != 0).any(-1).any(-1).sum(0)
+
+
+def _narrow_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``csrc/packed.cu``'s narrow product: ``a`` (int32) read through its
+    (batch, row, col) strides, ``b`` (uint8) contiguous, into a new fp32
+    (.., m, n) output; counts the launch."""
+    name = "count_matmul_narrow"
     batch, m, n, k = _dims(a, b)
+    if m > _MAX_NARROW_ROWS:
+        raise ValueError(f"rows {m} exceed the launch grid")
     _contiguous(name, b=b)
     sb = a.stride(0) if a.ndim == 3 else 0
     c = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     if c.numel() == 0:
         return c
-    _check(kernel()(a.data_ptr(), sb, a.stride(-2), a.stride(-1),
-                    b.data_ptr(), c.data_ptr(), batch, m, n, k,
-                    torch.cuda.current_stream(a.device).cuda_stream), name)
+    limbs = _limb_scratch(batch, m, k, a.device)
+    _check(_packed_lib().repro_count_matmul_narrow(
+        a.data_ptr(), sb, a.stride(-2), a.stride(-1), b.data_ptr(),
+        c.data_ptr(), limbs.data_ptr(), batch, m, n, k,
+        torch.cuda.current_stream(a.device).cuda_stream), name)
     launches[name] += 1
     return c
 
@@ -571,6 +646,14 @@ def _counting_smem_bytes() -> Dict[str, Dict[str, int]]:
                        for name, af in a_floats.items()}}
 
 
+def _packed_smem_bytes() -> int:
+    """Dynamic shared memory of one block of ``csrc/packed.cu``'s GEMM, from
+    its tile constants (its ``SMEM_BYTES``): four stages of the 32-row limb
+    tiles (rows padded to 80 bytes) and a 64 x 256 byte adjacency tile."""
+    stages, limbs, a_ld = 4, 4, _NARROW_BK + 16
+    return stages * (limbs * _NARROW_BM * a_ld + _NARROW_BK * 256)
+
+
 def _counting_gemm(name: str, a: torch.Tensor, b: torch.Tensor,
                    d: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One call of ``csrc/semiring.cu``'s entry point ``name``: ``a`` read
@@ -618,13 +701,16 @@ def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                          use_kernel: bool = True) -> torch.Tensor:
     """One fused wavefront step over packed cells.
 
-    ``f`` is the (.., M, K) int32 multiplicity frontier (values at most
-    MULT_SAT), ``a`` the (.., K, N) uint8 {0,1} adjacency, ``d`` the (.., M,
-    N) int16 running distances (DIST_UNREACHED = unreached); all contiguous
-    on the card. Returns the int32 next frontier: the newly reached pairs
-    with their counts clamped at MULT_SAT (a cell equal to MULT_SAT is a
-    lower bound). Below MULT_SAT it equals :func:`frontier_step` as
-    integers.
+    ``f`` is the (.., M, K) int32 multiplicity frontier, ``a`` the (.., K,
+    N) uint8 adjacency, ``d`` the (.., M, N) int16 running distances
+    (DIST_UNREACHED = unreached); all contiguous on the card. Returns the
+    int32 next frontier: the newly reached pairs with their counts clamped
+    at MULT_SAT (a cell equal to MULT_SAT is a lower bound). The callers
+    pass counts of at most MULT_SAT and a {0,1} adjacency, but the domain
+    is any nonnegative int32 ``f`` and any uint8 ``a``: a cell is exact
+    where ``f@a`` is below MULT_SAT and MULT_SAT where it is at or above
+    it, as in :func:`frontier_step_packed_ref`. Below MULT_SAT it equals
+    :func:`frontier_step` as integers.
     """
     if not _use_kernel(use_kernel, f, a, d,
                        dtypes=(torch.int32, torch.uint8, DIST_DTYPE)):
@@ -639,9 +725,11 @@ def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
     x = torch.empty(d.shape, dtype=MULT_DTYPE, device=d.device)
     if x.numel() == 0:
         return x
+    limbs = _limb_scratch(batch, m, k, d.device)
     _check(_packed_lib().repro_frontier_step_packed(
-        f.data_ptr(), a.data_ptr(), d.data_ptr(), x.data_ptr(), batch, m, n,
-        k, torch.cuda.current_stream(d.device).cuda_stream),
+        f.data_ptr(), a.data_ptr(), d.data_ptr(), x.data_ptr(),
+        limbs.data_ptr(), batch, m, n, k,
+        torch.cuda.current_stream(d.device).cuda_stream),
         "frontier_step_packed")
     launches["frontier_step_packed_batched" if f.ndim == 3
              else "frontier_step_packed"] += 1

@@ -7,6 +7,9 @@ exact below 2**24 and summation order cannot matter. The CUDA kernels
 themselves build and run only on the card (``chip_smoke.py`` holds them to
 these plain versions there).
 """
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -373,6 +376,198 @@ def test_narrow_wrappers_refuse_other_devices_and_dtypes():
         S.frontier_step_packed(torch.zeros(4, 4, dtype=torch.int32), meta_a,
                                meta_d)
 
+
+
+# -- the int8 tensor-core GEMM of csrc/packed.cu: its limbs, folds and bytes -----
+
+@pytest.mark.parametrize("value", [0, 255, 2 ** 24 - 1, 2 ** 24, 2 ** 24 + 7,
+                                   2 ** 31 - 1])
+def test_u8_limbs_add_back_to_f(value):
+    """Four u8 limbs (bits 0-7, 8-15, 16-23, 24-31) add back to f bit for
+    bit; MULT_SAT = 2**24 itself needs the fourth."""
+    f = torch.tensor([[value, 0], [value // 3, 1]], dtype=torch.int32)
+    limbs = S._u8_limbs(f)
+    assert limbs.shape == (4, 2, 2) and int(limbs.max()) <= 255
+    back = sum(limbs[l] << (8 * l) for l in range(4))
+    assert torch.equal(back.to(torch.int32), f)
+    if value >= 2 ** 24:
+        assert int(limbs[3].max()) > 0
+
+
+def _limbed_step(f, a, d):
+    """The frontier epilogue of csrc/packed.cu over the limbed total."""
+    x = S._limbed_u8_matmul_ref(f, a)
+    new = (x > 0) & (d == S.DIST_UNREACHED)
+    return torch.where(new, x.clamp(max=S.MULT_SAT), 0).to(S.MULT_DTYPE)
+
+
+def _pad_to(x, mults, fill):
+    shape = x.shape[:-2] + tuple(-(-s // q) * q
+                                 for s, q in zip(x.shape[-2:], mults))
+    out = np.full(shape, fill, x.dtype)
+    out[..., :x.shape[-2], :x.shape[-1]] = x
+    return out
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("big", [False, True], ids=["exact", "saturating"])
+def test_limbed_packed_step_matches_pallas(batched, big):
+    """The limb emulation of csrc/packed.cu's step, bit-equal to
+    frontier_step_packed_ref and to the packed Pallas step in interpret
+    mode, exact and with sums past MULT_SAT."""
+    rng = np.random.default_rng(30)
+    lead = (2,) if batched else ()
+    f, a, d = _packed_inputs(rng, lead, 128, 256, 128, big=big)
+    pallas = (frontier_step_packed_batched_pallas if batched
+              else frontier_step_packed_pallas)
+    want = np.asarray(pallas(jnp.asarray(f.astype(np.uint32)),
+                             jnp.asarray(a), jnp.asarray(d), interpret=True))
+    ft = _t(f.astype(np.int32))
+    got = _limbed_step(ft, _t(a), _t(d))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    np.testing.assert_array_equal(
+        got, S.frontier_step_packed_ref(ft, _t(a), _t(d)))
+    assert (want == S.MULT_SAT).any() == big
+    assert (S._limb_passes(ft) == (4 if big else 1)).all()
+
+
+@pytest.mark.parametrize("b,m,n,k", [(3, 40, 136, 72), (2, 33, 65, 1),
+                                     (1, 1, 1, 100), (2, 32, 137, 300)])
+def test_limbed_packed_step_ragged_matches_padded_pallas(b, m, n, k):
+    """At the ragged shapes of the card's checks: the limb emulation on the
+    shapes as they are against the batched Pallas step on operands padded
+    to its blocks (phantom rows/cols zero, phantom dists unreached), 2D and
+    batched."""
+    rng = np.random.default_rng(31 + k)
+    f, a, d = _packed_inputs(rng, (b,), m, n, k, big=True)
+    want = np.asarray(frontier_step_packed_batched_pallas(
+        jnp.asarray(_pad_to(f.astype(np.uint32), (128, 128), 0)),
+        jnp.asarray(_pad_to(a, (128, 128), 0)),
+        jnp.asarray(_pad_to(d, (128, 128), S.DIST_UNREACHED)),
+        interpret=True))[:, :m, :n].astype(np.int32)
+    ft = _t(f.astype(np.int32))
+    np.testing.assert_array_equal(_limbed_step(ft, _t(a), _t(d)).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        _limbed_step(ft[0], _t(a[0]), _t(d[0])).numpy(), want[0])
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["exact", "saturating"])
+def test_limbed_narrow_product_matches_pallas_on_a_strided_slab(big):
+    """csrc/packed.cu's narrow product, emulated on the pump's strided
+    frontier slab: bit-equal to count_matmul_ref and the COUNTING Pallas
+    product below 2**24, at least 2**24 where they are."""
+    rng = np.random.default_rng(32)
+    f, a, _ = _packed_inputs(rng, (), 32, 384, 512, big=big)
+    k0, kp = 128, 256
+    panel = a[k0:k0 + kp]
+    (want,) = semiring_matmul_pallas(
+        COUNTING, (jnp.asarray(f[:, k0:k0 + kp].astype(np.uint32)),),
+        (jnp.asarray(panel),), bm=32, interpret=True, out_dtype=jnp.float32)
+    want = np.asarray(want)
+    slab = _t(f.astype(np.int32))[:, k0:k0 + kp]
+    assert not slab.is_contiguous()
+    got = S._limbed_u8_matmul_ref(slab, _t(panel)).float().numpy()
+    ref = S.count_matmul_ref(slab, _t(panel)).numpy()
+    exact = want < S.MULT_SAT
+    np.testing.assert_array_equal(got[exact], want[exact])
+    np.testing.assert_array_equal(got[exact], ref[exact])
+    assert (got[~exact] >= S.MULT_SAT).all() and (ref[~exact] >= S.MULT_SAT
+                                                  ).all()
+    assert (~exact).any() == big
+
+
+def test_limb_sums_fold_before_int32_wraps():
+    """A uint8 B of 192..255 against rows of 255s over 40,000 k: one
+    limb's int32 sum passes 2**31 (past 33,025 k of 255 * 255). Summed in
+    one int32
+    register it wraps; folded every ``chunk`` k (the card folds every
+    32,256) the total is the true sum, and the step clamps it at
+    MULT_SAT. Small counts through many folds stay exact."""
+    k = 40_000
+    f = torch.full((2, k), 255, dtype=torch.int32)
+    f[1] = 1
+    b = torch.full((k, 3), 255, dtype=torch.uint8)
+    b[:, 1] = 192 + torch.arange(k) % 64
+    true = f.long() @ b.long()
+    assert true[0].min() > 2 ** 31
+    wrapped = S._limbed_u8_matmul_ref(f, b, chunk=k)
+    assert (wrapped[0] != true[0]).all() and (wrapped[0] < S.MULT_SAT).any()
+    for chunk in (S._FOLD_K, 1024):
+        folded = S._limbed_u8_matmul_ref(f, b, chunk=chunk)
+        assert (folded[0] >= S.MULT_SAT).all()
+        assert torch.equal(folded[1], true[1])  # below 2**24: exact
+    d = torch.full((2, 3), S.DIST_UNREACHED, dtype=torch.int16)
+    step = _limbed_step(f, b, d)
+    assert torch.equal(step, S.frontier_step_packed_ref(f, b, d))
+    assert (step[0] == S.MULT_SAT).all()
+    rng = np.random.default_rng(33)
+    small = _t(rng.integers(0, 3, (4, 5000)).astype(np.int32))
+    b8 = _t(rng.integers(0, 256, (5000, 7)).astype(np.uint8))
+    np.testing.assert_array_equal(
+        S._limbed_u8_matmul_ref(small, b8, chunk=64).numpy(),
+        (small.long() @ b8.long()).numpy())
+
+
+def test_limb_passes_count_the_live_limbs_per_row_tile():
+    f = torch.zeros((2, 70, 9), dtype=torch.int32)
+    f[0, 3, 2] = 5
+    f[1, 40, 1] = S.MULT_SAT + 3  # limbs 0 and 3
+    f[1, 69, 0] = 300  # limbs 0 and 1
+    f[1, 68, 4] = 70_000  # limb 2 too
+    assert S._limb_passes(f).tolist() == [[1, 1, 1], [1, 2, 3]]
+
+
+def test_packed_gemm_fits_one_block_per_sm():
+    """The GEMM's four stages need the >48 KB attribute and fit one block
+    of 512 threads per H100 SM (227 KB at most per block)."""
+    assert 48 * 1024 < S._packed_smem_bytes() <= 227 * 1024
+
+
+def test_byte_transpose_matches_numpy_on_the_host(tmp_path):
+    """The kernel's 4 x 4 byte transpose (``__byte_perm``), built with g++
+    against a host model of ``__byte_perm``, on random blocks."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    text = (build.CSRC / "packed.cu").read_text()
+    block = text[text.index("// BEGIN transpose4x4"):
+                 text.index("// END transpose4x4")]
+    src = tmp_path / "transpose.cpp"
+    src.write_text("""#include <cstdint>
+#include <cstdio>
+#define __device__
+#define __forceinline__ inline
+static unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+""" + block + """
+int main() {
+  unsigned x[4], y[4];
+  while (std::scanf("%u %u %u %u", &x[0], &x[1], &x[2], &x[3]) == 4) {
+    transpose4x4(x, y);
+    std::printf("%u %u %u %u\\n", y[0], y[1], y[2], y[3]);
+  }
+}
+""")
+    exe = tmp_path / "transpose"
+    built = subprocess.run(["g++", "-std=c++17", "-O1", "-o", str(exe),
+                            str(src)], capture_output=True, text=True,
+                           timeout=120)
+    assert built.returncode == 0, built.stderr
+    rng = np.random.default_rng(34)
+    blocks = rng.integers(0, 256, (200, 4, 4), dtype=np.uint8)
+    words = blocks.view("<u4").reshape(200, 4)  # row r: bytes (r, 0..3)
+    out = subprocess.run([str(exe)], input="\n".join(
+        " ".join(map(str, w)) for w in words), capture_output=True,
+        text=True, timeout=60, check=True).stdout.split()
+    got = np.array(out, dtype=np.uint64).astype(np.uint32).reshape(200, 4)
+    want = np.ascontiguousarray(blocks.transpose(0, 2, 1)).view(
+        "<u4").reshape(200, 4)
+    np.testing.assert_array_equal(got, want)
 
 
 # -- the counting tiles: the tensor-core tile's limbs and product -------------------

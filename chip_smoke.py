@@ -22,14 +22,19 @@ once against its ``_ref`` alias, on non-fp32 inputs), the sweep's stacked
 min-plus squaring APSP (``core.sweep._apsp_from_stack``) on phase 5's
 stack against the wavefront, and boolean reachability closures against
 the wavefront's ``isfinite(dist)``, and checks that it went through the
-boolean and batched min-plus kernels. Phase 9 drives the ``Semiring``
-extension point (``kernels.semiring.semiring_matmul`` and
-``semiring_matmul_batched``): it builds the kernels generated from seven
-algebras' device code over ``csrc/semiring_generic.cuh``, holds the
-generic kernel bit-equal to the specialized kernels on the four shipped
-algebras and to its plain version on user algebras (max-plus, max-min, an
-MXU algebra on narrow operands), checks that a spec without device code
-raises on the card, and times it. Phase 3 holds all ten kernels
+boolean and batched min-plus kernels (the squarings on the large min-plus
+tile). Phase 9 drives the ``Semiring`` extension point
+(``kernels.semiring.semiring_matmul`` and ``semiring_matmul_batched``): it
+builds the kernels generated from nine algebras' and dtypes' device code
+(VPU-path algebras over ``csrc/semiring_generic.cuh``, MXU-path ones over
+``count_matmul``'s GEMM, ``csrc/counting_tiles.cuh``), holds the generic
+kernel bit-equal to the specialized kernels on the four shipped algebras
+and to its plain version on user algebras (max-plus, max-min, an MXU
+algebra on narrow operands), runs the MXU path on every operand form
+(uint8 x uint8, int32 and non-finite right operands, a float left one)
+with each pick of tile read from the device counters, checks that a spec
+without device code raises on the card, and times it beside the
+specialized kernels, ``torch.mm``/``torch.bmm`` and its bound. Phase 3 holds all ten kernels
 (``csrc/semiring.cu``: frontier step, counting and boolean products;
 ``csrc/tropical.cu``: min-plus 2D and batched, tropical count;
 ``csrc/seghist.cu``; ``csrc/packed.cu``: packed step 2D and batched,
@@ -45,7 +50,11 @@ rtol 1e-5 on the float z x adj product, and sends an inexact or
 non-finite right operand to the SIMT tile; phase 5 reads the per-tile
 device counters of the sweep. Phases 3 and 9 feed NaN to the min-plus
 kernels and the generic TROPICAL / TROPICAL_COUNT kernels, NaN-equal to
-their plain versions.
+their plain versions. The plain min-plus products run on two tiles picked
+on the host from the output grid (``_minplus_tile``): phases 3 and 8 hold
+the batched product bit-equal to its plain version on both (B=12 at
+2048^3 and ragged on the large tile, NaN inputs on each) and read which
+tile ran from the device counters.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -527,19 +536,28 @@ def tropical_checks(S, H, part):
     }
     out = {}
     for name, (kern, plain, library, ops, nbytes) in cases.items():
+        before = tile_counts(S)
         ms, plain_ms = timed_ms(kern), timed_ms(plain)
+        took = sorted({t for (e, t), n in tile_counts(S).items()
+                       if e == name and n > before[(e, t)]})
         library_ms = timed_ms(library) if library is not None else None
         bms, by = bound_ms(ops / NON_FMA, nbytes, part)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bms, bound_by=by, max_abs_err=errs[name])
         lib = ("" if library_ms is None
                else f", torch.bincount {library_ms:.4f}")
+        tile = ""
+        if name == "minplus_matmul":  # p = 512: the small tile
+            check(took == [S._minplus_tile(1, p, p)] == ["small"],
+                  f"minplus_matmul p={p}: ran on tiles {took}, expected small")
+            out[name]["tile"] = took[0]
+            tile = f", tile {took[0]}"
         # the events bracket one call from the host, wrapper included;
         # the profile gives the kernel's own device time
         dev = kernel_device_ms(kern, markers[name])
         dev = "not measured" if dev is None else f"{dev:.4f} ms"
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}{lib}, bound "
-              f"{bms:.4f} by {by}); kernel device time {dev}")
+              f"{bms:.4f} by {by}{tile}); kernel device time {dev}")
     return out
 
 
@@ -557,14 +575,21 @@ def with_nans(gen, x, share=0.005):
 def tropical_nan_checks(S, gen):
     """The three tropical.cu kernels on NaN inputs against their plain
     versions, NaN-aware: a NaN sum anywhere along k makes the distance NaN
-    and its count 0, as the JAX package's jnp.min / jnp.minimum give."""
+    and its count 0, as the JAX package's jnp.min / jnp.minimum give. The
+    min-plus products on both tiles: the 2D ones and the B=3 stacks on the
+    small tile, B=12 stacks (a ragged one, and 2048^3 with 16-byte copies)
+    on the large one."""
     for m, n, k in ((512, 512, 512), (200, 136, 72)):
         a = with_nans(gen, _lengths(gen, (m, k), 0.3))
         b = with_nans(gen, _lengths(gen, (k, n), 0.3))
         out, out_ref = S.minplus_matmul(a, b), S.minplus_matmul_ref(a, b)
         sa = with_nans(gen, _lengths(gen, (3, m, k), 0.3))
         sb = with_nans(gen, _lengths(gen, (3, k, n), 0.3))
+        before = tile_counts(S)
         bout = S.batched_minplus_matmul(sa, sb)
+        took = {t for (e, t), c in tile_counts(S).items()
+                if e == "batched_minplus_matmul" and c > before[(e, t)]}
+        check(took == {"small"}, f"batched NaN {m}x{n}x{k}: tiles {took}")
         bref = S.batched_minplus_matmul_ref(sa, sb)
         da = with_nans(gen, _lengths(gen, (m, k), 0.3, integer=True))
         db = with_nans(gen, _lengths(gen, (k, n), 0.3, integer=True))
@@ -583,10 +608,30 @@ def tropical_nan_checks(S, gen):
         check(bool(torch.isnan(out_ref).any()) and bool(nan.any())
               and not bool(c_ref[nan].any()),
               f"NaN {tag}: no NaN reached the output")
-        print(f"  {tag:14s} NaN inputs: minplus_matmul, batched and "
-              f"minplus_count_matmul NaN-equal to their plain versions "
-              f"({int(torch.isnan(out_ref).sum())}, "
+        print(f"  {tag:14s} NaN inputs: minplus_matmul, batched (small "
+              f"tile) and minplus_count_matmul NaN-equal to their plain "
+              f"versions ({int(torch.isnan(out_ref).sum())}, "
               f"{int(torch.isnan(bref).sum())}, {int(nan.sum())} NaN cells)")
+    for b_, m, n, k in ((12, 520, 600, 70), (12, 2048, 2048, 2048)):
+        sa = with_nans(gen, _lengths(gen, (b_, m, k), 0.3), share=0.0005)
+        sb = with_nans(gen, _lengths(gen, (b_, k, n), 0.3), share=0.0005)
+        before = tile_counts(S)
+        bout = S.batched_minplus_matmul(sa, sb)
+        took = {t for (e, t), c in tile_counts(S).items()
+                if e == "batched_minplus_matmul" and c > before[(e, t)]}
+        bref = S.batched_minplus_matmul_ref(sa, sb)
+        torch.cuda.synchronize()
+        tag = f"B={b_} {m}x{n}x{k}"
+        check(took == {"large"}, f"batched NaN {tag}: tiles {took}")
+        check(nan_equal(bout, bref), f"batched_minplus_matmul NaN {tag}: "
+                                     f"differs")
+        nan = torch.isnan(bref)
+        check(bool(nan.any()) and not bool(nan.all()),
+              f"batched NaN {tag}: no NaN, or only NaN, in the output")
+        print(f"  {tag} NaN inputs: batched_minplus_matmul on the large "
+              f"tile NaN-equal to its plain version ({int(nan.sum())} of "
+              f"{nan.numel()} NaN cells)")
+        del sa, sb, bout, bref
 
 
 # -- phase 3: the narrow-cell kernels --------------------------------------------
@@ -863,19 +908,26 @@ def library_kernel_checks(S, part):
             main_mask = (a, b)
     print("  reachability_step ragged shapes: bit-equal")
 
-    for b_, m, n, k in ((12, 2048, 2048, 2048), (3, 200, 136, 72),
+    for b_, m, n, k in ((12, 2048, 2048, 2048), (12, 600, 520, 300),
+                        (12, 520, 600, 71), (3, 200, 136, 72),
                         (2, 33, 65, 1), (1, 1, 1, 100)):
         a = _lengths(gen, (b_, m, k), 0.5, integer=True)
         b = _lengths(gen, (b_, k, n), 0.5, integer=True)
         a[:, 0] = float("inf")  # an unreached row stays unreached
-        out, out_ref = (S.batched_minplus_matmul(a, b),
-                        S.batched_minplus_matmul_ref(a, b))
+        before = tile_counts(S)
+        out = S.batched_minplus_matmul(a, b)
+        took = {t for (e, t), c in tile_counts(S).items()
+                if e == "batched_minplus_matmul" and c > before[(e, t)]}
+        out_ref = S.batched_minplus_matmul_ref(a, b)
         same, changed_same = S.batched_minplus_matmul(a, b, compare=out_ref)
         noise = out_ref.clone()
         noise.view(-1)[-1] = -1.0  # one cell of the whole stack differs
         _, changed_one = S.batched_minplus_matmul(a, b, compare=noise)
         torch.cuda.synchronize()
-        tag = f"B={b_} {m}x{n}x{k}"
+        tile = S._minplus_tile(b_, m, n)
+        tag = f"B={b_} {m}x{n}x{k}, {tile} tile"
+        check(took == {tile}, f"batched_minplus_matmul {tag}: ran on tiles "
+                              f"{took}")
         check(torch.equal(out, out_ref) and torch.equal(same, out_ref),
               f"batched_minplus_matmul {tag}: not bit-equal")
         check(bool(torch.isinf(out[:, 0]).all()),
@@ -887,7 +939,7 @@ def library_kernel_checks(S, part):
                                              _abs_err(out, out_ref))
         print(f"  batched_minplus_matmul {tag}: bit-equal, changed flag 0 "
               f"against itself and 1 against one changed cell")
-        if b_ == 12:
+        if b_ == 12 and m == 2048:
             main_stack = (a, b)
 
     ma, mb = main_mask
@@ -899,12 +951,12 @@ def library_kernel_checks(S, part):
             lambda: S.reachability_step_ref(ma, mb),
             lambda: torch.mm(ma, mb) > 0.5,
             2.0 * p ** 3, 3 * p * p * 4.0, "tc_tile", 10),
-        # B p^3 adds and B p^3 mins, at the non-FMA rate
+        # B p^3 adds and B p^3 mins, at the non-FMA rate; the large tile
         "batched_minplus_matmul": (
             lambda: S.batched_minplus_matmul(sa, sb),
             lambda: S.batched_minplus_matmul_ref(sa, sb), None,
             2.0 * bsz * p ** 3 / NON_FMA, 3 * bsz * p * p * 4.0,
-            "tropical_tile", 3),
+            "tropical_big_tile", 3),
     }
     out = {}
     for name, (kern, plain, library, ops, nbytes, marker,
@@ -918,13 +970,15 @@ def library_kernel_checks(S, part):
             bms, by = tile_bound_ms("tensor", ops, nbytes, part)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bms, bound_by=by, max_abs_err=errs[name])
-        if name == "reachability_step":
-            out[name]["tile"] = "tensor"
+        out[name]["tile"] = ("tensor" if name == "reachability_step"
+                             else S._minplus_tile(bsz, p, p))
         lib = ("" if library_ms is None
                else f", torch.mm then > 0.5 {library_ms:.4f}")
         dev = "not measured" if dev is None else f"{dev:.4f} ms"
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}{lib}, bound "
-              f"{bms:.4f} by {by}); kernel device time {dev}")
+              f"{bms:.4f} by {by}, tile {out[name]['tile']}, "
+              f"{100 * bms / ms:.1f}% of the bound); kernel device time "
+              f"{dev}")
     return out
 
 
@@ -1460,13 +1514,18 @@ def library_phase(S, ops, SW, WF, graphs):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     squarings = S.launches["batched_minplus_matmul"] - before
+    tiles = S.tile_launches()["batched_minplus_matmul"]  # after the window
     check(torch.equal(da, dw), "stacked squaring APSP: dist != wavefront")
+    check(S._minplus_tile(seed.shape[0], p, p) == "large"
+          and tiles["large"] == squarings,
+          f"stacked squaring: tiles {tiles} for {squarings} squarings")
     diam = int(torch.where(torch.isfinite(dw), dw, 0.0).max())
     check(squarings == int(np.ceil(np.log2(diam))) + 1,
           f"stacked squaring: {squarings} squarings for diameter {diam}")
     print(f"[8b squaring APSP] B={seed.shape[0]} p={p}: dist bit-equal to "
           f"the wavefront; {squarings} squarings (diameter {diam}) in "
-          f"{wall:.3f} ms, {wall / squarings:.3f} ms per squaring")
+          f"{wall:.3f} ms, {wall / squarings:.3f} ms per squaring; tiles "
+          f"{tiles}")
     del seed_d, da
 
     # (c) boolean closures against the wavefront's reachability
@@ -1547,7 +1606,12 @@ def semiring_phase(S, build, seed, part):
     the specialized kernels on the shipped algebras (TROPICAL 2D 2048^3 and
     batched on ``seed``, phase 5's 12 x 2048^2 squaring seed; COUNTING 2D
     and B=12 on integer counts; BOOLEAN 2048^3; TROPICAL_COUNT p=512;
-    ragged 300 x 200 x 260 on each); (c) the user algebras bit-equal to
+    ragged 300 x 200 x 260 on each), and (b'') the MXU path, which runs on
+    ``count_matmul``'s two tiles, on each operand form at 2048^3 and ragged
+    300 x 200 x 260 (B=3): uint8 x uint8 -> f32 and a non-integer float A
+    on the tensor-core tile, an int32 B above 256 and a float B with +-inf
+    and NaN on the SIMT tile, each checked against the tile its dtype and
+    values pick by the device counters; (c) the user algebras bit-equal to
     their plain versions (max-plus and max-min 2D 2048^3 and B=12, the MXU
     algebra on a uint8 operand into int32); (d) a spec without device code
     raises. Then (e) times. Returns (the kernel's stats, its launches)."""
@@ -1555,7 +1619,8 @@ def semiring_phase(S, build, seed, part):
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
     algebras = [(S.TROPICAL, (f32,)), (S.TROPICAL_COUNT, (f32,)),
                 (S.COUNTING, (f32,) * 3), (S.BOOLEAN, (f32,) * 3),
-                (maxplus, (f32,)), (maxmin, (f32,)), (two_walks, (u8, i32, i32))]
+                (maxplus, (f32,)), (maxmin, (f32,)), (two_walks, (u8, i32, i32)),
+                (S.COUNTING, (u8, u8, f32)), (S.COUNTING, (f32, i32, f32))]
     t_phase = time.perf_counter()
     built = build.build_generated({S.build_key(sr, t): S.semiring_source(sr, t)
                                    for sr, t in algebras})
@@ -1588,8 +1653,81 @@ def semiring_phase(S, build, seed, part):
         err = max([err] + [_abs_err(g, w) for g, w in zip(got, want)])
         print(f"  {tag}: bit-equal")
 
-    # (b) the shipped algebras against the specialized kernels
+    picks = {"simt": 0, "tensor": 0}  # the MXU path's expected tiles
+
+    def mxu(tile, sr, a, b, out_dtype=None):
+        """The generic MXU-path product, checked to run on ``tile``."""
+        before = S.tile_launches()["semiring_matmul"]
+        got = gen(sr, a, b, out_dtype)
+        after = S.tile_launches()["semiring_matmul"]
+        took = {t: after[t] - before[t] for t in after if after[t] != before[t]}
+        check(took == {tile: 1}, f"{sr.name} {tuple(a[0].shape)} "
+                                 f"{a[0].dtype} x {b[0].dtype}: tiles {took}, "
+                                 f"expected {tile}")
+        picks[tile] += 1
+        return got
+
     gen_t = torch.Generator(device="cuda").manual_seed(9)
+
+    def mxu_forms(tag, f, adj):
+        """(b'') the MXU path on each operand form, 2D (f[0], adj[0]) and
+        stacked (f, adj): u8 x u8 -> f32 and a float A x {0,1} B (tensor-core
+        tile), an int32 B up to 299 and a float B with +-inf and NaN (SIMT
+        tile). Integer sums stay below 2**24: bit-equal to the plain
+        version; the float A within rtol 1e-5 of it and bit-equal to
+        count_matmul on the same operands."""
+        for lhs, rhs in ((f[0], adj[0]), (f, adj)):
+            form = f"{'B=%d ' % lhs.shape[0] if lhs.ndim == 3 else '2D '}{tag}"
+            shape_a, shape_b = lhs.shape, rhs.shape
+            ua = torch.randint(0, 16, shape_a, generator=gen_t,
+                               device="cuda").to(u8)
+            ub = torch.randint(0, 16, shape_b, generator=gen_t,
+                               device="cuda").to(u8)
+            same(f"[9b''] COUNTING {form} u8 x u8 -> f32 vs its plain version "
+                 f"and count_matmul on fp32 casts",
+                 mxu("tensor", S.COUNTING, (ua,), (ub,), f32),
+                 S.semiring_matmul_batched_ref(S.COUNTING, (ua,), (ub,), f32))
+            check(torch.equal(gen(S.COUNTING, (ua,), (ub,), f32)[0],
+                              S.count_matmul(ua.float(), ub.float())),
+                  f"COUNTING {form} u8 x u8: not count_matmul on the casts")
+            ib = torch.randint(0, 300, shape_b, generator=gen_t,
+                               device="cuda").to(i32)
+            same(f"[9b''] COUNTING {form} f32 x i32 (values to 299) -> f32 vs "
+                 f"its plain version (SIMT tile)",
+                 mxu("simt", S.COUNTING, (lhs,), (ib,), f32),
+                 S.semiring_matmul_batched_ref(S.COUNTING, (lhs,), (ib,), f32))
+            special = rhs.clone()
+            for i, v in enumerate((float("inf"), -float("inf"),
+                                   float("nan"))):
+                special.view(-1)[7919 * i::3 * 7919] = v
+            got = mxu("simt", S.COUNTING, (lhs,), (special,))[0]
+            want = S.count_matmul_ref(lhs, special)
+            torch.cuda.synchronize()
+            check(nan_equal(got, want) and nan_equal(
+                got, S.count_matmul(lhs, special)),
+                f"COUNTING {form}, +-inf and NaN in B: differs from its "
+                f"plain version or count_matmul")
+            check(bool(torch.isinf(want).any()) and bool(
+                torch.isnan(want).any()), f"{form}: no inf and NaN")
+            print(f"  [9b''] COUNTING {form}, B with +-inf and NaN (SIMT "
+                  f"tile): NaN-equal to its plain version and count_matmul "
+                  f"({int(torch.isinf(got).sum())} inf, "
+                  f"{int(torch.isnan(got).sum())} NaN cells)")
+            za = torch.rand(shape_a, generator=gen_t, device="cuda")
+            got = mxu("tensor", S.COUNTING, (za,), (rhs,))[0]
+            want = S.count_matmul_ref(za, rhs)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / want.abs().clamp_min(
+                torch.finfo(torch.float32).tiny)).max())
+            check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+                  f"COUNTING {form}, float A: beyond rtol 1e-5 ({rel:g})")
+            check(torch.equal(got, S.count_matmul(za, rhs)),
+                  f"COUNTING {form}, float A: not count_matmul bit for bit")
+            print(f"  [9b''] COUNTING {form}, non-integer float A x {{0,1}} "
+                  f"(tensor-core tile): within rtol 1e-5 of its plain "
+                  f"version (max rel err {rel:g}), bit-equal to count_matmul")
+
+    # (b) the shipped algebras against the specialized kernels
     stack = seed
     bsz, p = stack.shape[0], stack.shape[-1]
     main = {}
@@ -1606,14 +1744,17 @@ def semiring_phase(S, build, seed, part):
              + (" (phase 5's squaring seed)" if m == p else ""),
              gen(S.TROPICAL, (sa,), (sb,)), S.batched_minplus_matmul(sa, sb))
         f, _, adj, _, _ = _inputs(gen_t, b_, m, n, k)
-        same(f"[9b] COUNTING B={b_} {tag} vs count_matmul",
-             gen(S.COUNTING, (f,), (adj,)), S.count_matmul(f, adj))
-        same(f"[9b] COUNTING {tag} vs count_matmul",
-             gen(S.COUNTING, (f[0],), (adj[0],)), S.count_matmul(f[0], adj[0]))
+        same(f"[9b] COUNTING B={b_} {tag} vs count_matmul (tensor-core tile)",
+             mxu("tensor", S.COUNTING, (f,), (adj,)), S.count_matmul(f, adj))
+        same(f"[9b] COUNTING {tag} vs count_matmul (tensor-core tile)",
+             mxu("tensor", S.COUNTING, (f[0],), (adj[0],)),
+             S.count_matmul(f[0], adj[0]))
         ma = (torch.rand((m, k), generator=gen_t, device="cuda") < 0.02).float()
         mb = (torch.rand((k, n), generator=gen_t, device="cuda") < 0.02).float()
-        same(f"[9b] BOOLEAN {tag} vs reachability_step",
-             gen(S.BOOLEAN, (ma,), (mb,)), S.reachability_step(ma, mb))
+        same(f"[9b] BOOLEAN {tag} vs reachability_step (tensor-core tile)",
+             mxu("tensor", S.BOOLEAN, (ma,), (mb,)),
+             S.reachability_step(ma, mb))
+        mxu_forms(tag, f, adj)
         if m == p:
             main.update(trop=(a, b), count=(f, adj), mask=(ma, mb))
             m, n, k = 512, 512, 512
@@ -1684,7 +1825,7 @@ def semiring_phase(S, build, seed, part):
         del want
     wa = (torch.rand((p, p), generator=gen_t, device="cuda") < 0.01).to(u8)
     wb = (torch.rand((p, p), generator=gen_t, device="cuda") < 0.05).to(i32)
-    got = gen(two_walks, (wa,), (wb,), out_dtype=i32)
+    got = mxu("tensor", two_walks, (wa,), (wb,), out_dtype=i32)
     same(f"[9c] two_walks {p}^3, uint8 x int32 -> int32 vs its plain "
          f"version ({float(got[0].float().mean()):.4f} of pairs set)", got,
          S.semiring_matmul_ref(two_walks, (wa,), (wb,), out_dtype=i32))
@@ -1703,6 +1844,11 @@ def semiring_phase(S, build, seed, part):
     launched = S.launches["semiring_matmul"]
     check(launched == expected, f"semiring_matmul launches {launched}, "
                                 f"expected {expected}")
+    counters = S.tile_launches()["semiring_matmul"]
+    print(f"  [9b''] the generic MXU path's tile counters {counters}, "
+          f"expected picks {picks} plus the unchecked repeats")
+    check(all(counters[t] >= picks[t] > 0 for t in picks),
+          f"generic MXU tile counters {counters} below the picks {picks}")
     print(f"[9 semiring] launches {dict(S.launches)}; semiring_matmul "
           f"{launched} as expected")
 
@@ -1761,15 +1907,31 @@ def semiring_phase(S, build, seed, part):
         def kern():
             return gen(sr, a, b, out_dtype)
 
+        before = S.tile_launches()["semiring_matmul"]
         ms = timed_ms(kern)
-        dev = kernel_device_ms(kern, f"Algebra_{sr.name}>", reps=10)
+        after = S.tile_launches()["semiring_matmul"]
         ops, nbytes = bounds(sr, a[0], b[0])
-        bms, by = bound_ms(ops, nbytes, part)
-        line = (f"  [9e] {label}: {ms:.4f} ms, device "
+        marker, tile = f"Algebra_{sr.name}>", ""
+        if sr.mxu:  # count_matmul's tiles: the bound of the one that ran
+            (tile,) = [t for t in after if after[t] > before[t]]
+            bms, by = tile_bound_ms(tile, ops, nbytes, part)
+            marker = (f"{'tc' if tile == 'tensor' else 'simt'}_tile<"
+                      f"repro_semiring::MxuStore<Algebra_{sr.name}>")
+            tile = f", {'tensor-core' if tile == 'tensor' else 'SIMT'} tile"
+        else:
+            bms, by = bound_ms(ops, nbytes, part)
+        dev = kernel_device_ms(kern, marker, reps=10)
+        line = (f"  [9e] {label}: {ms:.4f} ms{tile}, device "
                 f"{'not measured' if dev is None else f'{dev:.4f} ms'}; "
-                f"bound {bms:.4f} by {by}")
+                f"bound {bms:.4f} by {by} ({100 * bms / ms:.1f}%)")
         if special is not None:
-            line += f"; specialized kernel {timed_ms(special):.4f} ms"
+            spec_tile = ""
+            if sr.name == "tropical":  # the min-plus tile the grid picks
+                lead = a[0].shape[0] if a[0].ndim == 3 else 1
+                spec_tile = (f" ({S._minplus_tile(lead, a[0].shape[-2], b[0].shape[-1])}"
+                             f" tile)")
+            line += (f"; specialized kernel {timed_ms(special):.4f} ms"
+                     f"{spec_tile}")
         library_ms = None
         if library is not None:
             library_ms = timed_ms(library[1])
@@ -1837,7 +1999,8 @@ def main() -> int:
 
     print(f"  counting tiles' dynamic shared memory per block: "
           f"{S._counting_smem_bytes()}; packed GEMM's: "
-          f"{S._packed_smem_bytes()} B")
+          f"{S._packed_smem_bytes()} B; large min-plus tile's: "
+          f"{S._minplus_smem_bytes()} B")
 
     # 3. kernel vs plain
     print("[3 kernels] kernel vs plain version on the card")
@@ -1885,8 +2048,14 @@ def main() -> int:
     # (tensor-core tile); every F_a^T x Z has a float right operand (SIMT)
     want = {"frontier_step": {"simt": 0, "tensor": diam + 1},
             "count_matmul": {"simt": diam, "tensor": diam},
-            "reachability_step": {"simt": 0, "tensor": 0}}
-    check(tiles == want, f"counting tiles {tiles}, expected {want}")
+            "reachability_step": {"simt": 0, "tensor": 0},
+            "semiring_matmul": {"simt": 0, "tensor": 0}}
+    check({k: tiles[k] for k in want} == want,
+          f"counting tiles {tiles}, expected {want}")
+    for op in ("minplus_matmul", "batched_minplus_matmul"):
+        check(sum(tiles[op].values()) == counts[op],
+              f"{op}: tile counters {tiles[op]} against {counts[op]} "
+              f"launches")
     for r in full["rows"]:
         check(r["routers"] <= 2048 and np.isfinite(r["tput_lb"])
               and 0 < r["tput_lb"] <= 1, f"bad row {r}")

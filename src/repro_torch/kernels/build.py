@@ -3,14 +3,16 @@
 Each source compiles, at first use, into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), which `ctypes`
 loads. Libraries land in ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edit to either
-rebuilds and an unchanged tree reuses what is there. Nothing is compiled or
-loaded when this module is imported.
+checkout, named by a hash of the source, every header under ``csrc/``
+(``*.cuh``: the sources include them) and the flags, so an edit to
+any of them rebuilds and an unchanged tree reuses what is there. Nothing is
+compiled or loaded when this module is imported.
 
 Generated sources (the kernels of user semirings, `kernels.semiring`) go
 the same way: `build_generated` writes each into the build directory and
-compiles it against the header ``csrc/semiring_generic.cuh``, named by a
-hash of the generated text, the header and the flags.
+compiles it against the headers in ``csrc/`` (``semiring_generic.cuh``,
+``counting_tiles.cuh``), named by a hash of the generated text, the
+headers and the flags.
 
 The target is Hopper, ``sm_90a``. The flags leave out ``--use_fast_math``:
 the kernels test ``isinf`` and must keep IEEE fp32 arithmetic.
@@ -35,7 +37,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its source under ``csrc/``
 SOURCES: Dict[str, str] = {"semiring": "semiring.cu", "tropical": "tropical.cu",
                            "seghist": "seghist.cu", "packed": "packed.cu"}
-#: the template header that generated sources include (no library of its own)
+#: the template header that generated sources include. It and the other
+#: headers under ``csrc/`` (``counting_tiles.cuh``, the counting GEMM that
+#: ``semiring.cu``, ``tropical.cu`` and the generated MXU-path sources
+#: include) are no library of their own: every ``*.cuh`` there is hashed
+#: into every library's name
 GENERIC_HEADER = "semiring_generic.cuh"
 #: ``<checkout>/build/repro_torch_kernels`` (src/repro_torch/kernels -> root)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -75,18 +81,24 @@ def nvcc_command(src: pathlib.Path, out: pathlib.Path,
     return [nvcc, *NVCC_FLAGS, *inc, "-o", str(out), str(src)]
 
 
+def _digest(text: bytes) -> str:
+    """A hash of ``text``, every header under ``csrc/`` and the flags."""
+    h = hashlib.sha256(text)
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _target(name: str) -> pathlib.Path:
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{_digest(src.read_bytes())}.so"
 
 
 def generated_target(key: str, source: str) -> pathlib.Path:
     """Where the library of the generated ``source`` goes: named by ``key``
-    and a hash of the text, the template header and the flags."""
-    digest = hashlib.sha256(source.encode() + (CSRC / GENERIC_HEADER)
-                            .read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{key}_{digest.hexdigest()[:16]}.so"
+    and a hash of the text, the headers and the flags."""
+    return BUILD_DIR / f"lib{key}_{_digest(source.encode())}.so"
 
 
 def _compile(jobs) -> Dict[str, BuildResult]:
@@ -131,8 +143,8 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
 
 def build_generated(sources: Dict[str, str]) -> Dict[str, BuildResult]:
     """Compile generated sources, ``key -> CUDA text``, that have no current
-    build, all in parallel, each against ``csrc/`` (for
-    :data:`GENERIC_HEADER`); raises RuntimeError on a failed build."""
+    build, all in parallel, each against ``csrc/`` (for its headers);
+    raises RuntimeError on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for key, text in sources.items():

@@ -1,6 +1,6 @@
 // Counting-semiring GEMMs for Hopper (sm_90a): the fused BFS frontier step,
 // the plain counting product and the boolean (reachability) product, all
-// batched over blockIdx.z. Two tiles, three epilogues, one launch sequence.
+// batched over blockIdx.z: one GEMM on two tiles, three store policies.
 //
 // Replaces (src/repro/kernels/semiring.py):
 //   frontier_step      <- frontier_step_batched_pallas / _frontier_kernel_batched
@@ -11,638 +11,20 @@
 //                         via reachability.py reachability_step_pallas: the
 //                         fp32 dot, then acc > 0.5, the counts never stored
 //
-// What bounds it: at the sweep's shape (B = 12, M = N = K = 2048) one launch
-// is 2*B*M*N*K = 2.06e11 multiply-adds' worth of operations against ~0.8 GB
-// of operands. On the CUDA cores that is the IEEE-fp32 rate (67 TFLOP/s,
-// 3.08 ms); as three bf16 tensor-core passes it is 6.18e11 at 989 TFLOP/s
-// (0.63 ms), where the 0.24 ms of bytes is not yet the limit. The counts
-// must stay exact below 2**24, so TF32 is never used.
-//
-// One call is three launches on the caller's stream: to_bf16 converts B to
-// a zero-padded bf16 copy and raises a device flag if any value of B is not
-// finite or not exact in bf16; then simt_tile and tc_tile are both launched and each
-// returns at once unless the flag selects it. The choice is made on the
-// device, so a caller's level loop gains no host sync. Each tile adds one to
-// its own device counter when it runs.
-//
-// Tile (a), simt_tile: fp32 FMAs on the CUDA cores, for a B that bf16 cannot
-// hold (the first Brandes product F_a^T x Z). A 128x128 output tile per
-// block of 256 threads, an 8x8 register micro-tile per thread (two 4x4
-// quadrants 64 rows/cols apart, so the shared-memory reads are float4 and
-// conflict-free), K staged 32 deep through a 3-stage ring of cp.async
-// copies, so tile t+1 and t+2 load while tile t is computed. Each output is
-// one fmaf per k in order k = 0..K-1 from 0, the order of the earlier
-// single-buffered tile and of semiring_generic.cuh's MXU tile, so the three
-// agree bit for bit on every input.
-//
-// Tile (b), tc_tile: for a B exact in bf16 (the {0,1} adjacency, boolean
-// masks). Once per k step of the block, A's fp32 stage is read into
-// registers and split into three bf16 limbs, hi = x with its low
-// 16 bits cleared (bf16 rounded toward zero), mid = the same of x - hi, and
-// lo = x - hi - mid: 24 significand bits are 8 + 8 + 8, so hi + mid + lo = x
-// exactly for every finite x with |x| >= 2**-110 (below that lo can fall
-// under bf16's subnormal grid and loses bits under 2**-133); a non-finite x
-// goes in as (x, 0, 0), so inf and NaN act as in fmaf. A non-finite value
-// of B takes tile (a): there a zero limb times inf would give NaN where
-// fmaf gives inf. Per 16-deep k step
-// and 16x8 output fragment, the three limb products run as three
-// mma.sync.m16n8k16 bf16 products chained into a fragment that starts at 0,
-// which is then added to the fp32 accumulator with one IEEE add. Where every
-// partial sum is an integer below 2**24, every step is exact and the result
-// is bit-equal to tile (a). A k step whose 16 terms hold one nonzero product
-// adds exactly x*b, as fmaf does; otherwise the step's sum is formed first
-// (the tensor core truncates where it cannot hold it). The limbs go to
-// three [m][k] bf16 tiles in shared memory, so each value is split once
-// per block, not once per warp that reads it (a split per warp, in
-// registers, does it four times and is bound by those ALU operations
-// rather than by the products). Warps own 64x32 of the 128x128 block tile (2 x 4 warps)
-// and read the limbs with ldmatrix and B's bf16 fragments with
-// ldmatrix.trans from the same 3-stage cp.async ring. mma.sync, not
-// wgmma: the asynchronous warpgroup product with TMA is the next step.
-//
-// The left operand is read in one of three layouts, a template parameter
-// chosen on the host from the strides: row-major (unit stride along k: F,
-// and Z in Z x A), copied 16 bytes at a time into a [m][k] tile;
-// column-major (unit stride along m: the transposed F_a^T), 16-byte copies
-// into a [k][m] tile; or any other view, 4-byte copies into [k][m]. The
-// 16-byte paths need K (row-major) or M (column-major) and the strides to be
-// multiples of 4, 16-byte aligned bases, and N a multiple of 4; the host
-// takes the strided path otherwise. Per-thread 64-bit source pointers are
-// set once per block and advanced by the k step. Ragged M, N, K are masked
-// by zero-filled copies and at the store, so callers need no padding.
-//
-// The frontier epilogue reads the distance block once and keeps acc only
-// where acc > 0 and dist is +inf; the boolean epilogue stores acc > 0.5 as 1
-// or 0. For {0,1} masks that threshold cannot depend on summation order: a
-// sum of nonnegative fp32 terms never rounds below its largest term. Built
-// without --use_fast_math, so isinf and the adds stay IEEE.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// The GEMM itself, its two tiles and the device flag that picks one per
+// call, lives in counting_tiles.cuh, which the kernels generated for a
+// user's MXU-path Semiring instantiate too; this file gives it the three
+// store policies of the entry points below: the counts (CountStore), the
+// counts masked to first reaches, reading the distance block once
+// (FrontierStore), and the boolean threshold acc > 0.5 (BooleanStore).
+// Built without --use_fast_math, so the compares and adds stay IEEE.
+#include "counting_tiles.cuh"
 
-namespace {
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int TM = 8;  // tile (a) micro-tile
-constexpr int TN = 8;
-constexpr int KM_LD = BM + 4;   // [k][m] A tile row: conflict-free for both tiles
-constexpr int B_LD = BN;        // tile (a)'s fp32 B rows
-constexpr int B16_LD = BN + 8;  // tile (b)'s bf16 B rows: ldmatrix conflict-free
-constexpr int MK_LD = BK + 4;   // [m][k] A tile row: conflict-free reads
-constexpr int AL_LD = BK + 8;   // tile (b)'s bf16 limb rows: ldmatrix conflict-free
-
-// What the tile stores: the counts, the counts masked to first reaches, or
-// the boolean threshold of the counts.
-enum Epilogue { kCount, kFrontier, kBoolean };
-// How the left operand is laid out (see the header comment).
-enum Layout { kRowMajor, kColMajor, kStrided };
-
-// One strided (batch, row, col) view of the left operand, in elements.
-struct Strided {
-  const float* ptr;
-  long long sb, sr, sc;
-};
-
-template <Layout L>
-__host__ __device__ constexpr int a_floats() {
-  return L == kRowMajor ? BM * MK_LD : BK * KM_LD;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-}
-
-// Per-thread source pointer of A for the k step at k0 = 0, and the
-// element step between the thread's copies. The thread's copies of one
-// stage are at p + i * step, i = 0..3 (16-byte) or 0..15 (4-byte).
-template <Layout L>
-struct ALoader {
-  const float* p;
-  long long step;   // elements between copy i and i + 1
-  long long kstep;  // elements per BK of k
-  int gm, gk;       // this thread's first row and k offset (tile-relative k)
-
-  __device__ ALoader(const Strided& a, int bz, int row0, int tid) {
-    const float* base = a.ptr + (long long)bz * a.sb;
-    if (L == kRowMajor) {  // chunk c = tid + 256 i: m = c / 8, k = 4 (c % 8)
-      gm = row0 + tid / 8;
-      gk = 4 * (tid % 8);
-      step = 32 * a.sr;
-      kstep = BK;
-      p = base + (long long)gm * a.sr + gk;
-    } else if (L == kColMajor) {  // c: k = c / 32, m = 4 (c % 32)
-      gm = row0 + 4 * (tid % 32);
-      gk = tid / 32;
-      step = 8 * a.sc;
-      kstep = BK * a.sc;
-      p = base + gm + (long long)gk * a.sc;
-    } else {  // c: m = c % 128, k = c / 128 + 2 i
-      gm = row0 + tid % BM;
-      gk = tid / BM;
-      step = 2 * a.sc;
-      kstep = BK * a.sc;
-      p = base + (long long)gm * a.sr + (long long)gk * a.sc;
-    }
-  }
-
-  // Copies the stage for k0 into `as` (its layout) and advances p.
-  __device__ void load(float* as, int k0, int M, int K, int tid) {
-    if (L == kRowMajor) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = tid / 8 + 32 * i;
-        cp_async16(as + m * MK_LD + gk, p + i * step,
-                   gm + 32 * i < M && k0 + gk < K);
-      }
-    } else if (L == kColMajor) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = gk + 8 * i;
-        cp_async16(as + k * KM_LD + 4 * (tid % 32), p + i * step,
-                   gm < M && k0 + k < K);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int k = gk + 2 * i;
-        cp_async4(as + k * KM_LD + tid % BM, p + i * step,
-                  gm < M && k0 + k < K);
-      }
-    }
-    p += kstep;
-  }
-};
-
-// The counts at (r, col) -> what the epilogue stores.
-template <Epilogue EPI>
-__device__ __forceinline__ void store(const float* __restrict__ d,
-                                      float* __restrict__ c, long long off,
-                                      float v) {
-  if (EPI == kFrontier) {
-    const float dv = d[off];
-    v = (v > 0.f && isinf(dv) && dv > 0.f) ? v : 0.f;
-  } else if (EPI == kBoolean) {
-    v = v > 0.5f ? 1.f : 0.f;
-  }
-  c[off] = v;
-}
-
-// Returns whether this block runs (the flag selects its tile); the first
-// block of the tile that runs counts the launch.
-__device__ __forceinline__ bool selected(const int* flag, bool want_inexact,
-                                         int* counter) {
-  if ((*flag != 0) != want_inexact) return false;
-  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
-      threadIdx.x == 0)
-    atomicAdd(counter, 1);
-  return true;
-}
-
-// -- the conversion pass ----------------------------------------------------------
-
-// b16[z][k][n] = the top 16 bits of b[z][k][n] (zero outside K x N, up to the
-// padded Kp x Np); *inexact = 1 if any value of b is not exact in bf16 or
-// not finite (+-inf, NaN: tile (a) keeps fmaf's answer). Each thread writes
-// 8 consecutive n of one k.
-__global__ void __launch_bounds__(THREADS)
-to_bf16(const float* __restrict__ b, uint4* __restrict__ b16,
-        int* __restrict__ inexact, int K, int N, int Kp, int Np) {
-  const int groups = Np / 8;
-  const long long item = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (item >= (long long)Kp * groups) return;
-  const int k = static_cast<int>(item / groups);
-  const int n0 = static_cast<int>(item % groups) * 8;
-  const float* row = b + (long long)blockIdx.y * K * N + (long long)k * N;
-  unsigned h[8];
-  bool bad = false;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const unsigned bits =
-        (k < K && n0 + j < N) ? __float_as_uint(row[n0 + j]) : 0u;
-    bad |= (bits & 0xffffu) != 0 || (bits & 0x7f800000u) == 0x7f800000u;
-    h[j] = bits >> 16;
-  }
-  b16[(long long)blockIdx.y * Kp * groups + item] =
-      make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16,
-                 h[6] | h[7] << 16);
-  if (bad) *inexact = 1;  // every writer stores the same 1
-}
-
-// -- tile (a): fp32 on the CUDA cores -----------------------------------------------
-
-template <Epilogue EPI, Layout L>
-__global__ void __launch_bounds__(THREADS, 2)
-simt_tile(Strided a, const float* __restrict__ b, const float* __restrict__ d,
-          float* __restrict__ c, const int* __restrict__ flag,
-          int* __restrict__ counter, int M, int N, int K) {
-  if (!selected(flag, true, counter)) return;
-  extern __shared__ __align__(16) float smem[];
-  constexpr int A_FLOATS = a_floats<L>();
-  constexpr int STAGE = A_FLOATS + BK * B_LD;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int bz = blockIdx.z;
-
-  ALoader<L> al(a, bz, row0, tid);
-  // B: 16-byte copies along n (k = c / 32, n = 4 (c % 32)), or 4-byte ones
-  // (n = c % 128, k = c / 128 + 2 i) on the strided path
-  const int bk = L == kStrided ? tid / BN : tid / 32;
-  const int bn = L == kStrided ? tid % BN : 4 * (tid % 32);
-  const float* bp = b + (long long)bz * K * N + (long long)bk * N + col0 + bn;
-
-  auto load = [&](int stage, int k0) {
-    float* as = smem + stage * STAGE;
-    float* bs = as + A_FLOATS;
-    al.load(as, k0, M, K, tid);
-    if (L == kStrided) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int k = bk + 2 * i;
-        cp_async4(bs + k * B_LD + bn, bp + (long long)2 * i * N,
-                  k0 + k < K && col0 + bn < N);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = bk + 8 * i;
-        cp_async16(bs + k * B_LD + bn, bp + (long long)8 * i * N,
-                   k0 + k < K && col0 + bn < N);
-      }
-    }
-    bp += (long long)BK * N;
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int ktiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load(s, s * BK);
-    cp_async_commit();
-  }
-  for (int t = 0; t < ktiles; ++t) {
-    cp_async_wait_ring();
-    __syncthreads();
-    const int next = t + STAGES - 1;
-    if (next < ktiles) load(next % STAGES, next * BK);
-    cp_async_commit();
-
-    const float* as = smem + (t % STAGES) * STAGE;
-    const float* bs = as + A_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ra[TM];
-      if (L == kRowMajor) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ra[i] = as[(ty * 4 + i) * MK_LD + kk];
-          ra[4 + i] = as[(BM / 2 + ty * 4 + i) * MK_LD + kk];
-        }
-      } else {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[kk * KM_LD + ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&as[kk * KM_LD + BM / 2 + ty * 4]);
-        ra[0] = a0.x; ra[1] = a0.y; ra[2] = a0.z; ra[3] = a0.w;
-        ra[4] = a1.x; ra[5] = a1.y; ra[6] = a1.z; ra[7] = a1.w;
-      }
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk * B_LD + tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&bs[kk * B_LD + BN / 2 + tx * 4]);
-      const float rb[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-
-  const long long cbase = (long long)bz * M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + (i - 4));
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + (j < 4 ? tx * 4 + j : BN / 2 + tx * 4 + (j - 4));
-      if (col >= N) continue;
-      store<EPI>(d, c, cbase + (long long)r * N + col, acc[i][j]);
-    }
-  }
-}
-
-// -- tile (b): three exact bf16 limbs on the tensor cores ---------------------------
-
-// x -> the fp32 bit patterns of its limbs (hi, mid, lo), each exact in bf16
-// (see the header comment), a zero limb with x's sign; non-finite x ->
-// (x, 0, 0), NaN as the canonical quiet NaN, whose top 16 bits are a bf16
-// NaN. kernels/semiring.py _split_bf16_limbs is the same on the host.
-__device__ __forceinline__ void split3(float x, unsigned& hi, unsigned& mid,
-                                       unsigned& lo) {
-  const unsigned xb = __float_as_uint(x);
-  const unsigned sign = xb & 0x80000000u;
-  const float h = __uint_as_float(xb & 0xffff0000u);
-  const float r = x - h;
-  const float m = __uint_as_float(__float_as_uint(r) & 0xffff0000u);
-  const float l = r - m;
-  const bool finite = fabsf(x) < INFINITY;
-  hi = finite ? __float_as_uint(h) : (x != x ? 0x7fc00000u : xb);
-  mid = finite ? __float_as_uint(m) | sign : 0u;
-  lo = finite ? __float_as_uint(l) | sign : 0u;
-}
-
-// Two fp32 limb patterns -> one bf16x2 register (lower k in the low half).
-__device__ __forceinline__ unsigned pack2(unsigned lo_k, unsigned hi_k) {
-  return __byte_perm(lo_k, hi_k, 0x7632);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <Epilogue EPI, Layout L>
-__global__ void __launch_bounds__(THREADS, 2)
-tc_tile(Strided a, const uint4* __restrict__ b16, const float* __restrict__ d,
-        float* __restrict__ c, const int* __restrict__ flag,
-        int* __restrict__ counter, int M, int N, int K, int Np) {
-  if (!selected(flag, false, counter)) return;
-  extern __shared__ __align__(16) float smem[];
-  constexpr int A_FLOATS = a_floats<L>();
-  constexpr int STAGE = A_FLOATS + BK * B16_LD / 2;  // in floats
-  // the current stage's A as three bf16 limb tiles, [limb][m][k]
-  unsigned short* limbs =
-      reinterpret_cast<unsigned short*>(smem + STAGES * STAGE);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = (warp / 4) * 64;  // the warp's 64 x 32 of the block tile
-  const int wn = (warp % 4) * 32;
-  const int g = lane / 4;
-  const int q = 2 * (lane % 4);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int bz = blockIdx.z;
-  // the split: thread tid takes row sm and k in [sk, sk + 16) of a stage
-  const int sm = tid % BM;
-  const int sk = 16 * (tid / BM);
-
-  ALoader<L> al(a, bz, row0, tid);
-  // B16 is (Kp, Np) per problem, padded with zeros: every 16-byte copy is
-  // whole (k = c / 16, n = 8 (c % 16), c = tid + 256 i, i = 0, 1)
-  const int groups = Np / 8;
-  const uint4* bp = b16 + (long long)bz * ((K + BK - 1) / BK * BK) * groups +
-                    (long long)(tid / 16) * groups + col0 / 8 + tid % 16;
-
-  auto load = [&](int stage, int k0) {
-    float* as = smem + stage * STAGE;
-    unsigned short* bs = reinterpret_cast<unsigned short*>(as + A_FLOATS);
-    al.load(as, k0, M, K, tid);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      cp_async16(bs + (tid / 16 + 16 * i) * B16_LD + 8 * (tid % 16),
-                 bp + (long long)16 * i * groups, true);
-    bp += (long long)BK * groups;
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int ktiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load(s, s * BK);
-    cp_async_commit();
-  }
-  for (int t = 0; t < ktiles; ++t) {
-    cp_async_wait_ring();
-    __syncthreads();
-    const int next = t + STAGES - 1;
-    if (next < ktiles) load(next % STAGES, next * BK);
-    cp_async_commit();
-
-    const float* as = smem + (t % STAGES) * STAGE;
-    const unsigned short* bs =
-        reinterpret_cast<const unsigned short*>(as + A_FLOATS);
-    // split this stage's A once for the block: 16 values a thread, 8 at a
-    // time (the 64 accumulators are live here)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int k0 = sk + 8 * half;
-      float x[8];
-      if (L == kRowMajor) {
-#pragma unroll
-        for (int j = 0; j < 8; j += 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&as[sm * MK_LD + k0 + j]);
-          x[j] = v.x; x[j + 1] = v.y; x[j + 2] = v.z; x[j + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[j] = as[(k0 + j) * KM_LD + sm];
-      }
-      unsigned w[3][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        unsigned h0, m0, l0, h1, m1, l1;
-        split3(x[2 * j], h0, m0, l0);
-        split3(x[2 * j + 1], h1, m1, l1);
-        w[0][j] = pack2(h0, h1);
-        w[1][j] = pack2(m0, m1);
-        w[2][j] = pack2(l0, l1);
-      }
-#pragma unroll
-      for (int l = 0; l < 3; ++l)
-        *reinterpret_cast<uint4*>(limbs + (l * BM + sm) * AL_LD + k0) =
-            make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      // B fragments of the warp's four n8 tiles: two ldmatrix.x4.trans
-      unsigned bf[4][2];
-#pragma unroll
-      for (int pr = 0; pr < 2; ++pr) {
-        const int krow = ks + (lane / 8 % 2) * 8 + lane % 8;
-        const int ncol = wn + (2 * pr + lane / 16) * 8;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(bf[2 * pr][0]), "=r"(bf[2 * pr][1]),
-              "=r"(bf[2 * pr + 1][0]), "=r"(bf[2 * pr + 1][1])
-            : "r"(smem_u32(bs + krow * B16_LD + ncol)));
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // A fragments of the three limbs: rows wm + 16 mi + (0..15), k ks +
-        // (0..15), one ldmatrix.x4 each
-        unsigned af[3][4];
-        const int r = wm + mi * 16 + lane % 16;
-        const int k = ks + (lane / 16) * 8;
-#pragma unroll
-        for (int l = 0; l < 3; ++l)
-          asm volatile(
-              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-              "{%0,%1,%2,%3}, [%4];\n"
-              : "=r"(af[l][0]), "=r"(af[l][1]), "=r"(af[l][2]),
-                "=r"(af[l][3])
-              : "r"(smem_u32(limbs + (l * BM + r) * AL_LD + k)));
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(part, af[0], bf[ni][0], bf[ni][1]);
-          mma_bf16(part, af[1], bf[ni][0], bf[ni][1]);
-          mma_bf16(part, af[2], bf[ni][0], bf[ni][1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[e];
-        }
-      }
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-
-  const long long cbase = (long long)bz * M * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
-      if (r >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = col0 + wn + ni * 8 + q + (e & 1);
-        if (col >= N) continue;
-        store<EPI>(d, c, cbase + (long long)r * N + col, acc[mi][ni][e]);
-      }
-    }
-}
-
-// -- the launch ----------------------------------------------------------------------
-
-template <auto kernel>
-cudaError_t allow_smem(int bytes) {
-  // once per kernel: dynamic shared memory above 48 KB
-  static const cudaError_t done = [&] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    return e;
-  }();
-  return done;
-}
-
-template <Layout L>
-constexpr int simt_smem_bytes() {
-  return STAGES * (a_floats<L>() + BK * B_LD) * sizeof(float);
-}
-
-template <Layout L>
-constexpr int tc_smem_bytes() {
-  return STAGES * (a_floats<L>() + BK * B16_LD / 2) * sizeof(float) +
-         3 * BM * AL_LD * 2;
-}
-
-template <Epilogue EPI, Layout L>
-int launch(Strided a, const void* b, const void* d, void* c, void* b16,
-           void* flag, void* counters, int batch, int m, int n, int k,
-           void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kp = (k + BK - 1) / BK * BK;
-  const int np = (n + BN - 1) / BN * BN;
-  int* f = static_cast<int*>(flag);
-  int* counts = static_cast<int*>(counters);
-  cudaError_t e = cudaMemsetAsync(f, 0, sizeof(int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (kp > 0) {
-    const long long items = (long long)kp * (np / 8);
-    const dim3 cgrid(static_cast<unsigned>((items + THREADS - 1) / THREADS),
-                     batch);
-    to_bf16<<<cgrid, THREADS, 0, s>>>(static_cast<const float*>(b),
-                                      static_cast<uint4*>(b16), f, k, n, kp,
-                                      np);
-  }
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  constexpr int simt_bytes = simt_smem_bytes<L>();
-  constexpr int tc_bytes = tc_smem_bytes<L>();
-  if ((e = allow_smem<simt_tile<EPI, L>>(simt_bytes)) != cudaSuccess ||
-      (e = allow_smem<tc_tile<EPI, L>>(tc_bytes)) != cudaSuccess)
-    return static_cast<int>(e);
-  simt_tile<EPI, L><<<grid, THREADS, simt_bytes, s>>>(
-      a, static_cast<const float*>(b), static_cast<const float*>(d),
-      static_cast<float*>(c), f, counts, m, n, k);
-  tc_tile<EPI, L><<<grid, THREADS, tc_bytes, s>>>(
-      a, static_cast<const uint4*>(b16), static_cast<const float*>(d),
-      static_cast<float*>(c), f, counts + 1, m, n, k, np);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <Epilogue EPI>
-int dispatch(int layout, Strided a, const void* b, const void* d, void* c,
-             void* b16, void* flag, void* counters, int batch, int m, int n,
-             int k, void* stream) {
-  switch (layout) {
-    case kRowMajor:
-      return launch<EPI, kRowMajor>(a, b, d, c, b16, flag, counters, batch, m,
-                                    n, k, stream);
-    case kColMajor:
-      return launch<EPI, kColMajor>(a, b, d, c, b16, flag, counters, batch, m,
-                                    n, k, stream);
-    case kStrided:
-      return launch<EPI, kStrided>(a, b, d, c, b16, flag, counters, batch, m,
-                                   n, k, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
+using counting_tiles::BooleanStore;
+using counting_tiles::CountStore;
+using counting_tiles::FrontierStore;
+using counting_tiles::Strided;
+using counting_tiles::dispatch;
 
 // The three entry points share their arguments. `a` is read through its
 // (batch, row, col) strides in elements, in the layout the host chose
@@ -660,8 +42,9 @@ extern "C" int repro_frontier_step_f32(int layout, const void* f,
                                        void* flag, void* counters, int batch,
                                        int m, int n, int k, void* stream) {
   const Strided fv{static_cast<const float*>(f), sfb, sfr, sfc};
-  return dispatch<kFrontier>(layout, fv, a, d, x, b16, flag, counters, batch,
-                             m, n, k, stream);
+  const FrontierStore st{static_cast<const float*>(d), static_cast<float*>(x)};
+  return dispatch(layout, fv, static_cast<const float*>(a), nullptr, st, b16,
+                  flag, counters, batch, m, n, k, stream);
 }
 
 // C = A@B.
@@ -672,8 +55,9 @@ extern "C" int repro_count_matmul_f32(int layout, const void* a,
                                       void* flag, void* counters, int batch,
                                       int m, int n, int k, void* stream) {
   const Strided av{static_cast<const float*>(a), sab, sar, sac};
-  return dispatch<kCount>(layout, av, b, nullptr, c, b16, flag, counters,
-                          batch, m, n, k, stream);
+  return dispatch(layout, av, static_cast<const float*>(b), nullptr,
+                  CountStore{static_cast<float*>(c)}, b16, flag, counters,
+                  batch, m, n, k, stream);
 }
 
 // R = (A@B > 0.5) as fp32 {0,1}: the boolean-semiring product of {0,1}
@@ -686,6 +70,7 @@ extern "C" int repro_reachability_step_f32(int layout, const void* a,
                                            void* counters, int batch, int m,
                                            int n, int k, void* stream) {
   const Strided av{static_cast<const float*>(a), sab, sar, sac};
-  return dispatch<kBoolean>(layout, av, b, nullptr, r, b16, flag, counters,
-                            batch, m, n, k, stream);
+  return dispatch(layout, av, static_cast<const float*>(b), nullptr,
+                  BooleanStore{static_cast<float*>(r)}, b16, flag, counters,
+                  batch, m, n, k, stream);
 }

@@ -1,7 +1,9 @@
 // Generic semiring products for Hopper (sm_90a): the blocked product over a
-// user's algebra, 2D or batched over blockIdx.z, on a VPU-style tile
-// (combine / accumulate over NF fields) or an MXU-style tile (an fp32 FMA
-// product with the algebra's epilogue at the store).
+// user's algebra, 2D or batched over blockIdx.z. A VPU-path algebra
+// (combine / accumulate over NF fields) runs on this header's VPU tile; an
+// MXU-path algebra (the IEEE fp32 dot with the algebra's epilogue at the
+// store) runs on counting_tiles.cuh, the GEMM of count_matmul, with the
+// store policy MxuStore below.
 //
 // Replaces (src/repro/kernels/semiring.py):
 //   semiring_matmul         <- semiring_matmul_pallas (_vpu_kernel,
@@ -10,12 +12,12 @@
 //                              (_vpu_kernel_batched, _mxu_kernel_batched)
 //
 // How it is used: this header is not a library of its own. For each algebra
-// and field types, kernels/semiring.py emits a source that includes it,
-// defines one algebra struct from the Semiring's device code and exports a
-// plain C entry point (repro_semiring_vpu or repro_semiring_mxu);
-// kernels/build.py compiles that source at first use, keyed by a hash of the
-// generated text, this header and the flags. The algebra struct, for the
-// VPU tile:
+// and field types, kernels/semiring.py emits a source that includes it (and
+// counting_tiles.cuh for the MXU path), defines one algebra struct from the
+// Semiring's device code and exports a plain C entry point
+// (repro_semiring_vpu or repro_semiring_mxu); kernels/build.py compiles
+// that source at first use, keyed by a hash of the generated text, every
+// csrc/*.cuh and the flags. The algebra struct, for the VPU tile:
 //   struct Alg {
 //     using T = float;                // or int: the type of every field
 //     static constexpr int NF = 2;    // fields per element
@@ -26,7 +28,7 @@
 //                               T (&out)[NF]);
 //     static SR_FN void accumulate(T (&acc)[NF], const T (&t)[NF]);
 //   };
-// and for the MXU tile:
+// and for the MXU path:
 //   struct Alg {
 //     using A = unsigned char;        // left operand: float, int or uint8
 //     using B = int;                  // right operand: the same choice
@@ -43,10 +45,9 @@
 // compare at one per lane per clock (33.5 T/s on the H100 SXM): at 2048^3
 // a single-field product is 1.7e10 such operations against 50 MB of
 // operands, ~0.51 ms of operations and ~0.015 ms of bytes, so the pipes
-// bound it. The MXU tile is 2*M*N*K fp32 operations at 67 TFLOP/s (an FMA
-// counts two): ~0.26 ms at 2048^3. Neither uses the tensor cores: the VPU
-// path's algebra is not (+, x), and the MXU path must give IEEE fp32 sums
-// (counts exact below 2**24), which TF32 does not.
+// bound it. The MXU path is count_matmul's (counting_tiles.cuh): 2*M*N*K
+// fp32 FMAs on tile (a), 67 TFLOP/s, ~0.26 ms at 2048^3, or three bf16
+// tensor-core passes on tile (b) for a right operand exact in bf16.
 //
 // Design. VPU tile: a SIMT tile through shared memory, as in tropical.cu: a
 // 32x32 output tile per block of 256 threads (16x16), K staged 32 deep (16
@@ -57,16 +58,23 @@
 // registers. Fields are separate arrays (struct of arrays), as in the JAX
 // package. The accumulator folds `accumulate` over k in order; that is the
 // semiring's reduce, so `accumulate` must be associative and commutative,
-// as the TPU kernel also assumes when it reduces block by block. MXU tile:
-// semiring.cu's tile_gemm (a 128x128 output tile per block of 256 threads,
-// K staged 8 deep, an 8x8 register micro-tile in two 4x4 quadrants 64
-// apart, float4 shared-memory reads), with the operands cast to fp32 on
-// the way into shared memory, as _mxu_kernel casts them in registers, and
-// the epilogue applied at the store. Both tiles mask ragged M, N and K with
-// the algebra's pads at the loads and at the store, so callers need no
-// padding. Each block moves its base pointers once by its 64-bit batch
-// offset; per-load batch offsets spill (tropical.cu's history). Built
-// without --use_fast_math: the pads are often +-inf and must stay IEEE.
+// as the TPU kernel also assumes when it reduces block by block. The tile
+// masks ragged M, N and K with the algebra's pads at the loads and at the
+// store, so callers need no padding. Each block moves its base pointers
+// once by its 64-bit batch offset; per-load batch offsets spill
+// (tropical.cu's history).
+//
+// MXU path: the operands are cast to fp32 as _mxu_kernel casts them (A into
+// an fp32 copy, B by the conversion pass), and the results are
+// count_matmul's: bit-equal to the plain version epilogue(a.float() @
+// b.float()) wherever every partial sum is an integer below 2**24, within
+// rtol 1e-5 elsewhere (tile (b) rounds once per 16-deep k step), and a B
+// value that is not finite takes tile (a), which keeps fmaf's inf and NaN.
+// Ragged K is zero-filled, not filled with pad_a / pad_b: the pads of an
+// MXU-path algebra are annihilators of x, so a padded k adds pad_a * pad_b
+// = 0, as a zero-filled one does (the wrapper refuses pads whose product
+// is not 0). Built without --use_fast_math: the pads are often +-inf and
+// must stay IEEE.
 #pragma once
 
 #include <math.h>
@@ -97,6 +105,20 @@ SR_FN float sr_fmin_nan(float x, float y) {
   return (x != x || y != y) ? NAN : fminf(x, y);
 #endif
 }
+
+namespace repro_semiring {
+
+// The MXU path's store policy for counting_tiles.cuh: the algebra's
+// epilogue of the fp32 sum, cast to its output type.
+template <class Alg>
+struct MxuStore {
+  typename Alg::Out* c;
+  SR_FN void operator()(long long off, float acc) const {
+    c[off] = static_cast<typename Alg::Out>(Alg::epilogue(acc));
+  }
+};
+
+}  // namespace repro_semiring
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -235,110 +257,6 @@ int launch_vpu(const void* const* a, const void* const* b, void* const* out,
   const dim3 grid((n + VTILE - 1) / VTILE, (m + VTILE - 1) / VTILE, batch);
   vpu_tile<Alg><<<grid, VTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       p, m, n, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// -- MXU-style tile -------------------------------------------------------------
-
-constexpr int MBM = 128;
-constexpr int MBN = 128;
-constexpr int MBK = 8;
-constexpr int MTM = 8;
-constexpr int MTN = 8;
-constexpr int MTHREADS = (MBM / MTM) * (MBN / MTN);  // 256
-constexpr int MA_PAD = 4;  // keeps the transposed A tile stores conflict free
-
-template <class Alg>
-__global__ void __launch_bounds__(MTHREADS)
-mxu_tile(const typename Alg::A* __restrict__ a,
-         const typename Alg::B* __restrict__ b,
-         typename Alg::Out* __restrict__ c, int M, int N, int K) {
-  using Out = typename Alg::Out;
-  __shared__ __align__(16) float As[MBK][MBM + MA_PAD];
-  __shared__ __align__(16) float Bs[MBK][MBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (MBN / MTN);
-  const int ty = tid / (MBN / MTN);
-  const int row0 = blockIdx.y * MBM;
-  const int col0 = blockIdx.x * MBN;
-  const long long bz = blockIdx.z;
-  a += bz * M * K;
-  b += bz * K * N;
-  c += bz * M * N;
-  const float pad_a = Alg::pad_a();
-  const float pad_b = Alg::pad_b();
-
-  float acc[MTM][MTN];
-#pragma unroll
-  for (int i = 0; i < MTM; ++i)
-#pragma unroll
-    for (int j = 0; j < MTN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += MBK) {
-#pragma unroll
-    for (int i = 0; i < (MBM * MBK) / MTHREADS; ++i) {
-      const int idx = tid + i * MTHREADS;
-      const int m = idx / MBK;
-      const int k = idx % MBK;
-      const int gm = row0 + m;
-      const int gk = k0 + k;
-      As[k][m] = (gm < M && gk < K)
-                     ? static_cast<float>(a[(long long)gm * K + gk]) : pad_a;
-    }
-#pragma unroll
-    for (int i = 0; i < (MBK * MBN) / MTHREADS; ++i) {
-      const int idx = tid + i * MTHREADS;
-      const int k = idx / MBN;
-      const int n = idx % MBN;
-      const int gk = k0 + k;
-      const int gn = col0 + n;
-      Bs[k][n] = (gk < K && gn < N)
-                     ? static_cast<float>(b[(long long)gk * N + gn]) : pad_b;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < MBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][MBM / 2 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][MBN / 2 + tx * 4]);
-      const float ra[MTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float rb[MTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < MTM; ++i)
-#pragma unroll
-        for (int j = 0; j < MTN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < MTM; ++i) {
-    const int r = row0 + (i < 4 ? ty * 4 + i : MBM / 2 + ty * 4 + (i - 4));
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < MTN; ++j) {
-      const int col = col0 + (j < 4 ? tx * 4 + j : MBN / 2 + tx * 4 + (j - 4));
-      if (col >= N) continue;
-      c[(long long)r * N + col] = static_cast<Out>(Alg::epilogue(acc[i][j]));
-    }
-  }
-}
-
-// `batch` contiguous (m,k) x (k,n) products into `out`, epilogue applied.
-// Returns the launch's cudaError_t.
-template <class Alg>
-int launch_mxu(const void* a, const void* b, void* out, int batch, int m,
-               int n, int k, void* stream) {
-  const dim3 grid((n + MBN - 1) / MBN, (m + MBM - 1) / MBM, batch);
-  mxu_tile<Alg><<<grid, MTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const typename Alg::A*>(a),
-      static_cast<const typename Alg::B*>(b),
-      static_cast<typename Alg::Out*>(out), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,19 +43,23 @@ Hand-written CUDA kernels carry the device path:
   ``semiring_matmul_pallas`` / ``semiring_matmul_batched_pallas`` run with
   a user's algebra). A spec carries its algebra twice: as torch callables,
   which the plain versions run, and as C++ device code, from which a CUDA
-  kernel over ``csrc/semiring_generic.cuh`` is generated and built with
-  ``nvcc`` at its first launch, one library per algebra and dtypes. The
-  four shipped specs :data:`TROPICAL`, :data:`BOOLEAN`, :data:`COUNTING`
-  and :data:`TROPICAL_COUNT` carry device code too.
+  kernel is generated and built with ``nvcc`` at its first launch, one
+  library per algebra and dtypes: a VPU-path algebra over
+  ``csrc/semiring_generic.cuh``'s tile, an MXU-path one over
+  ``count_matmul``'s GEMM (``csrc/counting_tiles.cuh``) with its epilogue
+  at the store. The four shipped specs :data:`TROPICAL`, :data:`BOOLEAN`,
+  :data:`COUNTING` and :data:`TROPICAL_COUNT` carry device code too.
 
-**The counting tiles.** :func:`frontier_step`, :func:`count_matmul` (fp32)
-and :func:`reachability_step` share two tiles of ``csrc/semiring.cu``.
+**The counting tiles.** :func:`frontier_step`, :func:`count_matmul` (fp32),
+:func:`reachability_step` and the generic MXU path of
+:func:`semiring_matmul` share one GEMM on two tiles,
+``csrc/counting_tiles.cuh``, each with its own store policy, so the
+generic kernel on :data:`COUNTING` is :func:`count_matmul` bit for bit.
 Each call converts ``B`` to a bf16 scratch copy and, on the card, sets a
 flag if any value of ``B`` is not finite or not exact in bf16
 (:func:`_takes_simt_tile`). With the flag, the fp32
 SIMT tile runs: a pipelined fp32 FMA tile, one ``fmaf`` per k in order
-from 0, as the generic MXU tile of :func:`semiring_matmul` sums, so the
-two agree bit for bit. Without it, the tensor-core tile runs: ``A`` split into
+from 0. Without it, the tensor-core tile runs: ``A`` split into
 three bf16 limbs (:func:`_split_bf16_limbs`), three exact bf16 products
 per k step, summed in fp32 (:func:`_limbed_matmul_ref` on the CPU): on a
 {0,1} adjacency it is bit-equal to the SIMT tile wherever the partial
@@ -63,6 +67,15 @@ sums are integers below 2**24. The choice costs no host sync; each tile
 counts its launches on the card (:func:`tile_launches`). ``A``'s layout
 (row-major, column-major, any strides) picks the loader
 (:func:`_a_layout`).
+
+**The min-plus tiles.** :func:`minplus_matmul` and
+:func:`batched_minplus_matmul` run on one of two tiles of
+``csrc/tropical.cu``, picked on the host from the output grid alone
+(:func:`_minplus_tile`): a register-blocked 128 x 128 tile with a
+pipelined ``cp.async`` ring for grids of at least 256 such blocks (the
+sweep's stacks), the 32 x 32 tile elsewhere (the MWU oracle's p = 384..512
+products, and always :func:`minplus_count_matmul`). Both fold k in order,
+so they agree bit for bit; :func:`tile_launches` counts each.
 
 **NaN.** The min-plus kernels, their plain versions and the shipped
 ``TROPICAL`` / ``TROPICAL_COUNT`` device code propagate NaN as the JAX
@@ -267,11 +280,13 @@ def _split_bf16_limbs(x: torch.Tensor
 
 
 def _takes_simt_tile(b: torch.Tensor) -> bool:
-    """Whether a counting product with right operand ``b`` runs on
-    ``csrc/semiring.cu``'s SIMT tile, as its ``to_bf16`` pass decides on the
-    card: some value of ``b`` is not exact in bf16 (low 16 bits set) or is
-    not finite. A non-finite ``b`` would meet zero limbs on the tensor cores
-    and give 0 * inf = NaN where ``fmaf`` gives inf."""
+    """Whether a counting product with right operand ``b`` (float32, int32
+    or uint8; the generic MXU path takes all three) runs on
+    ``csrc/counting_tiles.cuh``'s SIMT tile, as its ``to_bf16`` pass decides
+    on the card: some value of ``b.float()`` is not exact in bf16 (low 16
+    bits set) or is not finite. A non-finite ``b`` would meet zero limbs on
+    the tensor cores and give 0 * inf = NaN where ``fmaf`` gives inf. A
+    uint8 ``b`` never takes it."""
     bits = b.float().contiguous().view(torch.int32)
     inexact = (bits & 0xffff) != 0
     return bool((inexact | ~torch.isfinite(b.float())).any())
@@ -397,7 +412,16 @@ _LIB = None
 _TROPICAL_LIB = None
 #: the entry points of ``csrc/semiring.cu``, which share one pair of tiles
 _COUNTING_TILES = ("frontier_step", "count_matmul", "reachability_step")
+#: the wrappers whose kernels count their launches per tile on the card, and
+#: the names of the two tiles: the counting tiles (``csrc/counting_tiles.cuh``,
+#: also the generic MXU path's) and the min-plus tiles (``csrc/tropical.cu``)
+_TILED = {**{name: ("simt", "tensor") for name in _COUNTING_TILES},
+          "semiring_matmul": ("simt", "tensor"),
+          "minplus_matmul": ("small", "large"),
+          "batched_minplus_matmul": ("small", "large")}
 _TILE_COUNTS: Optional[torch.Tensor] = None
+#: wrapper name -> the address of its two counters in :data:`_TILE_COUNTS`
+_TILE_PTRS: Dict[str, int] = {}
 _PACKED_LIB = None
 
 
@@ -422,10 +446,11 @@ def _tropical_lib() -> ctypes.CDLL:
         from .build import load
 
         lib = load("tropical")
-        lib.repro_minplus_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+        lib.repro_minplus_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                          _P]
         lib.repro_minplus_f32.restype = _I
-        lib.repro_minplus_batched_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I,
-                                                  _I, _I, _P]
+        lib.repro_minplus_batched_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
+                                                  _I, _I, _I, _P]
         lib.repro_minplus_batched_f32.restype = _I
         lib.repro_minplus_count_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
                                                 _I, _I, _P]
@@ -589,19 +614,23 @@ _ROW_MAJOR, _COL_MAJOR, _STRIDED = 0, 1, 2
 _TILE_K, _TILE_N = 32, 128
 
 
-def _a_layout(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Which of ``csrc/semiring.cu``'s left-operand loaders reads ``a``
-    (2D or a stack) in a product with the contiguous ``b``: _ROW_MAJOR (unit
-    stride along k) or _COL_MAJOR (unit stride along m), whose 16-byte
-    copies need the other strides, the unit axis's extent, N and both
-    bases' byte offsets to be multiples of 4 elements (16 bytes), or
-    _STRIDED (4-byte copies) for any other view."""
+def _a_layout(a: torch.Tensor, b: torch.Tensor,
+              vec: Optional[bool] = None) -> int:
+    """Which of ``csrc/counting_tiles.cuh``'s left-operand loaders reads
+    ``a`` (2D or a stack) in a product with the contiguous ``b``:
+    _ROW_MAJOR (unit stride along k) or _COL_MAJOR (unit stride along m),
+    whose 16-byte copies need the other strides, the unit axis's extent, N
+    and both bases' byte offsets to be multiples of 4 elements (16 bytes),
+    or _STRIDED (4-byte copies) for any other view. ``vec`` says whether
+    the fp32 bases the tiles read are 16-byte aligned (by default those of
+    ``a`` and ``b``; the generic MXU path reads its fp32 copies instead)."""
     sr, sc = a.stride(-2), a.stride(-1)
     sb = a.stride(0) if a.ndim == 3 else 0
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    vec = (n % 4 == 0 and sb % 4 == 0 and a.data_ptr() % 16 == 0
-           and b.data_ptr() % 16 == 0)
+    if vec is None:
+        vec = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    vec = vec and n % 4 == 0 and sb % 4 == 0
     if vec and sc == 1 and k % 4 == 0 and (sr % 4 == 0 or m == 1):
         return _ROW_MAJOR
     if vec and sr == 1 and m % 4 == 0 and (sc % 4 == 0 or k == 1):
@@ -609,25 +638,30 @@ def _a_layout(a: torch.Tensor, b: torch.Tensor) -> int:
     return _STRIDED
 
 
-def _tile_counts(device: torch.device) -> torch.Tensor:
-    """The device counters of the counting tiles: one (simt, tensor) pair
-    per entry point, in :data:`_COUNTING_TILES` order."""
+def _tile_counts(device: torch.device, name: str) -> int:
+    """The address of the two device counters of ``name``'s tiles
+    (:data:`_TILED`), allocated at the first launch."""
     global _TILE_COUNTS
     if _TILE_COUNTS is None:
-        _TILE_COUNTS = torch.zeros((len(_COUNTING_TILES), 2),
-                                   dtype=torch.int32, device=device)
-    return _TILE_COUNTS
+        _TILE_COUNTS = torch.zeros((len(_TILED), 2), dtype=torch.int32,
+                                   device=device)
+        _TILE_PTRS.update((n, row.data_ptr())
+                          for n, row in zip(_TILED, _TILE_COUNTS))
+    return _TILE_PTRS[name]
 
 
 def tile_launches() -> Dict[str, Dict[str, int]]:
-    """Launches of each counting tile since the last :func:`reset_launches`,
-    per entry point: ``{"frontier_step": {"simt": n, "tensor": m}, ...}``.
-    The counters live on the card and are read here, one host sync: call it
-    outside timed windows. All zero before the first launch."""
-    counts = (np.zeros((len(_COUNTING_TILES), 2), np.int64)
+    """Launches of each tile since the last :func:`reset_launches`, per
+    wrapper: ``{"frontier_step": {"simt": n, "tensor": m}, ...,
+    "semiring_matmul": {"simt": .., "tensor": ..}, "minplus_matmul":
+    {"small": .., "large": ..}, "batched_minplus_matmul": {...}}`` (the
+    generic kernel counts its MXU-path launches only). The counters live on
+    the card and are read here, one host sync: call it outside timed
+    windows. All zero before the first launch."""
+    counts = (np.zeros((len(_TILED), 2), np.int64)
               if _TILE_COUNTS is None else _TILE_COUNTS.cpu().numpy())
-    return {name: {"simt": int(c[0]), "tensor": int(c[1])}
-            for name, c in zip(_COUNTING_TILES, counts)}
+    return {name: {tile: int(n) for tile, n in zip(tiles, c)}
+            for (name, tiles), c in zip(_TILED.items(), counts)}
 
 
 def _counting_smem_bytes() -> Dict[str, Dict[str, int]]:
@@ -654,6 +688,30 @@ def _packed_smem_bytes() -> int:
     return stages * (limbs * _NARROW_BM * a_ld + _NARROW_BK * 256)
 
 
+#: ``csrc/tropical.cu``'s large min-plus tile: output edge, K stage, ring
+#: depth, and the fewest blocks of its grid for which the host picks it
+_MINPLUS_LARGE, _MINPLUS_BK, _MINPLUS_STAGES = 128, 32, 3
+_MINPLUS_LARGE_MIN_BLOCKS = 256
+
+
+def _minplus_tile(batch: int, m: int, n: int) -> str:
+    """The tile ``csrc/tropical.cu`` runs a plain min-plus product of
+    ``batch`` (m, n) outputs on, as its ``large_tile`` decides on the host:
+    "large" (128 x 128 outputs a block) where that grid has at least 256
+    blocks, about two per SM, else "small" (32 x 32). The tropical count
+    product always runs on the small tile."""
+    blocks = batch * -(-m // _MINPLUS_LARGE) * -(-n // _MINPLUS_LARGE)
+    return "large" if blocks >= _MINPLUS_LARGE_MIN_BLOCKS else "small"
+
+
+def _minplus_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the large min-plus tile, from
+    ``csrc/tropical.cu``'s constants (its ``LARGE_SMEM``): per stage of the
+    ring, A as [128][32 + 4] and B as [32][128] fp32."""
+    t, bk = _MINPLUS_LARGE, _MINPLUS_BK
+    return _MINPLUS_STAGES * (t * (bk + 4) + bk * t) * 4
+
+
 def _counting_gemm(name: str, a: torch.Tensor, b: torch.Tensor,
                    d: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One call of ``csrc/semiring.cu``'s entry point ``name``: ``a`` read
@@ -672,12 +730,12 @@ def _counting_gemm(name: str, a: torch.Tensor, b: torch.Tensor,
     b16 = torch.empty(batch * kp * np_, dtype=torch.bfloat16,
                       device=a.device)
     flag = torch.empty(1, dtype=torch.int32, device=a.device)
-    counters = _tile_counts(a.device)[_COUNTING_TILES.index(name)]
+    counters = _tile_counts(a.device, name)
     sb = a.stride(0) if a.ndim == 3 else 0
     _check(getattr(_lib(), f"repro_{name}_f32")(
         _a_layout(a, b), a.data_ptr(), sb, a.stride(-2), a.stride(-1),
         b.data_ptr(), None if d is None else d.data_ptr(), out.data_ptr(),
-        b16.data_ptr(), flag.data_ptr(), counters.data_ptr(), batch, m, n, k,
+        b16.data_ptr(), flag.data_ptr(), counters, batch, m, n, k,
         torch.cuda.current_stream(a.device).cuda_stream), name)
     launches[name] += 1
     return out
@@ -811,7 +869,8 @@ def _minplus(a, b, use_kernel, compare, batched):
         lib = _tropical_lib()
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
                 None if compare is None else compare.data_ptr(),
-                None if changed is None else changed.data_ptr())
+                None if changed is None else changed.data_ptr(),
+                _tile_counts(a.device, name))
         stream = torch.cuda.current_stream(a.device).cuda_stream
         _check(lib.repro_minplus_batched_f32(*args, batch, m, n, k, stream)
                if batched else lib.repro_minplus_f32(*args, m, n, k, stream),
@@ -883,7 +942,14 @@ class Semiring:
 
     MXU path (``mxu=True``, single field only): the product is the plain
     IEEE fp32 dot; ``epilogue`` maps the accumulated fp32 sums to the
-    output.
+    output. On the card it runs on :func:`count_matmul`'s two tiles, so its
+    results are :func:`count_matmul`'s: bit-equal to the plain version
+    wherever every partial sum is an integer below 2**24, within rtol 1e-5
+    elsewhere (the tensor-core tile, taken when ``b`` is exact in bf16,
+    rounds once per 16-deep k step), and a ``b`` value that is not finite
+    takes the SIMT tile, which keeps ``fmaf``'s inf and NaN. Its pads must
+    be annihilators of x (``pad_a * pad_b == 0``): the kernel zero-fills
+    ragged K.
 
     **Device code** runs the same algebra in the generated CUDA kernel
     (``csrc/semiring_generic.cuh``); without it the spec runs only on CPU
@@ -999,6 +1065,9 @@ def algebra_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
     _require_device_code(sr)
     name = f"Algebra_{_ident(sr.name)}"
     if sr.mxu:
+        if sr.pad_a[0] * sr.pad_b[0] != 0:
+            raise ValueError(f"{sr.name}: the MXU kernel zero-fills ragged "
+                             f"K, so pad_a * pad_b must be 0")
         ta, tb, tout = (_C_TYPES[t] for t in types)
         return (f"struct {name} {{\n"
                 f"  using A = {ta};\n  using B = {tb};\n  using Out = {tout};\n"
@@ -1034,15 +1103,27 @@ def algebra_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
 
 def semiring_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
     """The CUDA source of ``sr``'s kernel for ``types``: the algebra struct
-    and one C entry point over ``csrc/semiring_generic.cuh``."""
+    and one C entry point over ``csrc/semiring_generic.cuh`` (the VPU tile)
+    or ``csrc/counting_tiles.cuh`` (the MXU path: ``count_matmul``'s GEMM
+    with the algebra's epilogue as its store policy)."""
     struct = algebra_source(sr, types)
     alg = f"Algebra_{_ident(sr.name)}"
+    include = '#include "semiring_generic.cuh"\n'
     if sr.mxu:
-        entry = ("extern \"C\" int repro_semiring_mxu(const void* a, "
-                 "const void* b, void* out,\n    int batch, int m, int n, "
-                 "int k, void* stream) {\n"
-                 f"  return repro_semiring::launch_mxu<{alg}>(a, b, out, "
-                 "batch, m, n, k, stream);\n}\n")
+        include += '#include "counting_tiles.cuh"\n'
+        entry = ("extern \"C\" int repro_semiring_mxu(int layout, "
+                 "const void* a, void* a32,\n    const void* b, void* b32, "
+                 "void* out, void* b16, void* flag, void* counters,\n"
+                 "    int batch, int m, int n, int k, void* stream) {\n"
+                 f"  using Alg = {alg};\n"
+                 "  return counting_tiles::launch_typed(\n"
+                 "      layout, static_cast<const Alg::A*>(a), "
+                 "static_cast<float*>(a32),\n"
+                 "      static_cast<const Alg::B*>(b), "
+                 "static_cast<float*>(b32),\n"
+                 "      repro_semiring::MxuStore<Alg>{static_cast<Alg::Out*>"
+                 "(out)}, b16, flag,\n"
+                 "      counters, batch, m, n, k, stream);\n}\n")
     else:
         entry = ("extern \"C\" int repro_semiring_vpu(const void* const* a, "
                  "const void* const* b,\n    void* const* out, int batch, "
@@ -1051,7 +1132,7 @@ def semiring_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
                  "batch, m, n, k, stream);\n}\n")
     return (f"// Generated by repro_torch.kernels.semiring from the Semiring "
             f"{sr.name!r}\n// ({', '.join(map(str, types))}).\n"
-            f"#include \"semiring_generic.cuh\"\n\n{struct}\n{entry}")
+            f"{include}\n{struct}\n{entry}")
 
 
 #: (spec, dtypes) -> the loaded entry point of its generated kernel
@@ -1064,8 +1145,13 @@ def _generated_kernel(sr: Semiring, types: Tuple[torch.dtype, ...]):
         from .build import load_generated
 
         lib = load_generated(build_key(sr, types), semiring_source(sr, types))
-        fn = lib.repro_semiring_mxu if sr.mxu else lib.repro_semiring_vpu
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+        if sr.mxu:
+            fn = lib.repro_semiring_mxu
+            fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P]
+        else:
+            fn = lib.repro_semiring_vpu
+            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         fn.restype = _I
         _GENERATED[(sr, types)] = fn
     return fn
@@ -1194,14 +1280,45 @@ def _semiring(sr, a, b, out_dtype, use_kernel, batched):
     fn = _generated_kernel(sr, types)
     stream = torch.cuda.current_stream(a[0].device).cuda_stream
     if sr.mxu:
-        rc = fn(a[0].data_ptr(), b[0].data_ptr(), out[0].data_ptr(), batch,
-                m, n, k, stream)
+        rc = _mxu_launch(fn, a[0], b[0], out[0], batch, m, n, k, stream)
     else:
         ptrs = [(_P * nf)(*(x.data_ptr() for x in xs)) for xs in (a, b, out)]
         rc = fn(*ptrs, batch, m, n, k, stream)
     _check(rc, f"semiring_matmul ({sr.name})")
     launches["semiring_matmul"] += 1
     return out
+
+
+#: alignment of each part of the generic MXU path's scratch, in bytes
+_SCRATCH_ALIGN = 256
+
+
+def _mxu_launch(fn, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                batch: int, m: int, n: int, k: int, stream: int) -> int:
+    """One launch of a generated MXU-path kernel (``count_matmul``'s tiles)
+    on contiguous operands of any of its dtypes, with its scratch in one
+    allocation: the bf16 copy of ``b``, the tile flag, an fp32 copy of
+    ``a`` unless it is fp32 and an fp32 copy of an int32 ``b`` (tile (a)'s
+    operand; a uint8 ``b`` always takes tile (b)). Returns the kernel's
+    status."""
+    kp = -(-k // _TILE_K) * _TILE_K
+    np_ = -(-n // _TILE_N) * _TILE_N
+    sizes = [batch * kp * np_ * 2, 4,
+             0 if a.dtype == torch.float32 else a.numel() * 4,
+             b.numel() * 4 if b.dtype == torch.int32 else 0]
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // _SCRATCH_ALIGN) * _SCRATCH_ALIGN
+    scratch = torch.empty(total, dtype=torch.uint8, device=a.device)
+    b16, flag, a32, b32 = (scratch.data_ptr() + off for off in offsets)
+    a32 = a32 if sizes[2] else a.data_ptr()
+    b32 = b32 if sizes[3] else None
+    layout = _a_layout(a, b, vec=(a32 % 16 == 0
+                                  and (b32 or b.data_ptr()) % 16 == 0))
+    return fn(layout, a.data_ptr(), a32, b.data_ptr(), b32, out.data_ptr(),
+              b16, flag, _tile_counts(a.device, "semiring_matmul"), batch, m,
+              n, k, stream)
 
 
 def _tc_combine(a: Fields, b: Fields) -> Fields:

@@ -764,5 +764,124 @@ def test_tile_launches_are_zero_without_a_card():
     S.reset_launches()
     counts = S.tile_launches()
     assert set(counts) == {"frontier_step", "count_matmul",
-                           "reachability_step"}
-    assert all(c == {"simt": 0, "tensor": 0} for c in counts.values())
+                           "reachability_step", "semiring_matmul",
+                           "minplus_matmul", "batched_minplus_matmul"}
+    for name, c in counts.items():
+        tiles = ({"small": 0, "large": 0} if "minplus" in name
+                 else {"simt": 0, "tensor": 0})
+        assert c == tiles, name
+
+
+# -- the min-plus tiles ----------------------------------------------------------
+
+@pytest.mark.parametrize("batch, m, n, want", [
+    (12, 2048, 2048, "large"),  # the sweep's stacked squaring
+    (12, 600, 520, "large"),    # ragged, 300 large blocks
+    (1, 2048, 2048, "large"),   # 256 large blocks, the threshold
+    (1, 512, 512, "small"),     # the MWU oracle's 2D products
+    (1, 384, 384, "small"),
+    (3, 512, 512, "small"),
+    (255, 128, 128, "small"),   # one block short of the threshold
+    (256, 100, 1, "large"),
+    (2, 33, 65, "small"),
+])
+def test_minplus_tile_follows_the_grid(batch, m, n, want):
+    """The large min-plus tile runs where its grid has at least 256 blocks
+    (about two per SM); p = 384..512 2D products keep the small tile. The
+    tropical count product has one tile: it has no counter pair."""
+    assert S._minplus_tile(batch, m, n) == want
+    assert "minplus_count_matmul" not in S._TILED
+
+
+def test_minplus_large_tile_mirrors_the_source():
+    """The host's mirror of the tile rule and the large tile's shared memory
+    hold the constants of ``csrc/tropical.cu``; the tile fits two blocks
+    per SM (228 KiB, 1 KiB reserved per block; 227 KiB at most per
+    block)."""
+    import re
+
+    src = (build.CSRC / "tropical.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr (?:int|long long) {name} = (\d+);",
+                             src).group(1))
+
+    assert const("LTILE") == S._MINPLUS_LARGE
+    assert const("LBK") == S._MINPLUS_BK
+    assert const("LSTAGES") == S._MINPLUS_STAGES
+    assert const("LARGE_MIN_BLOCKS") == S._MINPLUS_LARGE_MIN_BLOCKS
+    size = S._minplus_smem_bytes()
+    assert size == 104_448
+    assert 48 * 1024 < size <= 227 * 1024 and 2 * (size + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b,m,n,k", [(12, 600, 520, 300), (2, 200, 136, 72)])
+def test_batched_minplus_on_either_tile_matches_padding_ops(b, m, n, k):
+    """The stacked min-plus at a shape of each tile (the plain version, which
+    both tiles equal bit for bit on the card) against the JAX op, which
+    pads with +inf; NaN-free lengths, an all-inf row."""
+    rng = np.random.default_rng(b * m)
+    a, c = _lengths(rng, (b, m, k)), _lengths(rng, (b, k, n))
+    a[:, 0] = np.inf
+    want = np.asarray(rops.batched_minplus_matmul(jnp.asarray(a),
+                                                  jnp.asarray(c)))
+    got = S.batched_minplus_matmul(_t(a), _t(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got[:, 0]).all() and np.isfinite(got).any()
+    assert S._minplus_tile(b, m, n) == ("large" if b == 12 else "small")
+
+
+# -- the counting tiles' store policies ------------------------------------------
+
+_HARNESS_STORES = r"""
+#include <cstdio>
+#include "counting_tiles.cuh"
+int main() {
+  int s;
+  std::scanf("%d", &s);
+  for (int i = 0; i < s; ++i) {
+    float acc, d, c[3];
+    std::scanf("%a %a", &acc, &d);
+    const counting_tiles::CountStore count{c};
+    const counting_tiles::FrontierStore frontier{&d, c + 1};
+    const counting_tiles::BooleanStore boolean{c + 2};
+    count(0, acc);
+    frontier(0, acc);
+    boolean(0, acc);
+    std::printf("%a %a %a\n", c[0], c[1], c[2]);
+  }
+}
+"""
+
+
+def test_store_policies_agree_with_the_plain_versions_on_the_host(tmp_path):
+    """The three store policies of ``csrc/counting_tiles.cuh`` (what
+    ``count_matmul``, ``frontier_step`` and ``reachability_step`` store for
+    a sum), compiled as host C++, against the plain versions of a product
+    whose sum is that value (x @ [[1]]): NaN-aware equality."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler")
+    inf = np.inf
+    acc = np.array([0.0, -0.0, 0.25, 0.5, 0.75, 1.0, 2.0, 3.0, 2.0 ** 24 - 1,
+                    2.0 ** 24, -1.0, inf, -inf, np.nan, 7.0, 0.5],
+                   np.float32)
+    dist = np.array([inf, inf, inf, inf, 0.0, inf, 3.0, inf, inf, -inf, inf,
+                     inf, inf, inf, np.nan, 1.0], np.float32)
+    src = tmp_path / "stores.cpp"
+    exe = tmp_path / "stores"
+    src.write_text(_HARNESS_STORES)
+    built = subprocess.run(["g++", "-std=c++17", "-O1", "-I", str(build.CSRC),
+                            "-o", str(exe), str(src)],
+                           capture_output=True, text=True, timeout=120)
+    assert built.returncode == 0, built.stderr
+    stdin = " ".join([str(len(acc))] + [float(x).hex() for pair in
+                                        zip(acc, dist) for x in pair])
+    out = subprocess.run([str(exe)], input=stdin, capture_output=True,
+                         text=True, timeout=60, check=True).stdout.split()
+    got = np.array([float.fromhex(w) for w in out],
+                   np.float32).reshape(-1, 3)
+    x, d, one = _t(acc)[:, None], _t(dist)[:, None], torch.ones(1, 1)
+    want = [S.count_matmul_ref(x, one), S.frontier_step_ref(x, one, d),
+            S.reachability_step_ref(x, one)]
+    for col, w in enumerate(want):
+        np.testing.assert_array_equal(got[:, col], w[:, 0].numpy())

@@ -373,6 +373,154 @@ def test_build_target_follows_the_device_code():
     assert "arch=compute_90a,code=sm_90a" in cmd
 
 
+def test_build_target_follows_every_header(tmp_path, monkeypatch):
+    """Every library's name, built or generated, hashes every header under
+    ``csrc/``: an edit to ``counting_tiles.cuh`` or ``semiring_generic.cuh``
+    renames (so rebuilds) each library that includes it, checked on a
+    temporary copy of the sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    types = (torch.float32,) * 3
+    gen_key = S.build_key(S.COUNTING, types)
+    gen_src = S.semiring_source(S.COUNTING, types)
+
+    def targets():
+        return ({name: build._target(name) for name in build.SOURCES}
+                | {gen_key: build.generated_target(gen_key, gen_src)})
+
+    before = targets()
+    assert targets() == before  # stable while nothing changes
+    for header in ("counting_tiles.cuh", build.GENERIC_HEADER):
+        path = csrc / header
+        path.write_text(path.read_text() + "// edited\n")
+        after = targets()
+        assert all(after[k] != before[k] for k in before), header
+        assert all(t.parent == build.BUILD_DIR for t in after.values())
+        before = after
+    assert not set(build.SOURCES.values()) & {p.name for p in
+                                              csrc.glob("*.cuh")}
+
+
+def test_mxu_source_instantiates_the_counting_tiles():
+    """A generated MXU-path kernel is count_matmul's GEMM: it includes
+    ``counting_tiles.cuh`` and stores the algebra's epilogue through
+    ``MxuStore``; the header has no MXU tile of its own. Pads whose product
+    is not 0 are refused (the kernel zero-fills ragged K)."""
+    src = S.semiring_source(TWO_WALKS, (torch.uint8, torch.int32, torch.int32))
+    assert '#include "counting_tiles.cuh"' in src
+    assert "counting_tiles::launch_typed" in src and "MxuStore<Alg>" in src
+    header = (build.CSRC / build.GENERIC_HEADER).read_text()
+    assert "mxu_tile" not in header and "launch_mxu" not in header
+    vpu = S.semiring_source(MAXPLUS, (torch.float32,))
+    assert "counting_tiles" not in vpu
+    bad = dataclasses.replace(TWO_WALKS, pad_a=(1.0,), pad_b=(2.0,))
+    with pytest.raises(ValueError, match="pad_a \\* pad_b"):
+        S.semiring_source(bad, (torch.float32,) * 3)
+
+
+def _mxu_routing_cases():
+    """(right operand, whether the generic MXU path takes the SIMT tile)."""
+    rng = np.random.default_rng(30)
+    mask = (rng.random((48, 40)) < 0.2).astype(np.int32)
+
+    def with_cell(x, value):
+        x = x.copy()
+        x[3, 5] = value
+        return x
+
+    return {
+        "u8 0..255": ((np.arange(48 * 40).reshape(48, 40) % 256
+                       ).astype(np.uint8), False),
+        "u8 {0,1}": (mask.astype(np.uint8), False),
+        "i32 {0,1}": (mask, False),
+        "i32 256": (with_cell(mask, 256), False),
+        "i32 257": (with_cell(mask, 257), True),
+        "i32 above 2**24, rounded to it": (with_cell(mask, 2 ** 24 + 1),
+                                           False),
+        "i32 -3": (with_cell(mask, -3), False),
+        "f32 {0,1}": (mask.astype(np.float32), False),
+        "f32 1 + 2**-10": (with_cell(mask.astype(np.float32),
+                                     1 + 2.0 ** -10), True),
+        "f32 +inf": (with_cell(mask.astype(np.float32), np.inf), True),
+        "f32 -inf": (with_cell(mask.astype(np.float32), -np.inf), True),
+        "f32 NaN": (with_cell(mask.astype(np.float32), np.nan), True),
+    }
+
+
+@pytest.mark.parametrize("case", list(_mxu_routing_cases()))
+def test_mxu_path_picks_the_tile_per_right_operand(case):
+    """The generic MXU path runs on count_matmul's tiles, picked on the card
+    from ``b.float()`` (``_takes_simt_tile`` is the pass's CPU mirror): a
+    uint8 ``b`` always takes the tensor-core tile, an int32 or float32 one
+    the SIMT tile when a value is not exact in bf16 or not finite. Where it
+    takes the tensor-core tile on small integers, that tile's sum is the
+    plain version's."""
+    b, want = _mxu_routing_cases()[case]
+    b = torch.from_numpy(b)
+    assert S._takes_simt_tile(b) == want
+    a = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 4, (16, b.shape[0])).astype(np.float32))
+    if not want and float(b.float().abs().max()) < 2 ** 16:
+        assert torch.equal(S._limbed_matmul_ref(a, b.float()),
+                           S.count_matmul_ref(a, b))
+
+
+#: name -> (port spec, JAX spec, out dtypes (port, JAX) or None)
+_MXU_CASES = {
+    "counting": (S.COUNTING, J.COUNTING, None),
+    "boolean": (S.BOOLEAN, J.BOOLEAN, None),
+    "two_walks_u8_i32": (TWO_WALKS, J_TWO_WALKS, (torch.int32, jnp.int32)),
+    "counting_float_a": (S.COUNTING, J.COUNTING, None),
+}
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("shape", [(128, 128, 256), (100, 200, 60)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("case", list(_MXU_CASES))
+def test_limbed_mxu_path_matches_pallas(case, shape, batched):
+    """What the card's generic MXU kernel computes when ``b`` is exact in
+    bf16 (the tensor-core tile: ``_limbed_matmul_ref`` of the fp32 casts,
+    then the algebra's epilogue) against the JAX package's kernel in
+    interpret mode on operands padded to its blocks with the spec's pads,
+    as ``repro.kernels.ops`` pads them: bit-equal on integer sums (integer
+    counts, {0,1} masks, uint8 x int32 into int32), within rtol 1e-5 for a
+    non-integer float ``a`` (the tile rounds once per 16-deep k step)."""
+    m, n, k = shape
+    port, jax_spec, out = _MXU_CASES[case]
+    rng = _rng("limbed_mxu", case, shape, batched)
+    lead = (2,) if batched else ()
+    if case == "two_walks_u8_i32":
+        a = (rng.random((*lead, m, k)) < 0.05).astype(np.uint8)
+        b = rng.integers(0, 3, (*lead, k, n)).astype(np.int32)
+    elif case == "counting_float_a":
+        a = rng.random((*lead, m, k), dtype=np.float32)
+        b = (rng.random((*lead, k, n)) < 0.1).astype(np.float32)
+    else:
+        (a,), (b,) = _operands(case, rng, lead, m, n, k)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert not S._takes_simt_tile(tb)
+    acc = S._limbed_matmul_ref(ta.float(), tb.float())
+    got = port.epilogue(acc).to(out[0] if out else ta.dtype).numpy()
+    ap = _pad(a, _up(m), _up(k), port.pad_a[0])
+    bp = _pad(b, _up(k), _up(n), port.pad_b[0])
+    (want,) = _jax(jax_spec, (ap,), (bp,), batched,
+                   out_dtype=out[1] if out else None)
+    want = want[..., :m, :n]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if case == "counting_float_a":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        assert not np.array_equal(np.floor(want), want)  # not integer sums
+    else:
+        np.testing.assert_array_equal(got, want)
+    want_plain = (S.semiring_matmul_batched_ref if batched
+                  else S.semiring_matmul_ref)(port, (ta,), (tb,),
+                                              out_dtype=out[0] if out else None)
+    if case != "counting_float_a":
+        np.testing.assert_array_equal(got, want_plain[0].numpy())
+
+
 # -- the device code as host C++ ------------------------------------------------------------
 
 _HARNESS_VPU = r"""

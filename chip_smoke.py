@@ -25,14 +25,20 @@ the wavefront's ``isfinite(dist)``, and checks that it went through the
 boolean and batched min-plus kernels (the squarings on the large min-plus
 tile). Phase 9 drives the ``Semiring`` extension point
 (``kernels.semiring.semiring_matmul`` and ``semiring_matmul_batched``): it
-builds the kernels generated from nine algebras' and dtypes' device code
-(VPU-path algebras over ``csrc/semiring_generic.cuh``, MXU-path ones over
+builds the kernels generated from sixteen algebras' and dtypes' device
+code (VPU-path algebras over ``csrc/vpu_tiles.cuh`` and
+``csrc/semiring_generic.cuh``, MXU-path ones over
 ``count_matmul``'s GEMM, ``csrc/counting_tiles.cuh``), holds the generic
 kernel bit-equal to the specialized kernels on the four shipped algebras
 and to its plain version on user algebras (max-plus, max-min, an MXU
 algebra on narrow operands), runs the MXU path on every operand form
 (uint8 x uint8, int32 and non-finite right operands, a float left one)
-with each pick of tile read from the device counters, checks that a spec
+with each pick of tile read from the device counters, runs every VPU
+product on the tile its grid picks (``csrc/vpu_tiles.cuh``'s register-
+blocked tile or the 32 x 32 tile, read from the device counters), holds
+the two VPU tiles bit-equal to each other on every algebra (algebras of
+3, 8 and 16 fields in float32 and int32, a float sum-product, odd shapes
+on unaligned bases, NaN inputs), checks that a spec
 without device code raises on the card, and times it beside the
 specialized kernels, ``torch.mm``/``torch.bmm`` and its bound. Phase 3 holds all ten kernels
 (``csrc/semiring.cu``: frontier step, counting and boolean products;
@@ -145,15 +151,45 @@ def profiled(fn):
     return sorted(rows, key=lambda r: -r[2]), wall
 
 
-def kernel_device_ms(fn, marker: str, reps: int = 20):
+def kernel_device_ms(fn, marker: str, reps: int = 20, tries: int = 1,
+                     seen: list | None = None):
     """Device time of one launch of the kernel whose name holds ``marker``,
-    from a profile of ``reps`` calls of ``fn``; None when the profile holds
-    no such kernel (no device activity recorded)."""
-    rows, _ = profiled(lambda: [fn() for _ in range(reps)])
-    hits = [(c, t) for name, c, t in rows if marker in name]
-    if not hits or sum(t for _, t in hits) <= 0:
-        return None
-    return sum(t for _, t in hits) / sum(c for c, _ in hits)
+    from a profile of ``reps`` calls of ``fn``, profiled again up to
+    ``tries`` times while that kernel is missing; None when no profile
+    holds it (no device activity recorded). ``seen``, if given, receives
+    the last profile's rows."""
+    for attempt in range(tries):
+        if attempt:
+            print(f"  (no device row for {marker!r} in profile {attempt}; "
+                  f"profiling again)")
+        rows, _ = profiled(lambda: [fn() for _ in range(reps)])
+        if seen is not None:
+            seen[:] = rows
+        hits = [(c, t) for name, c, t in rows if marker in name]
+        if hits and sum(t for _, t in hits) > 0:
+            return sum(t for _, t in hits) / sum(c for c, _ in hits)
+    return None
+
+
+def queued_device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` that launches one kernel, without
+    the profiler: CUDA events recorded around the call while the card is
+    still busy with a spin kernel (about 2.5 ms), so that the host's time
+    to enqueue the call is hidden and the events time only its device
+    work (a few microseconds of event overhead included); median of
+    ``reps``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound_ms(flops: float, nbytes: float, part: str):
@@ -1600,6 +1636,37 @@ def _user_semirings(S):
     return maxplus, maxmin, two_walks
 
 
+def _wide_semirings(S):
+    """The algebras phase 9 adds for the VPU tiles: per-field max-plus of
+    3, 8 and 16 fields, float32 (-inf pads) and int32 (pads -2**30, so pad
+    + pad is -2**31 and nothing wraps), keyed (fields, dtype), and a float
+    sum-product, whose result depends on the order of the fold."""
+    inf = float("inf")
+
+    def maxplus(nf, integer):
+        pad, init = (-2.0 ** 30, -2.0 ** 31) if integer else (-inf, -inf)
+        return S.Semiring(
+            name=f"maxplus{nf}{'_int' if integer else ''}", num_fields=nf,
+            pad_a=(pad,) * nf, pad_b=(pad,) * nf, acc_init=(init,) * nf,
+            combine=lambda a, b: tuple(x + y for x, y in zip(a, b)),
+            kreduce=lambda f: tuple(torch.amax(x, dim=1) for x in f),
+            accumulate=lambda x, y: tuple(torch.maximum(p, q)
+                                          for p, q in zip(x, y)),
+            cuda_combine="for (int f = 0; f < NF; ++f) out[f] = a[f] + b[f];",
+            cuda_accumulate="for (int f = 0; f < NF; ++f) "
+                            "acc[f] = sr_max(acc[f], t[f]);")
+
+    wide = {(nf, dt): maxplus(nf, dt == torch.int32) for nf in (3, 8, 16)
+            for dt in (torch.float32, torch.int32)}
+    sumprod = S.Semiring(
+        name="sumprod", pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,),
+        combine=lambda a, b: (a[0] * b[0],),
+        kreduce=lambda f: (f[0].sum(dim=1),),
+        accumulate=lambda x, y: (x[0] + y[0],),
+        cuda_combine="out[0] = a[0] * b[0];", cuda_accumulate="acc[0] += t[0];")
+    return wide, sumprod
+
+
 def semiring_phase(S, build, seed, part):
     """The extension point on the card, counted: (a) every algebra's
     kernel built in one parallel call; (b) the generic kernel bit-equal to
@@ -1614,23 +1681,51 @@ def semiring_phase(S, build, seed, part):
     values pick by the device counters; (c) the user algebras bit-equal to
     their plain versions (max-plus and max-min 2D 2048^3 and B=12, the MXU
     algebra on a uint8 operand into int32); (d) a spec without device code
-    raises. Then (e) times. Returns (the kernel's stats, its launches)."""
+    raises. Every VPU-path product is also held bit-equal (NaN-equal) to
+    its plain version, on the tile that the device counters must show
+    (``_vpu_tile``: vpu_tiles.cuh's register-blocked tile for grids of 256
+    or more of its blocks, the 32 x 32 tile elsewhere), and (f) the two
+    tiles to each other on every algebra through the private seam
+    ``S._semiring(..., tile=...)``: the shipped ones, max-plus, max-min, a
+    float sum-product whose rounding depends on the fold order (within rtol
+    k * 2**-24 of its plain version), per-field max-plus of 3 and 8 fields
+    in float32 and int32 at B=2, 1024^3 (and of 16 fields, which run on
+    the 32 x 32 tile at any grid, held to the plain version), odd K and N
+    with bases off the 16-byte grid (the single-element loader), TROPICAL
+    and TROPICAL_COUNT on NaN inputs at B=2, 2048^3 (the large tile). Then
+    (e) times. Returns (the kernel's stats, its launches)."""
     maxplus, maxmin, two_walks = _user_semirings(S)
+    wide, sumprod = _wide_semirings(S)
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
     algebras = [(S.TROPICAL, (f32,)), (S.TROPICAL_COUNT, (f32,)),
                 (S.COUNTING, (f32,) * 3), (S.BOOLEAN, (f32,) * 3),
                 (maxplus, (f32,)), (maxmin, (f32,)), (two_walks, (u8, i32, i32)),
                 (S.COUNTING, (u8, u8, f32)), (S.COUNTING, (f32, i32, f32))]
+    added = [(sr, (dt,)) for (_, dt), sr in wide.items()] + [(sumprod, (f32,))]
     t_phase = time.perf_counter()
     built = build.build_generated({S.build_key(sr, t): S.semiring_source(sr, t)
                                    for sr, t in algebras})
     print(f"[9a build] {len(built)} generated kernels in "
           f"{time.perf_counter() - t_phase:.2f} s, all nvcc calls at once")
-    for res in built.values():
+    t0 = time.perf_counter()
+    built_added = build.build_generated(
+        {S.build_key(sr, t): S.semiring_source(sr, t) for sr, t in added})
+    print(f"[9a build] {len(built_added)} more (the wide algebras and the "
+          f"sum-product) in {time.perf_counter() - t0:.2f} s, all at once")
+    for res in (*built.values(), *built_added.values()):
         print(f"  {res.path.name}: nvcc {res.seconds:.2f} s")
-        for line in res.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+        for u in build.kernel_usage(res.log):
+            tile = ("large VPU tile" if "big_tile" in u["name"] else
+                    "32x32 VPU tile" if "vpu_tile" in u["name"] else
+                    u["name"][:60])
+            vec = (" (16-byte loader)" if "Lb1E" in u["name"] else
+                   " (single-element loader)" if "big_tile" in u["name"]
+                   else "")
+            print(f"    {tile}{vec}: {u['registers']} registers, spills "
+                  f"{u['spill_stores']} / {u['spill_loads']} B, static smem "
+                  f"{u['smem']} B")
+    for nf in (1, 2, 3, 4, 8, 12, 16):
+        print(f"  large VPU tile, {nf} field(s): {S._vpu_config(nf)}")
 
     torch.cuda.synchronize()
     S.reset_launches()
@@ -1654,6 +1749,65 @@ def semiring_phase(S, build, seed, part):
         print(f"  {tag}: bit-equal")
 
     picks = {"simt": 0, "tensor": 0}  # the MXU path's expected tiles
+    vpu_picks = {"small": 0, "large": 0}  # the VPU path's
+
+    def vpu(sr, a, b, tile=None):
+        """A VPU-path product, on ``tile`` (the seam) or on the one the
+        grid picks, checked by the device counters."""
+        nonlocal expected
+        lead = a[0].shape[0] if a[0].ndim == 3 else 1
+        want = tile or S._vpu_tile(lead, a[0].shape[-2], b[0].shape[-1],
+                                   sr.num_fields)
+        before = S.tile_launches()["semiring_matmul_vpu"]
+        expected += 1
+        got = S._semiring(sr, a, b, None, True, a[0].ndim == 3, tile=tile)
+        after = S.tile_launches()["semiring_matmul_vpu"]
+        took = {t: after[t] - before[t] for t in after if after[t] != before[t]}
+        check(took == {want: 1}, f"{sr.name} {tuple(a[0].shape)} x "
+                                 f"{tuple(b[0].shape)}: VPU tiles {took}, "
+                                 f"expected {want}")
+        vpu_picks[want] += 1
+        return got
+
+    def plain(sr, a, b):
+        return (S.semiring_matmul_batched_ref if a[0].ndim == 3
+                else S.semiring_matmul_ref)(sr, a, b)
+
+    def fields_equal(got, want):
+        return len(got) == len(want) and all(
+            g.dtype == w.dtype and (nan_equal(g, w) if g.is_floating_point()
+                                    else torch.equal(g, w))
+            for g, w in zip(got, want))
+
+    def tiles_agree(tag, sr, a, b, big=None, against_plain=True):
+        """(f) the product on both tiles (``big``: the large tile's result,
+        if already made), bit-equal (NaN-equal) to each other and, unless
+        ``against_plain`` is False, to the plain version. Past 12 fields,
+        where there is no large tile, ``big`` is the 32x32 tile's result
+        on the same grid, held to the plain version."""
+        lead = a[0].shape[0] if a[0].ndim == 3 else 1
+        if S._vpu_config(sr.num_fields) is None:
+            check(big is not None and against_plain, f"[9f] {tag}: no "
+                  f"large tile, and nothing to hold the 32x32 tile to")
+            check(fields_equal(big, plain(sr, a, b)),
+                  f"[9f] {tag}: differs from its plain version")
+            print(f"  [9f] {tag}: 32x32 tile (no large tile past 12 "
+                  f"fields) == plain version")
+            return big
+        check(big is None or S._vpu_tile(
+            lead, a[0].shape[-2], b[0].shape[-1],
+            sr.num_fields) == "large", f"[9f] {tag}: not a large-tile grid")
+        big = big if big is not None else vpu(sr, a, b, "large")
+        small = vpu(sr, a, b, "small")
+        torch.cuda.synchronize()
+        check(fields_equal(big, small), f"[9f] {tag}: the large and the "
+                                        f"32x32 VPU tile differ")
+        if against_plain:
+            check(fields_equal(big, plain(sr, a, b)),
+                  f"[9f] {tag}: differs from its plain version")
+        print(f"  [9f] {tag}: large tile == 32x32 tile"
+              + (" == plain version" if against_plain else ""))
+        return big
 
     def mxu(tile, sr, a, b, out_dtype=None):
         """The generic MXU-path product, checked to run on ``tile``."""
@@ -1735,14 +1889,23 @@ def semiring_phase(S, build, seed, part):
         tag = f"{m}x{n}x{k}"
         a = _lengths(gen_t, (m, k), 0.5)
         b = _lengths(gen_t, (k, n), 0.5)
-        same(f"[9b] TROPICAL {tag} vs minplus_matmul",
-             gen(S.TROPICAL, (a,), (b,)), S.minplus_matmul(a, b))
+        got = vpu(S.TROPICAL, (a,), (b,))
+        same(f"[9b] TROPICAL {tag} vs minplus_matmul", got,
+             S.minplus_matmul(a, b))
+        same(f"[9b] TROPICAL {tag} vs its plain version", got,
+             S.semiring_matmul_ref(S.TROPICAL, (a,), (b,)))
         sa, sb = ((stack, stack) if m == p else
                   (_lengths(gen_t, (b_, m, k), 0.5),
                    _lengths(gen_t, (b_, k, n), 0.5)))
+        got = vpu(S.TROPICAL, (sa,), (sb,))
         same(f"[9b] TROPICAL B={b_} {tag} vs batched_minplus_matmul"
-             + (" (phase 5's squaring seed)" if m == p else ""),
-             gen(S.TROPICAL, (sa,), (sb,)), S.batched_minplus_matmul(sa, sb))
+             + (" (phase 5's squaring seed)" if m == p else ""), got,
+             S.batched_minplus_matmul(sa, sb))
+        same(f"[9b] TROPICAL B={b_} {tag} vs its plain version", got,
+             S.batched_minplus_matmul_ref(sa, sb))
+        if m == p:
+            tiles_agree(f"TROPICAL B={b_} {tag}", S.TROPICAL, (sa,), (sb,),
+                        big=got, against_plain=False)
         f, _, adj, _, _ = _inputs(gen_t, b_, m, n, k)
         same(f"[9b] COUNTING B={b_} {tag} vs count_matmul (tensor-core tile)",
              mxu("tensor", S.COUNTING, (f,), (adj,)), S.count_matmul(f, adj))
@@ -1764,9 +1927,11 @@ def semiring_phase(S, build, seed, part):
             1, 4, (m, k), generator=gen_t, device="cuda").float(), 0.0)
         cb = torch.where(torch.isfinite(db), torch.randint(
             1, 4, (k, n), generator=gen_t, device="cuda").float(), 0.0)
-        same(f"[9b] TROPICAL_COUNT {m}x{n}x{k} vs minplus_count_matmul",
-             gen(S.TROPICAL_COUNT, (da, ca), (db, cb)),
+        got = vpu(S.TROPICAL_COUNT, (da, ca), (db, cb))
+        same(f"[9b] TROPICAL_COUNT {m}x{n}x{k} vs minplus_count_matmul", got,
              S.minplus_count_matmul(da, ca, db, cb))
+        same(f"[9b] TROPICAL_COUNT {m}x{n}x{k} vs its plain version", got,
+             S.semiring_matmul_ref(S.TROPICAL_COUNT, (da, ca), (db, cb)))
         if m == 512:
             main["tc"] = (da, ca, db, cb)
 
@@ -1775,17 +1940,17 @@ def semiring_phase(S, build, seed, part):
     for m, n, k in ((512, 512, 512), (300, 200, 260)):
         a = with_nans(gen_t, _lengths(gen_t, (m, k), 0.3))
         b = with_nans(gen_t, _lengths(gen_t, (k, n), 0.3))
-        got = gen(S.TROPICAL, (a,), (b,))
+        got = vpu(S.TROPICAL, (a,), (b,))
         want = S.semiring_matmul_ref(S.TROPICAL, (a,), (b,))
         sa = with_nans(gen_t, _lengths(gen_t, (2, m, k), 0.3))
         sb = with_nans(gen_t, _lengths(gen_t, (2, k, n), 0.3))
-        bgot = gen(S.TROPICAL, (sa,), (sb,))
+        bgot = vpu(S.TROPICAL, (sa,), (sb,))
         bwant = S.semiring_matmul_batched_ref(S.TROPICAL, (sa,), (sb,))
         da = with_nans(gen_t, _lengths(gen_t, (m, k), 0.3, integer=True))
         db = with_nans(gen_t, _lengths(gen_t, (k, n), 0.3, integer=True))
         ca = torch.where(torch.isfinite(da), 2.0, 0.0)
         cb = torch.where(torch.isfinite(db), 3.0, 0.0)
-        tc = gen(S.TROPICAL_COUNT, (da, ca), (db, cb))
+        tc = vpu(S.TROPICAL_COUNT, (da, ca), (db, cb))
         tc_want = S.semiring_matmul_ref(S.TROPICAL_COUNT, (da, ca), (db, cb))
         torch.cuda.synchronize()
         tag = f"{m}x{n}x{k}"
@@ -1809,9 +1974,11 @@ def semiring_phase(S, build, seed, part):
     for sr in (maxplus, maxmin):
         a, b = scores(p, p), scores(p, p)
         same(f"[9c] {sr.name} {p}^3 vs its plain version",
-             gen(sr, (a,), (b,)), S.semiring_matmul_ref(sr, (a,), (b,)))
+             vpu(sr, (a,), (b,)), S.semiring_matmul_ref(sr, (a,), (b,)))
         sa, sb = scores(bsz, p, p), scores(bsz, p, p)
-        got = gen(sr, (sa,), (sb,))
+        got = vpu(sr, (sa,), (sb,))
+        tiles_agree(f"{sr.name} B={bsz} {p}^3", sr, (sa,), (sb,), big=got,
+                    against_plain=False)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1831,6 +1998,95 @@ def semiring_phase(S, build, seed, part):
          S.semiring_matmul_ref(two_walks, (wa,), (wb,), out_dtype=i32))
     main["two_walks"] = (wa, wb)
 
+    # (f) the two VPU tiles agree on every algebra; the wide algebras, odd
+    # shapes and NaN inputs on the large tile
+    wide_ops = {}
+    for (nf, dt), sr in wide.items():
+        def field(*shape):
+            if dt == i32:
+                return torch.randint(0, 1000, shape, generator=gen_t,
+                                     device="cuda", dtype=i32)
+            return scores(*shape)
+        a = tuple(field(2, 1024, 1024) for _ in range(nf))
+        b = tuple(field(2, 1024, 1024) for _ in range(nf))
+        tiles_agree(f"{sr.name} ({nf} fields, {str(dt)[6:]}) B=2 1024^3",
+                    sr, a, b, big=vpu(sr, a, b))
+        wide_ops[sr.name] = (a, b)
+    for sr, (m, n, k) in ((S.TROPICAL_COUNT, (2048, 2048, 2048)),
+                          (maxplus, (1024, 1024, 1024)),
+                          (maxmin, (1024, 1024, 1024))):
+        lead = (2,) if sr is S.TROPICAL_COUNT else (4,)
+        if sr is S.TROPICAL_COUNT:
+            da = _lengths(gen_t, (*lead, m, k), 0.3, integer=True)
+            db = _lengths(gen_t, (*lead, k, n), 0.3, integer=True)
+            a = (da, torch.where(torch.isfinite(da), 2.0, 0.0))
+            b = (db, torch.where(torch.isfinite(db), 3.0, 0.0))
+        else:
+            a, b = (scores(*lead, m, k),), (scores(*lead, k, n),)
+        tiles_agree(f"{sr.name} B={lead[0]} {m}x{n}x{k}", sr, a, b,
+                    big=vpu(sr, a, b))
+    # a float sum of products: the fold order decides the rounding, so the
+    # tiles must agree bit for bit; the plain version (slabs of 8 summed
+    # first) within rtol k * 2**-24
+    sa_, sb_ = (torch.rand((4, 1024, 1024), generator=gen_t, device="cuda")
+                for _ in range(2))
+    big = tiles_agree("sumprod B=4 1024^3 (non-integer values)", sumprod,
+                      (sa_,), (sb_,), big=vpu(sumprod, (sa_,), (sb_,)),
+                      against_plain=False)
+    want = plain(sumprod, (sa_,), (sb_,))
+    torch.cuda.synchronize()
+    rel = float(((big[0] - want[0]).abs() / want[0].abs()).max())
+    check(torch.allclose(big[0], want[0], rtol=1024 * 2.0 ** -24, atol=0.0),
+          f"sumprod: beyond rtol k * 2**-24 of its plain version ({rel:g})")
+    check(not torch.equal(big[0], want[0]),
+          "sumprod: the fold order changed nothing; pick other values")
+    print(f"  [9f] sumprod B=4 1024^3: within rtol k * 2**-24 of its plain "
+          f"version (max rel err {rel:g}; not bit-equal to it, as expected)")
+    # odd K and N, and bases one element off the 16-byte grid: the large
+    # tile's single-element loader (4 x 8 x 8 = 256 blocks)
+    def offset(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    m, n, k = 1023, 1021, 1025
+    for sr in (maxplus, wide[(3, i32)], S.TROPICAL_COUNT):
+        if sr is S.TROPICAL_COUNT:
+            da = _lengths(gen_t, (4, m, k), 0.3, integer=True)
+            db = _lengths(gen_t, (4, k, n), 0.3, integer=True)
+            a = (da, torch.where(torch.isfinite(da), 2.0, 0.0))
+            b = (db, torch.where(torch.isfinite(db), 3.0, 0.0))
+        elif sr.num_fields == 1:
+            a, b = (scores(4, m, k),), (scores(4, k, n),)
+        else:
+            a = tuple(torch.randint(0, 1000, (4, m, k), generator=gen_t,
+                                    device="cuda", dtype=i32)
+                      for _ in range(sr.num_fields))
+            b = tuple(torch.randint(0, 1000, (4, k, n), generator=gen_t,
+                                    device="cuda", dtype=i32)
+                      for _ in range(sr.num_fields))
+        a, b = tuple(map(offset, a)), tuple(map(offset, b))
+        check(a[0].data_ptr() % 16 != 0, "offset base is 16-byte aligned")
+        tiles_agree(f"{sr.name} B=4 {m}x{n}x{k}, bases 4 bytes off the "
+                    f"16-byte grid (single-element loader)", sr, a, b,
+                    big=vpu(sr, a, b))
+    # NaN inputs on the large tile
+    sa_ = with_nans(gen_t, _lengths(gen_t, (2, p, p), 0.3))
+    sb_ = with_nans(gen_t, _lengths(gen_t, (2, p, p), 0.3))
+    got = tiles_agree(f"TROPICAL B=2 {p}^3 on NaN inputs", S.TROPICAL,
+                      (sa_,), (sb_,), big=vpu(S.TROPICAL, (sa_,), (sb_,)))
+    check(bool(torch.isnan(got[0]).any()), "TROPICAL NaN: none reached")
+    da = with_nans(gen_t, _lengths(gen_t, (2, p, p), 0.3, integer=True))
+    db = with_nans(gen_t, _lengths(gen_t, (2, p, p), 0.3, integer=True))
+    ca = torch.where(torch.isfinite(da), 2.0, 0.0)
+    cb = torch.where(torch.isfinite(db), 3.0, 0.0)
+    got = tiles_agree(f"TROPICAL_COUNT B=2 {p}^3 on NaN inputs",
+                      S.TROPICAL_COUNT, (da, ca), (db, cb),
+                      big=vpu(S.TROPICAL_COUNT, (da, ca), (db, cb)))
+    check(bool(torch.isnan(got[0]).any()), "TROPICAL_COUNT NaN: none reached")
+    print(f"  [9f] VPU tiles run: {vpu_picks}")
+
     # (d) no device code: the card refuses, the plain version never runs
     bare = dataclasses.replace(maxplus, cuda_combine=None,
                                cuda_accumulate=None)
@@ -1849,6 +2105,12 @@ def semiring_phase(S, build, seed, part):
           f"expected picks {picks} plus the unchecked repeats")
     check(all(counters[t] >= picks[t] > 0 for t in picks),
           f"generic MXU tile counters {counters} below the picks {picks}")
+    vpu_counters = S.tile_launches()["semiring_matmul_vpu"]
+    print(f"  [9f] the generic VPU path's tile counters {vpu_counters}, "
+          f"checked picks {vpu_picks}")
+    check(all(vpu_counters[t] >= vpu_picks[t] > 0 for t in vpu_picks),
+          f"generic VPU tile counters {vpu_counters} below the picks "
+          f"{vpu_picks}")
     print(f"[9 semiring] launches {dict(S.launches)}; semiring_matmul "
           f"{launched} as expected")
 
@@ -1866,13 +2128,22 @@ def semiring_phase(S, build, seed, part):
         if sr.mxu:  # 2 M N K at the FMA-counted fp32 peak
             return 2.0 * ijk, nbytes
         # one op per combine and per accumulate, per field, at one per lane
-        # per clock
+        # per clock: for TROPICAL_COUNT 4, as phase 3 bounds its specialized
+        # kernel (the add, the compare, the count product and its
+        # accumulation), whatever its device code issues
         return 2.0 * sr.num_fields * ijk / NON_FMA, nbytes
 
     (ta, tb), (fc, adjc), (ma, mb) = main["trop"], main["count"], main["mask"]
     da, ca, db, cb = main["tc"]
     (xa, xb), (xsa, xsb) = main["maxplus"]
     (na, nb), (nsa, nsb) = main["maxmin"]
+    tda = _lengths(gen_t, (bsz, p, p), 0.3, integer=True)
+    tdb = _lengths(gen_t, (bsz, p, p), 0.3, integer=True)
+    tc12 = ((tda, torch.where(torch.isfinite(tda), 2.0, 0.0)),
+            (tdb, torch.where(torch.isfinite(tdb), 3.0, 0.0)))
+    ra, rb = scores(300, 260), scores(260, 200)
+    rsa, rsb = scores(3, 300, 260), scores(3, 260, 200)
+    rta, rtb = _lengths(gen_t, (300, 260), 0.5), _lengths(gen_t, (260, 200), 0.5)
     cases = [  # label, spec, a, b, out_dtype, specialized, library, plain
         ("TROPICAL 2D", S.TROPICAL, (ta,), (tb,), None,
          lambda: S.minplus_matmul(ta, tb), None, None),
@@ -1897,6 +2168,14 @@ def semiring_phase(S, build, seed, part):
          lambda: S.semiring_matmul_ref(maxmin, (na,), (nb,))),
         (f"maxmin B={bsz}", maxmin, (nsa,), (nsb,), None, None, None,
          plain_once["maxmin"]),
+        (f"TROPICAL_COUNT B={bsz}", S.TROPICAL_COUNT, *tc12, None, None, None,
+         None),
+        ("maxplus 300x200x260", maxplus, (ra,), (rb,), None, None, None,
+         lambda: S.semiring_matmul_ref(maxplus, (ra,), (rb,))),
+        ("maxplus B=3 300x200x260", maxplus, (rsa,), (rsb,), None, None, None,
+         lambda: S.semiring_matmul_batched_ref(maxplus, (rsa,), (rsb,))),
+        ("TROPICAL 300x200x260", S.TROPICAL, (rta,), (rtb,), None,
+         lambda: S.minplus_matmul(rta, rtb), None, None),
         ("two_walks 2D u8 x i32 -> i32", two_walks, main["two_walks"][:1],
          main["two_walks"][1:], i32, None, None,
          lambda: S.semiring_matmul_ref(two_walks, main["two_walks"][:1],
@@ -1911,7 +2190,7 @@ def semiring_phase(S, build, seed, part):
         ms = timed_ms(kern)
         after = S.tile_launches()["semiring_matmul"]
         ops, nbytes = bounds(sr, a[0], b[0])
-        marker, tile = f"Algebra_{sr.name}>", ""
+        marker, tile = f"Algebra_{sr.name}", ""
         if sr.mxu:  # count_matmul's tiles: the bound of the one that ran
             (tile,) = [t for t in after if after[t] > before[t]]
             bms, by = tile_bound_ms(tile, ops, nbytes, part)
@@ -1920,9 +2199,25 @@ def semiring_phase(S, build, seed, part):
             tile = f", {'tensor-core' if tile == 'tensor' else 'SIMT'} tile"
         else:
             bms, by = bound_ms(ops, nbytes, part)
-        dev = kernel_device_ms(kern, marker, reps=10)
+            lead = a[0].shape[0] if a[0].ndim == 3 else 1
+            tile = S._vpu_tile(lead, a[0].shape[-2], b[0].shape[-1],
+                               sr.num_fields)
+            tile = f", {'large' if tile == 'large' else '32x32'} VPU tile"
+        seen = []
+        dev = kernel_device_ms(kern, marker, reps=10,
+                               tries=1 if sr.mxu else 3, seen=seen)
+        how = ""
+        if dev is None and not sr.mxu:
+            # the profiler came back without the kernel three times (in
+            # this process, after phases 1-8, it can lose whole profiles):
+            # the call launches one kernel (the counters show which), so
+            # events queued behind a spin kernel time it instead
+            print(f"  [9e] {label}: no device row for {marker!r} in 3 "
+                  f"profiles (the last held "
+                  f"{[(n[:100], c, t) for n, c, t in seen[:4]]})")
+            dev, how = queued_device_ms(kern), " (events behind a spin)"
         line = (f"  [9e] {label}: {ms:.4f} ms{tile}, device "
-                f"{'not measured' if dev is None else f'{dev:.4f} ms'}; "
+                f"{'not measured' if dev is None else f'{dev:.4f} ms{how}'}; "
                 f"bound {bms:.4f} by {by} ({100 * bms / ms:.1f}%)")
         if special is not None:
             spec_tile = ""

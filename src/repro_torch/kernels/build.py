@@ -11,8 +11,8 @@ compiled or loaded when this module is imported.
 Generated sources (the kernels of user semirings, `kernels.semiring`) go
 the same way: `build_generated` writes each into the build directory and
 compiles it against the headers in ``csrc/`` (``semiring_generic.cuh``,
-``counting_tiles.cuh``), named by a hash of the generated text, the
-headers and the flags.
+``vpu_tiles.cuh``, ``counting_tiles.cuh``), named by a hash of the
+generated text, the headers and the flags.
 
 The target is Hopper, ``sm_90a``. The flags leave out ``--use_fast_math``:
 the kernels test ``isinf`` and must keep IEEE fp32 arithmetic.
@@ -24,6 +24,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +32,8 @@ from typing import Dict, List, Optional, Sequence
 
 __all__ = ["SOURCES", "GENERIC_HEADER", "BUILD_DIR", "NVCC_FLAGS",
            "BuildResult", "find_nvcc", "nvcc_command", "build_all", "load",
-           "generated_target", "build_generated", "load_generated"]
+           "generated_target", "build_generated", "load_generated",
+           "kernel_usage"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its source under ``csrc/``
@@ -40,8 +42,9 @@ SOURCES: Dict[str, str] = {"semiring": "semiring.cu", "tropical": "tropical.cu",
 #: the template header that generated sources include. It and the other
 #: headers under ``csrc/`` (``counting_tiles.cuh``, the counting GEMM that
 #: ``semiring.cu``, ``tropical.cu`` and the generated MXU-path sources
-#: include) are no library of their own: every ``*.cuh`` there is hashed
-#: into every library's name
+#: include; ``vpu_tiles.cuh``, the generated VPU-path sources' large tile)
+#: are no library of their own: every ``*.cuh`` there is hashed into every
+#: library's name
 GENERIC_HEADER = "semiring_generic.cuh"
 #: ``<checkout>/build/repro_torch_kernels`` (src/repro_torch/kernels -> root)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -156,6 +159,34 @@ def build_generated(sources: Dict[str, str]) -> Dict[str, BuildResult]:
             os.replace(tmp, src)
         jobs.append((key, src, out, CSRC))
     return _compile(jobs)
+
+
+def kernel_usage(log: str) -> List[Dict[str, object]]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log (a :class:`BuildResult`'s
+    ``log``): its mangled ``name``, ``registers`` per thread, ``spill_stores``
+    and ``spill_loads`` in bytes and static ``smem`` in bytes, in the
+    order ptxas reports them."""
+    out: List[Dict[str, object]] = []
+    name, spills = "", (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$.]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(dict(name=name, registers=int(m.group(1)),
+                            spill_stores=spills[0], spill_loads=spills[1],
+                            smem=int(smem.group(1)) if smem else 0))
+            spills = (0, 0)
+    return out
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -7,7 +7,8 @@
 //   semiring_generic.cuh  the kernel generated per MXU-path Semiring
 //                         (kernels/semiring.py semiring_source) stores
 //                         static_cast<Out>(Alg::epilogue(acc)).
-// (tropical.cu includes it too, for its cp.async helpers and allow_smem.)
+// (tropical.cu and vpu_tiles.cuh include it too, for its cp.async helpers
+// and allow_smem.)
 // This header is not a library of its own: kernels/build.py hashes every
 // csrc/*.cuh into the name of each library, so an edit here rebuilds every
 // user.

@@ -1,9 +1,10 @@
 // Generic semiring products for Hopper (sm_90a): the blocked product over a
 // user's algebra, 2D or batched over blockIdx.z. A VPU-path algebra
-// (combine / accumulate over NF fields) runs on this header's VPU tile; an
-// MXU-path algebra (the IEEE fp32 dot with the algebra's epilogue at the
-// store) runs on counting_tiles.cuh, the GEMM of count_matmul, with the
-// store policy MxuStore below.
+// (combine / accumulate over NF fields) runs on two tiles: vpu_tiles.cuh's
+// register-blocked, cp.async-pipelined tile where the grid is large, and
+// this header's 32x32 tile elsewhere. An MXU-path algebra (the IEEE fp32 dot
+// with the algebra's epilogue at the store) runs on counting_tiles.cuh, the
+// GEMM of count_matmul, with the store policy MxuStore below.
 //
 // Replaces (src/repro/kernels/semiring.py):
 //   semiring_matmul         <- semiring_matmul_pallas (_vpu_kernel,
@@ -13,7 +14,8 @@
 //
 // How it is used: this header is not a library of its own. For each algebra
 // and field types, kernels/semiring.py emits a source that includes it (and
-// counting_tiles.cuh for the MXU path), defines one algebra struct from the
+// vpu_tiles.cuh for the VPU path, counting_tiles.cuh for the MXU path),
+// defines one algebra struct from the
 // Semiring's device code and exports a plain C entry point
 // (repro_semiring_vpu or repro_semiring_mxu); kernels/build.py compiles
 // that source at first use, keyed by a hash of the generated text, every
@@ -40,7 +42,7 @@
 // The part above `#ifdef __CUDACC__` is plain C++, so a host compiler can
 // build an algebra struct and check its functions without a card.
 //
-// What bounds it: the VPU tile does, per (i, j, k), one combine and one
+// What bounds it: the VPU path does, per (i, j, k), one combine and one
 // accumulate per field on the CUDA cores, which run an add, a min or a
 // compare at one per lane per clock (33.5 T/s on the H100 SXM): at 2048^3
 // a single-field product is 1.7e10 such operations against 50 MB of
@@ -49,20 +51,24 @@
 // fp32 FMAs on tile (a), 67 TFLOP/s, ~0.26 ms at 2048^3, or three bf16
 // tensor-core passes on tile (b) for a right operand exact in bf16.
 //
-// Design. VPU tile: a SIMT tile through shared memory, as in tropical.cu: a
+// Design. The small VPU tile (vpu_tile, for grids below vpu_tiles.cuh's
+// LARGE_MIN_BLOCKS large blocks): a SIMT tile through shared memory, a
 // 32x32 output tile per block of 256 threads (16x16), K staged 32 deep (16
 // or 8 deep for algebras of more than 4 or 8 fields, so the staged tiles
 // stay within 48 KB of static shared memory), each thread a 2x2 micro-tile
 // whose rows and columns are 16 apart (shared-memory reads are a broadcast
 // and unit-stride, stores coalesce), with NF accumulators per output in
-// registers. Fields are separate arrays (struct of arrays), as in the JAX
-// package. The accumulator folds `accumulate` over k in order; that is the
-// semiring's reduce, so `accumulate` must be associative and commutative,
-// as the TPU kernel also assumes when it reduces block by block. The tile
-// masks ragged M, N and K with the algebra's pads at the loads and at the
-// store, so callers need no padding. Each block moves its base pointers
-// once by its 64-bit batch offset; per-load batch offsets spill
-// (tropical.cu's history).
+// registers. It issues one shared-memory load per two operations and loads
+// single-buffered, so load issue bounds it; it keeps small grids (p = 512:
+// 256 blocks) on every SM. Fields are separate arrays (struct of arrays), as
+// in the JAX package. Both VPU tiles fold `accumulate` over k in order, so
+// they agree bit for bit; that is the semiring's reduce, so `accumulate`
+// must be associative and commutative, as the TPU kernel also assumes when
+// it reduces block by block. The tiles mask ragged M, N and K with the
+// algebra's pads at the loads and at the store, so callers need no padding.
+// Each block moves its base pointers once by its 64-bit batch offset;
+// per-load batch offsets spill (tropical.cu's history). Each tile adds one
+// to its own device counter when it runs.
 //
 // MXU path: the operands are cast to fp32 as _mxu_kernel casts them (A into
 // an fp32 copy, B by the conversion pass), and the results are
@@ -108,6 +114,18 @@ SR_FN float sr_fmin_nan(float x, float y) {
 
 namespace repro_semiring {
 
+// The VPU path's store policy for vpu_tiles.cuh: each field of an output to
+// its own array.
+template <class Alg>
+struct VpuStore {
+  typename Alg::T* out[Alg::NF];
+  SR_FN void operator()(long long off,
+                        const typename Alg::T (&acc)[Alg::NF]) const {
+    for (int f = 0; f < Alg::NF; ++f) out[f][off] = acc[f];
+  }
+  SR_FN void finish() const {}
+};
+
 // The MXU path's store policy for counting_tiles.cuh: the algebra's
 // epilogue of the fp32 sum, cast to its output type.
 template <class Alg>
@@ -125,7 +143,14 @@ struct MxuStore {
 
 namespace repro_semiring {
 
-// -- VPU-style tile -------------------------------------------------------------
+// The first block of a launch adds one to its tile's counter (if any).
+__device__ __forceinline__ void count_launch(int* counter) {
+  if (counter != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0 && threadIdx.x == 0)
+    atomicAdd(counter, 1);
+}
+
+// -- the small VPU tile ---------------------------------------------------------
 
 constexpr int VTILE = 32;                 // output tile edge (BM = BN)
 constexpr int VSUB = 2;                   // micro-tile edge per thread
@@ -142,7 +167,7 @@ struct VpuArgs {
 
 template <class Alg>
 __global__ void __launch_bounds__(VTHREADS)
-vpu_tile(VpuArgs<Alg> p, int M, int N, int K) {
+vpu_tile(VpuArgs<Alg> p, int* counter, int M, int N, int K) {
   using T = typename Alg::T;
   constexpr int NF = Alg::NF;
   // K staged per step: fewer rows for wide algebras, so the staged tiles
@@ -240,13 +265,18 @@ vpu_tile(VpuArgs<Alg> p, int M, int N, int K) {
       for (int f = 0; f < NF; ++f) out[f][off] = acc[i][j][f];
     }
   }
+  // at the end: an atomic before the k loop made the tile 43% slower (11.9
+  // -> 17.0 us on an H100 at 300 x 200 x 260, experiments/kernels/
+  // time_vpu.py)
+  count_launch(counter);
 }
 
-// `batch` contiguous (m,k) x (k,n) products; a, b and out hold NF field
-// pointers each. Returns the launch's cudaError_t.
+// `batch` contiguous (m,k) x (k,n) products on the small tile; a, b and out
+// hold NF field pointers each; the tile adds one to *counter. Returns the
+// launch's cudaError_t.
 template <class Alg>
 int launch_vpu(const void* const* a, const void* const* b, void* const* out,
-               int batch, int m, int n, int k, void* stream) {
+               int* counter, int batch, int m, int n, int k, void* stream) {
   using T = typename Alg::T;
   VpuArgs<Alg> p;
   for (int f = 0; f < Alg::NF; ++f) {
@@ -256,7 +286,7 @@ int launch_vpu(const void* const* a, const void* const* b, void* const* out,
   }
   const dim3 grid((n + VTILE - 1) / VTILE, (m + VTILE - 1) / VTILE, batch);
   vpu_tile<Alg><<<grid, VTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, m, n, k);
+      p, counter, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,11 +44,11 @@ Hand-written CUDA kernels carry the device path:
   a user's algebra). A spec carries its algebra twice: as torch callables,
   which the plain versions run, and as C++ device code, from which a CUDA
   kernel is generated and built with ``nvcc`` at its first launch, one
-  library per algebra and dtypes: a VPU-path algebra over
-  ``csrc/semiring_generic.cuh``'s tile, an MXU-path one over
-  ``count_matmul``'s GEMM (``csrc/counting_tiles.cuh``) with its epilogue
-  at the store. The four shipped specs :data:`TROPICAL`, :data:`BOOLEAN`,
-  :data:`COUNTING` and :data:`TROPICAL_COUNT` carry device code too.
+  library per algebra and dtypes: a VPU-path algebra over two tiles (see
+  below), an MXU-path one over ``count_matmul``'s GEMM
+  (``csrc/counting_tiles.cuh``) with its epilogue at the store. The four
+  shipped specs :data:`TROPICAL`, :data:`BOOLEAN`, :data:`COUNTING` and
+  :data:`TROPICAL_COUNT` carry device code too.
 
 **The counting tiles.** :func:`frontier_step`, :func:`count_matmul` (fp32),
 :func:`reachability_step` and the generic MXU path of
@@ -76,6 +76,16 @@ pipelined ``cp.async`` ring for grids of at least 256 such blocks (the
 sweep's stacks), the 32 x 32 tile elsewhere (the MWU oracle's p = 384..512
 products, and always :func:`minplus_count_matmul`). Both fold k in order,
 so they agree bit for bit; :func:`tile_launches` counts each.
+
+**The VPU tiles.** A VPU-path algebra's kernel runs on one of two tiles,
+picked on the host from the output grid and the algebra's field count
+(:func:`_vpu_tile`): the register-blocked tile of
+``csrc/vpu_tiles.cuh``, the large min-plus tile's design made generic and
+sized by the field count (:func:`_vpu_config`), for grids of at least 256
+of its blocks, and the 32 x 32 tile of ``csrc/semiring_generic.cuh``
+elsewhere and for algebras of more than 12 fields. Both fold ``accumulate`` over k in order, so they agree bit for
+bit on every algebra; :func:`tile_launches` counts each under
+``semiring_matmul_vpu``.
 
 **NaN.** The min-plus kernels, their plain versions and the shipped
 ``TROPICAL`` / ``TROPICAL_COUNT`` device code propagate NaN as the JAX
@@ -114,6 +124,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 import re
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -414,11 +425,15 @@ _TROPICAL_LIB = None
 _COUNTING_TILES = ("frontier_step", "count_matmul", "reachability_step")
 #: the wrappers whose kernels count their launches per tile on the card, and
 #: the names of the two tiles: the counting tiles (``csrc/counting_tiles.cuh``,
-#: also the generic MXU path's) and the min-plus tiles (``csrc/tropical.cu``)
+#: also the generic MXU path's, ``semiring_matmul``), the min-plus tiles
+#: (``csrc/tropical.cu``) and the generic VPU path's
+#: (``semiring_matmul_vpu``: ``csrc/semiring_generic.cuh``'s 32 x 32 tile and
+#: ``csrc/vpu_tiles.cuh``'s)
 _TILED = {**{name: ("simt", "tensor") for name in _COUNTING_TILES},
           "semiring_matmul": ("simt", "tensor"),
           "minplus_matmul": ("small", "large"),
-          "batched_minplus_matmul": ("small", "large")}
+          "batched_minplus_matmul": ("small", "large"),
+          "semiring_matmul_vpu": ("small", "large")}
 _TILE_COUNTS: Optional[torch.Tensor] = None
 #: wrapper name -> the address of its two counters in :data:`_TILE_COUNTS`
 _TILE_PTRS: Dict[str, int] = {}
@@ -654,10 +669,12 @@ def tile_launches() -> Dict[str, Dict[str, int]]:
     """Launches of each tile since the last :func:`reset_launches`, per
     wrapper: ``{"frontier_step": {"simt": n, "tensor": m}, ...,
     "semiring_matmul": {"simt": .., "tensor": ..}, "minplus_matmul":
-    {"small": .., "large": ..}, "batched_minplus_matmul": {...}}`` (the
-    generic kernel counts its MXU-path launches only). The counters live on
-    the card and are read here, one host sync: call it outside timed
-    windows. All zero before the first launch."""
+    {"small": .., "large": ..}, "batched_minplus_matmul": {...},
+    "semiring_matmul_vpu": {"small": .., "large": ..}}`` (the generic
+    kernel's MXU-path launches under ``semiring_matmul``, its VPU-path ones
+    under ``semiring_matmul_vpu``). The counters live on the card and are
+    read here, one host sync: call it outside timed windows. All zero
+    before the first launch."""
     counts = (np.zeros((len(_TILED), 2), np.int64)
               if _TILE_COUNTS is None else _TILE_COUNTS.cpu().numpy())
     return {name: {tile: int(n) for tile, n in zip(tiles, c)}
@@ -913,9 +930,25 @@ Fields = Tuple[torch.Tensor, ...]
 
 #: K slab of the plain VPU version, as the JAX kernel's default ``sub_k``
 _SUB_K = 8
-#: the generic VPU tile's field limit (its shared memory stays under 48 KB)
+#: the generic VPU tiles' field limit (the small tile's shared memory stays
+#: under 48 KB)
 _MAX_FIELDS = 16
-_MAX_VPU_ROWS = 65535 * 32  # gridDim.y times the 32-row VPU tile
+_MAX_GRID_Y = 65535  # gridDim.y: the rows of a product are at most this
+#                      many times the row tile that runs it
+#: the small VPU tile's output edge (``csrc/semiring_generic.cuh``'s VTILE)
+_VPU_SMALL = 32
+#: ``csrc/vpu_tiles.cuh``'s large VPU tile: per field count, the
+#: micro-tile and read widths ``(most fields, (tm, tn, kv, bv))`` (its
+#: ``shape``; none past 12 fields), a block's shared-memory limit
+#: (``SMEM_MAX``), the K steps it tries and the fewest blocks of a grid
+#: that takes it. Fields are 4 bytes (``FIELD_BYTES``): the VPU path runs
+#: float32 and int32 only (:func:`device_types`).
+_VPU_SHAPES = ((1, (8, 8, 2, 4)), (2, (4, 8, 2, 4)), (4, (4, 4, 2, 4)),
+               (8, (2, 4, 2, 4)), (12, (2, 2, 2, 2)))
+_VPU_FIELD_BYTES = 4
+_VPU_SMEM_MAX = 113 * 1024 - 512
+_VPU_BKS = (32, 16, 8)
+_VPU_LARGE_MIN_BLOCKS = 256
 #: dtype -> C type of the generated kernels
 _C_TYPES = {torch.float32: "float", torch.int32: "int",
             torch.uint8: "unsigned char"}
@@ -961,7 +994,10 @@ class Semiring:
       cuda_epilogue:   an expression in ``float acc`` (MXU path), cast to
                        the output type.
     The bodies may use ``T`` (the fields' C type), ``NF``, ``<math.h>`` and
-    the header's ``sr_min``/``sr_max``. ``kreduce`` has no device form:
+    the header's ``sr_min``/``sr_max``/``sr_fmin_nan``. Write
+    ``cuda_accumulate`` with selects (``c ? x : y``), not ``if``/``else``:
+    the register-blocked tile runs data-dependent branches 2.4x slower (see
+    ``csrc/vpu_tiles.cuh``). ``kreduce`` has no device form:
     the kernel folds ``accumulate`` over k, which is what a semiring's
     reduce is, so ``accumulate`` must be associative and commutative (the
     JAX kernel assumes the same when it reduces block by block).
@@ -1103,9 +1139,11 @@ def algebra_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
 
 def semiring_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
     """The CUDA source of ``sr``'s kernel for ``types``: the algebra struct
-    and one C entry point over ``csrc/semiring_generic.cuh`` (the VPU tile)
-    or ``csrc/counting_tiles.cuh`` (the MXU path: ``count_matmul``'s GEMM
-    with the algebra's epilogue as its store policy)."""
+    and one C entry point over ``csrc/vpu_tiles.cuh`` (the VPU path: its
+    large tile or ``csrc/semiring_generic.cuh``'s 32 x 32 tile, picked by
+    the grid, each counting its launches) or ``csrc/counting_tiles.cuh``
+    (the MXU path: ``count_matmul``'s GEMM with the algebra's epilogue as
+    its store policy)."""
     struct = algebra_source(sr, types)
     alg = f"Algebra_{_ident(sr.name)}"
     include = '#include "semiring_generic.cuh"\n'
@@ -1125,11 +1163,14 @@ def semiring_source(sr: Semiring, types: Sequence[torch.dtype]) -> str:
                  "(out)}, b16, flag,\n"
                  "      counters, batch, m, n, k, stream);\n}\n")
     else:
+        include += '#include "vpu_tiles.cuh"\n'
         entry = ("extern \"C\" int repro_semiring_vpu(const void* const* a, "
-                 "const void* const* b,\n    void* const* out, int batch, "
-                 "int m, int n, int k, void* stream) {\n"
-                 f"  return repro_semiring::launch_vpu<{alg}>(a, b, out, "
-                 "batch, m, n, k, stream);\n}\n")
+                 "const void* const* b,\n    void* const* out, void* counters, "
+                 "int tile, int batch, int m, int n, int k,\n    void* stream) "
+                 "{\n"
+                 f"  return vpu_tiles::launch<{alg}>(a, b, out, "
+                 "static_cast<int*>(counters),\n      tile, batch, m, n, k, "
+                 "stream);\n}\n")
     return (f"// Generated by repro_torch.kernels.semiring from the Semiring "
             f"{sr.name!r}\n// ({', '.join(map(str, types))}).\n"
             f"{include}\n{struct}\n{entry}")
@@ -1151,7 +1192,7 @@ def _generated_kernel(sr: Semiring, types: Tuple[torch.dtype, ...]):
                            _I, _P]
         else:
             fn = lib.repro_semiring_vpu
-            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         _GENERATED[(sr, types)] = fn
     return fn
@@ -1246,7 +1287,53 @@ def semiring_matmul_batched(sr: Semiring, a: Sequence[torch.Tensor],
     return _semiring(sr, a, b, out_dtype, use_kernel, batched=True)
 
 
-def _semiring(sr, a, b, out_dtype, use_kernel, batched):
+@functools.lru_cache(maxsize=None)
+def _vpu_config(nf: int) -> Optional[Dict[str, int]]:
+    """The large VPU tile's configuration for ``nf`` fields, as
+    ``csrc/vpu_tiles.cuh``'s ``config`` computes it: output tile ``bm`` x
+    ``bn`` (16 ``tm`` x 16 ``tn``), the thread's ``tm`` x ``tn`` micro-tile,
+    ``kv`` k per read of A and ``bv`` n per read of B, the deepest K step
+    ``bk`` at which two ring stages fit in the block's shared memory,
+    ``stages`` (3 where they fit at that depth, else 2) and ``smem``, its
+    dynamic shared memory in bytes. None past 12 fields, which keep the
+    32 x 32 tile. Cached: every launch asks, so callers must not modify
+    the dict."""
+    shape = next((s for most, s in _VPU_SHAPES if nf <= most), None)
+    if shape is None:
+        return None
+    tm, tn, kv, bv = shape
+    bm, bn = 16 * tm, 16 * tn
+    for bk in _VPU_BKS:
+        stage = nf * (bm * (bk + 4) + bk * bn) * _VPU_FIELD_BYTES
+        if 2 * stage <= _VPU_SMEM_MAX:
+            stages = 3 if 3 * stage <= _VPU_SMEM_MAX else 2
+            return dict(bm=bm, bn=bn, tm=tm, tn=tn, kv=kv, bv=bv, bk=bk,
+                        stages=stages, smem=stages * stage)
+    return None
+
+
+def _vpu_tile(batch: int, m: int, n: int, nf: int) -> str:
+    """The tile a VPU-path product of ``batch`` (m, n) outputs over ``nf``
+    fields runs on, as the generated kernel's ``vpu_tiles::large_tile``
+    decides on the host: "large" where the large tile's grid
+    (:func:`_vpu_config`) has at least 256 blocks, about two per SM, else
+    "small" (32 x 32), as always past 12 fields."""
+    c = _vpu_config(nf)
+    if c is None:
+        return "small"
+    blocks = batch * -(-m // c["bm"]) * -(-n // c["bn"])
+    return "large" if blocks >= _VPU_LARGE_MIN_BLOCKS else "small"
+
+
+#: the generated VPU entry point's tile argument
+_VPU_TILE_ARG = {None: -1, "small": 0, "large": 1}
+
+
+def _semiring(sr, a, b, out_dtype, use_kernel, batched, tile=None):
+    """The two wrappers' body. ``tile`` ("small" or "large") makes a
+    VPU-path product run on that tile whatever the grid (a private seam:
+    the tiles agree bit for bit, and the card's checks hold them to it);
+    None runs the tile :func:`_vpu_tile` picks."""
     a, b = tuple(a), tuple(b)
     nf, ndim = sr.num_fields, 3 if batched else 2
     if len(a) != nf or len(b) != nf:
@@ -1269,8 +1356,13 @@ def _semiring(sr, a, b, out_dtype, use_kernel, batched):
     _require_device_code(sr)
     types = device_types(sr, a, b, out_dtype)
     batch, m, n, k = _dims(a[0], b[0])
-    if not sr.mxu and m > _MAX_VPU_ROWS:
-        raise ValueError(f"rows {m} exceed the launch grid")
+    if not sr.mxu:
+        picked = tile or _vpu_tile(batch, m, n, nf)
+        if picked == "large" and _vpu_config(nf) is None:
+            raise ValueError(f"{sr.name}: no large VPU tile for {nf} fields")
+        rows = _VPU_SMALL if picked == "small" else _vpu_config(nf)["bm"]
+        if m > _MAX_GRID_Y * rows:
+            raise ValueError(f"rows {m} exceed the launch grid")
     a = tuple(x.contiguous() for x in a)
     b = tuple(x.contiguous() for x in b)
     out = tuple(torch.empty((*lead, n), dtype=types[-1] if sr.mxu
@@ -1283,7 +1375,8 @@ def _semiring(sr, a, b, out_dtype, use_kernel, batched):
         rc = _mxu_launch(fn, a[0], b[0], out[0], batch, m, n, k, stream)
     else:
         ptrs = [(_P * nf)(*(x.data_ptr() for x in xs)) for xs in (a, b, out)]
-        rc = fn(*ptrs, batch, m, n, k, stream)
+        rc = fn(*ptrs, _tile_counts(a[0].device, "semiring_matmul_vpu"),
+                _VPU_TILE_ARG[tile], batch, m, n, k, stream)
     _check(rc, f"semiring_matmul ({sr.name})")
     launches["semiring_matmul"] += 1
     return out
@@ -1378,7 +1471,10 @@ TROPICAL_COUNT = Semiring(
     kreduce=_tc_kreduce,
     accumulate=_tc_accumulate,
     cuda_combine="out[0] = a[0] + b[0]; out[1] = a[1] * b[1];",
-    cuda_accumulate=("if (t[0] < acc[0]) { acc[0] = t[0]; acc[1] = t[1]; }\n"
-                     "    else if (t[0] == acc[0]) { acc[1] += t[1]; }\n"
-                     "    else if (t[0] != t[0]) { acc[0] = t[0]; acc[1] = 0; }"),
+    # _tc_accumulate's form, without branches: the NaN-propagating min, and
+    # the counts of both sides that attain it (a NaN min attains nothing)
+    cuda_accumulate=("const T d = sr_fmin_nan(acc[0], t[0]);\n"
+                     "    acc[1] = (acc[0] == d ? acc[1] : T(0)) + "
+                     "(t[0] == d ? t[1] : T(0));\n"
+                     "    acc[0] = d;"),
 )

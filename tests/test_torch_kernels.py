@@ -765,9 +765,11 @@ def test_tile_launches_are_zero_without_a_card():
     counts = S.tile_launches()
     assert set(counts) == {"frontier_step", "count_matmul",
                            "reachability_step", "semiring_matmul",
-                           "minplus_matmul", "batched_minplus_matmul"}
+                           "minplus_matmul", "batched_minplus_matmul",
+                           "semiring_matmul_vpu"}
     for name, c in counts.items():
-        tiles = ({"small": 0, "large": 0} if "minplus" in name
+        tiles = ({"small": 0, "large": 0}
+                 if "minplus" in name or name == "semiring_matmul_vpu"
                  else {"simt": 0, "tensor": 0})
         assert c == tiles, name
 

@@ -66,6 +66,93 @@ TWO_WALKS = S.Semiring(
     name="two_walks", pad_a=(0.0,), pad_b=(0.0,), acc_init=(0.0,), mxu=True,
     epilogue=lambda acc: acc >= 2, cuda_epilogue="acc >= 2.f")
 
+
+# wide algebras (the generic VPU tile is sized by the field count): max-plus
+# on every field of 3 or 8, in float32 (-inf pads) and int32 (pads -2**30,
+# so pad + pad is -2**31 and nothing wraps), and a lexicographic one of 3
+# fields, widest path, then fewest hops, then the number of such paths
+def _fieldwise_maxplus(pkg, nf, integer):
+    """Per-field max-plus of ``nf`` fields, in the JAX package (``pkg`` J)
+    or the port (S, with device code)."""
+    pad = -2.0 ** 30 if integer else -_INF
+    init = -2.0 ** 31 if integer else -_INF
+    np_ = jnp if pkg is J else torch
+    kw = dict(name=f"maxplus{nf}{'_int' if integer else ''}", num_fields=nf,
+              pad_a=(pad,) * nf, pad_b=(pad,) * nf, acc_init=(init,) * nf,
+              combine=lambda a, b: tuple(x + y for x, y in zip(a, b)),
+              kreduce=(lambda f: tuple(jnp.max(x, axis=1) for x in f))
+              if pkg is J else
+              (lambda f: tuple(torch.amax(x, dim=1) for x in f)),
+              accumulate=lambda x, y: tuple(np_.maximum(p, q)
+                                            for p, q in zip(x, y)))
+    if pkg is S:
+        kw.update(cuda_combine="for (int f = 0; f < NF; ++f) "
+                               "out[f] = a[f] + b[f];",
+                  cuda_accumulate="for (int f = 0; f < NF; ++f) "
+                                  "acc[f] = sr_max(acc[f], t[f]);")
+    return pkg.Semiring(**kw)
+
+
+def _lex(pkg, integer):
+    """(width, hops, count): the widest path, then the fewest hops, then the
+    number of such paths; the pads never tie a real width."""
+    np_ = jnp if pkg is J else torch
+    w_pad, h_pad = (-2.0 ** 31, 2.0 ** 29) if integer else (-_INF, _INF)
+    h_init = 2.0 ** 30 if integer else _INF
+
+    def better(x, y):  # y beats x, and y ties x
+        ties_w = y[0] == x[0]
+        return ((y[0] > x[0]) | (ties_w & (y[1] < x[1])),
+                ties_w & (y[1] == x[1]))
+
+    def accumulate(x, y):
+        win, tie = better(x, y)
+        return (np_.where(win, y[0], x[0]), np_.where(win, y[1], x[1]),
+                np_.where(win, y[2], np_.where(tie, x[2] + y[2], x[2])))
+
+    def kreduce(f):
+        w, h, c = f
+        if pkg is J:
+            wm = jnp.max(w, axis=1)
+            on = w == wm[:, None, :]
+            hm = jnp.min(jnp.where(on, h, jnp.asarray(h_init, h.dtype)),
+                         axis=1)
+            tie = on & (h == hm[:, None, :])
+            return wm, hm, jnp.sum(jnp.where(tie, c, 0), axis=1, dtype=c.dtype)
+        wm = torch.amax(w, dim=1)
+        on = w == wm[:, None, :]
+        hm = torch.amin(torch.where(on, h, torch.full_like(h, h_init)), dim=1)
+        tie = on & (h == hm[:, None, :])
+        return wm, hm, torch.where(tie, c, torch.zeros_like(c)).sum(
+            dim=1, dtype=c.dtype)
+
+    kw = dict(name="lex_int" if integer else "lex", num_fields=3,
+              pad_a=(w_pad, h_pad, 0.0), pad_b=(w_pad, h_pad, 0.0),
+              acc_init=(w_pad, h_init, 0.0),
+              combine=lambda a, b: (np_.minimum(a[0], b[0]), a[1] + b[1],
+                                    a[2] * b[2]),
+              kreduce=kreduce, accumulate=accumulate)
+    if pkg is S:
+        kw.update(
+            cuda_combine="out[0] = sr_min(a[0], b[0]); out[1] = a[1] + b[1];"
+                         " out[2] = a[2] * b[2];",
+            cuda_accumulate=(
+                "const bool tw = t[0] == acc[0];\n"
+                "    const bool win = t[0] > acc[0] || (tw && t[1] < acc[1]);\n"
+                "    const bool tie = tw && t[1] == acc[1];\n"
+                "    acc[2] = win ? t[2] : tie ? acc[2] + t[2] : acc[2];\n"
+                "    acc[0] = win ? t[0] : acc[0];\n"
+                "    acc[1] = win ? t[1] : acc[1];"))
+    return pkg.Semiring(**kw)
+
+
+#: (name, dtype) -> (port spec, JAX spec) of the wide algebras
+WIDE = {**{(f"maxplus{nf}", dt): (_fieldwise_maxplus(S, nf, dt == "int32"),
+                                   _fieldwise_maxplus(J, nf, dt == "int32"))
+           for nf in (3, 8) for dt in ("float32", "int32")},
+        **{("lex", dt): (_lex(S, dt == "int32"), _lex(J, dt == "int32"))
+           for dt in ("float32", "int32")}}
+
 #: name -> (port spec, JAX spec)
 SPECS = {
     "tropical": (S.TROPICAL, J.TROPICAL),
@@ -256,6 +343,52 @@ def test_mxu_path_with_narrow_operands_and_out_dtype(algebra, batched,
     assert {0, 1} == values if algebra == "two_walks" else {0, 2} < values
     # without out_dtype the output takes the left operand's dtype, as in JAX
     assert _port(port, a, b, batched)[0].dtype == np.uint8
+
+
+def _wide_operands(name, dtype, rng, lead, m, n, k, nf):
+    """Field tuples (a, b) of a wide algebra: scores in [0, 10) (float32,
+    with 10% -inf holes) or integers in [0, 1000) (int32) for max-plus;
+    widths (with -inf holes in float32), hops 0..3 and counts 0..3 for the
+    lexicographic algebra."""
+    def field(shape, role):
+        if role == "hops" or role == "count":
+            x = rng.integers(0, 4, shape)
+        elif dtype == "int32":
+            x = rng.integers(0, 1000 if role == "score" else 8, shape)
+        else:
+            x = (10 * rng.random(shape) if role == "score"
+                 else rng.integers(0, 8, shape))
+            x = np.where(rng.random(shape) < 0.1, -np.inf, x)
+        return x.astype(dtype)
+
+    roles = ("width", "hops", "count") if name == "lex" else ("score",) * nf
+    return (tuple(field((*lead, m, k), r) for r in roles),
+            tuple(field((*lead, k, n), r) for r in roles))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("shape", [(40, 24, 36), (33, 70, 129)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name, dtype", list(WIDE),
+                         ids=lambda x: str(x))
+def test_wide_algebras_match_pallas(name, dtype, shape, batched, no_launches):
+    """Algebras of 3 and 8 fields (per-field max-plus; the lexicographic
+    widest-path, fewest-hops, path-count algebra), float32 and int32, at
+    ragged shapes: the port's plain version against the JAX kernel in
+    interpret mode on operands padded with the pads to its blocks. Bit-equal:
+    max, min and integer sums are exact in any order."""
+    port, jax_spec = WIDE[(name, dtype)]
+    m, n, k = shape
+    rng = _rng("wide", name, dtype, shape, batched)
+    lead = (2,) if batched else ()
+    a, b = _wide_operands(name, dtype, rng, lead, m, n, k, port.num_fields)
+    ap = tuple(_pad(x, _up(m), _up(k), v) for x, v in zip(a, port.pad_a))
+    bp = tuple(_pad(x, _up(k), _up(n), v) for x, v in zip(b, port.pad_b))
+    want = [x[..., :m, :n] for x in _jax(jax_spec, ap, bp, batched)]
+    got = _port(port, a, b, batched)
+    _assert_close(got, want, name, k)
+    assert all(g.dtype == np.dtype(dtype) for g in got)
+    assert all(np.isfinite(g.astype(np.float64)).any() for g in got)
 
 
 # -- the plain versions ------------------------------------------------------------------
@@ -609,7 +742,9 @@ INT_MAXMIN = S.Semiring(
 @pytest.mark.parametrize("sr, dtype", [
     (S.TROPICAL, torch.float32), (S.TROPICAL_COUNT, torch.float32),
     (MAXPLUS, torch.float32), (MAXMIN, torch.float32),
-    (INT_MAXMIN, torch.int32)], ids=lambda x: getattr(x, "name", str(x)))
+    (INT_MAXMIN, torch.int32)] + [
+        (port, getattr(torch, dt)) for (_, dt), (port, _) in WIDE.items()],
+    ids=lambda x: getattr(x, "name", str(x)))
 def test_vpu_device_code_agrees_with_the_callables_on_the_host(
         tmp_path, sr, dtype):
     if shutil.which("g++") is None:
@@ -621,7 +756,15 @@ def test_vpu_device_code_agrees_with_the_callables_on_the_host(
     # max-min. Nothing makes a NaN (inf - inf), which is in no algebra's
     # domain: fminf/fmaxf drop it where torch.minimum/maximum keep it.
     vals = rng.integers(-3, 4, (3, s, nf)).astype(np.float64)
-    if dtype == torch.float32:
+    wide = sr.name.startswith(("maxplus", "lex"))
+    if wide and dtype == torch.float32:  # -inf holes (scores, widths)
+        holes = rng.random(vals.shape) < 0.1
+        if sr.name == "lex":
+            holes[..., 1:] = False  # finite hops and counts
+        vals[holes] = -_INF
+    if sr.name.startswith("lex"):  # hops and counts: nonnegative
+        vals[..., 1:] = np.abs(vals[..., 1:])
+    if dtype == torch.float32 and not wide:
         if sr is not MAXPLUS:
             vals[rng.random(vals.shape) < 0.15] = _INF
         if sr in (MAXPLUS, MAXMIN):

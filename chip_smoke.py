@@ -56,11 +56,14 @@ rtol 1e-5 on the float z x adj product, and sends an inexact or
 non-finite right operand to the SIMT tile; phase 5 reads the per-tile
 device counters of the sweep. Phases 3 and 9 feed NaN to the min-plus
 kernels and the generic TROPICAL / TROPICAL_COUNT kernels, NaN-equal to
-their plain versions. The plain min-plus products run on two tiles picked
-on the host from the output grid (``_minplus_tile``): phases 3 and 8 hold
+their plain versions. The min-plus products run on two tiles picked on
+the host from the grid and K (``_minplus_plan``): phases 3 and 8 hold
 the batched product bit-equal to its plain version on both (B=12 at
 2048^3 and ragged on the large tile, NaN inputs on each) and read which
-tile ran from the device counters.
+tile ran from the device counters; phase 3 holds both products of the
+split tile (K split over a thread-block cluster) bit-equal to their plain
+versions at p = 384..1536, ragged and B=3, on the host's split and on
+forced splits, with -0 and +0 in both operands and NaN inputs.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -525,6 +528,7 @@ def tropical_checks(S, H, part):
             main = (a, b, da, ca, db, cb)
 
     tropical_nan_checks(S, gen)
+    split_checks(S, gen)
 
     specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
                              -0.0, -0.5, -3.0, 64.999, 65.0, 1e9, 0.0],
@@ -549,8 +553,8 @@ def tropical_checks(S, H, part):
     p = a.shape[0]
     valid = torch.isfinite(hist_x) & (hist_x >= 0) & (hist_x < 65)
     idx = hist_x[valid].long()
-    markers = {"minplus_matmul": "tropical_tile<false>",
-               "minplus_count_matmul": "tropical_tile<true>",
+    markers = {"minplus_matmul": "split_tile<1",
+               "minplus_count_matmul": "split_tile<2",
                "value_histogram": "value_hist"}
     cases = {
         # p^3 adds and p^3 mins; operands read once, output written once
@@ -583,9 +587,11 @@ def tropical_checks(S, H, part):
         lib = ("" if library_ms is None
                else f", torch.bincount {library_ms:.4f}")
         tile = ""
-        if name == "minplus_matmul":  # p = 512: the small tile
-            check(took == [S._minplus_tile(1, p, p)] == ["small"],
-                  f"minplus_matmul p={p}: ran on tiles {took}, expected small")
+        if name != "value_histogram":  # p = 512: the split tile, split
+            want = minplus_column(S, 1, p, p, p,
+                                  2 if name == "minplus_count_matmul" else 1)
+            check(took == [want] and want != "large",
+                  f"{name} p={p}: ran on tiles {took}, expected {want}")
             out[name]["tile"] = took[0]
             tile = f", tile {took[0]}"
         # the events bracket one call from the host, wrapper included;
@@ -625,7 +631,9 @@ def tropical_nan_checks(S, gen):
         bout = S.batched_minplus_matmul(sa, sb)
         took = {t for (e, t), c in tile_counts(S).items()
                 if e == "batched_minplus_matmul" and c > before[(e, t)]}
-        check(took == {"small"}, f"batched NaN {m}x{n}x{k}: tiles {took}")
+        want = minplus_column(S, 3, m, n, k)
+        check(took == {want} and want != "large",
+              f"batched NaN {m}x{n}x{k}: tiles {took}, expected {want}")
         bref = S.batched_minplus_matmul_ref(sa, sb)
         da = with_nans(gen, _lengths(gen, (m, k), 0.3, integer=True))
         db = with_nans(gen, _lengths(gen, (k, n), 0.3, integer=True))
@@ -644,8 +652,8 @@ def tropical_nan_checks(S, gen):
         check(bool(torch.isnan(out_ref).any()) and bool(nan.any())
               and not bool(c_ref[nan].any()),
               f"NaN {tag}: no NaN reached the output")
-        print(f"  {tag:14s} NaN inputs: minplus_matmul, batched (small "
-              f"tile) and minplus_count_matmul NaN-equal to their plain "
+        print(f"  {tag:14s} NaN inputs: minplus_matmul, batched ({want}) "
+              f"and minplus_count_matmul NaN-equal to their plain "
               f"versions ({int(torch.isnan(out_ref).sum())}, "
               f"{int(torch.isnan(bref).sum())}, {int(nan.sum())} NaN cells)")
     for b_, m, n, k in ((12, 520, 600, 70), (12, 2048, 2048, 2048)):
@@ -668,6 +676,126 @@ def tropical_nan_checks(S, gen):
               f"tile NaN-equal to its plain version ({int(nan.sum())} of "
               f"{nan.numel()} NaN cells)")
         del sa, sb, bout, bref
+
+
+def minplus_column(S, batch, m, n, k, nf=1, split=None):
+    """The device counter (``S.tile_launches()`` entry) that a min-plus
+    product (nf 1) or count product (nf 2) of ``batch`` (m, n, k) adds to:
+    "large", "small" (the split tile unsplit) or "split<S>"."""
+    return S._minplus_column(*S._minplus_plan(batch, m, n, k, nf, split))
+
+
+def bit_equal(x, y):
+    """NaN-equal, and equal in sign bit wherever not NaN (so -0 differs
+    from +0); NaN payloads are not compared."""
+    def signs(t):
+        return torch.signbit(t) & ~torch.isnan(t)
+    return nan_equal(x, y) and torch.equal(signs(x), signs(y))
+
+
+def with_signed_zeros(gen, x):
+    """``x`` with half of its zeros made -0: a -0 sum needs -0 on both
+    sides, and ties +0 sums."""
+    flip = torch.rand(x.shape, generator=gen, device="cuda") < 0.5
+    return torch.where((x == 0) & flip, -0.0, x)
+
+
+#: the split tile's shapes in phase 3, (batch, m, n, k) (batch 0: 2D): the
+#: MWU oracle's p = 384..512, the mid-size grids that stay off the large
+#: tile, a ragged one and a small stack; and the splits forced on each
+SPLIT_SHAPES = ((0, 384, 384, 384), (0, 512, 512, 512),
+                (0, 1024, 1024, 1024), (0, 1536, 1536, 1536),
+                (0, 300, 200, 260), (3, 512, 512, 512))
+FORCED_SPLITS = (1, 2, 4, 8)
+
+
+def split_checks(S, gen):
+    """The split tile (``csrc/tropical.cu``) at every SPLIT_SHAPES shape,
+    on the split the host picks and on each of FORCED_SPLITS: both
+    products (the count product 2D only) bit-equal to their plain versions
+    on integer lengths and counts with -0 and +0 in both operands (sign
+    bits compared), and NaN-equal on the same operands with NaN cells;
+    each run's tile and split read from the device counters. Then the
+    changed flag under a split: 1 on a first squaring, 0 at convergence."""
+    for batch, m, n, k in SPLIT_SHAPES:
+        lead = (batch,) if batch else ()
+        b_ = max(batch, 1)
+        a = with_signed_zeros(gen, _lengths(gen, (*lead, m, k), 0.3, True))
+        b = with_signed_zeros(gen, _lengths(gen, (*lead, k, n), 0.3, True))
+        share = min(0.005, 0.2 / k)
+        an, bn = with_nans(gen, a, share), with_nans(gen, b, share)
+        ref = S.batched_minplus_matmul_ref if batch else S.minplus_matmul_ref
+        want = {"": ref(a, b), "NaN ": ref(an, bn)}
+        ops = {"": (a, b), "NaN ": (an, bn)}
+        if not batch:
+            ca = torch.where(torch.isfinite(a), torch.randint(
+                1, 4, (m, k), generator=gen, device="cuda").float(), 0.0)
+            cb = torch.where(torch.isfinite(b), torch.randint(
+                1, 4, (k, n), generator=gen, device="cuda").float(), 0.0)
+            cwant = {"": S.minplus_count_matmul_ref(a, ca, b, cb),
+                     "NaN ": S.minplus_count_matmul_ref(an, ca, bn, cb)}
+        zeros = int(((want[""] == 0) & torch.signbit(want[""])).sum())
+        nans = int(torch.isnan(want["NaN "]).sum())
+        check(zeros > 0 and 0 < nans < want["NaN "].numel(),
+              f"split {batch} {m}x{n}x{k}: {zeros} -0 cells, {nans} NaN")
+        tag = f"{'B=%d ' % batch if batch else ''}{m}x{n}x{k}"
+        ran = []
+        for split in (None,) + FORCED_SPLITS:
+            for kind, (x, y) in ops.items():
+                col = minplus_column(S, b_, m, n, k, 1, split)
+                before = tile_counts(S)
+                out = S._minplus(x, y, True, None, bool(batch), split=split)
+                name = ("batched_minplus_matmul" if batch
+                        else "minplus_matmul")
+                took = {t for (e, t), c in tile_counts(S).items()
+                        if e == name and c > before[(e, t)]}
+                check(took == {col}, f"{name} {tag} split {split}: tiles "
+                                     f"{took}, expected {col}")
+                check(bit_equal(out, want[kind]),
+                      f"{name} {kind}{tag} split {split}: not bit-equal")
+                if batch:
+                    continue
+                col = minplus_column(S, 1, m, n, k, 2, split)
+                before = tile_counts(S)
+                d, c = S._minplus_count(x, ca, y, cb, True, split=split)
+                took = {t for (e, t), n_ in tile_counts(S).items()
+                        if e == "minplus_count_matmul"
+                        and n_ > before[(e, t)]}
+                check(took == {col}, f"minplus_count_matmul {tag} split "
+                                     f"{split}: tiles {took}, expected {col}")
+                dw, cw = cwant[kind]
+                check(bit_equal(d, dw) and bit_equal(c, cw),
+                      f"minplus_count_matmul {kind}{tag} split {split}: "
+                      f"not bit-equal")
+            if split is None:
+                ran.append(f"host {minplus_column(S, b_, m, n, k)}"
+                           + ("" if batch else
+                              f"/{minplus_column(S, 1, m, n, k, 2)}"))
+        print(f"  {tag:14s} split tile: both products bit-equal to their "
+              f"plain versions with +-0 ({zeros} -0 cells) and NaN-equal "
+              f"({nans} NaN cells) on the host's split ({ran[0]}) and at "
+              f"forced splits {FORCED_SPLITS}")
+
+    # the changed flag under a split, at the host's split and at 8
+    p = 512
+    for split in (None, 8):
+        sq = _lengths(gen, (p, p), 0.7)
+        sq = torch.where(torch.eye(p, device="cuda", dtype=torch.bool), 0.0,
+                         sq)
+        prod, changed = S._minplus(sq, sq, True, sq, False, split=split)
+        check(int(changed) == 1, f"changed flag split {split}: 0 on a "
+                                 f"first squaring")
+        rounds = 1
+        while int(changed):
+            sq = prod
+            prod, changed = S._minplus(sq, sq, True, sq, False, split=split)
+            rounds += 1
+        check(torch.equal(prod, sq) and bit_equal(
+            S.minplus_matmul_ref(sq, sq), sq),
+            f"changed flag split {split}: 0 before convergence")
+        print(f"  changed flag at split {minplus_column(S, 1, p, p, p, 1, split)}: "
+              f"1 on the first squaring, 0 at convergence after {rounds} "
+              f"squarings")
 
 
 # -- phase 3: the narrow-cell kernels --------------------------------------------
@@ -960,7 +1088,7 @@ def library_kernel_checks(S, part):
         noise.view(-1)[-1] = -1.0  # one cell of the whole stack differs
         _, changed_one = S.batched_minplus_matmul(a, b, compare=noise)
         torch.cuda.synchronize()
-        tile = S._minplus_tile(b_, m, n)
+        tile = minplus_column(S, b_, m, n, k)
         tag = f"B={b_} {m}x{n}x{k}, {tile} tile"
         check(took == {tile}, f"batched_minplus_matmul {tag}: ran on tiles "
                               f"{took}")

@@ -68,14 +68,20 @@ counts its launches on the card (:func:`tile_launches`). ``A``'s layout
 (row-major, column-major, any strides) picks the loader
 (:func:`_a_layout`).
 
-**The min-plus tiles.** :func:`minplus_matmul` and
-:func:`batched_minplus_matmul` run on one of two tiles of
-``csrc/tropical.cu``, picked on the host from the output grid alone
-(:func:`_minplus_tile`): a register-blocked 128 x 128 tile with a
-pipelined ``cp.async`` ring for grids of at least 256 such blocks (the
-sweep's stacks), the 32 x 32 tile elsewhere (the MWU oracle's p = 384..512
-products, and always :func:`minplus_count_matmul`). Both fold k in order,
-so they agree bit for bit; :func:`tile_launches` counts each.
+**The min-plus tiles.** :func:`minplus_matmul`,
+:func:`batched_minplus_matmul` and :func:`minplus_count_matmul` run on two
+tiles of ``csrc/tropical.cu``, picked on the host from the grid and K
+alone (:func:`_minplus_plan`): a register-blocked 128 x 128 tile with a
+pipelined ``cp.async`` ring for plain min-plus grids of at least 256 such
+blocks (the sweep's stacks), and the split tile everywhere else (the MWU
+oracle's p = 384..512 products, the count product at every size): the
+same register-blocked, pipelined design on a smaller block tile, whose K
+range is split over the blocks of a thread-block cluster where the grid
+is small, the partials combined through distributed shared memory in one
+launch. Min is exact in any order and the split fold keeps the order of
+its operands, so every tile and split agrees bit for bit on the min-plus;
+the count sums are regrouped (:func:`_split_k_minplus_count_ref`), exact
+below 2**24. :func:`tile_launches` counts each tile and split.
 
 **The VPU tiles.** A VPU-path algebra's kernel runs on one of two tiles,
 picked on the host from the output grid and the algebra's field count
@@ -172,7 +178,7 @@ MULT_SAT = 2 ** 24
 
 _MAX_BATCH = 65535  # gridDim.z
 _MAX_ROWS = 65535 * 128  # gridDim.y times the 128-row tile
-_MAX_TROPICAL_ROWS = 65535 * 32  # gridDim.y times the 32-row tropical tile
+_MAX_TROPICAL_ROWS = 65535 * 32  # gridDim.y times 32, at most the row tile
 _MAX_NARROW_ROWS = 65535 * 32  # gridDim.y times the 32-row narrow tile
 #: ``csrc/packed.cu``'s row tile and k stage: the limb scratch's padding
 _NARROW_BM, _NARROW_BK = 32, 64
@@ -364,9 +370,28 @@ def _row_blocks(m: int, k: int, n: int, fields: int = 1):
     return ((lo, min(m, lo + rows)) for lo in range(0, m, rows))
 
 
+def _neg_zero(x: torch.Tensor) -> torch.Tensor:
+    """Where ``x`` is -0."""
+    return (x == 0) & torch.signbit(x)
+
+
+def _prefer_neg_zero(out: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """``out``, the min-plus product of ``a`` and ``b``, with a zero made -0
+    wherever some k sums to -0 (both terms -0, the only way to a -0 sum),
+    as ``min.NaN.f32`` and the JAX package's ``jnp.min`` rank -0 below +0;
+    ``torch.amin`` returns whichever zero its reduction meets first."""
+    na, nb = _neg_zero(a), _neg_zero(b)
+    if not (bool(na.any()) and bool(nb.any())):
+        return out
+    neg = (na.float() @ nb.float()) > 0
+    return torch.where(neg & (out == 0), -0.0, out)
+
+
 def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Tropical (min, +) matrix product: out[i,j] = min_k a[i,k] + b[k,j].
-    An empty k gives +inf, the semiring's zero."""
+    An empty k gives +inf, the semiring's zero; NaN propagates, and -0
+    ranks below +0."""
     m, k = a.shape
     n = b.shape[1]
     out = torch.full((m, n), float("inf"), dtype=torch.float32,
@@ -376,7 +401,7 @@ def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.float(), b.float()
     for lo, hi in _row_blocks(m, k, n):
         out[lo:hi] = (a[lo:hi, :, None] + b[None]).amin(dim=1)
-    return out
+    return _prefer_neg_zero(out, a, b)
 
 
 def batched_minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor
@@ -411,7 +436,69 @@ def minplus_count_matmul_ref(da: torch.Tensor, ca: torch.Tensor,
         d[lo:hi] = s.amin(dim=1)
         prod = ca[lo:hi, :, None] * cb[None]
         c[lo:hi] = torch.where(s == d[lo:hi, None, :], prod, 0.0).sum(dim=1)
-    return d, c
+    return _prefer_neg_zero(d, da, db), c
+
+
+def _min_nan(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``min.NaN.f32`` elementwise: NaN if either is NaN, else the smaller,
+    -0 below +0 (``torch.minimum`` returns its first operand on a tie)."""
+    return torch.where(x == y, torch.where(torch.signbit(x), x, y),
+                       torch.minimum(x, y))
+
+
+def _count_update(d, c, s, p):
+    """One k of the count product, and its split combine: (d, c) folds in
+    (s, p) as ``csrc/tropical.cu``'s ``count_update``, the form of
+    :func:`_tc_accumulate` with :func:`_min_nan`."""
+    m = _min_nan(d, s)
+    return m, torch.where(d == m, c, 0.0) + torch.where(s == m, p, 0.0)
+
+
+def _split_ranges(k: int, splits: int):
+    """The K ranges ``csrc/tropical.cu``'s split tile gives ``splits``
+    blocks of a cluster: split s folds K steps s T / S .. (s + 1) T / S of
+    the T steps of BK (empty where T < S)."""
+    bk = _MINPLUS_SPLIT["bk"]
+    t = -(-k // bk)
+    return [(min(k, s * t // splits * bk), min(k, (s + 1) * t // splits * bk))
+            for s in range(splits)]
+
+
+def _split_k_minplus_ref(a: torch.Tensor, b: torch.Tensor,
+                         splits: int) -> torch.Tensor:
+    """The min-plus product (2D or batched) as the split tile computes it
+    with K split ``splits`` ways: each split folds its K range in k order
+    from +inf, and the partials fold in split order, all with
+    :func:`_min_nan`."""
+    shape = (*a.shape[:-1], b.shape[-1])
+    out = None
+    for lo, hi in _split_ranges(a.shape[-1], splits):
+        part = torch.full(shape, float("inf"), dtype=torch.float32,
+                          device=a.device)
+        for k in range(lo, hi):
+            part = _min_nan(part, a[..., :, k, None] + b[..., k, None, :])
+        out = part if out is None else _min_nan(out, part)
+    return out
+
+
+def _split_k_minplus_count_ref(da, ca, db, cb, splits: int):
+    """The count product as the split tile computes it with K split
+    ``splits`` ways: each split folds its K range in k order from (+inf,
+    0) with :func:`_count_update`, and the partials fold in split order
+    with the same update. The card fuses each k's product into its add
+    (``count_step``), which gives the same bits wherever the products and
+    sums are exact (integer counts below 2**24)."""
+    shape = (*da.shape[:-1], db.shape[-1])
+    out = None
+    for lo, hi in _split_ranges(da.shape[-1], splits):
+        d = torch.full(shape, float("inf"), dtype=torch.float32,
+                       device=da.device)
+        c = torch.zeros(shape, dtype=torch.float32, device=da.device)
+        for k in range(lo, hi):
+            d, c = _count_update(d, c, da[..., :, k, None] + db[..., k, None, :],
+                                 ca[..., :, k, None] * cb[..., k, None, :])
+        out = (d, c) if out is None else _count_update(*out, d, c)
+    return out
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -423,19 +510,27 @@ _LIB = None
 _TROPICAL_LIB = None
 #: the entry points of ``csrc/semiring.cu``, which share one pair of tiles
 _COUNTING_TILES = ("frontier_step", "count_matmul", "reachability_step")
+#: ``csrc/tropical.cu``'s split-K limit: at most this many blocks of a
+#: cluster share one output tile (the portable cluster size)
+_MINPLUS_SPLIT_MAX = 8
+#: the counters of ``csrc/tropical.cu``'s tiles, in its order: the split
+#: tile at split 1 ("small"), the large tile, the split tile at splits 2..8
+_MINPLUS_TILES = ("small", "large") + tuple(
+    f"split{s}" for s in range(2, _MINPLUS_SPLIT_MAX + 1))
 #: the wrappers whose kernels count their launches per tile on the card, and
-#: the names of the two tiles: the counting tiles (``csrc/counting_tiles.cuh``,
+#: the names of their tiles: the counting tiles (``csrc/counting_tiles.cuh``,
 #: also the generic MXU path's, ``semiring_matmul``), the min-plus tiles
-#: (``csrc/tropical.cu``) and the generic VPU path's
+#: and splits (``csrc/tropical.cu``) and the generic VPU path's
 #: (``semiring_matmul_vpu``: ``csrc/semiring_generic.cuh``'s 32 x 32 tile and
 #: ``csrc/vpu_tiles.cuh``'s)
 _TILED = {**{name: ("simt", "tensor") for name in _COUNTING_TILES},
           "semiring_matmul": ("simt", "tensor"),
-          "minplus_matmul": ("small", "large"),
-          "batched_minplus_matmul": ("small", "large"),
+          "minplus_matmul": _MINPLUS_TILES,
+          "batched_minplus_matmul": _MINPLUS_TILES,
+          "minplus_count_matmul": _MINPLUS_TILES,
           "semiring_matmul_vpu": ("small", "large")}
 _TILE_COUNTS: Optional[torch.Tensor] = None
-#: wrapper name -> the address of its two counters in :data:`_TILE_COUNTS`
+#: wrapper name -> the address of its counters in :data:`_TILE_COUNTS`
 _TILE_PTRS: Dict[str, int] = {}
 _PACKED_LIB = None
 
@@ -462,13 +557,13 @@ def _tropical_lib() -> ctypes.CDLL:
 
         lib = load("tropical")
         lib.repro_minplus_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                          _P]
+                                          _I, _P]
         lib.repro_minplus_f32.restype = _I
         lib.repro_minplus_batched_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
-                                                  _I, _I, _I, _P]
+                                                  _I, _I, _I, _I, _P]
         lib.repro_minplus_batched_f32.restype = _I
-        lib.repro_minplus_count_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I,
-                                                _I, _I, _P]
+        lib.repro_minplus_count_f32.argtypes = [_P, _P, _P, _P, _P, _P, _P,
+                                                _I, _I, _I, _I, _P]
         lib.repro_minplus_count_f32.restype = _I
         _TROPICAL_LIB = lib
     return _TROPICAL_LIB
@@ -654,11 +749,12 @@ def _a_layout(a: torch.Tensor, b: torch.Tensor,
 
 
 def _tile_counts(device: torch.device, name: str) -> int:
-    """The address of the two device counters of ``name``'s tiles
-    (:data:`_TILED`), allocated at the first launch."""
+    """The address of the device counters of ``name``'s tiles
+    (:data:`_TILED`, one int each), allocated at the first launch."""
     global _TILE_COUNTS
     if _TILE_COUNTS is None:
-        _TILE_COUNTS = torch.zeros((len(_TILED), 2), dtype=torch.int32,
+        width = max(len(tiles) for tiles in _TILED.values())
+        _TILE_COUNTS = torch.zeros((len(_TILED), width), dtype=torch.int32,
                                    device=device)
         _TILE_PTRS.update((n, row.data_ptr())
                           for n, row in zip(_TILED, _TILE_COUNTS))
@@ -669,13 +765,17 @@ def tile_launches() -> Dict[str, Dict[str, int]]:
     """Launches of each tile since the last :func:`reset_launches`, per
     wrapper: ``{"frontier_step": {"simt": n, "tensor": m}, ...,
     "semiring_matmul": {"simt": .., "tensor": ..}, "minplus_matmul":
-    {"small": .., "large": ..}, "batched_minplus_matmul": {...},
+    {"small": .., "large": .., "split2": .., ..., "split8": ..},
+    "batched_minplus_matmul": {...}, "minplus_count_matmul": {...},
     "semiring_matmul_vpu": {"small": .., "large": ..}}`` (the generic
     kernel's MXU-path launches under ``semiring_matmul``, its VPU-path ones
-    under ``semiring_matmul_vpu``). The counters live on the card and are
-    read here, one host sync: call it outside timed windows. All zero
-    before the first launch."""
-    counts = (np.zeros((len(_TILED), 2), np.int64)
+    under ``semiring_matmul_vpu``; a min-plus product's split tile under
+    "small" at split 1 and "split<S>" at split S, see
+    :func:`_minplus_column`). The counters live on the card and are read
+    here, one host sync: call it outside timed windows. All zero before
+    the first launch."""
+    width = max(len(tiles) for tiles in _TILED.values())
+    counts = (np.zeros((len(_TILED), width), np.int64)
               if _TILE_COUNTS is None else _TILE_COUNTS.cpu().numpy())
     return {name: {tile: int(n) for tile, n in zip(tiles, c)}
             for (name, tiles), c in zip(_TILED.items(), counts)}
@@ -709,16 +809,50 @@ def _packed_smem_bytes() -> int:
 #: depth, and the fewest blocks of its grid for which the host picks it
 _MINPLUS_LARGE, _MINPLUS_BK, _MINPLUS_STAGES = 128, 32, 3
 _MINPLUS_LARGE_MIN_BLOCKS = 256
+#: ``csrc/tropical.cu``'s split tile (its ``SPLIT_SHAPE``, for one field and
+#: two): block tile, micro-tile, k per read of A, K step and ring depth
+_MINPLUS_SPLIT = dict(bm=64, bn=64, tm=4, tn=4, kv=4, bk=32, stages=3)
+#: its split rule: a grid of at most this many blocks (one an SM), at
+#: least this many splits, and at least this many K steps a split
+_MINPLUS_SPLIT_BLOCKS, _MINPLUS_SPLIT_LEAST = 128, 2
+_MINPLUS_SPLIT_MIN_STEPS = 2
 
 
 def _minplus_tile(batch: int, m: int, n: int) -> str:
     """The tile ``csrc/tropical.cu`` runs a plain min-plus product of
-    ``batch`` (m, n) outputs on, as its ``large_tile`` decides on the host:
+    ``batch`` (m, n) outputs on, as its ``plan`` decides on the host:
     "large" (128 x 128 outputs a block) where that grid has at least 256
-    blocks, about two per SM, else "small" (32 x 32). The tropical count
-    product always runs on the small tile."""
+    blocks, about two per SM, else "small" (the split tile). The tropical
+    count product always runs on the split tile."""
     blocks = batch * -(-m // _MINPLUS_LARGE) * -(-n // _MINPLUS_LARGE)
     return "large" if blocks >= _MINPLUS_LARGE_MIN_BLOCKS else "small"
+
+
+def _minplus_plan(batch: int, m: int, n: int, k: int, nf: int = 1,
+                  split: Optional[int] = None) -> Tuple[str, int]:
+    """The tile and split of K that ``csrc/tropical.cu``'s ``plan`` gives a
+    product of ``batch`` (m, n, k) over ``nf`` fields (1: min-plus, 2: the
+    count product): ("large", 1) where :func:`_minplus_tile` takes the
+    large tile (min-plus only), else ("small", S): the split tile with K
+    split over S blocks of a cluster, as many as keep the grid within 128
+    blocks (one an SM) but at least 2, as far as every split keeps two K
+    steps, at most 8. ``split`` forces the split tile with that split."""
+    if split is not None:
+        return "small", split
+    if nf == 1 and _minplus_tile(batch, m, n) == "large":
+        return "large", 1
+    c = _MINPLUS_SPLIT
+    blocks = batch * -(-m // c["bm"]) * -(-n // c["bn"])
+    steps = -(-k // c["bk"])
+    s = max(_MINPLUS_SPLIT_BLOCKS // max(blocks, 1), _MINPLUS_SPLIT_LEAST)
+    s = min(s, steps // _MINPLUS_SPLIT_MIN_STEPS, _MINPLUS_SPLIT_MAX)
+    return "small", max(1, s)
+
+
+def _minplus_column(tile: str, split: int) -> str:
+    """The :func:`tile_launches` entry a min-plus launch on ``tile`` at
+    ``split`` adds to."""
+    return tile if tile == "large" or split == 1 else f"split{split}"
 
 
 def _minplus_smem_bytes() -> int:
@@ -853,7 +987,23 @@ def batched_minplus_matmul(a: torch.Tensor, b: torch.Tensor,
     return _minplus(a, b, use_kernel, compare, batched=True)
 
 
-def _minplus(a, b, use_kernel, compare, batched):
+def _split_arg(batch: int, split: Optional[int]) -> int:
+    """``csrc/tropical.cu``'s split argument: 0 for its own rule, else the
+    forced split, checked against the cluster and the grid."""
+    if split is None:
+        return 0
+    if not 1 <= split <= _MINPLUS_SPLIT_MAX or batch * split > _MAX_BATCH:
+        raise ValueError(f"split {split} of batch {batch}: want 1 to "
+                         f"{_MINPLUS_SPLIT_MAX}, batch x split <= "
+                         f"{_MAX_BATCH}")
+    return split
+
+
+def _minplus(a, b, use_kernel, compare, batched, split=None):
+    """The two min-plus wrappers' body. ``split`` runs the split tile with
+    K split over that many blocks of a cluster, whatever the grid (a
+    private seam: every tile and split agrees bit for bit, and the card's
+    checks hold them to it); None runs what :func:`_minplus_plan` picks."""
     name = "batched_minplus_matmul" if batched else "minplus_matmul"
     xs = (a, b) if compare is None else (a, b, compare)
     if not _use_kernel(use_kernel, *xs):
@@ -872,6 +1022,7 @@ def _minplus(a, b, use_kernel, compare, batched):
             raise ValueError(f"rows {m} exceed the launch grid")
     else:
         batch, (m, n, k) = 1, _dims_2d(a, b)
+    forced = _split_arg(batch, split)
     _contiguous(name, a=a, b=b)
     shape = (*a.shape[:-1], n)
     if compare is not None:
@@ -887,7 +1038,7 @@ def _minplus(a, b, use_kernel, compare, batched):
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(),
                 None if compare is None else compare.data_ptr(),
                 None if changed is None else changed.data_ptr(),
-                _tile_counts(a.device, name))
+                _tile_counts(a.device, name), forced)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         _check(lib.repro_minplus_batched_f32(*args, batch, m, n, k, stream)
                if batched else lib.repro_minplus_f32(*args, m, n, k, stream),
@@ -906,18 +1057,26 @@ def minplus_count_matmul(da: torch.Tensor, ca: torch.Tensor,
     behave as (+inf, 0), which never contributes. Counts are exact below
     2**24.
     """
+    return _minplus_count(da, ca, db, cb, use_kernel)
+
+
+def _minplus_count(da, ca, db, cb, use_kernel, split=None):
+    """:func:`minplus_count_matmul`'s body; ``split`` forces the split of K,
+    as in :func:`_minplus`."""
     if not _use_kernel(use_kernel, da, ca, db, cb):
         return minplus_count_matmul_ref(da, ca, db, cb)
     m, n, k = _dims_2d(da, db)
     if ca.shape != da.shape or cb.shape != db.shape:
         raise ValueError("count fields must match their dist fields")
+    forced = _split_arg(1, split)
     _contiguous("minplus_count_matmul", da=da, ca=ca, db=db, cb=cb)
     d = torch.empty((m, n), dtype=torch.float32, device=da.device)
     c = torch.empty((m, n), dtype=torch.float32, device=da.device)
     if d.numel():
         _check(_tropical_lib().repro_minplus_count_f32(
             da.data_ptr(), ca.data_ptr(), db.data_ptr(), cb.data_ptr(),
-            d.data_ptr(), c.data_ptr(), m, n, k,
+            d.data_ptr(), c.data_ptr(),
+            _tile_counts(da.device, "minplus_count_matmul"), forced, m, n, k,
             torch.cuda.current_stream(da.device).cuda_stream),
             "minplus_count_matmul")
         launches["minplus_count_matmul"] += 1

@@ -766,10 +766,12 @@ def test_tile_launches_are_zero_without_a_card():
     assert set(counts) == {"frontier_step", "count_matmul",
                            "reachability_step", "semiring_matmul",
                            "minplus_matmul", "batched_minplus_matmul",
-                           "semiring_matmul_vpu"}
+                           "minplus_count_matmul", "semiring_matmul_vpu"}
     for name, c in counts.items():
-        tiles = ({"small": 0, "large": 0}
-                 if "minplus" in name or name == "semiring_matmul_vpu"
+        tiles = ({"small": 0, "large": 0, **{f"split{s}": 0
+                                             for s in range(2, 9)}}
+                 if "minplus" in name else {"small": 0, "large": 0}
+                 if name == "semiring_matmul_vpu"
                  else {"simt": 0, "tensor": 0})
         assert c == tiles, name
 
@@ -789,10 +791,11 @@ def test_tile_launches_are_zero_without_a_card():
 ])
 def test_minplus_tile_follows_the_grid(batch, m, n, want):
     """The large min-plus tile runs where its grid has at least 256 blocks
-    (about two per SM); p = 384..512 2D products keep the small tile. The
-    tropical count product has one tile: it has no counter pair."""
+    (about two per SM); p = 384..512 2D products keep the small (split)
+    tile. The tropical count product runs on the split tile and counts its
+    launches per split like the min-plus products."""
     assert S._minplus_tile(batch, m, n) == want
-    assert "minplus_count_matmul" not in S._TILED
+    assert S._TILED["minplus_count_matmul"] == S._TILED["minplus_matmul"]
 
 
 def test_minplus_large_tile_mirrors_the_source():

@@ -63,7 +63,13 @@ the batched product bit-equal to its plain version on both (B=12 at
 tile ran from the device counters; phase 3 holds both products of the
 split tile (K split over a thread-block cluster) bit-equal to their plain
 versions at p = 384..1536, ragged and B=3, on the host's split and on
-forced splits, with -0 and +0 in both operands and NaN inputs.
+forced splits, with -0 and +0 in both operands and NaN inputs. Phase 9
+feeds -0 and +0 to the generic TROPICAL / TROPICAL_COUNT kernels on
+every tile, sign bits compared with their plain versions. Phase 3 holds
+the value histogram (one launch, one shared histogram per block) equal
+to its plain version
+at storage offsets 1-3, n = 1, 3, 5, (4096, 4096) and 4096 and 12,288
+bins, and times it L2-warm and L2-cold beside its byte bound.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -118,13 +124,17 @@ def part_of(name: str) -> str:
     return "SXM"
 
 
-def timed_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median time of one call, by CUDA events around each call."""
+def timed_ms(fn, iters: int = 10, warmup: int = 2, before=None) -> float:
+    """Median time of one call, by CUDA events around each call (each
+    after ``before`` has run to its end, outside the events, if given)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if before is not None:
+            before()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -530,24 +540,7 @@ def tropical_checks(S, H, part):
     tropical_nan_checks(S, gen)
     split_checks(S, gen)
 
-    specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
-                             -0.0, -0.5, -3.0, 64.999, 65.0, 1e9, 0.0],
-                            device="cuda")
-    for shape in ((1536, 1536), (7, 13), (1,), (0,)):
-        x = torch.randint(0, 8, shape, generator=gen, device="cuda").float()
-        x = torch.where(torch.rand(shape, generator=gen, device="cuda")
-                        < 0.1, float("inf"), x)
-        flat = x.reshape(-1)
-        flat[:len(specials)] = specials[:flat.numel()]
-        h, h_ref = H.value_histogram(x, 65), H.value_histogram_ref(x, 65)
-        torch.cuda.synchronize()
-        check(torch.equal(h, h_ref), f"value_histogram {shape}: not equal")
-        errs["value_histogram"] = max(errs["value_histogram"],
-                                      _abs_err(h, h_ref))
-        print(f"  {str(shape):14s} value_histogram equal "
-              f"({int(h.sum())} of {x.numel()} counted)")
-        if shape == (1536, 1536):
-            hist_x = x
+    hist_x = histogram_checks(H, gen, errs)
 
     a, b, da, ca, db, cb = main
     p = a.shape[0]
@@ -600,7 +593,109 @@ def tropical_checks(S, H, part):
         dev = "not measured" if dev is None else f"{dev:.4f} ms"
         print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}{lib}, bound "
               f"{bms:.4f} by {by}{tile}); kernel device time {dev}")
+    histogram_times(H, gen, hist_x, part)
     return out
+
+
+#: the histogram's specials row: NaN, +-inf, -0 and -0.5 (bin 0 and
+#: dropped), just below the top bin's end, at it (dropped), far past it
+HIST_SPECIALS = (float("nan"), float("inf"), -float("inf"), -0.0, -0.5, -3.0,
+                 64.999, 65.0, 1e9, 0.0)
+
+
+def _hist_input(gen, shape, bins=65, spread=False):
+    """The main path's distances (integers 0..7, 10% +inf), or values over
+    all ``bins`` when ``spread``; led by the specials row (scaled to
+    ``bins``)."""
+    if spread:
+        x = torch.rand(shape, generator=gen, device="cuda") * (bins + 3) - 1.5
+    else:
+        x = torch.randint(0, 8, shape, generator=gen, device="cuda").float()
+        x = torch.where(torch.rand(shape, generator=gen, device="cuda")
+                        < 0.1, float("inf"), x)
+    specials = torch.tensor(HIST_SPECIALS, device="cuda")
+    specials[6:8] = torch.tensor([bins - 0.001, float(bins)])
+    flat = x.reshape(-1)
+    flat[:len(specials)] = specials[:flat.numel()]
+    return x
+
+
+def histogram_checks(H, gen, errs):
+    """``value_histogram`` equal to ``value_histogram_ref`` (integer counts)
+    on the main path's shape and ragged ones, contiguous views at storage
+    offsets 1-3 (the scalar head), n = 1, 3, 5 at offsets 0-3 (head and
+    tail only), (4096, 4096), and 4096 and 12,288 bins with values over
+    all bins; one launch a call. Returns the (1536, 1536) input."""
+    cases = [(f"{shape}", _hist_input(gen, shape), 65)
+             for shape in ((1536, 1536), (7, 13), (1,), (0,), (4096, 4096))]
+    for n in (1, 3, 5):  # head and tail only: values off + i, one a bin
+        for off in (0, 1, 2, 3):
+            cases.append((f"n={n} offset {off}", torch.arange(
+                n + 3, dtype=torch.float32, device="cuda")[off:off + n], 65))
+    main_x = cases[0][1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flat = main_x.reshape(-1)
+    for off in (1, 2, 3):  # buf[off:off + n], buf on a 16-byte boundary
+        buf = torch.full((flat.numel() + 3,), float("nan"), device="cuda")
+        view = buf[off:off + flat.numel()]
+        view.copy_(flat)
+        check(view.is_contiguous() and view.data_ptr() % 16 == 4 * off,
+              f"offset {off}: view not {4 * off} bytes past a 16-byte "
+              f"boundary")
+        cases.append((f"offset {off}", view, 65))
+    for bins in (4096, 12288):
+        cases.append((f"{bins} bins", _hist_input(gen, (1536, 1536), bins,
+                                                  spread=True), bins))
+    for tag, x, bins in cases:
+        before = H.launches["value_histogram"]
+        h = H.value_histogram(x, bins)
+        check(H.launches["value_histogram"] - before == (x.numel() > 0),
+              f"value_histogram {tag}: not one launch")
+        h_ref = H.value_histogram_ref(x, bins)
+        torch.cuda.synchronize()
+        check(torch.equal(h, h_ref), f"value_histogram {tag}: not equal")
+        errs["value_histogram"] = max(errs["value_histogram"],
+                                      _abs_err(h, h_ref))
+        if bins > 65:
+            check(bool((h_ref > 0).all()), f"{tag}: some bin empty")
+        if tag.startswith("n="):
+            check(int(h.sum()) == x.numel(), f"{tag}: not every value counted")
+        blocks = H._hist_plan(x.numel(), sms) if x.numel() else 0
+        print(f"  {tag:14s} value_histogram equal ({int(h.sum())} of "
+              f"{x.numel()} counted; {bins} bins, {blocks} blocks)")
+    return main_x
+
+
+def histogram_times(H, gen, hist_x, part):
+    """Row 7 L2-warm (20 calls back to back) and L2-cold (a 128 MB buffer
+    written before each call), at (1536, 1536) and (4096, 4096) into 65
+    bins and at 4096 and 12,288 bins: event ms of one call from the host
+    (wrapper included; cold: each after the write has finished), the
+    kernel's device ms (profiler) and the byte bound."""
+    flush = torch.empty(32 << 20, device="cuda")
+
+    def cold():
+        flush.fill_(1.0)
+
+    big = _hist_input(gen, (4096, 4096))
+    for tag, x, bins in (("(1536, 1536), 65", hist_x, 65),
+                         ("(4096, 4096), 65", big, 65),
+                         ("(1536, 1536), 4096", _hist_input(
+                             gen, (1536, 1536), 4096, spread=True), 4096),
+                         ("(1536, 1536), 12288", _hist_input(
+                             gen, (1536, 1536), 12288, spread=True), 12288)):
+        def kern():
+            return H.value_histogram(x, bins)
+
+        bms, by = bound_ms(0.0, x.numel() * 4.0 + bins * 4, part)
+        warm, warm_dev = timed_ms(kern), kernel_device_ms(kern, "value_hist")
+        cold_ms = timed_ms(kern, before=cold)
+        cold_dev = kernel_device_ms(lambda: (cold(), kern()), "value_hist")
+        fmt = (lambda v: "not measured" if v is None else f"{v:.4f} ms")
+        print(f"  value_histogram {tag}: L2-warm event {warm:.4f} ms, "
+              f"device {fmt(warm_dev)}; L2-cold event {cold_ms:.4f} ms, "
+              f"device {fmt(cold_dev)}; bound {bms:.4f} ms by {by}")
+    del flush, big
 
 
 def nan_equal(x, y):
@@ -1820,8 +1915,10 @@ def semiring_phase(S, build, seed, part):
     in float32 and int32 at B=2, 1024^3 (and of 16 fields, which run on
     the 32 x 32 tile at any grid, held to the plain version), odd K and N
     with bases off the 16-byte grid (the single-element loader), TROPICAL
-    and TROPICAL_COUNT on NaN inputs at B=2, 2048^3 (the large tile). Then
-    (e) times. Returns (the kernel's stats, its launches)."""
+    and TROPICAL_COUNT on NaN inputs at B=2, 2048^3 (the large tile); (g)
+    TROPICAL and TROPICAL_COUNT on {0, -0, 1, 2} at 512^3, B=2 and ragged,
+    on the picked and both forced tiles, sign bits held to the plain
+    versions. Then (e) times. Returns (the kernel's stats, its launches)."""
     maxplus, maxmin, two_walks = _user_semirings(S)
     wide, sumprod = _wide_semirings(S)
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
@@ -2091,6 +2188,47 @@ def semiring_phase(S, build, seed, part):
               f"[9b] NaN {tag}: no NaN reached the output")
         print(f"  [9b] TROPICAL (2D, B=2) and TROPICAL_COUNT {tag} on NaN "
               f"inputs: NaN-equal to their plain versions")
+
+    # (g) -0 inputs: the shipped TROPICAL and TROPICAL_COUNT device code
+    # ranks -0 below +0, as the plain versions (and jnp.min) do; sign bits
+    # compared, on the tile the grid picks and on both tiles forced
+    def signed(*shape):
+        vals = torch.tensor([0.0, -0.0, 1.0, 2.0], device="cuda")
+        pick = torch.multinomial(torch.tensor([0.3, 0.1, 0.3, 0.3],
+                                              device="cuda"),
+                                 int(np.prod(shape)), replacement=True,
+                                 generator=gen_t)
+        return vals[pick].reshape(shape)
+
+    for lead, m, n, k in (((), 512, 512, 512), ((2,), 512, 512, 512),
+                          ((), 300, 200, 260)):
+        a, b = signed(*lead, m, k), signed(*lead, k, n)
+        ca = torch.randint(1, 4, a.shape, generator=gen_t,
+                           device="cuda").float()
+        cb = torch.randint(1, 4, b.shape, generator=gen_t,
+                           device="cuda").float()
+        tag = f"{'B=2 ' if lead else ''}{m}x{n}x{k}"
+        for sr, fa, fb in ((S.TROPICAL, (a,), (b,)),
+                           (S.TROPICAL_COUNT, (a, ca), (b, cb))):
+            want = plain(sr, fa, fb)
+            torch.cuda.synchronize()
+            zero = want[0] == 0
+            neg, pos = zero & torch.signbit(want[0]), zero & ~torch.signbit(
+                want[0])
+            check(bool(neg.any()) and bool(pos.any()),
+                  f"[9g] {sr.name} {tag}: the plain version holds not both "
+                  f"-0 and +0")
+            for tile in (None, "small", "large"):
+                got = vpu(sr, fa, fb, tile)
+                torch.cuda.synchronize()
+                check(bit_equal(got[0], want[0]) and all(
+                    torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+                    f"[9g] {sr.name} {tag} on tile {tile or 'picked'}: "
+                    f"differs from its plain version in value or sign bit")
+            print(f"  [9g] {sr.name} {tag} on {{0, -0, 1, 2}}: the picked "
+                  f"tile and both forced tiles bit-equal to the plain "
+                  f"version, sign bits included ({int(neg.sum())} -0 and "
+                  f"{int(pos.sum())} +0 cells)")
 
     # (c) the user algebras against their plain versions
     def scores(*shape):

@@ -1577,14 +1577,24 @@ def _tc_combine(a: Fields, b: Fields) -> Fields:
     return (a[0] + b[0], a[1] * b[1])
 
 
+def _amin_nan(f: torch.Tensor) -> torch.Tensor:
+    """``jnp.min(f, axis=1)``: NaN propagates and -0 ranks below +0
+    (``torch.amin`` keeps whichever zero it meets first). A zero minimum
+    means no element along k is below zero, so a sign bit there is a -0."""
+    d = torch.amin(f, dim=1)
+    if not d.is_floating_point():
+        return d
+    return torch.where((d == 0) & torch.signbit(f).any(dim=1), -0.0, d)
+
+
 def _tc_kreduce(f: Fields) -> Fields:
-    d = torch.amin(f[0], dim=1)
+    d = _amin_nan(f[0])
     c = torch.where(f[0] == d[:, None, :], f[1], 0.0).sum(dim=1)
     return (d, c)
 
 
 def _tc_accumulate(x: Fields, y: Fields) -> Fields:
-    d = torch.minimum(x[0], y[0])
+    d = _min_nan(x[0], y[0])
     c = torch.where(x[0] == d, x[1], 0.0) + torch.where(y[0] == d, y[1], 0.0)
     return (d, c)
 
@@ -1596,8 +1606,8 @@ TROPICAL = Semiring(
     name="tropical",
     pad_a=(_INF,), pad_b=(_INF,), acc_init=(_INF,),
     combine=lambda a, b: (a[0] + b[0],),
-    kreduce=lambda f: (torch.amin(f[0], dim=1),),
-    accumulate=lambda x, y: (torch.minimum(x[0], y[0]),),
+    kreduce=lambda f: (_amin_nan(f[0]),),
+    accumulate=lambda x, y: (_min_nan(x[0], y[0]),),
     cuda_combine="out[0] = a[0] + b[0];",
     cuda_accumulate="acc[0] = sr_fmin_nan(acc[0], t[0]);",
 )

@@ -301,6 +301,58 @@ def _pad(x, rows, cols, fill):
     return np.pad(x, widths, constant_values=np.float32(fill))
 
 
+def _bits_equal(got, want):
+    """NaN matches NaN; every other cell equal, sign bit of zeros too."""
+    nan = np.isnan(want)
+    return (np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan], want[~nan])
+            and np.array_equal(np.signbit(got[~nan]), np.signbit(want[~nan])))
+
+
+def _signed_zero_operands(name, rng, lead, m, n, k, nans):
+    """Distances drawn from {0, -0, 1, 2} (a share of NaN when ``nans``),
+    with counts in 1..3 for tropical_count. -0 is drawn rarely enough that
+    some zero minima come from +0 sums alone, even at k = 384."""
+    vals = np.array([0.0, -0.0, 1.0, 2.0], np.float32)
+    p = [0.3, 0.1, 0.3, 0.3]
+    da = rng.choice(vals, (*lead, m, k), p=p)
+    db = rng.choice(vals, (*lead, k, n), p=p)
+    if nans:
+        da = _holes(rng, da, 0.002, np.nan)
+    if name == "tropical":
+        return (da,), (db,)
+    ca = rng.integers(1, 4, da.shape).astype(np.float32)
+    cb = rng.integers(1, 4, db.shape).astype(np.float32)
+    return (da, ca), (db, cb)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["2d", "batched"])
+@pytest.mark.parametrize("shape, nans", [((128, 128, 128), False),
+                                         ((256, 128, 384), False),
+                                         ((128, 128, 128), True)],
+                         ids=["128x128x128", "256x128x384", "nan"])
+@pytest.mark.parametrize("name", ["tropical", "tropical_count"])
+def test_tropical_specs_rank_neg_zero_below_pos_zero(name, shape, nans,
+                                                     batched, no_launches):
+    """The shipped specs' plain versions fold as ``jnp.min`` does: -0 ranks
+    below +0 (``torch.amin`` / ``torch.minimum`` keep whichever zero they
+    meet first) and NaN propagates. Distances bit-equal, sign bit of zeros
+    included; counts equal (their rule compares with ``==``)."""
+    m, n, k = shape
+    rng = _rng("signed_zeros", name, shape, nans, batched)
+    port, jax_spec = SPECS[name]
+    a, b = _signed_zero_operands(name, rng, (2,) if batched else (), m, n, k,
+                                 nans)
+    want = _jax(jax_spec, a, b, batched)
+    got = _port(port, a, b, batched)
+    assert _bits_equal(got[0], want[0])  # tolerance: bit-equal
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
+    assert (np.signbit(want[0]) & (want[0] == 0)).any()  # -0 reached
+    assert ((want[0] == 0) & ~np.signbit(want[0])).any()  # +0 kept
+    assert np.isnan(want[0]).any() == nans
+
+
 def _up(x, block=128):
     return -(-x // block) * block
 

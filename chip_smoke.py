@@ -69,7 +69,20 @@ every tile, sign bits compared with their plain versions. Phase 3 holds
 the value histogram (one launch, one shared histogram per block) equal
 to its plain version
 at storage offsets 1-3, n = 1, 3, 5, (4096, 4096) and 4096 and 12,288
-bins, and times it L2-warm and L2-cold beside its byte bound.
+bins, and times it L2-warm and L2-cold beside its byte bound. Phase 10
+runs the routing path (``core.routing``, ``core.traffic``,
+``core.workload``) on the ported kernels, counted: (a) the routing table
+of ``examples/topology_analysis.py`` (six families at ~10k servers: a
+``permutation:flows=2048`` workload sampled and evaluated, and the exact
+ECMP, Valiant and slack-1 loads of its demand), each model held on every
+link to its f64 path on the card within rtol 1e-5, each row to
+``experiments/routing/reference.json`` (made by the JAX package), and
+each model's counting launches to the number its term list predicts;
+(b) the demand-weighted Brandes engine on dragonfly against a
+200-sample hotspot stack, held to its f64 path; (c) the same engine on
+phase 5's stack under a demand of ones, bit-equal to the uniform
+all-pairs loads; (d) ``max_concurrent_flow`` under a ``TrafficSpec``,
+bit-equal to the call on its matrix and held to the reference.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -2512,6 +2525,310 @@ def semiring_phase(S, build, seed, part):
     return stats, launched
 
 
+# -- phase 10: the routing path ---------------------------------------------------
+
+#: 10b: the weighted engine on a shared graph against a demand stack of the
+#: traffic grid's default depth
+DEMAND_STACK = ("dragonfly", "hotspot:zipf_a=1.4,samples=200")
+#: the kernels the routing path runs
+ROUTING_KERNELS = ("frontier_step", "count_matmul", "minplus_matmul",
+                   "value_histogram")
+
+
+def _levels(dist, weight):
+    """The pair distances that carry nonzero ``weight`` (host numpy)."""
+    sel = (weight != 0) & np.isfinite(dist) & (dist > 0)
+    return sorted({int(x) for x in np.unique(dist[sel])})
+
+
+def predicted_launches(key, dist, mult, plus1, demand):
+    """Counting products the routing engine must launch for ``demand``,
+    from the host's term list: the O(diameter^2) bilinear engine runs two
+    products per (level, position) term of every level whose weights are
+    not all zero, and the slack engine first diameter + 1 walk powers."""
+    def ecmp(dem):
+        ok = np.isfinite(dist) & (dist > 0) & (mult > 0)
+        return sum(2 * lv for lv in _levels(dist, np.where(ok, dem, 0.0)))
+
+    if key == "ecmp":
+        return ecmp(demand)
+    if key == "valiant":  # the two legs, as models.ValiantVLB builds them
+        reach = np.isfinite(dist)
+        dem = np.where(reach & (dist > 0), demand, 0.0)
+        comp = reach.sum(axis=1, keepdims=True).astype(np.float64)
+        leg1 = dem.sum(axis=1, keepdims=True) * reach / comp
+        leg2 = (dem.sum(axis=0, keepdims=True).T * reach / comp).T
+        return ecmp(leg1) + ecmp(leg2)
+    diam = int(dist[np.isfinite(dist)].max())
+    classes = ((0, mult), (1, plus1))  # slack 1: class j over its counts
+    return diam + 1 + sum(
+        2 * (lv + j) for j, counts in classes
+        for lv in _levels(dist, np.where(counts > 0, demand, 0.0)))
+
+
+def _rel_gap(got, want):
+    """Largest |got - want| / |want| over want != 0, and whether got is 0
+    wherever want is."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    nz = want != 0
+    gap = float((np.abs(got - want)[nz] / np.abs(want[nz])).max(initial=0))
+    return gap, bool((got[~nz] == 0).all())
+
+
+def check_stats(what, got, want, rtol=1e-5):
+    """A stats dict against the reference's: float keys within ``rtol``,
+    the rest equal."""
+    check(got.keys() == want.keys(), f"{what}: keys differ: "
+          f"{sorted(set(got) ^ set(want))}")
+    for key, w in want.items():
+        if isinstance(w, float):
+            check(_close(got[key], w, rtol),
+                  f"{what}.{key}: {got[key]} vs {w} (rtol {rtol})")
+        else:
+            check(got[key] == w, f"{what}.{key}: {got[key]!r} != {w!r}")
+
+
+def routing_phase(S, T, R, W, A, WF, TR, AnalysisEngine, ref, stack):
+    """The routing path at full width on the card, counted: (a) the
+    example's routing table (six families at ~10k servers: the sampled
+    workload and ECMP, Valiant and slack-1 loads on the kernels), (b) the
+    weighted Brandes engine on one graph against a 200-sample hotspot
+    stack, (c) the same engine on phase 5's stack of per-sample graphs,
+    (d) a TrafficSpec demand in max_concurrent_flow. Returns the launches
+    of its counted run. ``stack`` is phase 5's padded adjacency stack."""
+    t_phase = time.perf_counter()
+    graphs = {fam: T.by_servers(fam, ref["servers"])
+              for fam in ANALYSIS_FAMILIES}
+    spec = TR.TrafficSpec.parse(ref["workload"])
+    stack_fam, stack_spec = DEMAND_STACK
+    t0 = time.perf_counter()
+    batch = TR.TrafficSpec.parse(stack_spec).batch(graphs[stack_fam])
+    t_gen = time.perf_counter() - t0
+    tp = ref["throughput_settings"]
+    tp_graph = T.by_servers(tp["family"], tp["servers"])
+    tp_kw = dict(eps=tp["eps"], max_rounds=tp["max_rounds"], seed=tp["seed"],
+                 device="cuda")
+
+    # the counted run: every kernel launch of the routing path
+    torch.cuda.synchronize()
+    S.reset_launches()
+    t_run = time.perf_counter()
+    engines, rows, loads, deltas = {}, {}, {}, {}
+    for fam, g in graphs.items():
+        eng = engines[fam] = AnalysisEngine(g, device="cuda")
+        rep = eng.report()
+        wl = W.Workload(pairs=spec.pairs(g), name=spec.describe())
+        rows[fam] = (rep, W.evaluate_workload(
+            g, wl, dist=eng.distances(),
+            mult=eng.multiplicities()["multiplicity"]), wl.demand_matrix(g))
+        for key, model in routing_models(R, eng).items():
+            before = S.launches["count_matmul"]
+            loads[fam, key] = model.link_loads(rows[fam][2])
+            deltas[fam, key] = S.launches["count_matmul"] - before
+    t_table = time.perf_counter() - t_run
+    eng = engines[stack_fam]
+    dist_b, mult_b = eng._dist(), eng._paths()["multiplicity"]
+    adj_b = torch.from_numpy(graphs[stack_fam].adjacency_dense(
+        np.float32)).cuda()
+    batch_d = torch.from_numpy(batch).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = S.launches["count_matmul"]
+    t0 = time.perf_counter()
+    loads_b = A.ecmp_demand_loads(dist_b, mult_b, adj_b, batch_d)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    delta_b = S.launches["count_matmul"] - before
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    adj_c = torch.from_numpy(stack).cuda()
+    before = dict(S.launches)
+    dist_c, mult_c = WF.dist_mult_device(adj_c)
+    ones = (torch.isfinite(dist_c) & (dist_c > 0)).float()
+    loads_c = A.ecmp_demand_loads(dist_c, mult_c, adj_c, ones)
+    uniform_c = A.ecmp_all_pairs_loads(dist_c, mult_c, adj_c)
+    delta_c = {k: S.launches[k] - before[k] for k in before}
+    before = S.launches["minplus_matmul"]
+    flow = R.max_concurrent_flow(tp_graph, tp["demand"], **tp_kw)
+    flow_m = R.max_concurrent_flow(
+        tp_graph, TR.as_spec(tp["demand"]).matrix(tp_graph), **tp_kw)
+    delta_d = S.launches["minplus_matmul"] - before
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = dict(S.launches)
+    print(f"[10 routing] counted run {wall:.3f} s (10a table "
+          f"{t_table:.3f} s); launches {counts}")
+
+    # 10a: the table, each model held to its f64 path and to reference.json
+    print(f"  {'family':<11}{'routers':>8}{'diam':>6}{'avg':>7}"
+          f"{'mult':>7}{'+1':>8}{'interf':>8}"
+          f"{'samp-max':>9}{'ecmp-max':>9}{'vlb-max':>9}{'slack1-max':>11}")
+    for fam, g in graphs.items():
+        rep, tr, _ = rows[fam]
+        print(f"  {fam:<11}{g.n:>8}{rep['diameter']:>6}"
+              f"{rep['avg_path_length']:>7.2f}"
+              f"{rep['path_multiplicity_mean']:>7.2f}"
+              f"{rep['nonminimal_plus1_mean']:>8.1f}"
+              f"{rep['edge_interference_mean']:>8.3f}"
+              f"{tr['max_link_load']:>9.1f}"
+              f"{tr['max_expected_link_load']:>9.1f}"
+              f"{loads[fam, 'valiant'].max():>9.1f}"
+              f"{loads[fam, 'slack1'].max():>11.1f}")
+    for fam, g in graphs.items():
+        want = ref["families"][fam]
+        rep, tr, demand = rows[fam]
+        eng = engines[fam]
+        check((g.n, g.name, rep["diameter"]) == (
+            want["routers"], want["name"], want["diameter"]),
+            f"{fam}: graph differs from reference.json")
+        check_stats(f"{fam} workload", tr,
+                    want["workload"])
+        for key in ("max_link_load", "avg_hops", "flows", "links_used"):
+            check(tr[key] == want["workload"][key],
+                  f"{fam}: sampled {key} {tr[key]} != "
+                  f"{want['workload'][key]}")
+        host = [np.asarray(x) for x in (
+            eng.distances(), eng.multiplicities()["multiplicity"],
+            eng.multiplicities()["plus1"])]
+        ids = np.asarray(want["link_ids"])
+        cells = []
+        for key, oracle in routing_models(R, eng, use_kernel=False).items():
+            got = loads[fam, key]
+            f64 = oracle.link_loads(demand)
+            gap, zeros = _rel_gap(got, f64)
+            check(zeros and gap <= 1e-5,
+                  f"{fam} {key}: kernel loads vs f64: largest relative gap "
+                  f"{gap:.3g} (rtol 1e-5), zeros kept {zeros}")
+            pred = predicted_launches(key, *host, demand)
+            check(deltas[fam, key] == pred,
+                  f"{fam} {key}: {deltas[fam, key]} counting launches, the "
+                  f"host's term list predicts {pred}")
+            for what, x in (("kernel", got), ("f64", f64)):
+                check_stats(f"{fam} {key} {what}",
+                            A.link_load_stats(x, g.num_edges),
+                            want["models"][key]["stats"])
+                gap_ref, _ = _rel_gap(x[ids], want["models"][key]["loads"])
+                check(gap_ref <= 1e-5, f"{fam} {key} {what}: loads at the "
+                      f"reference's link ids, gap {gap_ref:.3g}")
+            cells.append(f"{key} {deltas[fam, key]} launches, gap "
+                         f"{gap:.3g}")
+        print(f"  {fam}: " + "; ".join(cells))
+    print("  10a: every row matches experiments/routing/reference.json "
+          "(stats and 64 loads within rtol 1e-5, sampled columns equal); "
+          "counting launches as predicted")
+
+    # 10b: the kernel's loads held to the f64 path on the card
+    g = graphs[stack_fam]
+    diam_b = rows[stack_fam][0]["diameter"]
+    check(delta_b == 2 * diam_b,
+          f"10b: {delta_b} counting launches, expected 2 x {diam_b}")
+    t0 = time.perf_counter()
+    f64_b = A.ecmp_demand_loads(dist_b, mult_b, adj_b, batch_d,
+                                use_kernel=False)
+    torch.cuda.synchronize()
+    t_b64 = time.perf_counter() - t0
+    worst_b = 0.0
+    for lo in range(0, len(batch), 25):  # chunks bound the temporaries
+        k, f = loads_b[lo:lo + 25].double(), f64_b[lo:lo + 25]
+        nz = f != 0
+        check(bool((k[~nz] == 0).all()), "10b: a load off the support")
+        worst_b = max(worst_b, float(((k - f).abs()[nz] / f[nz]).max()))
+    check(worst_b <= 1e-5, f"10b: kernel vs f64 gap {worst_b:.3g}")
+    del loads_b, f64_b
+    # the counted call was the first to allocate its ~20 GiB; time both
+    # paths again on the warm caching allocator
+    warm = {use_kernel: timed_ms(lambda: A.ecmp_demand_loads(
+        dist_b, mult_b, adj_b, batch_d, use_kernel=use_kernel),
+        iters=2, warmup=1) for use_kernel in (True, False)}
+    print(f"  10b {stack_fam} ({g.n} routers) x {stack_spec}: demand "
+          f"generated in {t_gen:.3f} s (host); kernel {t_b:.3f} s on its "
+          f"first call ({delta_b} launches), {warm[True]:.3f} ms warm; f64 "
+          f"{t_b64:.3f} s, {warm[False]:.3f} ms warm; all {len(batch)} "
+          f"samples within rtol 1e-5 (largest gap {worst_b:.3g}); peak "
+          f"device memory {peak_b:.2f} GiB")
+    print_profile("10b kernel", lambda: A.ecmp_demand_loads(
+        dist_b, mult_b, adj_b, batch_d))
+    del batch_d
+
+    # 10c: demand of ones == uniform, bit for bit
+    diam_c = int(torch.where(torch.isfinite(dist_c), dist_c, 0.0).max())
+    check(torch.equal(loads_c, uniform_c),
+          "10c: weighted loads under reachable ones != uniform loads")
+    check(delta_c["count_matmul"] == 4 * diam_c
+          and delta_c["frontier_step"] == diam_c + 1,
+          f"10c: launches {delta_c}, diameter {diam_c}")
+    print(f"  10c stack {tuple(adj_c.shape)}: weighted (reachable ones) "
+          f"bit-equal to ecmp_all_pairs_loads; {delta_c['count_matmul']} "
+          f"counting, {delta_c['frontier_step']} frontier launches")
+    del adj_c, dist_c, mult_c, ones, loads_c, uniform_c
+
+    # 10d: the spec is its matrix, and matches the JAX package
+    for key, v in flow.items():
+        check(np.array_equal(np.asarray(v), np.asarray(flow_m[key])),
+              f"10d: {key} differs between the spec and its matrix")
+    want = ref["throughput"]
+    for key in _TP_EXACT[:-1]:
+        check(flow[key] == want[key],
+              f"10d {key}: {flow[key]!r} != {want[key]!r}")
+    for key, v in [(k, flow[k]) for k in _TP_CLOSE] + [
+            ("link_loads_sum", float(flow["link_loads"].sum())),
+            ("link_loads_max", float(flow["link_loads"].max()))]:
+        check(_close(v, want[key], 1e-9),
+              f"10d {key}: {v} vs {want[key]} (rtol 1e-9)")
+    check(delta_d > 0, "10d: the MWU oracle never launched")
+    print(f"  10d {tp['family']} ({tp_graph.n} routers) max_concurrent_flow("
+          f"{tp['demand']!r}): lambda in [{flow['throughput']:.9g}, "
+          f"{flow['upper_bound']:.9g}], {flow['rounds']} rounds, "
+          f"{delta_d} min-plus launches; bit-equal to the matrix call, "
+          f"matches reference.json (rtol 1e-9)")
+    for name in ROUTING_KERNELS:
+        check(counts[name] > 0, f"routing path: {name} never launched")
+
+    # timings, after the counted run: each model on the kernels against
+    # its f64 path, one family per diameter
+    for fam in ("slimfly", "dragonfly", "fattree"):
+        eng, demand = engines[fam], rows[fam][2]
+        kern = routing_models(R, eng)
+        cells = []
+        for key, oracle in routing_models(R, eng, use_kernel=False).items():
+            ms_k = timed_ms(lambda: kern[key].directed_link_loads(demand),
+                            iters=5, warmup=1)
+            ms_f = timed_ms(lambda: oracle.directed_link_loads(demand),
+                            iters=5, warmup=1)
+            cells.append(f"{key} {ms_k:.3f} / {ms_f:.3f}")
+        print(f"  {fam} ({graphs[fam].n} routers) ms a call, kernel / f64: "
+              + ", ".join(cells))
+    eng, demand = engines["dragonfly"], rows["dragonfly"][2]
+    print_profile("dragonfly models", lambda: [
+        m.directed_link_loads(demand)
+        for m in routing_models(R, eng).values()])
+    print(f"[10 routing] {time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
+def print_profile(label, fn, top=6):
+    """Profile one run of ``fn`` (after the counted run, so it does not
+    count) and print its device busy share and heaviest device rows."""
+    rows, wall = profiled(fn)
+    busy = sum(t for _, _, t in rows)
+    if busy <= 0:
+        print(f"  profile {label}: device busy share not measured (no "
+              f"device activity in the profile)")
+        return
+    print(f"  profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} "
+          f"ms ({100 * busy / wall:.2f}%), idle "
+          f"{100 * (1 - busy / wall):.2f}%")
+    for name, c, t in rows[:top]:
+        print(f"    {t:9.3f} ms x{c:<5d} {name[:90]}")
+
+
+def routing_models(R, eng, use_kernel=True):
+    """The example's three models over an engine's device tensors."""
+    kw = {"use_kernel": use_kernel}
+    return {"ecmp": R.UniformShortest.from_engine(eng, **kw),
+            "valiant": R.ValiantVLB.from_engine(eng, **kw),
+            "slack1": R.SlackRouting.from_engine(eng, slack=1, **kw)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2522,8 +2839,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import obs
+    from repro_torch.core import routing as R
     from repro_torch.core import sweep as SW
     from repro_torch.core import topology as T
+    from repro_torch.core import traffic as TR
+    from repro_torch.core import workload as W
+    from repro_torch.core.routing import assign as A
     from repro_torch.core.analysis import AnalysisEngine, paths
     from repro_torch.core.analysis import distributed as D
     from repro_torch.core.analysis import wavefront as WF
@@ -2683,6 +3004,15 @@ def main() -> int:
     semiring_stats, semiring_launches = semiring_phase(S, build, seed, part)
     del seed
 
+    # 10. the routing path, counted
+    rref = json.loads((ROOT / "experiments" / "routing"
+                       / "reference.json").read_text())
+    stack = SW._stack_adjacency(graphs)
+    routing_counts = routing_phase(
+        S, T, R, W, A, WF, TR, AnalysisEngine, rref,
+        WF.pad_operand(stack, WF.pad_block(stack.shape[-1]), 0.0))
+    del stack
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)
         "frontier_step": ("semiring.cu", "src/repro/kernels/semiring.py:343"),
@@ -2705,11 +3035,13 @@ def main() -> int:
     kernels = []
     for kname, st in kstats.items():
         launches = (sweep_counts[kname] + analysis_counts[kname]
-                    + extreme_counts[kname] + library_counts[kname])
+                    + extreme_counts[kname] + library_counts[kname]
+                    + routing_counts[kname])
         print(f"  {kname}: {sweep_counts[kname]} launches in the sweep, "
               f"{analysis_counts[kname]} in the analysis path, "
               f"{extreme_counts[kname]} in the extreme path, "
-              f"{library_counts[kname]} in the kernel library phase")
+              f"{library_counts[kname]} in the kernel library phase, "
+              f"{routing_counts[kname]} in the routing path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": csrc + sources[kname][0],

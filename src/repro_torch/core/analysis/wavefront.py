@@ -7,8 +7,9 @@ product and the first-reach mask run as one fused kernel
 (`kernels.semiring.frontier_step`, or `frontier_step_packed` over
 int16/int32/uint8 cells with ``packed=True``); the dist/mult updates stay
 on the device. :func:`ecmp_loads_device` is the O(diameter) Brandes dependency
-accumulation behind the exact ECMP saturation-throughput bound, with two
-counting products per level (`kernels.semiring.count_matmul`).
+accumulation behind the exact ECMP saturation-throughput bound and the
+demand-weighted ECMP loads, with two counting products per level
+(`kernels.semiring.count_matmul`).
 :func:`squaring_apsp_device` is the weighted-APSP engine: min-plus squaring
 (`kernels.semiring.minplus_matmul`) to convergence.
 
@@ -232,26 +233,34 @@ def wavefront_dist_mult(adj: np.ndarray, device="cuda",
 
 
 def ecmp_loads_device(dist: torch.Tensor, mult: torch.Tensor,
-                      adj: torch.Tensor, use_kernel: bool = True
-                      ) -> torch.Tensor:
-    """Directed ECMP loads under uniform all-pairs demand, on the device.
+                      adj: torch.Tensor, demand: Optional[torch.Tensor] = None,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Directed ECMP loads on the device: uniform or weighted demand.
 
-    The O(diameter) Brandes backward accumulation: every reachable pair
-    carries 1.0, and each level runs two counting products — the first on
-    the transposed level mask, read through its strides. Operands share a
-    (.., p, p) shape (phantom padding: dist +inf, mult/adj 0). Runs
-    ``diameter`` levels (largest finite dist over the whole stack). Returns
-    the (.., p, p) directed loads.
+    The O(diameter) Brandes backward accumulation: each level runs two
+    counting products — the first on the transposed level mask, read
+    through its strides. With ``demand=None`` every reachable pair carries
+    1.0 (the all-pairs case); a (.., p, p) ``demand`` tensor seeds the
+    recurrence with that pair's volume instead (``Z_a = (demand + delta) /
+    sigma`` on the level set), which is the whole weighted engine
+    (`routing.assign.ecmp_demand_loads`): diagonal and unreachable demand
+    never enters a level set, so it is dropped, not routed. Both run the
+    same products in the same order, so a demand of ones gives the
+    uniform loads bit for bit. Operands share a (.., p, p) shape (phantom
+    padding: dist +inf, mult/adj/demand 0). Runs ``diameter`` levels
+    (largest finite dist over the whole stack). Returns the (.., p, p)
+    directed loads.
     """
     finite = torch.isfinite(dist)
     diam = int(torch.where(finite, dist, 0.0).max())
     sigma_inv = torch.where(finite & (mult > 0),
                             1.0 / torch.where(mult > 0, mult, 1.0), 0.0)
     del finite
+    w = 1.0 if demand is None else demand
     delta = torch.zeros_like(dist)
     acc = torch.zeros_like(dist)
     for a in range(diam - 1, -1, -1):
-        z = torch.where(dist == a + 1.0, (1.0 + delta) * sigma_inv, 0.0)
+        z = torch.where(dist == a + 1.0, (w + delta) * sigma_inv, 0.0)
         on_a = dist == a
         f_a = torch.where(on_a, mult, 0.0)
         # in place: acc is the loop's running sum; += saves a buffer a level

@@ -187,11 +187,12 @@ def max_concurrent_flow(
         chunk: int = 16384, device="cuda") -> Dict[str, object]:
     """Max concurrent flow of ``demand`` under unit-per-direction capacities.
 
-    ``demand`` is an ``(n, n)`` matrix. A ``TrafficSpec`` or a spec string
-    raises NotImplementedError until the traffic engine is ported. The
-    weighted-APSP oracle runs on ``device`` (the tropical kernel; its plain
-    version on the CPU, or with ``use_kernel=False``); the greedy chase and
-    the bounds are host numpy.
+    ``demand`` accepts an ``(n, n)`` matrix, a `core.traffic.TrafficSpec`,
+    or a spec string (``"hotspot:zipf_a=1.4"``) — specs materialize their
+    sample-0 matrix via the unified demand path. The weighted-APSP oracle
+    runs on ``device`` (the tropical kernel; its plain version on the CPU,
+    or with ``use_kernel=False``); the greedy chase and the bounds are host
+    numpy.
 
     Returns a dict with the certified bounds:
       throughput          feasible lower bound on lambda (averaged flow)
@@ -221,9 +222,9 @@ def max_concurrent_flow(
     n = g.n
     if isinstance(demand, str) or not hasattr(demand, "__array__") \
             and not isinstance(demand, (list, tuple)):
-        raise NotImplementedError(
-            "traffic specs are not ported to repro_torch yet (ROADMAP Queue "
-            "1 item 2, core/traffic); pass an (n, n) demand matrix")
+        from ..traffic.spec import as_spec
+
+        demand = as_spec(demand).matrix(g)
     dev = resolve_device(device)
     demand = np.asarray(demand, np.float64)
     if demand.shape != (n, n):

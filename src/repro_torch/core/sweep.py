@@ -550,7 +550,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="directory for comparison.{txt,json}")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="enable tracing and write a Chrome trace-event "
-                         "file (load in https://ui.perfetto.dev)")
+                         "file (load in https://ui.perfetto.dev or feed to "
+                         "python -m repro_torch.obs.report)")
     ap.add_argument("--check", action="store_true",
                     help="CI gate: verify sizers + connectivity, no sweep")
     ap.add_argument("--extreme", type=int, default=None, metavar="ROUTERS",

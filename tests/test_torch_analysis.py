@@ -231,6 +231,16 @@ def test_path_length_histogram_matches():
     assert histograms.path_length_histogram(dist, use_kernel=False) == want
 
 
+def test_path_length_histogram_numpy_goes_to_the_named_device():
+    r, _ = _pair("slimfly")
+    dist = np.asarray(RA.apsp_dense(r, use_kernel=False))
+    want = RH.path_length_histogram(dist)
+    assert histograms.path_length_histogram(dist, device="cpu") == want
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            histograms.path_length_histogram(dist)
+
+
 def test_unknown_stage_raises():
     _, g = _pair("slimfly")
     with pytest.raises(ValueError, match="unknown stages"):

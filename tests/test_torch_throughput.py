@@ -206,9 +206,24 @@ def test_degenerate_demands_raise():
 
 
 def test_traffic_specs_are_not_ported_yet():
-    _, g = _pair(*_ring(4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        max_concurrent_flow(g, "uniform", device="cpu")
+    """The name predates the traffic port: a ``TrafficSpec`` or a spec
+    string is now accepted, as the JAX package accepts it, and gives the
+    result of its sample-0 matrix bit for bit, equal to the JAX result."""
+    from repro.core.traffic import TrafficSpec as RTrafficSpec
+    from repro_torch.core.traffic import TrafficSpec
+
+    r, g = _pair(*_ring(12))
+    for spec in ("uniform", "tornado", TrafficSpec.parse("shift:shift=3")):
+        got = max_concurrent_flow(g, spec, eps=0.3, max_rounds=20,
+                                  device="cpu")
+        again = max_concurrent_flow(g, TrafficSpec.parse(spec).matrix(g),
+                                    eps=0.3, max_rounds=20, device="cpu")
+        for key, v in got.items():
+            np.testing.assert_array_equal(v, again[key], err_msg=key)
+        want = RR.max_concurrent_flow(
+            r, RTrafficSpec.parse(TrafficSpec.parse(spec).describe()),
+            eps=0.3, max_rounds=20, use_kernel=False)
+        _assert_same_result(got, want)
 
 
 def test_greedy_router_matches_jax_and_conserves_hops():

@@ -82,7 +82,19 @@ each model's counting launches to the number its term list predicts;
 200-sample hotspot stack, held to its f64 path; (c) the same engine on
 phase 5's stack under a demand of ones, bit-equal to the uniform
 all-pairs loads; (d) ``max_concurrent_flow`` under a ``TrafficSpec``,
-bit-equal to the call on its matrix and held to the reference.
+bit-equal to the call on its matrix and held to the reference. Phase 11
+runs the resilience and traffic path (``core.resilience``,
+``core.traffic.scenarios`` and ``grid``, the sweep's ``traffic=``) on the
+ported kernels, each part counted, run on the kernels and again on the
+float64 oracle, and its launches held to the number the counted run's own
+wavefront diameters predict: (a) ``experiments/resilience/
+degradation.json`` and ``experiments/congestion/grid.json`` (made by the
+JAX package) reproduced; (b) ``python -m repro_torch.core.resilience
+--check`` and ``python -m repro_torch.core.traffic --check`` at their
+defaults; (c) one degradation point and the ``--traffic`` sweep at the
+sweep's full width; (d) ``saturation_search`` (a ring's tornado closed
+form, hotspot on a dragonfly). The slack counts are held to the f64 path
+only where a float64 walk-count bound stays below 2**24.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -2829,6 +2841,498 @@ def routing_models(R, eng, use_kernel=True):
             "slack1": R.SlackRouting.from_engine(eng, slack=1, **kw)}
 
 
+# -- phase 11: the resilience and traffic path -------------------------------------
+
+#: (a) the CI suite's arguments, which made experiments/resilience/
+#: degradation.json (the file records all but the family list and the cap)
+DEGRADATION_ARGS = dict(families=["slimfly", "jellyfish", "torus"],
+                        max_routers=128, rates=(0.0, 0.02, 0.05, 0.1),
+                        samples=100, bootstrap=200, slack=True)
+#: (c) the sweep's full width (phase 5's families), one failure rate; the
+#: samples cut from 32 to 16: the phase took 99.2 s at 32 (NVIDIA H100
+#: 80GB HBM3, 700 W), past its 90 s aim
+FULL_WIDTH = dict(ref=("slimfly", 10000), max_routers=2048)
+FULL_WIDTH_SAMPLES = 16
+#: (c) the sweep's --traffic scenario, and (d) the saturation search's
+SWEEP_TRAFFIC = "hotspot:zipf_a=1.4,samples=8"
+#: per-sample metrics held equal: counts and distances
+_RES_EQUAL = frozenset((
+    "reachable_frac", "diameter", "avg_spl", "frac_multipath",
+    "links_used_frac"))
+#: demand volumes summed by numpy on the host: equal on one host; against
+#: a file made on another, within ``host_rtol`` (numpy's summation order
+#: follows the host's SIMD width)
+_RES_HOST = frozenset(("demand_total", "dropped_demand_frac"))
+#: multiplicity picks: equal below 2**24 (f32 counts exact), else rtol
+_RES_MULT = frozenset(("mult_mean", "mult_p10", "mult_p50", "mult_p90"))
+#: loads and what derives from them: rtol 1e-5 (kernel), 1e-12 (f64)
+_RES_CLOSE = frozenset((
+    "tput_lb", "max_link_load", "mean_link_load", "p50_link_load",
+    "p90_link_load", "p99_link_load", "avg_hops"))
+#: slack counts: float32 on both paths; rtol 1e-5 only where the walk
+#: counts stay below 2**24
+_RES_SLACK = frozenset(("plus1_mean", "plus1_p50", "plus2_mean"))
+
+
+def _metric_of(path):
+    for part in reversed(path):
+        if part in _RES_EQUAL | _RES_HOST | _RES_MULT | _RES_CLOSE | _RES_SLACK:
+            return part
+    return None
+
+
+def compare_result(what, got, want, rtol, exact_mult=True, slack_held=None,
+                   host_rtol=0.0, skip=("elapsed_s", "use_kernel")):
+    """A degradation or grid result dict against another, key by key: the
+    rules above, every other value equal. ``slack_held(family)`` says
+    whether that family's slack counts are held to ``rtol``; where not,
+    their gaps are only recorded. Returns {metric: largest relative gap}
+    and {family: largest slack gap}."""
+    gaps, slack_gaps = {}, {}
+
+    def walk(a, b, path, fam):
+        if isinstance(b, dict):
+            check(isinstance(a, dict), f"{what} {'/'.join(path)}: not a dict")
+            for k in set(a) - set(b):
+                check(a[k] is None, f"{what} {'/'.join(path + [k])}: extra "
+                      f"key with value {a[k]!r}")
+            for k, v in b.items():
+                if not path and k in skip:
+                    continue
+                check(k in a, f"{what} {'/'.join(path + [k])}: missing")
+                walk(a[k], v, path + [k], b.get("family", fam))
+        elif isinstance(b, list):
+            check(isinstance(a, list) and len(a) == len(b),
+                  f"{what} {'/'.join(path)}: lengths differ")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, path + [str(i)], fam)
+        elif isinstance(b, float) and not isinstance(b, bool):
+            check(isinstance(a, float), f"{what} {'/'.join(path)}: {a!r} "
+                  f"is not a float")
+            metric = _metric_of(path)
+            gap = abs(a - b) / abs(b) if b else abs(a)
+            if metric is not None:
+                gaps[metric] = max(gaps.get(metric, 0.0), gap)
+            where = f"{what} {fam} {'/'.join(path)}: {a!r} vs {b!r}"
+            if metric in _RES_SLACK:
+                slack_gaps[fam] = max(slack_gaps.get(fam, 0.0), gap)
+                if slack_held(fam):
+                    check(gap <= rtol, f"{where} (rtol {rtol})")
+            elif metric in _RES_CLOSE or (metric in _RES_MULT
+                                          and not exact_mult):
+                check(gap <= rtol, f"{where} (rtol {rtol})")
+            elif metric in _RES_HOST and host_rtol:
+                check(gap <= host_rtol, f"{where} (rtol {host_rtol})")
+            else:
+                check(a == b, f"{where} (equal)")
+        else:
+            check(a == b, f"{what} {fam} {'/'.join(path)}: {a!r} != {b!r}")
+
+    walk(got, want, [], None)
+    return gaps, slack_gaps
+
+
+def host_sums(TRF, SW, res, gargs):
+    """Each grid baseline's ``demand_total`` is the sum numpy gives on this
+    host, bit for bit: the offered demand of sample 0 (diagonal zeroed)."""
+    graphs, _ = SW.equal_cost_graphs(None, res["budget"], None,
+                                     gargs["max_routers"])
+    by_fam = {g.meta["spec"].family: g for g in graphs}
+    differ = []
+    for fam in res["families"]:
+        g = by_fam[fam["family"]]
+        for desc, base in fam["baseline"].items():
+            m = TRF.TrafficSpec.parse(desc).batch(
+                g, samples=gargs["samples"])[:1].copy()
+            m[:, np.arange(g.n), np.arange(g.n)] = 0.0
+            here = float(m.reshape(1, -1).sum(1)[0])
+            check(base["demand_total"] == here,
+                  f"11a grid {fam['family']} {desc}: demand_total "
+                  f"{base['demand_total']!r}, numpy here {here!r}")
+    print(f"    11a grid: every baseline demand_total is numpy's sum on "
+          f"this host (numpy {np.__version__}), bit for bit")
+
+
+def walk_count_bound(g, length):
+    """The largest walk count and one-bounce count the slack recurrence
+    meets up to ``length`` on ``g``'s unfailed graph, in float64 on the
+    card: the recurrences are monotone in the adjacency, so this bounds
+    every failure sample's counts at those lengths."""
+    a = torch.from_numpy(g.adjacency_dense(np.float64)).cuda()
+    deg = a.sum(-1)[None, :]
+    walks = torch.eye(g.n, dtype=torch.float64, device=a.device)
+    bounce = walks * deg
+    top = float(bounce.max())
+    for _ in range(length):
+        walks = walks @ a
+        bounce = bounce @ a + walks * deg
+        top = max(top, float(walks.max()), float(bounce.max()))
+    return top
+
+
+def _chunks(n, size):
+    return -(-n // size)
+
+
+def span_launches(events, slack, auto_chunk):
+    """The frontier steps and counting products a counted run must launch,
+    from its own spans: each wavefront's per-graph diameters (device
+    telemetry: the last level that reached a pair) give its steps,
+    diameter + 1; each Brandes pass 2 x the diameter of the dist it reads,
+    each slack recurrence 2 x (diameter + 2). Returns (the prediction,
+    {family: largest chunk diameter} for degradation families)."""
+    pred = {"frontier_step": 0, "count_matmul": 0}
+    pending, fam_diam = [], {}
+    stack, last2d, source, row = None, 0, None, 0
+    family_max = 0
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        name, a = ev["name"], ev["args"]
+        if name in ("wavefront.dist_mult", "sweep.dist_mult"):
+            per = a.get("levels_per_graph") or [a["converged_level"]]
+            pred["frontier_step"] += max(per) + 1
+            if name == "sweep.dist_mult":
+                stack, source, row = per, "sweep", 0
+            elif a.get("batched"):
+                stack = per
+                pending.append(max(per))
+            else:
+                last2d, source = max(per), "2d"
+        elif name == "sweep.ecmp_loads":
+            pred["count_matmul"] += 2 * max(stack)
+        elif name == "resilience.severity":
+            for d in pending:
+                pred["count_matmul"] += 2 * d + (2 * (d + 2) if slack else 0)
+                family_max = max(family_max, d)
+            pending = []
+        elif name == "resilience.family":
+            fam_diam[a["family"]] = family_max
+            family_max = 0
+        elif name == "traffic.scenario":
+            if source == "sweep":
+                d, row = stack[row], row + 1
+            else:
+                d = last2d
+            pred["count_matmul"] += 2 * d * _chunks(a["samples"],
+                                                    a["mask_chunk"])
+        elif name == "traffic.cell":
+            s, mc = a["samples"], a["mask_chunk"]
+            pred["count_matmul"] += sum(2 * max(stack[lo:lo + mc])
+                                        for lo in range(0, s, mc))
+        elif name == "traffic.saturation":
+            s, grid = a["samples"], a["grid"]
+            mc = auto_chunk(a["routers"], s * max(grid, 2))
+            passes = _chunks(s, mc) + a["rounds"] * _chunks(grid * s, mc)
+            pred["count_matmul"] += 2 * last2d * passes
+    return pred, fam_diam
+
+
+class Counted:
+    """One counted run: launches set to 0 and tracing reset just before,
+    read just after (with its wall, spans and peak device memory)."""
+
+    def __init__(self, S, obs, label):
+        self.S, self.obs, self.label = S, obs, label
+
+    def __enter__(self):
+        self.obs.enable()
+        self.obs.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.S.reset_launches()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.t0
+        self.counts = dict(self.S.launches)
+        self.events = self.obs.events()
+        self.spans = self.obs.span_summary()
+        self.peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        self.obs.disable()
+        return False
+
+    def report(self, top=8):
+        live = {k: v for k, v in self.counts.items() if v}
+        print(f"  {self.label}: {self.wall:.3f} s; launches {live}; peak "
+              f"device memory {self.peak_gib:.2f} GiB")
+        rows = sorted(self.spans.items(), key=lambda kv: -kv[1]["total_ms"])
+        print("    spans: " + "; ".join(
+            f"{k} {v['total_ms']:.1f} ms x{v['count']}" for k, v in rows[:top]))
+
+    def check_launches(self, slack, auto_chunk):
+        pred, fam_diam = span_launches(self.events, slack, auto_chunk)
+        got = {k: self.counts[k] for k in pred}
+        check(got == pred, f"{self.label}: launches {got}, the spans' "
+              f"diameters predict {pred}")
+        others = {k: v for k, v in self.counts.items() if k not in pred and v}
+        check(not others, f"{self.label}: other kernels launched {others}")
+        return fam_diam
+
+    def check_none(self):
+        check(not any(self.counts.values()),
+              f"{self.label}: the f64 path launched {self.counts}")
+
+
+def slack_rule(fam_diam, graphs):
+    """{family: walk-count bound}, and the predicate: held where the bound
+    at the family's largest diameter + 2 stays below 2**24."""
+    bounds = {}
+    for g in graphs:
+        fam = g.meta["spec"].family
+        if fam in fam_diam:
+            bounds[fam] = walk_count_bound(g, fam_diam[fam] + 2)
+    return bounds, (lambda fam: bounds[fam] < EXACT)
+
+
+def print_gaps(label, gaps, slack_gaps, bounds):
+    """The largest gap per metric; per family, the slack counts' gap beside
+    their walk-count bound (kernel runs) and whether it was held."""
+    print(f"    {label} largest gaps: " + (", ".join(
+        f"{k} {v:.3g}" for k, v in sorted(gaps.items()) if v) or "none"))
+    for fam in sorted(bounds):
+        held = "held" if bounds[fam] < EXACT else "past 2**24, not held"
+        print(f"    slack {fam}: walk counts to {bounds[fam]:.4g} ({held});"
+              f" largest gap {slack_gaps.get(fam, 0.0):.3g}")
+
+
+def resilience_phase(obs, S, SW, T, RES, TRF, part):
+    """The resilience and traffic path on the card, counted per part: (a)
+    the committed degradation.json and grid.json, (b) both CLIs at their
+    defaults, (c) one degradation point and the --traffic sweep at the
+    sweep's full width, (d) saturation_search. Each part's kernel run is
+    counted and held to its f64 run. Returns the kernel runs' launches."""
+    from repro_torch.core.resilience import degradation as DG
+    from repro_torch.core.traffic import grid as GR
+    from repro_torch.core.traffic import scenarios as SC
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in S.launches}
+
+    def add(run):
+        for k, v in run.counts.items():
+            total[k] += v
+
+    # (a) the committed references
+    t_part = time.perf_counter()
+    dref = json.loads((ROOT / "experiments" / "resilience"
+                       / "degradation.json").read_text())
+    gref = json.loads((ROOT / "experiments" / "congestion"
+                       / "grid.json").read_text())
+    dargs = dict(DEGRADATION_ARGS, seed=dref["seed"], kind=dref["kind"])
+    gargs = dict(scenarios=gref["scenarios"], rates=gref["rates"],
+                 samples=gref["samples"], bootstrap=gref["bootstrap"],
+                 seed=gref["seed"], kind=gref["kind"], max_routers=128)
+    check(list(dargs["rates"]) == dref["rates"]
+          and dargs["samples"] == dref["samples"]
+          and dargs["bootstrap"] == dref["bootstrap"],
+          "11a: degradation.json's header differs from the CI arguments")
+    graphs_a, _ = SW.equal_cost_graphs(dargs["families"], None,
+                                       ("slimfly", 2000), 128)
+    for kind, want in (("degradation", dref), ("grid", gref)):
+        for use_kernel in (True, False):
+            tag = "kernel" if use_kernel else "f64"
+            with Counted(S, obs, f"11a {kind}, {tag}") as run:
+                if kind == "degradation":
+                    res = RES.degradation_curves(use_kernel=use_kernel,
+                                                 device="cuda", **dargs)
+                else:
+                    res = TRF.traffic_failure_grid(use_kernel=use_kernel,
+                                                   device="cuda", **gargs)
+            run.report()
+            res = json.loads(json.dumps(res, default=str))
+            gate = (RES.check_degradation if kind == "degradation"
+                    else TRF.check_grid)(res)
+            check(gate == [], f"11a {kind} {tag}: gate fails: {gate[:3]}")
+            bounds, held = {}, (lambda fam: True)  # f64: every count exact
+            if use_kernel:
+                fam_diam = run.check_launches(kind == "degradation",
+                                              DG._auto_chunk)
+                add(run)
+                if kind == "degradation":
+                    bounds, held = slack_rule(fam_diam, graphs_a)
+            else:
+                run.check_none()
+            gaps, slack_gaps = compare_result(
+                f"11a {kind} {tag}", res, want,
+                1e-5 if use_kernel else 1e-12, slack_held=held,
+                host_rtol=1e-12)
+            if kind == "grid" and use_kernel:
+                host_sums(TRF, SW, res, gargs)
+            print_gaps(f"11a {kind} {tag} vs committed", gaps, slack_gaps,
+                       bounds)
+    print(f"  11a: degradation.json and grid.json reproduced on the kernels "
+          f"and the f64 path; both gates pass; launches as predicted "
+          f"({time.perf_counter() - t_part:.2f} s)")
+    # one profiled severity pass and one grid cell, after the counted runs
+    g = {x.meta["spec"].family: x for x in graphs_a}["torus"]
+    plan = RES.failure_plan(g, samples=dargs["samples"], seed=0)
+    batch = RES.failure_batch(plan, RES.rate_to_k(plan, 0.1))
+    print_profile("11a torus severity 0.1", lambda: RES.evaluate_failure_batch(
+        g, batch, slack=True))
+    dem = TRF.TrafficSpec.parse("hotspot:zipf_a=1.4").batch(
+        g, samples=dargs["samples"])
+    print_profile("11a torus grid cell 0.1", lambda: (
+        TRF.evaluate_traffic_failure_batch(g, dem, batch.adjacency)))
+
+    # (b) the CLI defaults, through main(argv), kernels and f64 path
+    import contextlib
+    import io
+
+    t_part = time.perf_counter()
+    out_dir = ROOT / "build" / "phase11"
+    cli = {}
+    for kind, mod, fname in (("resilience", DG, "degradation.json"),
+                             ("traffic", GR, "grid.json")):
+        for tag, extra in (("kernel", []), ("f64", ["--no-kernel"])):
+            dest = out_dir / f"{kind}-{tag}"
+            buf = io.StringIO()
+            with Counted(S, obs, f"11b {kind} --check, {tag}") as run:
+                with contextlib.redirect_stdout(buf):
+                    rc = mod.main(["--check", "--device", "cuda", "--out",
+                                   str(dest)] + extra)
+            text = buf.getvalue().splitlines()
+            print("  " + next(line for line in text if line.startswith(
+                ("degradation sweep:", "traffic x failure grid:"))))
+            print(f"  {text[-1]}")
+            check(rc == 0, f"11b {kind} {tag}: --check exit {rc}")
+            cli[kind, tag] = (run, json.loads((dest / fname).read_text()))
+    graphs_b, _ = SW.equal_cost_graphs(None, None, ("slimfly", 2000), 256)
+    for kind in ("resilience", "traffic"):
+        (run_k, res_k), (run_f, res_f) = cli[kind, "kernel"], cli[kind, "f64"]
+        for run in (run_k, run_f):
+            run.report()
+        fam_diam = run_k.check_launches(kind == "resilience",
+                                        DG._auto_chunk)
+        run_f.check_none()
+        add(run_k)
+        bounds, held = (slack_rule(fam_diam, graphs_b)
+                        if kind == "resilience" else ({}, None))
+        gaps, slack_gaps = compare_result(f"11b {kind}", res_k, res_f, 1e-5,
+                                          slack_held=held)
+        print_gaps(f"11b {kind} kernel vs f64", gaps, slack_gaps, bounds)
+    print(f"  11b: both CLIs pass --check at their defaults; kernel results "
+          f"match the f64 path's ({time.perf_counter() - t_part:.2f} s)")
+    g = {x.meta["spec"].family: x for x in graphs_b}["torus"]
+    plan = RES.failure_plan(g, samples=1000, seed=0)
+    batch = RES.failure_batch(plan, RES.rate_to_k(plan, 0.1))
+    print(f"  11b torus ({g.n} routers): auto chunk "
+          f"{DG._auto_chunk(g.n, 1000)} masks")
+    print_profile("11b torus severity 0.1 (1000 masks)",
+                  lambda: RES.evaluate_failure_batch(g, batch, slack=True))
+    del batch
+
+    # (c) one point at the sweep's full width, and the --traffic sweep
+    t_part = time.perf_counter()
+    print(f"  11c: samples cut from 32 to {FULL_WIDTH_SAMPLES} to keep phase "
+          f"11 near 90 s")
+    graphs_c, _ = SW.equal_cost_graphs(None, None, **FULL_WIDTH)
+    cargs = dict(graphs=graphs_c, rates=(0.0, 0.05),
+                 samples=FULL_WIDTH_SAMPLES, slack=True, bootstrap=200)
+    full = {}
+    for use_kernel in (True, False):
+        tag = "kernel" if use_kernel else "f64"
+        with Counted(S, obs, f"11c degradation, {tag}") as run:
+            res = RES.degradation_curves(use_kernel=use_kernel, **cargs)
+        full["deg", tag] = (run, json.loads(json.dumps(res, default=str)))
+        with Counted(S, obs, f"11c sweep --traffic, {tag}") as run:
+            res = SW.sweep(graphs=graphs_c, use_kernel=use_kernel,
+                           traffic=SWEEP_TRAFFIC, device="cuda")
+        full["sweep", tag] = (run, res)
+    for kind in ("deg", "sweep"):
+        (run_k, res_k), (run_f, res_f) = full[kind, "kernel"], \
+            full[kind, "f64"]
+        for run in (run_k, run_f):
+            run.report()
+        fam_diam = run_k.check_launches(kind == "deg", DG._auto_chunk)
+        run_f.check_none()
+        add(run_k)
+        if kind == "deg":
+            check(RES.check_degradation(res_k) == []
+                  and RES.check_degradation(res_f) == [], "11c: gate fails")
+            bounds, held = slack_rule(fam_diam, graphs_c)
+            gaps, slack_gaps = compare_result(
+                "11c degradation", res_k, res_f, 1e-5, exact_mult=False,
+                slack_held=held)
+            print_gaps("11c degradation kernel vs f64", gaps, slack_gaps,
+                       bounds)
+            print("    " + RES.format_degradation_table(res_k).replace(
+                "\n", "\n    "))
+        else:
+            print("    " + SW.format_table(res_k).replace("\n", "\n    "))
+            rows_f = {r["family"]: r for r in res_f["rows"]}
+            worst = 0.0
+            for r in res_k["rows"]:
+                f = rows_f[r["family"]]
+                for col in ("traffic_max_load", "traffic_tput_lb"):
+                    check(isinstance(r[col], float) and _close(
+                        r[col], f[col], 1e-5), f"11c sweep {r['family']} "
+                        f"{col}: {r[col]} vs {f[col]} (rtol 1e-5)")
+                    worst = max(worst, abs(r[col] - f[col]) / abs(f[col]))
+            print(f"    11c sweep --traffic {SWEEP_TRAFFIC}: tr-load, "
+                  f"tr-tput within rtol 1e-5 of the f64 run (largest gap "
+                  f"{worst:.3g})")
+    print(f"  11c: full width ({len(graphs_c)} families, "
+          f"{min(g.n for g in graphs_c)}-{max(g.n for g in graphs_c)} "
+          f"routers, {FULL_WIDTH_SAMPLES} samples) ({time.perf_counter() - t_part:.2f} s)")
+    g = {x.meta["spec"].family: x for x in graphs_c}["torus"]
+    plan = RES.failure_plan(g, samples=FULL_WIDTH_SAMPLES, seed=0)
+    batch = RES.failure_batch(plan, RES.rate_to_k(plan, 0.05))
+    print_profile(f"11c torus severity 0.05 ({g.n} routers)",
+                  lambda: RES.evaluate_failure_batch(g, batch, slack=True))
+    del batch, full
+
+    # (d) saturation_search: the ring's tornado closed form, and hotspot on
+    # (b)'s dragonfly, kernel against the f64 path
+    t_part = time.perf_counter()
+    ring = T.make("torus", dims=(64,))
+    dfly = {x.meta["spec"].family: x for x in graphs_b}["dragonfly"]
+    sat = {}
+    for use_kernel in (True, False):
+        tag = "kernel" if use_kernel else "f64"
+        with Counted(S, obs, f"11d saturation, {tag}") as run:
+            sat["ring", tag] = SC.saturation_search(
+                ring, "tornado", use_kernel=use_kernel)
+            sat["dfly", tag] = SC.saturation_search(
+                dfly, SWEEP_TRAFFIC, use_kernel=use_kernel)
+        run.report()
+        if use_kernel:
+            run.check_launches(False, DG._auto_chunk)
+            add(run)
+        else:
+            run.check_none()
+        ring_sat = sat["ring", tag]
+        check(_close(ring_sat["per_sample_mean"], 4 / ring.n, 1e-6)
+              and _close(ring_sat["sat_rate"], 4 / ring.n, 0.02),
+              f"11d ring tornado {tag}: {ring_sat['per_sample_mean']}, "
+              f"sat {ring_sat['sat_rate']}, closed form {4 / ring.n}")
+    k, f = sat["dfly", "kernel"], sat["dfly", "f64"]
+    # the bracket starts at twice the largest per-sample crossing, so the
+    # rates carry the peaks' rounding: the same feasible counts each round
+    check([r["feasible"] for r in k["rounds"]]
+          == [r["feasible"] for r in f["rounds"]],
+          f"11d dragonfly: bisection differs: {k['rounds']} vs {f['rounds']}")
+    for key in ("per_sample", "peak_at_probe", "ci95", "sat_rate"):
+        gap, zeros = _rel_gap(k[key], f[key])
+        check(zeros and gap <= 1e-5, f"11d dragonfly {key}: gap {gap:.3g}")
+    print(f"  11d ring({ring.n}) tornado: {sat['ring', 'kernel']['per_sample_mean']!r}"
+          f" (closed form 4/n = {4 / ring.n}); dragonfly ({dfly.n} routers) "
+          f"{SWEEP_TRAFFIC}: sat_rate {k['sat_rate']:.6g}, per-sample mean "
+          f"{k['per_sample_mean']:.6g} (f64 {f['per_sample_mean']:.6g}); "
+          f"the same bisection, rates within rtol 1e-5 "
+          f"({time.perf_counter() - t_part:.2f} s)")
+    print_profile("11d dragonfly saturation", lambda: SC.saturation_search(
+        dfly, SWEEP_TRAFFIC))
+
+    print(f"[11 resilience] {time.perf_counter() - t_phase:.2f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    for name in ("frontier_step", "count_matmul"):
+        check(total[name] > 0, f"resilience path: {name} never launched")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2839,6 +3343,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import obs
+    from repro_torch.core import resilience as RES
     from repro_torch.core import routing as R
     from repro_torch.core import sweep as SW
     from repro_torch.core import topology as T
@@ -3013,6 +3518,9 @@ def main() -> int:
         WF.pad_operand(stack, WF.pad_block(stack.shape[-1]), 0.0))
     del stack
 
+    # 11. the resilience and traffic path, counted
+    resilience_counts = resilience_phase(obs, S, SW, T, RES, TR, part)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)
         "frontier_step": ("semiring.cu", "src/repro/kernels/semiring.py:343"),
@@ -3036,12 +3544,13 @@ def main() -> int:
     for kname, st in kstats.items():
         launches = (sweep_counts[kname] + analysis_counts[kname]
                     + extreme_counts[kname] + library_counts[kname]
-                    + routing_counts[kname])
+                    + routing_counts[kname] + resilience_counts[kname])
         print(f"  {kname}: {sweep_counts[kname]} launches in the sweep, "
               f"{analysis_counts[kname]} in the analysis path, "
               f"{extreme_counts[kname]} in the extreme path, "
               f"{library_counts[kname]} in the kernel library phase, "
-              f"{routing_counts[kname]} in the routing path")
+              f"{routing_counts[kname]} in the routing path, "
+              f"{resilience_counts[kname]} in the resilience path")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": csrc + sources[kname][0],
@@ -3057,6 +3566,8 @@ def main() -> int:
                  "max_abs_err")}
     # the generic kernel: launches in phase 9, times of the 2D max-plus
     st = semiring_stats
+    check(resilience_counts["semiring_matmul"] == 0,
+          "the resilience path launched the generic kernel")
     print(f"  semiring_matmul: {semiring_launches} launches in the semiring "
           f"extension point phase")
     kernels.append({

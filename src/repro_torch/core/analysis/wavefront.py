@@ -188,18 +188,28 @@ def wavefront_dist_mult_device(adj: np.ndarray, device="cuda",
     quarter of the f32 upload) and returns (int16 dist, int32 mult) tensors
     (see `kernels.semiring`), with a RuntimeWarning when a count clamps at
     MULT_SAT.
+
+    ``adj`` may also be a tensor already on its device (the resilience
+    engines upload their mask stacks as uint8): it is cast there and runs
+    unpadded, since the kernels take any size; ``device`` is then unused.
     """
-    dev = resolve_device(device)
-    adj = np.asarray(adj)
+    resident = torch.is_tensor(adj)
+    dev = adj.device if resident else resolve_device(device)
+    if not resident:
+        adj = np.asarray(adj)
     n = adj.shape[-1]
-    p = pad_block(n)
+    p = n if resident else pad_block(n)
     tel = obs.enabled()
     with obs.span("wavefront.dist_mult", routers=n, padded=p,
                   batched=adj.ndim == 3, packed=packed) as sp:
-        padded = pad_operand(adj, p, 0, np.uint8 if packed else np.float32)
-        obs.record_h2d(padded.nbytes, "adjacency")
-        out = dist_mult_device(torch.from_numpy(padded).to(dev),
-                               telemetry=tel, use_kernel=use_kernel,
+        if resident:
+            adj_d = adj.to(torch.uint8 if packed else torch.float32)
+        else:
+            padded = pad_operand(adj, p, 0,
+                                 np.uint8 if packed else np.float32)
+            obs.record_h2d(padded.nbytes, "adjacency")
+            adj_d = torch.from_numpy(padded).to(dev)
+        out = dist_mult_device(adj_d, telemetry=tel, use_kernel=use_kernel,
                                packed=packed)
         if tel:
             sp.set(**telemetry_attrs(out[-1]))

@@ -14,7 +14,10 @@ the entire sweep. Stages:
    uniform all-pairs demand, whose max gives the per-pair
    saturation-throughput lower bound ``lambda >= 1 / max_load`` (capacity 1
    per link direction);
-3. `core.costmodel` over each spec -> construction cost and power columns.
+3. `core.costmodel` over each spec -> construction cost and power columns;
+4. with ``traffic=``, one scenario's demand batch per family through the
+   weighted Brandes engine (`traffic.scenarios.evaluate_traffic_batch`) on
+   the family's own dist/mult slices, still on the device.
 
 The padded stack is uploaded once, both level loops run on the device
 through the hand-written CUDA kernels (`kernels.semiring`), and only the
@@ -37,6 +40,7 @@ CLI::
   python -m repro_torch.core.sweep [--families a,b,... ] [--ref-servers N]
                                    [--budget C] [--max-routers N] [--out DIR]
                                    [--device cuda|cpu] [--no-kernel]
+                                   [--traffic SPEC]
   python -m repro_torch.core.sweep --extreme 100000 [--sample-sources K]
                                    [--seed S] [--no-packed] [--tile-rows T]
                                    [--adjacency-budget BYTES] [--throughput]
@@ -236,16 +240,27 @@ def sweep(families: Optional[Sequence[str]] = None,
           use_kernel: bool = True,
           throughput: bool = True,
           graphs: Optional[Sequence[Graph]] = None,
-          device="cuda") -> Dict:
+          device="cuda", traffic=None) -> Dict:
     """Run the equal-cost comparison; returns ``{"rows": [...], ...}``.
 
     Pass ``graphs`` to analyze a pre-built list. ``device`` is where the
     level loops run: ``"cuda"`` (the default) raises without a card, it
     never moves to the CPU on its own. ``use_kernel=False`` runs the
-    kernels' plain versions on that device.
+    kernels' plain versions on that device (and the traffic loads on the
+    float64 oracle).
+
+    ``traffic`` (a `core.traffic.TrafficSpec` or spec string, ``--traffic``
+    on the CLI) additionally pushes that scenario's demand batch through
+    each family, reusing the sweep's own dist/mult slices on the device —
+    adds ``traffic`` / ``traffic_max_load`` / ``traffic_tput_lb`` columns.
     """
     t0 = time.time()
     dev = WF.resolve_device(device)
+    traffic_spec = None
+    if traffic is not None:
+        from .traffic.spec import as_spec
+
+        traffic_spec = as_spec(traffic)
     with obs.span("sweep", cat="sweep", use_kernel=use_kernel,
                   device=str(dev)) as root:
         if graphs is None:
@@ -325,6 +340,16 @@ def sweep(families: Optional[Sequence[str]] = None,
                     # device telemetry: BFS levels this family's wavefront
                     # actually ran (= its diameter on connected graphs)
                     row["wavefront_levels"] = int(wf_levels[i])
+                if traffic_spec is not None:
+                    from .traffic.scenarios import evaluate_traffic_batch
+
+                    tv = evaluate_traffic_batch(
+                        g, traffic_spec, dist=dist_d[i, :n, :n],
+                        mult=mult_d[i, :n, :n], use_kernel=use_kernel)
+                    row["traffic"] = traffic_spec.describe()
+                    row["traffic_max_load"] = float(
+                        tv["max_link_load"].mean())
+                    row["traffic_tput_lb"] = float(tv["tput_lb"].mean())
                 rows.append(row)
     return {
         "rows": rows,
@@ -332,6 +357,7 @@ def sweep(families: Optional[Sequence[str]] = None,
         "batched": True,
         "use_kernel": use_kernel,
         "device": str(dev),
+        "traffic": traffic_spec.describe() if traffic_spec else None,
         "elapsed_s": round(time.time() - t0, 2),
     }
 
@@ -350,19 +376,29 @@ _COLS = [
 ]
 
 
+#: extra columns when the sweep ran with a --traffic scenario
+_TRAFFIC_COLS = [
+    ("tr-load", ">9.3f", "traffic_max_load"),
+    ("tr-tput", ">9.4f", "traffic_tput_lb"),
+]
+
+
 def format_table(result: Dict) -> str:
     """Paper-style fixed-width comparison table."""
     budget = result.get("budget")
     budget_s = f"budget={budget:.3e} " if budget else ""
+    traffic = result.get("traffic")
+    traffic_s = f" traffic={traffic}" if traffic else ""
+    cols = _COLS + (_TRAFFIC_COLS if traffic else [])
     lines = [f"equal-cost sweep: {budget_s}"
              f"({len(result['rows'])} families, "
-             f"{result['elapsed_s']}s batched analysis)"]
-    hdr = "".join(f"{name:>{_w(fmt)}s}" for name, fmt, _ in _COLS)
+             f"{result['elapsed_s']}s batched analysis{traffic_s})"]
+    hdr = "".join(f"{name:>{_w(fmt)}s}" for name, fmt, _ in cols)
     lines.append(hdr)
     lines.append("-" * len(hdr))
     for row in sorted(result["rows"], key=lambda r: r["family"]):
         cells = []
-        for _, fmt, key in _COLS:
+        for _, fmt, key in cols:
             v = row.get(key)
             cells.append(" " * _w(fmt) if v is None else f"{v:{fmt}}")
         lines.append("".join(cells))
@@ -541,6 +577,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--ref-family", default="slimfly")
     ap.add_argument("--ref-servers", type=int, default=2000)
     ap.add_argument("--max-routers", type=int, default=512)
+    ap.add_argument("--traffic", default=None,
+                    help="TrafficSpec flag grammar (e.g. "
+                         "'hotspot:zipf_a=1.4,samples=8'): add per-family "
+                         "scenario load/throughput columns")
     ap.add_argument("--no-kernel", action="store_true",
                     help="plain torch versions instead of the CUDA kernels")
     ap.add_argument("--device", default="cuda",
@@ -621,7 +661,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     result = sweep(fams, budget=args.budget,
                    ref=(args.ref_family, args.ref_servers),
                    max_routers=args.max_routers,
-                   use_kernel=not args.no_kernel, device=args.device)
+                   use_kernel=not args.no_kernel, device=args.device,
+                   traffic=args.traffic)
     table = format_table(result)
     print(table)
     if args.out:

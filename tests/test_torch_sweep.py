@@ -226,3 +226,29 @@ def test_batched_stages_default_to_the_card(stack3):
             S.batched_apsp(graphs, use_kernel=use_kernel)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         S.batched_dist_mult(S._stack_adjacency(graphs), max_levels=2)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_traffic_columns_match_the_jax_package(use_kernel):
+    rgraphs, _ = RS.equal_cost_graphs(["jellyfish", "hypercube"],
+                                      ref=("slimfly", 2000), max_routers=40)
+    spec = "hotspot:zipf_a=1.4,samples=3"
+    want = RS.sweep(graphs=rgraphs, use_kernel=False, mesh=None,
+                    traffic=spec)
+    got = S.sweep(graphs=[_carry(g) for g in rgraphs], device="cpu",
+                  use_kernel=use_kernel, traffic=spec)
+    label = "hotspot:samples=3,zipf_a=1.4"  # describe() sorts the items
+    assert got["traffic"] == want["traffic"] == label
+    _assert_rows_match(got["rows"], want["rows"])
+    rtol = 1e-5 if use_kernel else 1e-12
+    for g, w in zip(got["rows"], want["rows"]):
+        assert g["traffic"] == w["traffic"] == label
+        for col in ("traffic_max_load", "traffic_tput_lb"):
+            assert isinstance(g[col], float)
+            np.testing.assert_allclose(g[col], w[col], rtol=rtol,
+                                       err_msg=f"{g['family']}.{col}")
+    table = S.format_table(got)
+    assert f"traffic={label}" in table.splitlines()[0]
+    assert "tr-load" in table and "tr-tput" in table
+    assert "tr-load" not in S.format_table(
+        S.sweep(graphs=[_carry(rgraphs[0])], device="cpu"))

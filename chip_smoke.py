@@ -94,7 +94,23 @@ JAX package) reproduced; (b) ``python -m repro_torch.core.resilience
 defaults; (c) one degradation point and the ``--traffic`` sweep at the
 sweep's full width; (d) ``saturation_search`` (a ring's tornado closed
 form, hotspot on a dragonfly). The slack counts are held to the f64 path
-only where a float64 walk-count bound stays below 2**24.
+only where a float64 walk-count bound stays below 2**24. Phase 12 runs
+the mesh engines (``core.analysis.distributed`` on ``torch.distributed``)
+on two gloo ranks sharing the one card, spawned by ``launch_mesh`` and
+counted in each rank: (a) the row-sharded sweep at phase 5's full width
+(12 families padded to 2048, 1024 rows a rank), its rows equal to phase
+5's, and at phase 4's committed configuration, held to
+``experiments/sweep/comparison.json``; (b) the composed extreme sweep,
+packed, on 7b's ~100k dragonfly (32 sampled sources, each rank's
+adjacency rows resident), its row equal to 7b's resident run; (c)
+``AnalysisEngine(mesh=)`` on an example family at ~10k servers, equal to
+the single-device engine; (d) ``pod_traffic_report`` on the default
+16 x 16 torus against its float64 path; (e) each kernel at the rank's
+shapes (the frontier step on its (12, 1024, 2048) block, both Brandes
+products over its rows, the narrow product of its packed K-slab) bit-equal
+to its plain version; and each rank's bytes all-reduced held to the
+engines' rule. It prints each rank's launches, walls and peak device
+memory, and claims no speed: the two ranks share one card.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -1615,6 +1631,7 @@ def extreme_phase(obs, S, SW, D, WF, ref, stack):
     (row,) = res["rows"]
     check_same(row, rows["dragonfly"], "dragonfly streamed vs resident",
                rtol=0.0)
+    dragonfly_row = rows["dragonfly"]
     spans = obs.span_summary()
     print(f"[7c 100k streamed] {row['family']}: rows equal to the resident "
           f"run; {wall:.2f} s (family "
@@ -1677,7 +1694,7 @@ def extreme_phase(obs, S, SW, D, WF, ref, stack):
               f"{100 * (1 - busy / wall):.2f}%")
         for name, c, t in rows[:6]:
             print(f"    {t:9.3f} ms x{c:<5d} {name[:90]}")
-    return counts
+    return counts, dragonfly_row, graphs["dragonfly"]
 
 
 # -- phase 8: the kernel library ---------------------------------------------------
@@ -3333,6 +3350,261 @@ def resilience_phase(obs, S, SW, T, RES, TRF, part):
     return total
 
 
+# -- phase 12: the mesh (two ranks on the one card) ------------------------------
+
+#: ranks of phase 12's mesh: gloo ranks sharing the one card
+MESH_RANKS = 2
+#: what phase 12 runs: (a) phase 5's full width and phase 4's committed
+#: configuration, (b) 7b's ~100k dragonfly and its 32 sampled sources, (c)
+#: one of the example's families at ~10k servers
+MESH_SIZES = {"sweep": FULL_WIDTH,
+              "committed": dict(ref=("slimfly", 2000), max_routers=200),
+              "extreme": 100_000, "sources": 32, "engine": ("slimfly", 10_000)}
+#: 12's wall limit on the ranks (they are killed past it)
+MESH_TIMEOUT_S = 400
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dyadic(x):
+    """A float operand that bf16 cannot hold (so the counting product runs
+    on the SIMT tile, as Z does in the Brandes loop) while every sum of
+    its products with small integers stays exact in fp32: counts + 2**-8."""
+    return torch.where(x > 0, x + 2.0 ** -8, 0.0)
+
+
+def _shard_checks(S, D, SW, WF, mesh, graph, p_graph, sizes):
+    """(e) the kernels at this rank's shapes against their plain versions on
+    the same card tensors, bit for bit: the frontier step on the rank's
+    (12, 1024, 2048) block of phase 5's stack, both Brandes products over
+    its 1024 source rows, the narrow product of 12b's packed K-slab (32
+    sources) against the rank's uint8 adjacency rows. Uncounted."""
+    dev = mesh.device
+    out = {}
+    graphs, _ = SW.equal_cost_graphs(**sizes["sweep"])
+    stack = SW._stack_adjacency(graphs)
+    p = D.pad_block_sharded(stack.shape[-1], mesh.size, batched=True)[0]
+    adj = torch.from_numpy(WF.pad_operand(stack, p, 0.0)).to(dev)
+    r0, r1 = mesh.rows(p)
+    # the level-1 frontier of the rank's sources is their adjacency rows;
+    # distances 0 on the diagonal, 1 on the rows, +inf elsewhere
+    f = adj[:, r0:r1].contiguous()
+    d = torch.where(f > 0, 1.0, float("inf"))
+    d[:, torch.arange(r1 - r0, device=dev),
+      torch.arange(r0, r1, device=dev)] = 0.0
+    x = S.frontier_step(f, adj, d)
+    want = S.frontier_step(f, adj, d, use_kernel=False)
+    out["frontier_step"] = (tuple(f.shape), tuple(adj.shape),
+                            _abs_err(x, want))
+    z = _dyadic(x)
+    for name, a, b in (("count_matmul F^T Z", f.transpose(-1, -2), z),
+                       ("count_matmul Z A", z, adj)):
+        got = S.count_matmul(a, b)
+        want = S.count_matmul(a, b, use_kernel=False)
+        out[name] = (tuple(a.shape), tuple(b.shape), _abs_err(got, want))
+    del adj, f, d, x, z, got, want
+    # the composed engine's slab product: 32 sources' level-1 frontier
+    n = graph.n
+    g0, g1 = mesh.rows(p_graph)
+    k = sizes["sources"]
+    ids = np.sort(np.random.default_rng(0).choice(n, size=k, replace=False))
+    rows = D._device_adjacency(graph, n, p_graph, torch.uint8, dev,
+                               rows=(g0, g1))
+    front = torch.zeros((k, p_graph), dtype=torch.int32, device=dev)
+    indptr, indices = graph.csr()
+    for i, s in enumerate(ids):
+        front[i, torch.from_numpy(indices[indptr[s]:indptr[s + 1]]).to(
+            dev)] = 1
+    slab = front[:, g0:g1]
+    got = S.count_matmul(slab, rows)
+    err = 0.0
+    for c0 in range(0, p_graph, 8192):  # the plain version, by columns
+        want = S.count_matmul(slab, rows[:, c0:c0 + 8192].contiguous(),
+                              use_kernel=False)
+        err = max(err, _abs_err(got[:, c0:c0 + 8192], want))
+    out["count_matmul_narrow"] = (tuple(slab.shape), tuple(rows.shape), err)
+    for name, (sa, sb, e) in out.items():
+        check(e == 0.0, f"rank {mesh.rank}: {name} {sa} x {sb} differs "
+                        f"from its plain version by {e}")
+    return out
+
+
+def mesh_rank(mesh, dragonfly, sizes):
+    """Phase 12 on one rank of the mesh: (a) the sharded sweep at full width
+    and at the committed configuration, (b) the composed extreme sweep on
+    the ~100k dragonfly, packed, (c) ``AnalysisEngine(mesh=)`` on one
+    example family, (d) ``pod_traffic_report`` on the default torus, all
+    counted; then (e) the per-shard kernel checks. Every rank's record goes
+    to rank 0, which returns them all with its rows."""
+    import torch.distributed as tdist
+
+    from repro_torch import obs
+    from repro_torch.core import collectives as C
+    from repro_torch.core import sweep as SW
+    from repro_torch.core import topology as T
+    from repro_torch.core.analysis import AnalysisEngine
+    from repro_torch.core.analysis import distributed as D
+    from repro_torch.core.analysis import wavefront as WF
+    from repro_torch.kernels import semiring as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    rec = {"rank": mesh.rank, "device": str(dev), "walls": {},
+           "all_reduce_bytes": {}, "checks": {}}
+
+    def part(name, fn):
+        before = obs.counter("mesh.all_reduce_bytes").value
+        _sync(dev)
+        tdist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        rec["walls"][name] = time.perf_counter() - t0
+        rec["all_reduce_bytes"][name] = (
+            obs.counter("mesh.all_reduce_bytes").value - before)
+        return res
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    S.reset_launches()
+    t_all = time.perf_counter()
+    full = part("a full width", lambda: SW.sweep(
+        **sizes["sweep"], device=dev, mesh=mesh))
+    small = part("a committed", lambda: SW.sweep(
+        **sizes["committed"], device=dev, mesh=mesh))
+    ext = part("b composed", lambda: SW.sweep_extreme(
+        ["dragonfly"], target_routers=sizes["extreme"],
+        k_sources=sizes["sources"], seed=0,
+        adjacency_budget=RESIDENT_BUDGET, device=dev, mesh=mesh))
+    g = T.by_servers(*sizes["engine"])
+    eng = AnalysisEngine(g, device=dev, mesh=mesh)
+    dist, mult = part("c engine", lambda: (eng.distances(),
+                                           eng.shortest_path_mult()))
+    fab = C.PhysicalFabric()
+    n = fab.chips_per_pod
+    demands = {"all-to-all": np.ones((n, n)) - np.eye(n),
+               "random": np.random.default_rng(0).random((n, n))}
+    reports = part("d pod report", lambda: {
+        k: C.pod_traffic_report(fab, v, device=dev)
+        for k, v in demands.items()})
+    rec["wall"] = time.perf_counter() - t_all
+    rec["launches"] = dict(S.launches)
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else 0.0)
+    for name in ("frontier_step", "count_matmul", "count_matmul_narrow"):
+        # (on the host, in a rehearsal, the plain versions run instead)
+        check(rec["launches"][name] > 0 or dev.type != "cuda",
+              f"rank {mesh.rank}: {name} never launched in phase 12")
+
+    # the uncounted checks: the single-device engine and the f64 path
+    one = AnalysisEngine(g, device=dev, mesh=None)
+    check(np.array_equal(dist, one.distances())
+          and np.array_equal(mult, one.shortest_path_mult()),
+          f"rank {mesh.rank}: 12c AnalysisEngine(mesh=) differs from the "
+          f"single-device engine")
+    gaps = {}
+    for k, v in demands.items():
+        f64 = C.pod_traffic_report(fab, v, use_kernel=False, device=dev)
+        for key, w in f64.items():
+            got = reports[k][key]
+            if isinstance(w, str) or key in ("links_total", "links_used"):
+                check(got == w, f"12d {k}.{key}: {got} != {w}")
+            else:
+                check(_close(got, w, 1e-5) or got == w,
+                      f"12d {k}.{key}: {got} vs f64 {w} (rtol 1e-5)")
+                gaps[f"{k}.{key}"] = abs(got - w) / max(abs(w), 1e-30)
+    rec["checks"]["d max rel gap"] = max(gaps.values())
+    p_graph = D._pad128(dragonfly.n)
+    p_graph += (-p_graph) % (mesh.size * 128)
+    rec["shard_checks"] = _shard_checks(S, D, SW, WF, mesh, dragonfly,
+                                        p_graph, sizes)
+    rec["engine"] = (g.name, g.n)
+    everyone = [None] * mesh.size
+    tdist.all_gather_object(everyone, rec, group=mesh.group)
+    return {"ranks": everyone, "full": full, "small": small,
+            "extreme": ext, "reports": reports}
+
+
+def mesh_phase(D, full, dragonfly_row, dragonfly, sizes=MESH_SIZES,
+               device="cuda"):
+    """Phase 12: ``mesh_rank`` on a mesh of two gloo ranks sharing the one
+    card (spawned by ``distributed.launch_mesh``); the rows held to phases
+    4, 5 and 7b here. Returns the launches summed over the ranks.
+    (``sizes`` and ``device="cpu"`` rehearse it at a small size on the
+    host, where the kernels' plain versions run.)"""
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks have the card to themselves
+    res = D.launch_mesh(mesh_rank, MESH_RANKS, dragonfly, sizes,
+                        device=device, timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t_phase
+    # (a) bit-equal dist/mult give equal integer columns and means; loads
+    # sum the ranks' partials in another order: rtol 1e-5
+    rows = {r["family"]: r for r in res["full"]["rows"]}
+    for r in full["rows"]:
+        got = rows[r["family"]]
+        for col in _EXACT_COLS + ("avg_spl", "mult_mean", "mult_min",
+                                  "reachable_frac"):
+            check(got[col] == r[col],
+                  f"12a {r['family']}.{col}: {got[col]} != phase 5 {r[col]}")
+        check(_close(got["tput_lb"], r["tput_lb"], 1e-5),
+              f"12a {r['family']}.tput_lb: {got['tput_lb']} vs phase 5 "
+              f"{r['tput_lb']}")
+    check_committed(res["small"],
+                    ROOT / "experiments" / "sweep" / "comparison.json")
+    (row,) = res["extreme"]["rows"]
+    check_same(row, dragonfly_row, "12b composed vs 7b resident", rtol=0.0)
+    print(f"[12 mesh] {MESH_RANKS} gloo ranks on the one card: 12a rows "
+          f"equal to phase 5's (tput_lb within 1e-5) and the committed "
+          f"table to comparison.json; 12b {row['family']} rows equal to "
+          f"7b's resident run; 12c, 12d, 12e checked in each rank")
+    launches = {}
+    for rec in res["ranks"]:
+        print(f"  rank {rec['rank']} ({rec['device']}): wall "
+              f"{rec['wall']:.3f} s; parts " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in rec["walls"].items())
+              + f"; peak device memory {rec['peak_gib']:.2f} GiB")
+        print(f"    launches {rec['launches']}")
+        print(f"    all-reduced bytes " + ", ".join(
+            f"{k} {v}" for k, v in rec["all_reduce_bytes"].items()))
+        for name, (sa, sb, e) in rec["shard_checks"].items():
+            print(f"    12e {name}: {sa} x {sb} bit-equal to its plain "
+                  f"version")
+        print(f"    12c {rec['engine'][0]} ({rec['engine'][1]} routers) "
+              f"equal to the single-device engine; 12d largest gap to the "
+              f"f64 path {rec['checks']['d max rel gap']:.3g}")
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # the bytes each rank all-reduced, against the engines' rule: 12a one
+    # int a BFS level, the diameter, the (12, p, p) Brandes partials once;
+    # 12b the (32, p) partial product a level and the saturation flag
+    levels_a = max(r["diameter"] for r in full["rows"]) + 1
+    p_a = D.pad_block_sharded(max(r["routers"] for r in full["rows"]),
+                              MESH_RANKS, batched=True)[0]
+    want_a = 4 * levels_a + 4 + 4 * len(full["rows"]) * p_a * p_a
+    levels_b = row["diameter_lb"] + 1
+    p_b = D._pad128(dragonfly.n)
+    p_b += (-p_b) % (MESH_RANKS * 128)
+    k = sizes["sources"]
+    want_b = levels_b * (k + (-k) % 8) * p_b * 4 + 4
+    for rec in res["ranks"]:
+        got = rec["all_reduce_bytes"]
+        check(got["a full width"] == want_a and got["b composed"] == want_b,
+              f"rank {rec['rank']}: all-reduced {got}, expected 12a "
+              f"{want_a}, 12b {want_b}")
+    print(f"  bytes all-reduced a level, each rank: 12a BFS 4 ({levels_a} "
+          f"levels), then {4 * len(full['rows']) * p_a * p_a} of Brandes "
+          f"partials once; 12b {(want_b - 4) // levels_b} ({levels_b} "
+          f"levels, one {k}-source tile of p = {p_b})")
+    print(f"[12 mesh] {wall:.2f} s in all (spawn, ranks, checks); no claim "
+          f"of speed: the two ranks share one card")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3498,8 +3770,8 @@ def main() -> int:
     # 7. the extreme-scale path, counted
     xref = json.loads((ROOT / "experiments" / "extreme"
                        / "reference.json").read_text())
-    extreme_counts = extreme_phase(obs, S, SW, D, WF, xref,
-                                   SW._stack_adjacency(graphs))
+    extreme_counts, dragonfly_row, dragonfly = extreme_phase(
+        obs, S, SW, D, WF, xref, SW._stack_adjacency(graphs))
 
     # 8. the kernel library and the stacked squaring APSP, counted
     library_counts = library_phase(S, ops, SW, WF, graphs)
@@ -3520,6 +3792,9 @@ def main() -> int:
 
     # 11. the resilience and traffic path, counted
     resilience_counts = resilience_phase(obs, S, SW, T, RES, TR, part)
+
+    # 12. the mesh: two ranks on the one card, counted in each rank
+    mesh_counts = mesh_phase(D, full, dragonfly_row, dragonfly)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)
@@ -3544,13 +3819,15 @@ def main() -> int:
     for kname, st in kstats.items():
         launches = (sweep_counts[kname] + analysis_counts[kname]
                     + extreme_counts[kname] + library_counts[kname]
-                    + routing_counts[kname] + resilience_counts[kname])
+                    + routing_counts[kname] + resilience_counts[kname]
+                    + mesh_counts[kname])
         print(f"  {kname}: {sweep_counts[kname]} launches in the sweep, "
               f"{analysis_counts[kname]} in the analysis path, "
               f"{extreme_counts[kname]} in the extreme path, "
               f"{library_counts[kname]} in the kernel library phase, "
               f"{routing_counts[kname]} in the routing path, "
-              f"{resilience_counts[kname]} in the resilience path")
+              f"{resilience_counts[kname]} in the resilience path, "
+              f"{mesh_counts[kname]} in the mesh phase (both ranks)")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": csrc + sources[kname][0],
@@ -3566,8 +3843,9 @@ def main() -> int:
                  "max_abs_err")}
     # the generic kernel: launches in phase 9, times of the 2D max-plus
     st = semiring_stats
-    check(resilience_counts["semiring_matmul"] == 0,
-          "the resilience path launched the generic kernel")
+    check(resilience_counts["semiring_matmul"] == 0
+          and mesh_counts["semiring_matmul"] == 0,
+          "the resilience or mesh path launched the generic kernel")
     print(f"  semiring_matmul: {semiring_launches} launches in the semiring "
           f"extension point phase")
     kernels.append({

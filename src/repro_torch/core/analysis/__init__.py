@@ -1,6 +1,7 @@
 """EvalNet analysis on torch: APSP, path multiplicities, spectral bounds,
-histograms, the device wavefront and squaring engines, and the
-single-device out-of-core engine and sampled-sources estimator."""
+histograms, the device wavefront and squaring engines, the row-sharded,
+composed and out-of-core engines (`distributed`, over `torch.distributed`
+ranks) and the sampled-sources estimator."""
 from .apsp import (  # noqa: F401
     apsp_dense, apsp_from_lengths, bfs_distances, sampled_distances,
 )
@@ -14,6 +15,8 @@ from .wavefront import (  # noqa: F401
     wavefront_dist_mult,
 )
 from .distributed import (  # noqa: F401
+    RowMesh, composed_dist_mult_tiles, default_mesh, device_mesh,
+    dist_mult_sharded, ecmp_loads_sharded, launch_mesh, sharded_dist_mult,
     tiled_dist_mult, tiled_dist_mult_tiles, tiled_summary,
 )
 from .engine_select import EnginePlan, resolve_engine  # noqa: F401

@@ -48,19 +48,28 @@ def apsp_dense(g: Graph, use_kernel: bool = True, max_squarings: int = 8,
     ``tile_rows`` runs the out-of-core tiled engine
     (`distributed.tiled_dist_mult`: source tiles stream through the
     kernels, the adjacency is built from CSR) and copies its host result to
-    ``device``. ``mesh`` selects the sharded engines, which are not ported:
-    it raises NotImplementedError (`engine_select.require_ported`).
+    ``device``. ``mesh`` (a `distributed.RowMesh`) runs the wavefront
+    row-sharded over the mesh's ranks, and with ``tile_rows`` the composed
+    engine (sharded adjacency rows x streamed tiles), as
+    `engine_select.resolve_engine` picks them; every rank gets the whole
+    result, bit-equal.
     """
-    from .engine_select import require_ported, resolve_engine
+    from .engine_select import resolve_engine
 
     dev = resolve_device(device)
-    plan = require_ported(resolve_engine(use_kernel=use_kernel, method=method,
-                                         mesh=mesh, tile_rows=tile_rows))
-    if plan.engine == "tiled":
+    plan = resolve_engine(use_kernel=use_kernel, method=method, mesh=mesh,
+                          tile_rows=tile_rows)
+    if plan.engine in ("tiled", "composed"):
         from .distributed import tiled_dist_mult
 
         dist, _ = tiled_dist_mult(g, tile_rows=plan.tile_rows or 512,
-                                  device=dev)
+                                  mesh=plan.mesh, device=dev)
+        return torch.from_numpy(dist).to(dev)
+    if plan.engine == "sharded":
+        from .distributed import sharded_dist_mult
+
+        dist, _ = sharded_dist_mult(g.adjacency_dense(np.float32),
+                                    mesh=plan.mesh)
         return torch.from_numpy(dist).to(dev)
     if plan.engine == "wavefront":
         from .wavefront import wavefront_dist_mult_device

@@ -37,17 +37,16 @@ Rejected, with the reason in the error:
     * ``use_kernel=False`` with any of the above — the plain oracle exists
       to check the kernels, not to scale.
 
-The PyTorch port executes the single-device engines: ``wavefront`` (fp32
-or packed cells), ``tiled`` (fp32 or packed, resident or streamed) and
-``squaring``. :func:`require_ported` raises NotImplementedError for a plan
-that needs a mesh (``sharded``, ``composed``).
+The PyTorch port runs every plan: a mesh is a `distributed.RowMesh` of
+`torch.distributed` ranks, each rank running the plan's engine on its
+shard.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["EnginePlan", "resolve_engine", "require_ported"]
+__all__ = ["EnginePlan", "resolve_engine"]
 
 #: knobs that imply the streaming (tiled/composed) engine family
 _STREAMING_KNOBS = ("tile_rows", "sources", "source_ids")
@@ -59,7 +58,7 @@ class EnginePlan:
 
     engine: str                      # wavefront|sharded|tiled|composed|squaring
     use_kernel: bool = True
-    mesh: object = None              # a device mesh, or None
+    mesh: object = None              # a distributed.RowMesh, or None
     tile_rows: Optional[int] = None
     packed: bool = False
 
@@ -124,13 +123,3 @@ def resolve_engine(*, use_kernel: bool = True, method: Optional[str] = None,
         return EnginePlan("sharded", mesh=mesh)
     return EnginePlan("wavefront", packed=packed)
 
-
-def require_ported(plan: EnginePlan) -> EnginePlan:
-    """``plan`` unchanged when the port runs its engine; NotImplementedError
-    naming the ROADMAP item that ports it otherwise."""
-    if plan.engine in ("sharded", "composed"):
-        raise NotImplementedError(
-            f"the {plan.engine} engine is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 6, second half: the sharded engines on "
-            f"torch.distributed); use the single-device engines (mesh=None)")
-    return plan

@@ -43,12 +43,16 @@ class AnalysisEngine:
     as numpy (host copies of the device tensors, made once).
 
     ``device`` is where the matrices live and the kernels run (``"cuda"``
-    by default; ``"cpu"`` runs the kernels' plain versions). The port runs
-    on one device, so ``mesh="auto"`` resolves to no mesh and an explicit
-    mesh raises NotImplementedError. ``tile_rows`` streams source tiles
-    out-of-core and ``packed`` runs the int16/int32 packed-cell engine;
-    their results are unpacked to the f32/inf convention before caching,
-    so every stage downstream is dtype-agnostic.
+    by default; ``"cpu"`` runs the kernels' plain versions). ``mesh="auto"``
+    row-shards the wavefront over the ranks of the process group when it
+    has more than one (`distributed.default_mesh`); an explicit
+    `distributed.RowMesh` pins the layout; None forces the single-device
+    engine. ``tile_rows`` streams source tiles out-of-core (with a mesh it
+    composes: sharded adjacency rows x streamed tiles) and ``packed`` runs
+    the int16/int32 packed-cell engine; their results are unpacked to the
+    f32/inf convention before caching, so every stage downstream is
+    dtype-agnostic. All combinations are policed by
+    `engine_select.resolve_engine`.
     """
 
     STAGES = ("distances", "multiplicities", "diversity", "spectral",
@@ -84,8 +88,11 @@ class AnalysisEngine:
         self._cache: Dict[str, object] = {}
 
     def _resolved_mesh(self):
-        # one device: "auto" means no mesh
-        return None if self.mesh == "auto" else self.mesh
+        if self.mesh != "auto":
+            return self.mesh
+        from .distributed import default_mesh
+
+        return default_mesh(self.g.n, device=self.device)
 
     @property
     def exact(self) -> bool:
@@ -109,25 +116,33 @@ class AnalysisEngine:
         """
         if "dist" not in self._cache:
             if self.use_kernel:
-                from .engine_select import require_ported, resolve_engine
+                from .engine_select import resolve_engine
                 from .wavefront import wavefront_dist_mult_device
 
-                plan = require_ported(resolve_engine(
+                plan = resolve_engine(
                     use_kernel=True, mesh=self._resolved_mesh(),
-                    tile_rows=self.tile_rows, packed=self.packed))
-                if plan.engine == "tiled" or plan.packed:
+                    tile_rows=self.tile_rows, packed=self.packed)
+                if plan.engine in ("tiled", "composed") or plan.packed:
                     from ...kernels.semiring import DIST_UNREACHED
                     from .paths import shortest_path_multiplicity
 
                     dist, mult = shortest_path_multiplicity(
-                        self.g, use_kernel=True, tile_rows=plan.tile_rows,
-                        packed=plan.packed, device=self.device)
+                        self.g, use_kernel=True, mesh=plan.mesh,
+                        tile_rows=plan.tile_rows, packed=plan.packed,
+                        device=self.device)
                     if plan.packed:
                         dist = np.where(dist == DIST_UNREACHED, np.inf,
                                         dist).astype(np.float32)
                         mult = mult.astype(np.float32)
                     dist, mult = (torch.from_numpy(x).to(self.device)
                                   for x in (dist, mult))
+                elif plan.engine == "sharded":
+                    from .distributed import sharded_dist_mult
+
+                    dist, mult = (torch.from_numpy(x).to(self.device)
+                                  for x in sharded_dist_mult(
+                                      self.g.adjacency_dense(np.float32),
+                                      mesh=plan.mesh))
                 else:
                     dist, mult = wavefront_dist_mult_device(
                         self.g.adjacency_dense(np.float32),

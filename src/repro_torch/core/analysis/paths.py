@@ -126,9 +126,10 @@ def shortest_path_multiplicity(
     engines (uint8 adjacency, int16 dist, counts saturating at 2**24), as
     `engine_select.resolve_engine` picks them; these return host numpy
     arrays, as the JAX package does: (f32, f32) tiled, and (int16, uint32)
-    packed, with the DIST_UNREACHED sentinel instead of +inf. ``mesh``
-    selects the sharded engines, which are not ported: it raises
-    NotImplementedError (`engine_select.require_ported`).
+    packed, with the DIST_UNREACHED sentinel instead of +inf. ``mesh`` (a
+    `distributed.RowMesh`) runs the wavefront row-sharded over its ranks
+    (tensors on ``device``, bit-equal), and with ``tile_rows`` or
+    ``packed`` the composed engine (host numpy, as the tiled one).
 
     Every count the kernel path keeps is a sum of nonnegative terms equal
     to some sigma(i, j), so results are exact iff the largest multiplicity
@@ -136,16 +137,22 @@ def shortest_path_multiplicity(
     """
     dev = dist.device if torch.is_tensor(dist) else resolve_device(device)
     if dist is None:
-        from .engine_select import require_ported, resolve_engine
+        from .engine_select import resolve_engine
 
-        plan = require_ported(resolve_engine(
-            use_kernel=use_kernel, mesh=mesh, tile_rows=tile_rows,
-            packed=packed))
-        if plan.engine == "tiled":
+        plan = resolve_engine(use_kernel=use_kernel, mesh=mesh,
+                              tile_rows=tile_rows, packed=packed)
+        if plan.engine in ("tiled", "composed"):
             from .distributed import tiled_dist_mult
 
             return tiled_dist_mult(g, tile_rows=plan.tile_rows or 512,
-                                   packed=plan.packed, device=dev)
+                                   mesh=plan.mesh, packed=plan.packed,
+                                   device=dev)
+        if plan.engine == "sharded":
+            from .distributed import sharded_dist_mult
+
+            return tuple(torch.from_numpy(x).to(dev) for x in
+                         sharded_dist_mult(g.adjacency_dense(np.float32),
+                                           mesh=plan.mesh))
         if plan.packed:
             from .wavefront import wavefront_dist_mult
 

@@ -284,15 +284,20 @@ def ecmp_all_pairs_loads(dist, mult, adj,
     ``1 / loads.max()`` is the exact ECMP lower bound on per-pair
     saturation throughput (capacity 1 per link direction).
 
-    ``mesh`` (the sharded accumulation) is not ported yet: any mesh raises
-    NotImplementedError.
+    With a ``mesh`` (a `analysis.distributed.RowMesh` of more than one
+    rank) the kernel path runs the accumulation shard-local over source
+    rows on ``mesh.device`` (`distributed.ecmp_loads_sharded`, padded to
+    whole row tiles a rank), with one all-reduce of the partials: every
+    rank gets the loads, within f32 round-off of the single-device ones.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded ECMP accumulation is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 6, extreme scale)")
-    dev = _device_of(dist, mult, adj, device=device)
+    from ..analysis.engine_select import _mesh_shards
+
+    sharded = product is None and use_kernel and _mesh_shards(mesh) > 1
+    dev = mesh.device if sharded else _device_of(dist, mult, adj,
+                                                 device=device)
     dist, mult, adj = (_on(x, dev) for x in (dist, mult, adj))
+    if sharded:
+        return _ecmp_all_pairs_sharded(dist, mult, adj, mesh)
     if product is None and use_kernel:
         from ..analysis.wavefront import ecmp_loads_device
 
@@ -300,6 +305,27 @@ def ecmp_all_pairs_loads(dist, mult, adj,
                                  adj.float().contiguous())
     return _brandes(dist, mult, adj, 1.0,
                     product or count_product(use_kernel))
+
+
+def _ecmp_all_pairs_sharded(dist: torch.Tensor, mult: torch.Tensor,
+                            adj: torch.Tensor, mesh) -> torch.Tensor:
+    """Pad -> sharded Brandes accumulation -> the (.., n, n) loads: the
+    padded size holds whole row tiles a rank (phantom routers: dist +inf,
+    mult and adj 0)."""
+    from ..analysis.distributed import ecmp_loads_sharded, pad_block_sharded
+
+    n = dist.shape[-1]
+    p = pad_block_sharded(n, mesh.size, batched=dist.ndim == 3)[0]
+
+    def pad(x: torch.Tensor, fill: float) -> torch.Tensor:
+        out = torch.full((*x.shape[:-2], p, p), fill, dtype=torch.float32,
+                         device=x.device)
+        out[..., :n, :n] = x
+        return out
+
+    loads = ecmp_loads_sharded(pad(dist, float("inf")), pad(mult, 0.0),
+                               pad(adj, 0.0), mesh)
+    return loads[..., :n, :n]
 
 
 def ecmp_demand_loads(dist, mult, adj, demand,

@@ -23,6 +23,10 @@ The padded stack is uploaded once, both level loops run on the device
 through the hand-written CUDA kernels (`kernels.semiring`), and only the
 final dist/mult/loads matrices come back to the host. ``use_kernel=False``
 runs the same loops with the kernels' plain versions on the same device.
+Inside a process group of more than one rank (``mesh="auto"``, or an
+explicit `analysis.distributed.RowMesh`) both loops run row-sharded: each
+rank owns a row block of every stacked problem, and only the convergence
+flag, the Brandes partials and the final rows cross between ranks.
 
 :func:`batched_apsp` and :func:`batched_dist_mult` are the stacked stages
 on their own: hop distances (and multiplicities) for a whole stack of
@@ -32,7 +36,8 @@ for the whole stack) and the host-looped level sweep.
 
 :func:`sweep_extreme` is the extreme-scale mode: every family sized to a
 ROUTER target (100k in the paper's table) and analyzed through the
-sampled-sources estimator on the single-device tiled engine
+sampled-sources estimator on the tiled engine, or with ``mesh=`` the
+composed engine over the mesh's ranks
 (`analysis.estimator.sampled_sources_summary`).
 
 CLI::
@@ -44,6 +49,7 @@ CLI::
   python -m repro_torch.core.sweep --extreme 100000 [--sample-sources K]
                                    [--seed S] [--no-packed] [--tile-rows T]
                                    [--adjacency-budget BYTES] [--throughput]
+                                   [--shards P] [--device cuda|cpu]
   python -m repro_torch.core.sweep --check    # CI gate: sizers + connectivity
 """
 from __future__ import annotations
@@ -61,6 +67,7 @@ from .. import obs
 from ..kernels import ops
 from . import costmodel
 from . import topology as topo
+from .analysis import distributed as DX
 from .analysis import wavefront as WF
 from .graph import Graph
 
@@ -240,7 +247,7 @@ def sweep(families: Optional[Sequence[str]] = None,
           use_kernel: bool = True,
           throughput: bool = True,
           graphs: Optional[Sequence[Graph]] = None,
-          device="cuda", traffic=None) -> Dict:
+          device="cuda", traffic=None, mesh="auto") -> Dict:
     """Run the equal-cost comparison; returns ``{"rows": [...], ...}``.
 
     Pass ``graphs`` to analyze a pre-built list. ``device`` is where the
@@ -248,6 +255,13 @@ def sweep(families: Optional[Sequence[str]] = None,
     never moves to the CPU on its own. ``use_kernel=False`` runs the
     kernels' plain versions on that device (and the traffic loads on the
     float64 oracle).
+
+    ``mesh="auto"`` row-shards both level loops over the ranks of the
+    process group when it has more than one (`distributed.default_mesh`,
+    on ``device``); an explicit `distributed.RowMesh` pins the layout (on
+    ``mesh.device``); None forces the single-device engines. Every rank
+    returns the same rows, bit-equal in dist and mult to the single-device
+    run, loads within f32 round-off.
 
     ``traffic`` (a `core.traffic.TrafficSpec` or spec string, ``--traffic``
     on the CLI) additionally pushes that scenario's demand batch through
@@ -274,25 +288,44 @@ def sweep(families: Optional[Sequence[str]] = None,
         with obs.span("sweep.stack", cat="sweep"):
             adj = _stack_adjacency(graphs)
         k = adj.shape[-1]
+        if mesh == "auto":
+            mesh = DX.default_mesh(k, device=dev)
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            dev = mesh.device
         tel = obs.enabled()
         wf_levels = None
         with obs.span("sweep.dist_mult", cat="sweep", stacked=len(graphs),
-                      padded=k) as sp:
-            p = WF.pad_block(k)
+                      padded=k, sharded=sharded) as sp:
+            p = (DX.pad_block_sharded(k, mesh.size, batched=True)[0]
+                 if sharded else WF.pad_block(k))
             padded = WF.pad_operand(adj, p, 0.0)
             adj_d = torch.from_numpy(padded).to(dev)
             obs.record_h2d(padded.nbytes, "sweep_stack")
-            out = WF.dist_mult_device(adj_d, telemetry=tel,
-                                      use_kernel=use_kernel)
+            if sharded:
+                out = DX.dist_mult_sharded(adj_d, mesh, telemetry=tel,
+                                           use_kernel=use_kernel)
+            else:
+                out = WF.dist_mult_device(adj_d, telemetry=tel,
+                                          use_kernel=use_kernel)
             dist_d, mult_d = out[0], out[1]
             if tel:
                 attrs = WF.telemetry_attrs(out[2])
                 wf_levels = attrs.get("levels_per_graph")
                 sp.set(**attrs)
         with obs.span("sweep.ecmp_loads", cat="sweep"):
-            loads_d = (WF.ecmp_loads_device(dist_d, mult_d, adj_d,
-                                            use_kernel=use_kernel)
-                       if throughput else None)
+            if not throughput:
+                loads_d = None
+            elif sharded:
+                loads_d = DX.ecmp_loads_sharded(dist_d, mult_d, adj_d, mesh,
+                                                use_kernel=use_kernel)
+            else:
+                loads_d = WF.ecmp_loads_device(dist_d, mult_d, adj_d,
+                                               use_kernel=use_kernel)
+            if sharded:
+                # every rank gets the whole stack: one broadcast a block
+                dist_d = DX.gather_rows(dist_d, mesh)
+                mult_d = DX.gather_rows(mult_d, mesh)
             if tel and dev.type == "cuda":
                 # the loop only enqueues its launches: with tracing on, wait
                 # for them so this span, not sweep.download, holds their time
@@ -439,8 +472,10 @@ def sweep_extreme(families: Optional[Sequence[str]] = None,
     (the widest 128-multiple divisor of the padded extent under the cap),
     which the span records; the CUDA kernels take any shape and ignore it.
     ``device`` is where the levels run (``"cuda"`` by default, which raises
-    without a card). ``mesh`` with more than one shard raises
-    NotImplementedError (the sharded engines are not ported).
+    without a card). ``mesh`` (a `analysis.distributed.RowMesh` of more
+    than one rank) runs every family's sampled rows through the composed
+    engine on ``mesh.device``: adjacency rows sharded over the ranks, one
+    all-reduce a level; every rank returns the same rows.
     """
     from .analysis.distributed import _pad128, widest_divisor_block
     from .analysis.estimator import sampled_sources_summary
@@ -567,6 +602,18 @@ def check_families(n_servers: int = 300) -> List[str]:
     return failures
 
 
+def _extreme_on_mesh(mesh, families, kw, trace=None) -> Dict:
+    """:func:`sweep_extreme` on one rank of ``--shards`` (``mesh=None``:
+    alone); with ``trace``, the rank traces and rank 0 writes the file."""
+    if trace:
+        obs.enable()
+    result = sweep_extreme(families, mesh=mesh, **kw)
+    if trace and (mesh is None or mesh.rank == 0):
+        obs.export(trace)
+        obs.log("sweep.trace", path=trace)
+    return result
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
 
@@ -604,8 +651,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-packed", action="store_true",
                     help="extreme mode: f32 cells instead of int16/int32")
     ap.add_argument("--shards", type=int, default=None,
-                    help="extreme mode: row-shard over this many devices "
-                         "(not ported: more than 1 raises)")
+                    help="extreme mode: row-shard over this many ranks "
+                         "(the composed engine; started here, gloo when "
+                         "they share a card, or torchrun's group)")
     ap.add_argument("--tile-rows", type=int, default=None)
     ap.add_argument("--adjacency-budget", type=int, default=None,
                     help="device bytes before adjacency panels stream")
@@ -621,18 +669,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         obs.enable()
 
     if args.extreme:
-        if args.shards and args.shards > 1:
-            from .analysis.distributed import _not_ported
-
-            _not_ported("--shards")
         fams = args.families.split(",") if args.families else None
-        result = sweep_extreme(
-            fams, target_routers=args.extreme,
-            k_sources=args.sample_sources, seed=args.seed,
-            packed=not args.no_packed, tile_rows=args.tile_rows,
-            adjacency_budget=args.adjacency_budget,
-            block_cap=args.block_cap or None,
-            throughput=args.throughput, device=args.device)
+        kw = dict(target_routers=args.extreme,
+                  k_sources=args.sample_sources, seed=args.seed,
+                  packed=not args.no_packed, tile_rows=args.tile_rows,
+                  adjacency_budget=args.adjacency_budget,
+                  block_cap=args.block_cap or None,
+                  throughput=args.throughput, device=args.device)
+        result = DX.launch_mesh(_extreme_on_mesh, args.shards or 1, fams, kw,
+                                args.trace, device=args.device)
+        if DX._world_size() > 1 and torch.distributed.get_rank() != 0:
+            return 0  # under torchrun every rank has the table; rank 0 prints
         table = format_extreme_table(result)
         print(table)
         if args.out:
@@ -643,9 +690,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 json.dumps(result, indent=1, default=str))
             obs.log("sweep.wrote", txt=str(out / "extreme.txt"),
                     json=str(out / "extreme.json"))
-        if args.trace:
-            obs.export(args.trace)
-            obs.log("sweep.trace", path=args.trace)
         return 0
 
     if args.check:

@@ -17,7 +17,6 @@ kernels' plain versions on CPU tensors. Tolerances:
 import dataclasses
 import json
 import pathlib
-import types
 
 import numpy as np
 import pytest
@@ -38,6 +37,8 @@ from repro.core.graph import Graph as RGraph
 from repro_torch.core import topology as T
 from repro_torch.core.analysis import (AnalysisEngine, analyze, apsp,
                                        histograms, paths, spectral)
+from repro_torch.core.analysis import distributed as D
+from repro_torch.core.analysis import mesh_ranks as MR
 from repro_torch.core.analysis import wavefront as WF
 from repro_torch.core.graph import graph_from_arrays
 from repro_torch.kernels import semiring as S
@@ -276,19 +277,28 @@ def test_sampled_mode_matches():
     assert got["exact"] is False
 
 
-_MESH = types.SimpleNamespace(size=2)
-
-
-# the tiled and packed engines are ported (tests/test_torch_extreme.py);
-# with a mesh they still need the composed engine, which is not
-@pytest.mark.parametrize("kw", [{"tile_rows": 64, "mesh": _MESH},
-                                {"packed": True, "mesh": _MESH},
-                                {"mesh": _MESH}],
-                         ids=["tiled", "packed", "mesh"])
-def test_unported_engines_raise(kw):
+@pytest.fixture(scope="module")
+def mesh_engines(tmp_path_factory):
+    """Each of `mesh_ranks.ENGINE_KNOBS` through `AnalysisEngine(mesh=)` on
+    slimfly, on a mesh of two gloo ranks."""
+    path = tmp_path_factory.mktemp("mesh") / "engines.npz"
     _, g = _pair("slimfly")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        AnalysisEngine(g, device="cpu", **kw).distances()
+    D.launch_mesh(MR.analysis_cases, 2, str(path), g, device="cpu",
+                  timeout_s=240)
+    return dict(np.load(path))
+
+
+# the name is kept from when the engines that need a mesh raised: with a
+# mesh, tiled and packed run the composed engine and neither the sharded
+# one, bit-equal to the JAX package's single-device engines
+@pytest.mark.parametrize("kw", ["tiled", "packed", "mesh"])
+def test_unported_engines_raise(mesh_engines, kw):
+    rg, _ = _pair("slimfly")
+    want = RAnalysisEngine(rg, mesh=None, **MR.ENGINE_KNOBS[kw])
+    for got, w in ((mesh_engines[f"{kw}/dist"], want.distances()),
+                   (mesh_engines[f"{kw}/mult"], want.shortest_path_mult())):
+        assert got.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(got, w)
 
 
 def test_cuda_default_raises_without_a_card():

@@ -34,8 +34,10 @@ from repro_torch.core import topology as T
 from repro_torch.core.analysis import AnalysisEngine, apsp_dense
 from repro_torch.core.analysis import distributed as D
 from repro_torch.core.analysis import wavefront as WF
-from repro_torch.core.analysis.engine_select import (require_ported,
-                                                     resolve_engine)
+from repro.core.analysis.engine_select import (
+    resolve_engine as r_resolve_engine,
+)
+from repro_torch.core.analysis.engine_select import resolve_engine
 from repro_torch.core.analysis.estimator import sampled_sources_summary
 from repro_torch.core.analysis.paths import shortest_path_multiplicity
 from repro_torch.core.graph import Graph
@@ -283,7 +285,7 @@ _MESH = types.SimpleNamespace(size=2)
     (dict(source_ids=[1, 2]), "tiled"),
     (dict(use_kernel=False), "squaring")])
 def test_engine_select_ported_plans_pass(kw, engine):
-    plan = require_ported(resolve_engine(**kw))
+    plan = resolve_engine(**kw)
     assert plan.engine == engine
 
 
@@ -292,20 +294,29 @@ def test_engine_select_ported_plans_pass(kw, engine):
                                 dict(mesh=_MESH, packed=True)],
                          ids=["sharded", "composed-tiled", "composed-packed"])
 def test_engine_select_sharded_and_composed_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        require_ported(resolve_engine(**kw))
+    # the name is kept from when these plans raised; since the mesh engines
+    # are ported they resolve, as the JAX package resolves them
+    plan, want = resolve_engine(**kw), r_resolve_engine(**kw)
+    assert plan.engine == want.engine in ("sharded", "composed")
+    assert (plan.mesh, plan.tile_rows, plan.packed) == \
+        (want.mesh, want.tile_rows, want.packed)
 
 
-def test_sharded_entry_points_raise():
-    _, g = _pair("slimfly", q=5)
-    for fn in (D.dist_mult_sharded, D.ecmp_loads_sharded,
-               D.composed_dist_mult_tiles):
-        with pytest.raises(NotImplementedError, match="second half"):
-            fn(g)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        list(D.tiled_dist_mult_tiles(g, mesh=_MESH, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        SW.main(["--extreme", "300", "--shards", "2", "--device", "cpu"])
+def _rows(out):
+    """The extreme table's family rows without the seconds column."""
+    lines = out.strip().splitlines()[3:]
+    return [line.rsplit(None, 1)[0] for line in lines]
+
+
+def test_sharded_entry_points_raise(capsys):
+    # the name is kept from when --shards raised: it now runs the composed
+    # engine on two gloo ranks and prints the rows of the unsharded run
+    args = ["--extreme", "300", "--sample-sources", "8", "--device", "cpu"]
+    assert SW.main(args) == 0
+    want = _rows(capsys.readouterr().out)
+    assert SW.main(args + ["--shards", "2"]) == 0
+    got = _rows(capsys.readouterr().out)
+    assert len(got) == 12 and got == want
 
 
 @pytest.mark.parametrize("kw", [dict(tile_rows=16), dict(packed=True),

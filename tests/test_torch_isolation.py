@@ -47,7 +47,9 @@ def _env():
 def test_importing_the_sweep_loads_neither_package():
     code = ("import sys, repro_torch.core.sweep, repro_torch.kernels.build, "
             "repro_torch.core.routing, repro_torch.core.traffic, "
-            "repro_torch.core.workload, repro_torch.obs.report; "
+            "repro_torch.core.workload, repro_torch.obs.report, "
+            "repro_torch.core.collectives, "
+            "repro_torch.core.analysis.mesh_ranks; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),

@@ -111,6 +111,20 @@ products over its rows, the narrow product of its packed K-slab) bit-equal
 to its plain version; and each rank's bytes all-reduced held to the
 engines' rule. It prints each rank's launches, walls and peak device
 memory, and claims no speed: the two ranks share one card.
+Phase 13 runs the serving path of the LM substrate (``repro_torch.configs``,
+``models``, ``launch.serve``), which launches none of the kernels: (a) the
+port held to ``experiments/serve/reference.json`` (made by the JAX
+package) on weights rebuilt by the file's numpy rule, for gemma-2b,
+phi3-mini-3.8b and qwen1.5-32b cut to two layers: prefill and
+teacher-forced decode logits and the ``Server``'s decode calls in float32
+and bfloat16, and the int8-cache decode logits; (b) gemma-2b at full width
+(18 layers, ~2.5 B parameters, bf16 weights drawn on the card): the
+``Server`` answers 8 requests, prefill of 512 tokens against
+teacher-forced decode (layer 0's caches held), the flash forward over 2 x 2
+chunks of a 2048-token prompt against ``chunked_attention`` in float32;
+it prints the decode step's median time, tokens/s, the busy share of the
+serve loop, peak device memory and the weight-read bound, and claims no
+speed.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -3605,6 +3619,415 @@ def mesh_phase(D, full, dragonfly_row, dragonfly, sizes=MESH_SIZES,
     return launches
 
 
+# -- phase 13: the serving path (the LM substrate) ---------------------------------
+
+#: float32 logits against the JAX package (prefill's last token)
+F32_RTOL, F32_ATOL = 1e-4, 1e-5
+#: float32 logits of every position (teacher-forced decode): the JAX
+#: package's own float32 decode logits are 2.0e-5 from a float64
+#: evaluation of the same weights, the port's 2.78e-5
+#: (``experiments/serve/conditioning.py``; the scores are of order 10^2,
+#: so the softmax amplifies ulp-level differences): a gap below 1e-5
+#: cannot be met by another float32 implementation; held at 5e-5
+F32_SEQ_ATOL = 5e-5
+#: bfloat16: eight bfloat16 epsilons (2^-7 each) on a logit, and the top-2
+#: gap below which a served token may differ
+BF16_TOL = 2.0 ** -4
+#: the int8-cache decode logits: one int8 code is 1/127 of a token's
+#: largest |k| or |v|, and a one-ulp difference before quantization can
+#: move a value by a code, so sixteen bfloat16 epsilons
+INT8_TOL = 2.0 ** -3
+#: phase 13b's serving run at full width, and the prompts of its checks
+FULL_SERVE = {"max_batch": 4, "max_len": 256, "requests": 8, "min_len": 4,
+              "max_len_prompt": 12, "max_new": 32, "seed": 0}
+PREFILL_DECODE_LEN, FLASH_LEN = 512, 2048
+#: prefill against teacher-forced decode at full width, bf16: layer 0's k
+#: and v caches (which depend on no attention) held within one bf16
+#: epsilon (2^-7) of their largest entry. Deeper layers and the last
+#: token's logits are printed, not held: init_params' stddevs (fan-in
+#: from the stacked leaves' shape[-2]: wk's is 1 for one KV head) give
+#: attention scores of std ~720, and the softmax's near-ties turn
+#: rounding into different attention rows: on a 6-layer cut, float32
+#: prefill and decode logits differ by 1.42, float64's by 8.2e-8
+#: (``experiments/serve/conditioning.py``)
+PREFILL_DECODE_TOL = 2.0 ** -7
+
+
+def _ref_array(d):
+    import base64
+
+    return np.frombuffer(base64.b64decode(d["b64"]), dtype="<f4").reshape(
+        d["shape"])
+
+
+def _recording(srv):
+    """Wrap ``srv.decode`` to keep each call's position, next tokens and
+    whether its logits are all finite."""
+    calls, inner = [], srv.decode
+
+    def recording(model, tok, caches, pos):
+        nxt, logits, new = inner(model, tok, caches, pos)
+        calls.append({"pos": int(pos), "next": nxt[:, 0].cpu().numpy(),
+                      "finite": bool(torch.isfinite(logits).all())})
+        return nxt, logits, new
+
+    srv.decode = recording
+    return calls
+
+
+def _serve_requests(cfg, spec, Request):
+    rng = np.random.default_rng(spec["seed"])
+    reqs = []
+    for rid in range(spec["requests"]):
+        plen = int(rng.integers(spec["min_len"], spec["max_len_prompt"] + 1))
+        reqs.append(Request(rid, rng.integers(0, cfg.vocab_size, plen,
+                                              dtype=np.int32),
+                            max_new=spec["max_new"]))
+    return reqs
+
+
+def _teacher_forced(steps, transformer, cfg, model, toks, cache_dtype, dev):
+    b, s = toks.shape
+    caches = transformer.init_decode_caches(cfg, b, s, dtype=cache_dtype,
+                                            device=dev)
+    step = steps.make_decode_step(cfg)
+    out = []
+    for t in range(s):
+        _, logits, caches = step(model, toks[:, t:t + 1], caches, t)
+        out.append(logits[:, 0].float().cpu().numpy())
+    return np.stack(out)
+
+
+def _held(what, got, want, rtol, atol):
+    err = np.abs(got - want)
+    bad = err > atol + rtol * np.abs(want)
+    check(np.isfinite(got).all(), f"{what}: non-finite logits")
+    check(not bad.any(), f"{what}: {int(bad.sum())} logits off by up to "
+          f"{err.max():.3g} (rtol {rtol}, atol {atol})")
+    return float(err.max())
+
+
+def _served_tokens_held(what, calls, want, exact):
+    """Hold a run's decode calls to the file's, call by call: each call's
+    next tokens (all slots) equal, except, where ``exact`` is false, at a
+    slot whose top-2 gap in the file is within BF16_TOL; the first such
+    difference ends the comparison (the histories part there). Returns
+    (calls compared, the near-tie differences printed)."""
+    check(len(calls) == len(want["calls"]),
+          f"{what}: {len(calls)} decode calls, the file {len(want['calls'])}")
+    for i, (got, ref) in enumerate(zip(calls, want["calls"])):
+        check(got["pos"] == ref["pos"], f"{what}: call {i} at position "
+              f"{got['pos']}, the file {ref['pos']}")
+        check(got["finite"], f"{what}: call {i} has non-finite logits")
+        diff = np.flatnonzero(got["next"] != np.asarray(ref["next"]))
+        if diff.size == 0:
+            continue
+        gaps = np.asarray(ref["gap"])[diff]
+        check(not exact and (gaps <= BF16_TOL).all(),
+              f"{what}: call {i} slots {diff.tolist()} serve "
+              f"{got['next'][diff].tolist()}, the file "
+              f"{np.asarray(ref['next'])[diff].tolist()} (top-2 gaps "
+              f"{gaps.tolist()})")
+        print(f"  {what}: call {i} (position {ref['pos']}) slots "
+              f"{diff.tolist()} differ at top-2 gaps {gaps.tolist()} <= "
+              f"{BF16_TOL}; compared up to there")
+        return i, 1
+    return len(calls), 0
+
+
+def _device_busy(fn):
+    """(busy share, device ms, wall ms) of ``fn``: the kernels' device time
+    over the host's wall, from a profile of CUDA activity alone (the host
+    ops of ~100k launches would make the profile slower to read than the
+    run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e3
+    return dev / wall, dev, wall
+
+
+def serve_reference_phase(ref, device="cuda"):
+    """13a: the port held to ``experiments/serve/reference.json`` (made by
+    the JAX package): each config's spec tree and seeded weights, then in
+    float32 and bfloat16 the prefill logits, the teacher-forced decode
+    logits and what the ``Server`` serves; the int8-cache decode logits.
+    Returns {case: largest logit gap}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import convert, steps, transformer
+    from repro_torch.models.common import tree_leaves
+
+    dev = torch.device(device)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gaps = {}
+    for arch, rec in ref["configs"].items():
+        base = get_config(arch).reduced(**rec["overrides"])
+        specs = sorted([p, list(s.shape)] for p, s in
+                       tree_leaves(transformer.param_specs(base)))
+        check(specs == rec["specs"], f"{arch}: the port's spec tree differs "
+              f"from the file's")
+        tree = convert.numpy_params(base, ref["seed"])
+        check(convert.params_sha256(tree) == rec["weights_sha256"],
+              f"{arch}: the numpy weight rule drew other weights than the "
+              f"file's (numpy {np.__version__})")
+        toks = torch.tensor(rec["prompt"], dtype=torch.int32, device=dev)
+        for name, dt in dtypes.items():
+            f32 = name == "float32"
+            rtol, atol = (F32_RTOL, F32_ATOL) if f32 else (0.0, BF16_TOL)
+            want = rec[name]
+            cfg = dataclasses.replace(base, param_dtype=name)
+            model = steps.cast_model(
+                cfg, convert.from_jax_params(cfg, tree, dev))
+            logits, _ = steps.make_prefill_step(cfg)(model, {"tokens": toks})
+            key = f"{arch} {name}"
+            gaps[f"{key} prefill"] = _held(
+                f"13a {key} prefill", logits[:, 0].float().cpu().numpy(),
+                _ref_array(want["prefill_logits"]), rtol, atol)
+            got = _teacher_forced(steps, transformer, cfg, model, toks,
+                                  dtypes[want["decode_cache_dtype"]], dev)
+            gaps[f"{key} decode"] = _held(
+                f"13a {key} decode", got, _ref_array(want["decode_logits"]),
+                rtol, F32_SEQ_ATOL if f32 else atol)
+            srv = Server(cfg, model, max_batch=ref["serve"]["max_batch"],
+                         max_len=ref["serve"]["max_len"])
+            calls = _recording(srv)
+            for req in _serve_requests(cfg, ref["serve"], Request):
+                srv.submit(req)
+            while srv.step():
+                pass
+            # the server's caches are bf16 in both dtypes (init_decode_caches'
+            # default, as in the JAX package), so a cache entry rounded the
+            # other way moves its logits by far more than float32 round-off
+            # (on an H100, gemma-2b float32's decode call 73 served another
+            # token at a top-2 gap of 3.4e-4): both dtypes' tokens are held
+            # to the file by the near-tie rule
+            compared, ties = _served_tokens_held(
+                f"13a {key} serve", calls, want["serve"], exact=False)
+            check(srv.steps == want["serve"]["steps"]
+                  and [r.rid for r in srv.done] == want["serve"]["done_order"],
+                  f"13a {key} serve: {srv.steps} steps, done order "
+                  f"{[r.rid for r in srv.done]}")
+            if not ties:
+                served = {str(r.rid): r.out for r in srv.done}
+                check(served == want["serve"]["tokens"],
+                      f"13a {key} serve: tokens differ from the file's")
+            print(f"  13a {key}: prefill {gaps[f'{key} prefill']:.3g}, "
+                  f"decode {gaps[f'{key} decode']:.3g} largest logit gap; "
+                  f"served {compared}/{len(calls)} decode calls equal"
+                  + (" (then a near-tie)" if ties else
+                     f", {srv.steps} steps, all tokens equal"))
+    rec = ref["int8"]
+    cfg = dataclasses.replace(get_config(rec["arch"]).reduced(
+        **rec["overrides"]), param_dtype=rec["param_dtype"])
+    model = steps.cast_model(cfg, convert.from_jax_params(
+        cfg, convert.numpy_params(cfg, ref["seed"]), dev))
+    toks = torch.tensor(ref["configs"][rec["arch"]]["prompt"],
+                        dtype=torch.int32, device=dev)
+    got = _teacher_forced(steps, transformer, cfg, model, toks,
+                          torch.bfloat16, dev)
+    gaps["int8 decode"] = _held("13a int8 decode", got,
+                                _ref_array(rec["decode_logits"]), 0.0,
+                                INT8_TOL)
+    print(f"  13a {rec['arch']} int8 cache: decode {gaps['int8 decode']:.3g} "
+          f"largest logit gap")
+    return gaps
+
+
+def serve_full_width_phase(cfg, part, device="cuda", serve=FULL_SERVE,
+                           prefill_len=PREFILL_DECODE_LEN,
+                           flash_len=FLASH_LEN):
+    """13b: ``cfg`` (gemma-2b as configured on the card) on weights drawn
+    by ``init_params`` in float32 on the device, cast to bf16 as the JAX
+    serve CLI casts its params; the ``Server`` answers ``serve``'s
+    requests (tokens in range, logits finite); prefill of one
+    ``prefill_len``-token prompt against teacher-forced decode, layer 0's
+    caches held (the deeper layers' and the last logits' agreement
+    printed); prefill of one ``flash_len``-token prompt, whose layer-0
+    attention (flash forward over its chunks) is held to
+    ``chunked_attention`` in float32. Prints and returns the decode
+    step's median ms, tokens/s, busy share, peak memory and the step's
+    weight-read bound."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import attention, steps, transformer
+    from repro_torch.models.common import apply_rope, init_params
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(transformer.param_specs(cfg), gen, torch.float32, dev)
+    model = transformer.Transformer(cfg, params).to(torch.bfloat16)
+    del params  # the float32 copy goes before serving
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"  13b {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.padded_vocab}: {n_params:,} parameters, "
+          f"{weight_bytes / 1e9:.3f} GB bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # serving: a checked run (which also warms up), a timed run, a profiled run
+    def run_server(check_calls):
+        srv = Server(cfg, model, max_batch=serve["max_batch"],
+                     max_len=serve["max_len"])
+        calls = _recording(srv) if check_calls else None
+        for req in _serve_requests(cfg, serve, Request):
+            srv.submit(req)
+        while srv.step():
+            pass
+        return srv, calls
+
+    t1 = time.perf_counter()
+    srv, calls = run_server(True)
+    t_checked = time.perf_counter() - t1
+    for i, c in enumerate(calls):
+        check(c["finite"], f"13b serve: non-finite logits in decode call {i}")
+        check(((c["next"] >= 0) & (c["next"] < cfg.vocab_size)).all(),
+              f"13b serve: call {i} serves {c['next'].tolist()}")
+    served = [t for r in srv.done for t in r.out]
+    check(len(srv.done) == serve["requests"]
+          and all(len(r.out) == serve["max_new"] for r in srv.done),
+          f"13b serve: {len(srv.done)} requests done")
+    check(all(0 <= t < cfg.vocab_size for t in served),
+          "13b serve: a token outside the vocabulary")
+    n_calls = len(calls)
+    del calls
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv, _ = run_server(False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tok_s = len(served) / wall
+    busy = None
+    if on_card:
+        t1 = time.perf_counter()
+        busy, dev_ms, pwall = _device_busy(lambda: run_server(False))
+        print(f"  13b serve loop profiled (CUDA activity only): device "
+              f"{dev_ms:.1f} ms of {pwall:.1f} ms; profile read in "
+              f"{time.perf_counter() - t1:.2f} s")
+    # the decode step alone, batch max_batch over a max_len cache
+    step = steps.make_decode_step(cfg)
+    caches = transformer.init_decode_caches(cfg, serve["max_batch"],
+                                            serve["max_len"], device=dev)
+    tok = torch.zeros((serve["max_batch"], 1), dtype=torch.int32, device=dev)
+    if on_card:
+        step_ms = timed_ms(lambda: step(model, tok, caches, 100), iters=20,
+                           warmup=3)
+    else:
+        step_ms = None
+    bound = weight_bytes / PEAKS[part][1] * 1e3
+    print(f"  13b serve: {len(srv.done)} requests, {len(served)} tokens in "
+          f"{srv.steps} batch steps and {n_calls} decode calls (the naive "
+          f"prefill feeds prompts through decode); every token in "
+          f"[0, {cfg.vocab_size}), every logit finite (checked run "
+          f"{t_checked:.2f} s, the first)")
+
+    # prefill against teacher-forced decode: the caches each leaves
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(serve["seed"] + 1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prefill_len),
+                                         dtype=np.int32)).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    logits_p, caches_p = prefill(model, {"tokens": toks})
+    caches_d = transformer.init_decode_caches(cfg, 1, prefill_len, device=dev)
+    for t in range(prefill_len):
+        _, logits_d, caches_d = step(model, toks[:, t:t + 1], caches_d, t)
+    lp = logits_p[0, 0].float().cpu().numpy()
+    ld = logits_d[0, 0].float().cpu().numpy()
+    check(np.isfinite(lp).all() and np.isfinite(ld).all(),
+          "13b prefill/decode: non-finite logits")
+    agree = []
+    for name in ("k", "v"):
+        kp = caches_p["l0"][name].float()
+        kd = caches_d["l0"][name].float()
+        err0 = float((kp[0] - kd[0]).abs().max())
+        tol0 = PREFILL_DECODE_TOL * float(kd[0].abs().max())
+        check(err0 <= tol0, f"13b prefill vs decode: layer 0's {name} cache "
+              f"differs by {err0:.4g} > {tol0:.4g}")
+        row_tol = PREFILL_DECODE_TOL * kd.abs().amax(dim=(2, 3, 4))
+        agree.append(((kp - kd).abs().amax(dim=(2, 3, 4)) <= row_tol)
+                     .float().mean(dim=(1,)).cpu().numpy())
+    del caches_p, caches_d
+    share = np.minimum(agree[0], agree[1])
+    print(f"  13b prefill of {prefill_len} tokens against teacher-forced "
+          f"decode ({time.perf_counter() - t1:.2f} s): layer 0's k and v "
+          f"caches at every position within 2^-7 of their largest entry "
+          f"(held); positions "
+          f"whose k and v agree so, by layer: "
+          + " ".join(f"{x:.3f}" for x in share)
+          + f"; last-token logits {np.abs(lp - ld).max():.4g} apart, top-1 "
+          f"{int(lp.argmax())} / {int(ld.argmax())} (not held: with these "
+          f"weights the scores reach O(10^3) and the softmax's near-ties "
+          f"make deeper layers chaotic even in float32)")
+
+    # the flash forward over several chunks, layer 0 against the oracle
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, flash_len),
+                                         dtype=np.int32)).to(dev)
+    nq = -(-flash_len // cfg.q_chunk)
+    nk = -(-flash_len // cfg.kv_chunk)
+    check(nq > 1 and nk > 1, f"13b: {flash_len} tokens are one chunk")
+    with torch.no_grad():
+        block = model.layers[0]
+        h = transformer._apply_norm(block.norm1, model.embed_tokens(toks), cfg)
+        q, k, v = attention._project_qkv(block.attn, h)
+        pos = torch.arange(flash_len, device=dev)
+        q = apply_rope(q, pos[None, :], cfg.rope_theta)
+        k = apply_rope(k, pos[None, :], cfg.rope_theta)
+        got = attention._flash(q, k, v, causal=True, prefix_len=0, cfg=cfg)
+        want = attention.chunked_attention(
+            q.float(), k.float(), v.float(), pos, pos, causal=True,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    tol_fl = 2.0 ** -7 * float(v.float().abs().max())
+    err_fl = float((got.float() - want).abs().max())
+    check(err_fl <= tol_fl, f"13b flash ({nq} x {nk} chunks) against "
+          f"chunked_attention in float32: {err_fl:.4g} > {tol_fl:.4g}")
+    logits_f, caches = prefill(model, {"tokens": toks})
+    check(tuple(logits_f.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits_f).all())
+          and tuple(caches["l0"]["k"].shape) == (
+              cfg.n_layers, 1, flash_len, cfg.n_kv_heads, cfg.head_dim),
+          f"13b prefill of {flash_len} tokens: logits "
+          f"{tuple(logits_f.shape)}, caches {tuple(caches['l0']['k'].shape)}")
+    del caches
+    print(f"  13b flash forward over {nq} x {nk} chunks of {cfg.q_chunk} x "
+          f"{cfg.kv_chunk} ({flash_len} tokens; {time.perf_counter() - t1:.2f}"
+          f" s with the prefill below), layer 0 against "
+          f"chunked_attention in float32: {err_fl:.4g} (<= 2^-7 max|v| = "
+          f"{tol_fl:.4g}); prefill of {flash_len} tokens finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    stats = {"step_ms": step_ms, "tok_s": tok_s, "busy": busy,
+             "peak_gib": peak, "bound_ms": bound, "wall_s": wall,
+             "calls": n_calls, "steps": srv.steps, "tokens": len(served)}
+    if on_card:
+        print(f"  13b decode step (batch {serve['max_batch']}, cache "
+              f"{serve['max_len']}): median {step_ms:.3f} ms against a "
+              f"weight-read bound of {bound:.3f} ms ({weight_bytes:,} bf16 "
+              f"bytes at {PEAKS[part][1] / 1e12:.2f} TB/s); serve loop "
+              f"{wall:.3f} s, {tok_s:.1f} tokens/s; device busy "
+              f"{100 * busy:.1f}% of the profiled serve loop; peak device "
+              f"memory {peak:.2f} GiB")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3638,11 +4061,16 @@ def main() -> int:
     part = part_of(name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phase 13's bf16 GEMMs accumulate in float32, as XLA's do (the default
+    # lets cuBLAS reduce them in bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"[1 device] {smi}")
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name} ({part} peaks used for bounds); "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"matmul.allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -3795,6 +4223,25 @@ def main() -> int:
 
     # 12. the mesh: two ranks on the one card, counted in each rank
     mesh_counts = mesh_phase(D, full, dragonfly_row, dragonfly)
+
+    # 13. the serving path: the reference configs, then gemma-2b at full width
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "bf16 GEMMs would reduce in bf16")
+    from repro_torch.configs import get_config
+    before = dict(S.launches)
+    t0 = time.perf_counter()
+    sref = json.loads((ROOT / "experiments" / "serve"
+                       / "reference.json").read_text())
+    print("[13 serve] 13a: the port against experiments/serve/reference.json")
+    serve_reference_phase(sref)
+    t_a = time.perf_counter() - t0
+    print(f"[13 serve] 13b: gemma-2b at full width ({smi})")
+    serve_full_width_phase(get_config("gemma-2b"), part)
+    check(dict(S.launches) == before,
+          f"the serving path launched a kernel: {dict(S.launches)} against "
+          f"{before}")
+    print(f"[13 serve] {time.perf_counter() - t0:.2f} s (13a {t_a:.2f} s); "
+          f"none of the 11 kernels launched")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)

@@ -1,0 +1,103 @@
+"""Carry weights and decode caches between the JAX package's trees and
+the port.
+
+A JAX parameter tree is a nested dict of arrays in the layout of
+``transformer.param_specs`` (layers stacked on a leading ``repeats`` axis);
+`from_jax_params` copies one (as numpy arrays) into a `Transformer`,
+`to_numpy_params` copies it back. `caches_from_jax` / `caches_to_numpy` do
+the same for decode caches. bfloat16 arrays (``ml_dtypes``, as
+``np.asarray`` of a JAX bf16 array gives them) travel bit for bit through
+their uint16 view.
+
+`numpy_params` is the seeded weight rule that both packages implement for
+``experiments/serve/reference.json``: the spec leaves sorted by path
+string, each ``np.random.default_rng(seed).standard_normal(shape,
+float32) * stddev`` from one generator in that order, where stddev is the
+spec's own for ``normal`` leaves and 0.1 for the zeros/ones-initialized
+norm weights and biases (so that a wrong ``(1 + w)`` or a dropped bias
+shows).
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .common import tree_leaves, tree_map, unflatten
+from .transformer import Transformer, param_specs
+
+__all__ = ["numpy_params", "params_sha256", "from_jax_params",
+           "to_numpy_params", "caches_from_jax", "caches_to_numpy"]
+
+#: stddev of the zeros/ones-initialized leaves under the reference rule
+SMALL_LEAF_STD = 0.1
+
+
+def numpy_params(cfg, seed: int) -> Dict:
+    """The reference weight rule on the port's spec tree (float32)."""
+    leaves = dict(tree_leaves(param_specs(cfg)))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path in sorted(leaves):
+        s = leaves[path]
+        std = s.stddev() if s.init == "normal" else SMALL_LEAF_STD
+        out[path] = rng.standard_normal(s.shape, np.float32) * std
+    return unflatten(out)
+
+
+def params_sha256(tree: Dict) -> str:
+    """sha256 of the leaves' bytes in sorted path order (the reference's
+    check that both packages drew the same weights)."""
+    h = hashlib.sha256()
+    leaves = dict(tree_leaves(tree))
+    for path in sorted(leaves):
+        h.update(np.ascontiguousarray(leaves[path]).tobytes())
+    return h.hexdigest()
+
+
+def _tensor(a: Any, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """float32 numpy for floating tensors (bf16 exactly), else as is."""
+    t = t.detach().cpu()
+    if t.is_floating_point():
+        t = t.float()
+    return t.numpy()
+
+
+def from_jax_params(cfg, tree: Dict, device="cuda") -> Transformer:
+    """A `Transformer` holding copies of ``tree``'s arrays on ``device``, in
+    their own dtype (cast with ``steps.cast_model``)."""
+    from ..core.analysis.wavefront import resolve_device
+
+    dev = resolve_device(device)
+    want = {p: s.shape for p, s in tree_leaves(param_specs(cfg))}
+    got = {p: tuple(np.shape(a)) for p, a in tree_leaves(tree)}
+    if got != want:
+        raise ValueError(f"parameter tree does not match {cfg.arch}'s "
+                         f"specs: {sorted(set(got.items()) ^ set(want.items()))}")
+    return Transformer(cfg, tree_map(lambda a: _tensor(a, dev), tree))
+
+
+def to_numpy_params(model: Transformer) -> Dict:
+    """The model's parameters as a JAX-layout tree of numpy arrays."""
+    return tree_map(_numpy, model.param_tree())
+
+
+def caches_from_jax(caches: Dict, device="cuda") -> Dict:
+    from ..core.analysis.wavefront import resolve_device
+
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), caches)
+
+
+def caches_to_numpy(caches: Dict) -> Dict:
+    return tree_map(_numpy, caches)

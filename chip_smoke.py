@@ -122,9 +122,28 @@ and bfloat16, and the int8-cache decode logits; (b) gemma-2b at full width
 ``Server`` answers 8 requests, prefill of 512 tokens against
 teacher-forced decode (layer 0's caches held), the flash forward over 2 x 2
 chunks of a 2048-token prompt against ``chunked_attention`` in float32;
-it prints the decode step's median time, tokens/s, the busy share of the
-serve loop, peak device memory and the weight-read bound, and claims no
-speed.
+it prints the decode step's median time, tokens/s, the busy share of 10
+profiled decode steps, peak device memory and the weight-read bound, and
+claims no speed.
+Phase 14 runs the training path of the LM substrate (``optim``, the flash
+backward, ``lm_loss``, ``steps.make_train_step``, ``data``,
+``checkpoint``), which launches none of the kernels either: (a) the port
+held to ``experiments/train/reference.json`` (made by the JAX package):
+the three reference configs in float32 and bfloat16, the first step's
+loss and gradients, the params after one AdamW step, a 5-step
+trajectory, accum_steps=2 and remat "none" against "full"; (b)
+``examples/train_100m.py``'s configuration (110,119,680 parameters) for
+its 300 steps, held to the example's ``last < first - 0.5``, then N
+steps straight against N with a save/restore at N/2 in a subprocess under
+deterministic algorithms, bit-equal; (c) gemma-2b at full width (remat
+full, float32 master and moments, ~49 GiB) for 2 steps of 2048 tokens,
+finite and moving, and the flash backward at its attention shapes
+against autograd through ``chunked_attention``; (d) with
+``allow_bf16_reduced_precision_reduction`` on, the train and decode steps
+refuse a CUDA model. It prints each step's median time against the 6 N T
+bound at the bf16 peak, tokens/s, the busy share of a short profiled
+window and peak device memory, and claims no speed. Every phase prints
+its wall (``[wall]`` lines).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -139,6 +158,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -3641,6 +3661,8 @@ INT8_TOL = 2.0 ** -3
 FULL_SERVE = {"max_batch": 4, "max_len": 256, "requests": 8, "min_len": 4,
               "max_len_prompt": 12, "max_new": 32, "seed": 0}
 PREFILL_DECODE_LEN, FLASH_LEN = 512, 2048
+#: decode steps in 13b's profiled window
+PROFILED_CALLS = 10
 #: prefill against teacher-forced decode at full width, bf16: layer 0's k
 #: and v caches (which depend on no attention) held within one bf16
 #: epsilon (2^-7) of their largest entry. Deeper layers and the last
@@ -3917,13 +3939,9 @@ def serve_full_width_phase(cfg, part, device="cuda", serve=FULL_SERVE,
     wall = time.perf_counter() - t0
     tok_s = len(served) / wall
     busy = None
-    if on_card:
-        t1 = time.perf_counter()
-        busy, dev_ms, pwall = _device_busy(lambda: run_server(False))
-        print(f"  13b serve loop profiled (CUDA activity only): device "
-              f"{dev_ms:.1f} ms of {pwall:.1f} ms; profile read in "
-              f"{time.perf_counter() - t1:.2f} s")
-    # the decode step alone, batch max_batch over a max_len cache
+    # the decode step alone, batch max_batch over a max_len cache; then a
+    # short window of it profiled (a profile of the whole serve loop took
+    # 44 s to read)
     step = steps.make_decode_step(cfg)
     caches = transformer.init_decode_caches(cfg, serve["max_batch"],
                                             serve["max_len"], device=dev)
@@ -3931,6 +3949,12 @@ def serve_full_width_phase(cfg, part, device="cuda", serve=FULL_SERVE,
     if on_card:
         step_ms = timed_ms(lambda: step(model, tok, caches, 100), iters=20,
                            warmup=3)
+        t1 = time.perf_counter()
+        busy, dev_ms, pwall = _device_busy(lambda: [
+            step(model, tok, caches, 100) for _ in range(PROFILED_CALLS)])
+        print(f"  13b {PROFILED_CALLS} decode steps profiled (CUDA activity "
+              f"only): device {dev_ms:.1f} ms of {pwall:.1f} ms; profile "
+              f"read in {time.perf_counter() - t1:.2f} s")
     else:
         step_ms = None
     bound = weight_bytes / PEAKS[part][1] * 1e3
@@ -4023,9 +4047,633 @@ def serve_full_width_phase(cfg, part, device="cuda", serve=FULL_SERVE,
               f"weight-read bound of {bound:.3f} ms ({weight_bytes:,} bf16 "
               f"bytes at {PEAKS[part][1] / 1e12:.2f} TB/s); serve loop "
               f"{wall:.3f} s, {tok_s:.1f} tokens/s; device busy "
-              f"{100 * busy:.1f}% of the profiled serve loop; peak device "
+              f"{100 * busy:.1f}% of {PROFILED_CALLS} profiled decode steps; "
+              f"peak device "
               f"memory {peak:.2f} GiB")
     return stats
+
+
+# -- phase 14: training (the LM substrate) -----------------------------------------
+
+#: float32 gradients against the JAX package: per leaf max |delta| within
+#: F32_GRAD_TOL x the leaf's largest |entry|. The JAX package's own float32
+#: gradients are up to 1.97e-4 x max |g| from a float64 evaluation of the
+#: same loss, the port's up to 2.19e-4 (``experiments/train/conditioning.py``:
+#: the attention scores of these weights are O(10^2)), so two float32
+#: implementations may differ by twice that
+F32_GRAD_TOL = 5e-4
+#: float32 losses of the first step (rtol 1e-5) and of the
+#: trajectory, whose later steps follow updates of +-lr where a gradient
+#: entry near zero flips sign
+F32_LOSS_RTOL, F32_TRAJ_RTOL = 1e-5, 1e-4
+#: bfloat16 against the JAX package's bfloat16, both recorded in the file:
+#: each gradient leaf's relative L2 distance (estimated from the file's
+#: sketch) within BF16_GAP_FRACTION of the JAX package's own bfloat16-vs-
+#: float32 distance of that leaf, and never past BF16_GRAD_RTOL; the loss
+#: and grad_norm of a step within BF16_GAP_FRACTION of their own gaps. On
+#: the CPU the port is at most 0.25 of the way (0.059-0.247 relative L2
+#: against gaps of 0.042-1.52; tests/test_torch_train.py), so a gradient
+#: computed in float32 (at the full gap), zero (1) or negated (2) fails
+BF16_GAP_FRACTION, BF16_GRAD_RTOL = 0.5, 0.4
+#: remat "full" against "none" on one device: the same operations, so equal
+#: within float32 round-off of the atomically summed embedding gradient
+REMAT_TOL = 1e-5
+#: train_100m.py's configuration (examples/train_100m.py:39-40)
+TRAIN_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
+                  head_dim=64, d_ff=2048, vocab_size=16_384, loss_chunk=2048,
+                  q_chunk=256, kv_chunk=256, remat="none")
+TRAIN_100M_RUN = {"steps": 300, "batch": 8, "seq": 256, "lr": 6e-4,
+                  "weight_decay": 0.01, "warmup": 30, "seed": 17,
+                  "resume_steps": 20, "profiled_steps": 10}
+#: 14c: gemma-2b at full width, one sequence of 2048 tokens a step
+FULL_TRAIN = {"batch": 1, "seq": 2048, "steps": 2, "seed": 5}
+#: the flash backward at gemma's shapes against autograd through
+#: chunked_attention, both float32: max |delta| within FLASH_GRAD_TOL x
+#: max |grad| of each of dq, dk, dv (2^-14; two float32 sums of 2048 terms
+#: in other orders)
+FLASH_GRAD_TOL = 2.0 ** -14
+
+
+def _train_batches(cfg, spec, n, start=0):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=spec["seq"],
+                                 global_batch=spec["batch"],
+                                 seed=spec["seed"]))
+    return [src.batch_at(i) for i in range(start, start + n)]
+
+
+def _leaf_entries(t):
+    flat = t.detach().float().reshape(-1).cpu().numpy()
+    idx = np.linspace(0, flat.size - 1, 8).round().astype(np.int64)
+    return float(np.linalg.norm(flat.astype(np.float64))), flat[idx]
+
+
+def _sketch(t, path, rows, seed):
+    """experiments/train/make_reference.py's ``sketch`` of a leaf."""
+    flat = t.detach().double().reshape(-1).cpu().numpy()
+    rng = np.random.default_rng([seed, *path.encode()])
+    return np.array([np.sum(rng.standard_normal(flat.size) * flat)
+                     for _ in range(rows)]) / rows ** 0.5
+
+
+def _grads_held(what, grads, want, tol_of, seed=None):
+    """Each gradient leaf against the file's: its L2 distance (estimated
+    from the file's sketch, where it has one) and its norm's gap within
+    ``tol_of(path)`` x the file's norm, its entries within ``tol_of(path)``
+    x the file's largest |entry|; ``seed`` is the file's sketch seed.
+    Returns the largest relative distance (or entry gap over max |g|,
+    without a sketch)."""
+    from repro_torch.models.common import sorted_leaves
+
+    worst = 0.0
+    got = dict(sorted_leaves(grads))
+    check(sorted(got) == sorted(want), f"{what}: leaves {sorted(got)}")
+    for path, rec in want.items():
+        norm, vals = _leaf_entries(got[path])
+        tol = tol_of(path)
+        entry_err = float(np.abs(vals - np.asarray(rec["values"])).max())
+        rel = (float(np.linalg.norm(
+            _sketch(got[path], path, len(rec["sketch"]), seed)
+            - np.asarray(rec["sketch"]))) / rec["norm"]
+               if "sketch" in rec else 0.0)
+        check(np.isfinite(vals).all() and entry_err <= tol * rec["absmax"]
+              and abs(norm - rec["norm"]) <= tol * rec["norm"]
+              and rel <= tol,
+              f"{what} {path}: relative distance {rel:.4g}, norm {norm} "
+              f"against {rec['norm']}, entries off by {entry_err:.4g} "
+              f"(tol {tol:.4g})")
+        worst = max(worst, rel if "sketch" in rec
+                    else entry_err / rec["absmax"])
+    return worst
+
+
+def _params_held(what, params, want, grads, p0, lr, eps, grad_norm, clip,
+                 gtol_of, norm_rtol):
+    """The params after one AdamW step: per entry within the change a
+    gradient held to ``gtol`` can make. Step 1 moves a param by -lr (x /
+    (|x| + eps) + wd p) with x the clipped gradient: where |g| > 2 gtol
+    the sign is fixed and x's error moves the ratio by at most eps gtol s /
+    (|x| (|x| - s gtol)); elsewhere the sign may flip (2 lr). Each leaf's
+    norm within ``norm_rtol``, or, with ``norm_rtol`` None (every sign may
+    flip), within 2 lr sqrt(n)."""
+    from repro_torch.models.common import sorted_leaves
+
+    s = min(1.0, clip / (grad_norm + 1e-9)) if clip > 0 else 1.0
+    got = dict(sorted_leaves(params))
+    init = dict(sorted_leaves(p0))
+    worst = 0.0
+    for path, rec in want.items():
+        norm, vals = _leaf_entries(got[path])
+        _, start = _leaf_entries(torch.as_tensor(init[path]))
+        ref = np.asarray(rec["values"])
+        g = np.abs(np.asarray(grads[path]["values"]))
+        gtol = gtol_of(path) * grads[path]["absmax"]
+        x = s * g
+        ratio_err = np.where(g > 2 * gtol, eps * s * gtol / np.maximum(
+            x * (x - s * gtol), 1e-45), 2.0)
+        tol = lr * np.minimum(ratio_err, 2.0) + 1e-6 * np.abs(start) + 1e-9
+        err = np.abs(vals - ref)
+        check(np.isfinite(vals).all() and (err <= tol).all(),
+              f"{what} {path}: entries off by {err.max():.4g} (tol "
+              f"{tol[np.argmax(err - tol)]:.4g})")
+        norm_tol = (norm_rtol * rec["norm"] if norm_rtol is not None
+                    else 2 * lr * got[path].numel() ** 0.5)
+        check(abs(norm - rec["norm"]) <= norm_tol,
+              f"{what} {path}: norm {norm} against {rec['norm']}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def train_reference_phase(ref, device="cuda"):
+    """14a: the port held to ``experiments/train/reference.json`` (made by
+    the JAX package) for each config and dtype: the first step's loss and
+    gradients (value and grad), the params after one AdamW step, a 5-step
+    loss trajectory, a step with accum_steps=2 and remat "none" beside
+    "full". bfloat16 is held to the file's bfloat16 within a fraction of
+    the JAX package's own bfloat16-vs-float32 gap (``BF16_GAP_FRACTION``,
+    ``BF16_GRAD_RTOL``), so a port that ran the bfloat16 config in float32
+    fails. Returns {case: largest gap}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, steps
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWConfig, adamw
+
+    dev = torch.device(device)
+    spec = ref["data"]
+    opt = ref["adamw"]
+    gaps = {}
+    for arch, rec in ref["configs"].items():
+        base = get_config(arch).reduced(n_layers=ref["n_layers"])
+        tree = convert.numpy_params(base, ref["seed"])
+        data = _train_batches(base, spec, ref["trajectory_steps"])
+        f32 = rec["float32"]
+        for name in ("float32", "bfloat16"):
+            want = rec[name]
+            cfg = dataclasses.replace(base, param_dtype=name)
+            is32 = name == "float32"
+            if is32:
+                gtol_of = lambda path: F32_GRAD_TOL  # noqa: E731
+                # a gradient entry's error, for the params after a step
+                gerr_of = gtol_of
+                loss_tol = F32_LOSS_RTOL * abs(want["step1"]["loss"])
+                traj_tol = F32_TRAJ_RTOL * abs(want["step1"]["loss"])
+                gn_tol = F32_GRAD_TOL * want["step1"]["grad_norm"]
+            else:
+                g = want["grads"]
+                gtol_of = lambda path, g=g: min(  # noqa: E731
+                    BF16_GAP_FRACTION * g[path]["bf16_gap"], BF16_GRAD_RTOL)
+                # an L2 distance bounds no entry below itself
+                gerr_of = lambda path, g=g: (  # noqa: E731
+                    gtol_of(path) * g[path]["norm"] / g[path]["absmax"])
+                loss_tol = BF16_GAP_FRACTION * abs(want["step1"]["loss"]
+                                                   - f32["step1"]["loss"])
+                gn_tol = BF16_GAP_FRACTION * abs(want["step1"]["grad_norm"]
+                                                 - f32["step1"]["grad_norm"])
+                # the later steps move params by +-lr wherever a gradient
+                # entry near zero differs in sign: as far as the dtypes
+                traj_tol = 2 * max(abs(a - b) for a, b in zip(
+                    want["trajectory"], f32["trajectory"]))
+
+            def fresh():
+                params = tree_map(lambda a: torch.from_numpy(a.copy()).to(dev),
+                                  tree)
+                return {"params": params,
+                        "opt": adamw.init_state(params, AdamWConfig())}
+
+            key = f"{arch} {name}"
+            grad_fn = steps._value_and_grad(steps._forward_loss(cfg))
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data[0].items()}
+            (loss, nll), grads = grad_fn(fresh()["params"], batch)
+            check(abs(float(loss) - want["step1"]["value_and_grad_loss"])
+                  <= loss_tol, f"14a {key}: loss {float(loss)} against "
+                  f"{want['step1']['value_and_grad_loss']} (tol {loss_tol:.3g})")
+            gaps[f"{key} grads"] = _grads_held(f"14a {key} grads", grads,
+                                               want["grads"], gtol_of,
+                                               ref["sketch_seed"])
+            none_fn = steps._value_and_grad(steps._forward_loss(
+                dataclasses.replace(cfg, remat="none")))
+            (loss_n, _), grads_n = none_fn(fresh()["params"], batch)
+            check(float(loss_n) == float(loss),
+                  f"14a {key}: remat none loss {float(loss_n)} != full "
+                  f"{float(loss)}")
+            remat_gap = max(
+                float((a - grads_n_leaf).abs().max() / a.abs().max())
+                for a, grads_n_leaf in zip(_flat(grads), _flat(grads_n)))
+            check(remat_gap <= REMAT_TOL, f"14a {key}: remat none against "
+                  f"full: gradients {remat_gap:.3g} apart")
+            none_want = {p: {"values": v, "norm": want["grads"][p]["norm"],
+                             "absmax": want["grads"][p]["absmax"]}
+                         for p, v in want["remat_none"]["grads"].items()}
+            _grads_held(f"14a {key} remat none", grads_n, none_want, gtol_of)
+            del grads, grads_n
+
+            step = steps.make_train_step(cfg, AdamWConfig())
+            state, m = step(fresh(), data[0])
+            check(abs(float(m["loss"]) - want["step1"]["loss"]) <= loss_tol
+                  and abs(float(m["grad_norm"]) - want["step1"]["grad_norm"])
+                  <= gn_tol, f"14a {key}: step 1 loss {float(m['loss'])}, "
+                  f"grad_norm {float(m['grad_norm'])} against {want['step1']}")
+            gaps[f"{key} params"] = _params_held(
+                f"14a {key} params", state["params"], want["params"],
+                want["grads"], tree, opt["lr"], opt["eps"],
+                want["step1"]["grad_norm"], opt["grad_clip"], gerr_of,
+                F32_LOSS_RTOL if is32 else None)
+            traj = [float(m["loss"])]
+            for b in data[1:]:
+                state, m = step(state, b)
+                traj.append(float(m["loss"]))
+            traj_gap = max(abs(a - b) for a, b in zip(traj, want["trajectory"]))
+            check(np.isfinite(traj).all() and traj_gap <= traj_tol,
+                  f"14a {key}: trajectory {traj} against {want['trajectory']} "
+                  f"(tol {traj_tol:.3g})")
+            gaps[f"{key} trajectory"] = traj_gap
+
+            accum = steps.make_train_step(
+                cfg, AdamWConfig(), accum_steps=2,
+                accum_dtype=steps._dtype(name))
+            state2, m2 = accum(fresh(), data[0])
+            w2 = want["accum2"]
+            check(abs(float(m2["loss"]) - w2["loss"]) <= loss_tol
+                  and abs(float(m2["grad_norm"]) - w2["grad_norm"])
+                  <= gn_tol,
+                  f"14a {key}: accum_steps=2 loss {float(m2['loss'])}, "
+                  f"grad_norm {float(m2['grad_norm'])} against {w2}")
+            got2 = dict(_paths(state2["params"]))
+            accum_gap = 0.0
+            # the params after a step move by at most lr (1 + wd |p|) each,
+            # and by 2 lr where a gradient entry near zero flips sign
+            for p, vals_want in w2["params"].items():
+                _, vals = _leaf_entries(got2[p])
+                err = float(np.abs(vals - np.asarray(vals_want)).max())
+                check(np.isfinite(vals).all() and err <= 2.02 * opt["lr"]
+                      * (1 + opt["weight_decay"]) + 1e-6,
+                      f"14a {key}: accum_steps=2 {p} off by {err:.4g}")
+                accum_gap = max(accum_gap, err)
+            del state, state2
+            print(f"  14a {key}: loss {float(loss):.7f} (file "
+                  f"{want['step1']['value_and_grad_loss']:.7f}); gradients "
+                  f"within {gaps[f'{key} grads']:.3g} relative L2 (tol "
+                  + (f"{F32_GRAD_TOL}" if is32 else "the JAX package's own "
+                     f"bf16 gap per leaf x {BF16_GAP_FRACTION}, at most "
+                     f"{BF16_GRAD_RTOL}") + f"); params after "
+                  f"a step within "
+                  f"{gaps[f'{key} params']:.3g}; 5-step trajectory within "
+                  f"{traj_gap:.3g} (tol {traj_tol:.3g}); accum_steps=2 "
+                  f"params within {accum_gap:.3g}; remat none vs full "
+                  f"{remat_gap:.3g} x max|g|")
+    return gaps
+
+
+def _paths(tree):
+    from repro_torch.models.common import sorted_leaves
+
+    return list(sorted_leaves(tree))
+
+
+def _flat(tree):
+    return [t for _, t in _paths(tree)]
+
+
+def _phi3(overrides):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("phi3-mini-3.8b"), **overrides)
+
+
+def _train_100m_step(cfg, run):
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    opt_cfg = AdamWConfig(lr=run["lr"], weight_decay=run["weight_decay"])
+    sched = lambda s: warmup_cosine(s, run["lr"], run["warmup"],  # noqa: E731
+                                    run["steps"])
+    return steps.make_train_step(cfg, opt_cfg, sched), opt_cfg
+
+
+def resume_child(overrides: dict, run: dict, ckpt_dir: str,
+                 device: str = "cuda") -> int:
+    """14b's crash/restore check, in its own process (``CUBLAS_WORKSPACE_
+    CONFIG`` set by the caller before the first cuBLAS handle; on the card
+    deterministic algorithms on): ``run["resume_steps"]`` steps of the phi3
+    config with ``overrides`` straight, then half of them from a fresh
+    init, a save through ``CheckpointManager``, a restore into a state
+    drawn from another seed, and the other half. Prints one JSON line; 0
+    when the two runs' params and every step's metrics are bit-equal."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import steps
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.use_deterministic_algorithms(True)
+        steps.set_exact_gemms()
+    cfg = _phi3(overrides)
+    steps_n = run["resume_steps"]
+    run = dict(run, steps=steps_n)
+    step, opt_cfg = _train_100m_step(cfg, run)
+    data = _train_batches(cfg, run, steps_n)
+
+    def init(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return steps.init_train_state(cfg, gen, opt_cfg, dev)
+
+    def metrics_of(m):
+        return [float(m[k]) for k in ("loss", "nll", "grad_norm", "lr")]
+
+    state = init(0)
+    straight = []
+    for i in range(steps_n):
+        state, m = step(state, data[i])
+        straight.append(metrics_of(m))
+    final = {p: t.cpu() for p, t in _paths(state["params"])}
+    del state
+
+    half = steps_n // 2
+    mgr = CheckpointManager(ckpt_dir, keep=2)
+    state = init(0)
+    resumed = []
+    for i in range(half):
+        state, m = step(state, data[i])
+        resumed.append(metrics_of(m))
+    mgr.save(half, state, extra={"arch": "phi3-100m"})
+    del state
+    state, info = mgr.restore_latest(init(1), dev)
+    for i in range(info["step"], steps_n):
+        state, m = step(state, data[i])
+        resumed.append(metrics_of(m))
+    equal_params = all(torch.equal(t.cpu(), final[p])
+                       for p, t in _paths(state["params"]))
+    out = {"steps": steps_n, "restored_at": info["step"],
+           "metrics_equal": straight == resumed,
+           "params_equal": equal_params,
+           "deterministic": torch.are_deterministic_algorithms_enabled(),
+           "last": straight[-1]}
+    print(json.dumps(out))
+    return 0 if out["metrics_equal"] and equal_params else 1
+
+
+def train_100m_phase(part, device="cuda", run=TRAIN_100M_RUN,
+                     overrides=TRAIN_100M, n_params_want=110_119_680,
+                     min_drop=0.5, ckpt_root=None):
+    """14b: train_100m.py's configuration (phi3 family, 12 x 768, 16,384
+    vocab) for ``run["steps"]`` steps of batch 8 x 256 on ``SyntheticLM``
+    seed 17, held to the example's ``last < first - 0.5``; each step timed
+    by CUDA events; the busy share of a short profiled window; peak memory;
+    then the crash/restore check in a subprocess under deterministic
+    algorithms. Returns the printed numbers."""
+    import tempfile
+
+    from repro_torch.models import steps
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = _phi3(overrides)
+    n_params = cfg.param_count()
+    check(n_params == n_params_want, f"14b: {n_params:,} parameters")
+    step, opt_cfg = _train_100m_step(cfg, run)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, dev)
+    data = _train_batches(cfg, run, run["steps"])
+    nlls, times = [], []
+    t0 = time.perf_counter()
+    for i in range(run["steps"]):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        state, m = step(state, data[i])
+        if on_card:
+            end.record()
+            times.append((start, end))
+        nlls.append(m["nll"])
+    nll = torch.stack(nlls).cpu().numpy()
+    wall = time.perf_counter() - t0
+    first, last = float(nll[0]), float(nll[run["steps"] - 1])
+    check(np.isfinite(nll).all(), "14b: a non-finite loss")
+    check(last < first - min_drop, f"14b: nll {first:.3f} -> {last:.3f}, "
+          f"not a fall of more than {min_drop}")
+    tokens = run["batch"] * run["seq"]
+    bound = 6 * n_params * tokens / BF16_PEAK[part] * 1e3
+    out = {"first": first, "last": last, "wall_s": wall,
+           "params": n_params, "bound_ms": bound}
+    if on_card:
+        ms = [s.elapsed_time(e) for s, e in times]
+        med = statistics.median(ms[1:])
+        busy, dev_ms, pwall = _device_busy(lambda: [
+            step(state, data[i]) for i in range(run["profiled_steps"])])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out.update(step_ms=med, tok_s=tokens / med * 1e3, share=bound / med,
+                   busy=busy, peak_gib=peak, first_ms=ms[0])
+        print(f"  14b {cfg.n_layers} x {cfg.d_model}, vocab "
+              f"{cfg.padded_vocab}: {n_params:,} parameters; {run['steps']} "
+              f"steps of {run['batch']} x {run['seq']} in {wall:.2f} s; nll "
+              f"{first:.3f} -> {last:.3f}; step median {med:.3f} ms (first "
+              f"{ms[0]:.1f} ms), {tokens / med * 1e3:,.0f} tokens/s; 6 N T "
+              f"bound {bound:.3f} ms at {BF16_PEAK[part] / 1e12:.0f} TFLOP/s bf16: "
+              f"{100 * bound / med:.2f}% of it (param_dtype "
+              f"{cfg.param_dtype}, float32 master and AdamW); device busy "
+              f"{100 * busy:.1f}% of {run['profiled_steps']} profiled steps "
+              f"({dev_ms:.1f} of {pwall:.1f} ms); peak device memory "
+              f"{peak:.2f} GiB")
+    del state, nlls
+    if on_card:
+        torch.cuda.empty_cache()
+    # the crash/restore check in its own process: deterministic algorithms
+    # need CUBLAS_WORKSPACE_CONFIG before the first cuBLAS handle, and the
+    # mode must not reach the other phases
+    t1 = time.perf_counter()
+    ckpt_root = pathlib.Path(ckpt_root or ROOT / "build")
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckpt_root) as tmp:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=str(ROOT / "src"))
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; sys.exit(chip_smoke.resume_child("
+                f"{overrides!r}, {run!r}, {tmp!r}, {device!r}))")
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, f"14b crash/restore: exit "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    check(res["metrics_equal"] and res["params_equal"]
+          and res["deterministic"] == on_card, f"14b crash/restore: {res}")
+    print(f"  14b crash/restore ({time.perf_counter() - t1:.2f} s, a "
+          f"subprocess, deterministic algorithms {res['deterministic']}): "
+          f"{res['steps']} steps straight and with a save/restore at step "
+          f"{res['restored_at']} give bit-equal params and metrics (last "
+          f"loss {res['last'][0]:.6f})")
+    return out
+
+
+def _flash_grad_check(dev, b, s, kvh, g, d, chunk, seed=0):
+    """The flash backward against autograd through chunked_attention, both
+    float32; returns {name: max |delta| / max |grad|}."""
+    from repro_torch.models import attention
+    from repro_torch.models.flash import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, kvh, g, d), generator=gen, device=dev)
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev)
+    dout = torch.randn((b, s, kvh, g, d), generator=gen, device=dev)
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*ins, True, 0, chunk, chunk, 0)
+    got = torch.autograd.grad(out, ins, dout)
+    ins2 = [x.clone().requires_grad_() for x in (q, k, v)]
+    pos = torch.arange(s, device=dev)
+    ref = attention.chunked_attention(
+        ins2[0].reshape(b, s, kvh * g, d), ins2[1], ins2[2], pos, pos,
+        causal=True, q_chunk=chunk, kv_chunk=chunk)
+    want = torch.autograd.grad(ref, ins2, dout.reshape(b, s, kvh * g, d))
+    return {name: float((x - y).abs().max() / y.abs().max())
+            for name, x, y in zip(("dq", "dk", "dv"), got, want)}
+
+
+def train_full_width_phase(cfg, part, device="cuda", run=FULL_TRAIN):
+    """14c: ``cfg`` (gemma-2b as configured, remat "full") trains
+    ``run["steps"]`` steps of one 2048-token sequence on a float32 master
+    drawn by ``init_params`` on the device: finite loss and grad_norm,
+    params that change; each step timed by CUDA events against the 6 N T
+    bound; peak memory; the flash backward at the config's attention
+    shapes against autograd through ``chunked_attention``. It checks
+    memory, time and finiteness, not learning: ``init_params``' stacked
+    fan-in makes these weights chaotic (a grad_norm of ~1e14, clipped to
+    near-sign steps), so its losses and grad_norms are printed, not
+    held."""
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt_cfg = AdamWConfig(moment_dtype=steps._dtype(cfg.moment_dtype))
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, dev)
+    n_params = sum(t.numel() for t in _flat(state["params"]))
+    check(n_params == cfg.param_count(), f"14c: {n_params:,} parameters")
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"  14c {cfg.arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, remat {cfg.remat}: "
+          f"{n_params:,} parameters, float32 master, m and v drawn in "
+          f"{time.perf_counter() - t0:.2f} s")
+    watch = {p: t[..., :64].clone() for p, t in _paths(state["params"])}
+    step = steps.make_train_step(cfg, opt_cfg)
+    data = _train_batches(cfg, run, run["steps"] + 1)
+    ms, metrics = [], []
+    for i in range(run["steps"]):
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, data[i])
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    busy = None
+    if on_card:   # one more step, profiled (CUDA activity only)
+        busy, dev_ms, pwall = _device_busy(
+            lambda: step(state, data[run["steps"]]))
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f"14c step {i + 1}: {m}")
+    moved = sum(not torch.equal(t[..., :64], watch[p])
+                for p, t in _paths(state["params"]))
+    check(moved == len(watch), f"14c: {len(watch) - moved} leaves did not "
+          f"change")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    del state, watch
+    if on_card:
+        torch.cuda.empty_cache()
+    tokens = run["batch"] * run["seq"]
+    bound = 6 * n_params * tokens / BF16_PEAK[part] * 1e3
+    t1 = time.perf_counter()
+    flash = _flash_grad_check(dev, run["batch"], run["seq"], cfg.n_kv_heads,
+                              cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                              cfg.q_chunk)
+    check(all(x <= FLASH_GRAD_TOL for x in flash.values()),
+          f"14c flash backward against chunked_attention: {flash}")
+    out = {"step_ms": ms, "bound_ms": bound, "peak_gib": peak,
+           "metrics": metrics, "flash": flash, "busy": busy,
+           "tok_s": tokens / ms[-1] * 1e3}
+    print(f"  14c {run['steps']} steps of {run['batch']} x {run['seq']}: "
+          + "; ".join(f"step {i + 1} loss {m['loss']:.4f} grad_norm "
+                      f"{m['grad_norm']:.4g} in {t:.1f} ms"
+                      for i, (m, t) in enumerate(zip(metrics, ms)))
+          + f" (printed, not held: chaotic weights); every leaf changed; "
+          f"step {run['steps']}: "
+          f"{out['tok_s']:,.0f} tokens/s, 6 N T bound {bound:.2f} ms at "
+          f"{BF16_PEAK[part] / 1e12:.0f} TFLOP/s, "
+          f"{100 * bound / ms[-1]:.2f}% of it"
+          + (f"; device busy {100 * busy:.1f}% of one more step, profiled "
+             f"({dev_ms:.1f} of {pwall:.1f} ms); peak device memory "
+             f"{peak:.2f} GiB" if on_card else ""))
+    print(f"  14c flash backward (B {run['batch']}, S {run['seq']}, KV "
+          f"{cfg.n_kv_heads}, G {cfg.n_heads // cfg.n_kv_heads}, D "
+          f"{cfg.head_dim}, chunks of {cfg.q_chunk}) against autograd through "
+          f"chunked_attention in float32: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in flash.items())
+          + f" x max|grad| (<= 2^-14) ({time.perf_counter() - t1:.2f} s)")
+    return out
+
+
+def guard_phase(sref, device="cuda"):
+    """14d: with ``allow_bf16_reduced_precision_reduction`` True, the train
+    step and the decode step (13a's teacher-forced decode on its first
+    config) refuse a CUDA model; the flag is reset after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, steps, transformer
+    from repro_torch.optim import AdamWConfig, adamw
+
+    dev = torch.device(device)
+    arch, rec = next(iter(sref["configs"].items()))
+    cfg = dataclasses.replace(get_config(arch).reduced(**rec["overrides"]),
+                              param_dtype="bfloat16")
+    tree = convert.numpy_params(cfg, sref["seed"])
+    model = steps.cast_model(cfg, convert.from_jax_params(cfg, tree, dev))
+    params = convert.tree_from_jax(tree, dev)
+    state = {"params": params, "opt": adamw.init_state(params, AdamWConfig())}
+    toks = torch.tensor(rec["prompt"], dtype=torch.int32, device=dev)
+    refused = []
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        for name, call in (
+                ("make_train_step", lambda: steps.make_train_step(cfg)(
+                    state, {"tokens": toks, "labels": toks})),
+                ("13a teacher-forced decode", lambda: _teacher_forced(
+                    steps, transformer, cfg, model, toks, torch.bfloat16,
+                    dev))):
+            try:
+                call()
+            except RuntimeError as exc:
+                if "exact GEMMs" not in str(exc):
+                    raise
+                refused.append(name)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    check(refused == ["make_train_step", "13a teacher-forced decode"],
+          f"14d: the guard refused {refused}")
+    print(f"  14d with allow_bf16_reduced_precision_reduction=True: "
+          f"{' and '.join(refused)} refuse a CUDA model ({arch}); the flag "
+          f"reset to {flag}")
+    return refused
 
 
 def main() -> int:
@@ -4061,8 +4709,8 @@ def main() -> int:
     part = part_of(name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # phase 13's bf16 GEMMs accumulate in float32, as XLA's do (the default
-    # lets cuBLAS reduce them in bf16)
+    # the LM phases' bf16 GEMMs accumulate in float32, as XLA's do (the
+    # default lets cuBLAS reduce them in bf16; the LM steps refuse it)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"[1 device] {smi}")
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4071,6 +4719,12 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+
+    phase_walls = {}
+
+    def wall(label, since):
+        phase_walls[label] = time.perf_counter() - since
+        print(f"[wall] phase {label}: {phase_walls[label]:.2f} s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -4089,13 +4743,17 @@ def main() -> int:
           f"{S._packed_smem_bytes()} B; large min-plus tile's: "
           f"{S._minplus_smem_bytes()} B")
 
+    wall("2", t0)
+
     # 3. kernel vs plain
+    t_ph = time.perf_counter()
     print("[3 kernels] kernel vs plain version on the card")
     kstats = kernel_checks(S, part)
     kstats.update(tropical_checks(S, H, part))
     kstats.update(packed_checks(S, part))
     kstats.update(library_kernel_checks(S, part))
     print("kernels: " + " ".join(f"{k}=pass" for k in kstats))
+    wall("3", t_ph)
 
     # 4. the committed configuration
     t0 = time.perf_counter()
@@ -4103,8 +4761,10 @@ def main() -> int:
     check_committed(small, ROOT / "experiments" / "sweep" / "comparison.json")
     print(f"[4 committed] 12-family table matches comparison.json "
           f"({time.perf_counter() - t0:.2f} s)")
+    wall("4", t0)
 
     # 5. full width: the main path, counted
+    t_ph = time.perf_counter()
     obs.enable()
     obs.reset()
     torch.cuda.synchronize()
@@ -4187,29 +4847,39 @@ def main() -> int:
           f"({100 * (mean_k - mean_p) / mean_p:+.1f}%)")
 
     sweep_counts = counts
+    wall("5", t_ph)
 
     # 6. the analysis path at full width, counted
+    t_ph = time.perf_counter()
     ref = json.loads((ROOT / "experiments" / "analysis"
                       / "reference.json").read_text())
     analysis_counts, reports = analysis_phase(obs, S, T, AnalysisEngine,
                                               paths, ref)
     plain_chain(T, AnalysisEngine, reports, ref)
+    wall("6", t_ph)
 
     # 7. the extreme-scale path, counted
+    t_ph = time.perf_counter()
     xref = json.loads((ROOT / "experiments" / "extreme"
                        / "reference.json").read_text())
     extreme_counts, dragonfly_row, dragonfly = extreme_phase(
         obs, S, SW, D, WF, xref, SW._stack_adjacency(graphs))
+    wall("7", t_ph)
 
     # 8. the kernel library and the stacked squaring APSP, counted
+    t_ph = time.perf_counter()
     library_counts = library_phase(S, ops, SW, WF, graphs)
+    wall("8", t_ph)
 
     # 9. the semiring extension point, counted
+    t_ph = time.perf_counter()
     seed = torch.from_numpy(squaring_seed(SW, WF, graphs)[0]).cuda()
     semiring_stats, semiring_launches = semiring_phase(S, build, seed, part)
     del seed
+    wall("9", t_ph)
 
     # 10. the routing path, counted
+    t_ph = time.perf_counter()
     rref = json.loads((ROOT / "experiments" / "routing"
                        / "reference.json").read_text())
     stack = SW._stack_adjacency(graphs)
@@ -4217,12 +4887,17 @@ def main() -> int:
         S, T, R, W, A, WF, TR, AnalysisEngine, rref,
         WF.pad_operand(stack, WF.pad_block(stack.shape[-1]), 0.0))
     del stack
+    wall("10", t_ph)
 
     # 11. the resilience and traffic path, counted
+    t_ph = time.perf_counter()
     resilience_counts = resilience_phase(obs, S, SW, T, RES, TR, part)
+    wall("11", t_ph)
 
     # 12. the mesh: two ranks on the one card, counted in each rank
+    t_ph = time.perf_counter()
     mesh_counts = mesh_phase(D, full, dragonfly_row, dragonfly)
+    wall("12", t_ph)
 
     # 13. the serving path: the reference configs, then gemma-2b at full width
     check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
@@ -4242,6 +4917,37 @@ def main() -> int:
           f"{before}")
     print(f"[13 serve] {time.perf_counter() - t0:.2f} s (13a {t_a:.2f} s); "
           f"none of the 11 kernels launched")
+    wall("13", t0)
+
+    # 14. the training path: the reference configs, train_100m.py's
+    # configuration, gemma-2b at full width, the GEMM guard
+    before = dict(S.launches)
+    t0 = time.perf_counter()
+    tref = json.loads((ROOT / "experiments" / "train"
+                       / "reference.json").read_text())
+    print("[14 train] 14a: the port against experiments/train/reference.json")
+    train_reference_phase(tref)
+    wall("14a", t0)
+    t1 = time.perf_counter()
+    print(f"[14 train] 14b: train_100m.py's configuration ({smi})")
+    train_100m_phase(part)
+    wall("14b", t1)
+    t1 = time.perf_counter()
+    print(f"[14 train] 14c: gemma-2b at full width ({smi})")
+    train_full_width_phase(get_config("gemma-2b"), part)
+    wall("14c", t1)
+    print("[14 train] 14d: the exact-GEMM guard")
+    guard_phase(sref)
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "14d left bf16 reduction on")
+    check(dict(S.launches) == before,
+          f"the training path launched a kernel: {dict(S.launches)} against "
+          f"{before}")
+    print(f"[14 train] {time.perf_counter() - t0:.2f} s; none of the 11 "
+          f"kernels launched")
+    wall("14", t0)
+    print("[wall] " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                phase_walls.items()))
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {  # name -> (CUDA source, the TPU kernel it replaces)

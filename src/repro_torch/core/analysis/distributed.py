@@ -330,6 +330,12 @@ def launch_mesh(fn: Callable, num_shards: int, *args, device="cuda",
                 os.environ["CUDA_VISIBLE_DEVICES"] = visible
         failed = _join(procs, time.monotonic() + timeout_s)
         if failed is not None:
+            # the first traceback written is the cause: a rank whose peer
+            # left mid-handshake may exit before the peer that raised
+            errs = sorted((os.path.getmtime(os.path.join(tmp, f)), f)
+                          for f in os.listdir(tmp) if f.endswith(".err"))
+            if errs:
+                failed = int(errs[0][1][4:-4])
             err = os.path.join(tmp, f"rank{failed}.err")
             why = (open(err).read() if os.path.exists(err) else
                    f"exit code {procs[failed].exitcode}")
@@ -384,7 +390,15 @@ def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
                timeout_s: float, fn: Callable, args: tuple) -> None:
     """One spawned rank: join the group, run ``fn`` on the mesh, and (rank
     0) leave its result beside the rendezvous file; a failure leaves its
-    traceback there."""
+    traceback there, before the group is torn down (which fails the
+    peers)."""
+    err = os.path.join(tmp, f"rank{rank}.err")
+
+    def leave_traceback():
+        if not os.path.exists(err):
+            with open(err, "w") as fh:
+                fh.write(traceback.format_exc())
+
     try:
         if device == "cpu":
             torch.set_num_threads(1)
@@ -399,11 +413,13 @@ def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
                 with open(path + ".part", "wb") as fh:
                     pickle.dump(out, fh)
                 os.replace(path + ".part", path)
+        except BaseException:
+            leave_traceback()
+            raise
         finally:
             tdist.destroy_process_group()
     except BaseException:
-        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
-            fh.write(traceback.format_exc())
+        leave_traceback()
         raise
 
 

@@ -1,1 +1,2 @@
-"""Launchers of the port: the continuous-batching server (``serve``)."""
+"""Launchers of the port: the continuous-batching server (``serve``) and
+the training driver (``train``)."""

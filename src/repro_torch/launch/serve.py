@@ -117,6 +117,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    steps_mod.set_exact_gemms()
     cfg = get_config(args.arch).reduced()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(steps_mod.model_param_specs(cfg), gen,

@@ -12,8 +12,8 @@ Decode runs the gathered path: the whole cache is read each step. The JAX
 package's seq-sharded flash-decode (``_decode_attention_sharded``) runs
 only under a sharding plan; without one it falls through to the gathered
 path, and the port has no plan (``sharding/`` waits, ROADMAP Queue 1
-item 7). ``cross_attention`` and ``memory_kv`` wait for the enc-dec
-layers. The int8 cache is the KIVI-style per-(token, head) symmetric
+item 3). ``cross_attention`` and ``memory_kv`` wait for the enc-dec
+layers (item 2). The int8 cache is the KIVI-style per-(token, head) symmetric
 quantization of the reference (``torch.round`` is round-half-to-even, as
 ``jnp.round`` is).
 """

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "Spec", "tree_leaves", "tree_map", "unflatten", "init_params", "rms_norm",
+    "Spec", "tree_leaves", "sorted_leaves", "tree_map", "unflatten",
+    "host_array",
+    "init_params", "rms_norm",
     "layer_norm", "apply_rope", "einsum", "einsum_f32", "div",
 ]
 
@@ -42,6 +44,26 @@ def tree_leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
         return
     for key, sub in tree.items():
         yield from tree_leaves(sub, f"{path}/{key}" if path else key)
+
+
+def sorted_leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) of every leaf in the JAX package's order: the keys of
+    every dict sorted, as ``jax.tree.leaves`` flattens a dict. The
+    optimizer and the checkpoints visit leaves in this order."""
+    if not isinstance(tree, dict):
+        yield path, tree
+        return
+    for key in sorted(tree):
+        yield from sorted_leaves(tree[key], f"{path}/{key}" if path else key)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` in its own dtype, bit for bit; bfloat16 (which
+    numpy lacks) as its uint16 view."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def tree_map(fn, tree: Any) -> Any:

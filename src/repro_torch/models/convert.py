@@ -4,10 +4,13 @@ the port.
 A JAX parameter tree is a nested dict of arrays in the layout of
 ``transformer.param_specs`` (layers stacked on a leading ``repeats`` axis);
 `from_jax_params` copies one (as numpy arrays) into a `Transformer`,
-`to_numpy_params` copies it back. `caches_from_jax` / `caches_to_numpy` do
-the same for decode caches. bfloat16 arrays (``ml_dtypes``, as
-``np.asarray`` of a JAX bf16 array gives them) travel bit for bit through
-their uint16 view.
+`to_numpy_params` copies it back (as float32). `tree_from_jax` /
+`tree_to_numpy` carry any other tree both ways with every leaf in its own
+dtype: decode caches, or a train state (``{"params", "opt": {"m", "v",
+"step"}}``, the layout both packages' ``init_train_state`` build: the
+float32 master and moments, bf16 moments or accumulators, the int32
+step). bfloat16 arrays (``ml_dtypes``, as ``np.asarray`` of a JAX bf16
+array gives them) travel bit for bit through their uint16 view.
 
 `numpy_params` is the seeded weight rule that both packages implement for
 ``experiments/serve/reference.json``: the spec leaves sorted by path
@@ -25,11 +28,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .common import tree_leaves, tree_map, unflatten
+from .common import host_array, tree_leaves, tree_map, unflatten
 from .transformer import Transformer, param_specs
 
 __all__ = ["numpy_params", "params_sha256", "from_jax_params",
-           "to_numpy_params", "caches_from_jax", "caches_to_numpy"]
+           "to_numpy_params", "tree_from_jax", "tree_to_numpy"]
 
 #: stddev of the zeros/ones-initialized leaves under the reference rule
 SMALL_LEAF_STD = 0.1
@@ -62,7 +65,7 @@ def _tensor(a: Any, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -92,12 +95,25 @@ def to_numpy_params(model: Transformer) -> Dict:
     return tree_map(_numpy, model.param_tree())
 
 
-def caches_from_jax(caches: Dict, device="cuda") -> Dict:
+def tree_from_jax(tree: Dict, device="cuda") -> Dict:
+    """A tree of JAX arrays (or numpy copies of them) as tensors on
+    ``device``, each leaf in its own dtype, bit for bit."""
     from ..core.analysis.wavefront import resolve_device
 
     dev = resolve_device(device)
-    return tree_map(lambda a: _tensor(a, dev), caches)
+    return tree_map(lambda a: _tensor(a, dev), tree)
 
 
-def caches_to_numpy(caches: Dict) -> Dict:
-    return tree_map(_numpy, caches)
+def tree_to_numpy(tree: Dict) -> Dict:
+    """The tree's tensors as numpy arrays in their own dtypes (what
+    ``jnp.asarray`` takes back; bf16 as ``ml_dtypes``' bfloat16), bit for
+    bit."""
+    def leaf(t):
+        a = host_array(t)
+        if t.dtype != torch.bfloat16:
+            return a
+        import ml_dtypes
+
+        return a.view(ml_dtypes.bfloat16)
+
+    return tree_map(leaf, tree)

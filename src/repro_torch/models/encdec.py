@@ -2,7 +2,7 @@
 
 The shapes of the JAX package's ``models/encdec.py`` (the parameter counts
 of ``configs.base.ModelConfig`` need them). The encoder, the decoder with
-cross-attention and their caches wait for ROADMAP Queue 1 item 7;
+cross-attention and their caches wait for ROADMAP Queue 1 item 2;
 ``transformer.check_supported`` refuses an enc-dec config before anything
 runs.
 """

@@ -2,7 +2,8 @@
 
 The shapes of the JAX package's ``models/moe.py`` (the parameter counts of
 ``configs.base.ModelConfig`` need them). The routed compute and its
-expert-parallel path wait for ROADMAP Queue 1 item 7;
+expert-parallel path wait for ROADMAP Queue 1 item 2 (the local path) and
+item 3 (expert parallelism);
 ``transformer.check_supported`` refuses a MoE config before anything runs.
 """
 from __future__ import annotations

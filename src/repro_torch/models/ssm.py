@@ -2,7 +2,7 @@
 
 The shapes of the JAX package's ``models/ssm.py`` (the parameter counts of
 ``configs.base.ModelConfig`` need them). The chunked scan and the
-O(1)-state decode wait for ROADMAP Queue 1 item 7;
+O(1)-state decode wait for ROADMAP Queue 1 item 2;
 ``transformer.check_supported`` refuses an SSM or hybrid config before
 anything runs.
 """

@@ -1,18 +1,26 @@
-"""Decoder-only LM: the dense layer stack, for serving.
+"""Decoder-only LM: the dense layer stack, for serving and training.
 
 The port of the JAX package's ``models/transformer.py`` for the
-``("attn", "mlp")`` layer kind: `Transformer` is an ``nn.Module`` whose
-parameters keep the JAX einsum layouts (``wq (d, h, hd)``, ``wo (h, hd,
-d)``, ``embed (V, d)``, ``lm_head (d, V)``), one block per layer, so
+``("attn", "mlp")`` layer kind. Parameters keep the JAX einsum layouts
+(``wq (d, h, hd)``, ``wo (h, hd, d)``, ``embed (V, d)``, ``lm_head (d,
+V)``) in a nested dict with the layers stacked on a leading axis, so
 carrying weights across (``models.convert``) is a copy. `param_specs`
 covers every layer kind (the parameter counts need them); a config with
 MoE or SSM layers, an encoder-decoder or prefix tokens raises
-`NotImplementedError` when a model or a cache is built (ROADMAP Queue 1
-item 7).
+`NotImplementedError` (ROADMAP Queue 1 item 2 for the layer kinds, item 3
+for expert parallelism and sharding).
 
-Entry points (methods of `Transformer`):
+One layer's computation is `layer_forward`, a function of that layer's
+parameter dict; the serving `Transformer` and the training `forward` both
+call it.
+
+Training (functions of a parameter tree, differentiable):
+  forward(params, tokens, cfg)       — hidden states; per-layer remat
+                                       (``cfg.remat``: full | dots | none)
+  lm_loss(params, hidden, labels, cfg) — sequence-chunked cross entropy
+  logits_from_hidden, embed_tokens   — the vocab projection and the lookup
+Serving (methods of `Transformer`, frozen parameters, no autograd):
   forward(tokens)                    — hidden states (prefill; no remat)
-  logits_from_hidden(h)              — tied or untied vocab projection
   prefill(tokens)                    — last-token logits + decode caches
   decode_step(token, caches, pos)    — single-token step over the caches
 and `init_decode_caches` (bf16 and int8 layouts). Decode caches are
@@ -24,16 +32,20 @@ are (``attention.decode_attention``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention, mlp, moe, ssm
-from .common import Spec, einsum, layer_norm, rms_norm, tree_map
+from .common import Spec, div, einsum, layer_norm, rms_norm, tree_map
 
 __all__ = [
-    "param_specs", "init_decode_caches", "check_supported", "Transformer",
+    "param_specs", "init_decode_caches", "check_supported", "layer_forward",
+    "embed_tokens", "logits_from_hidden", "forward", "lm_loss", "Transformer",
 ]
 
 
@@ -100,7 +112,8 @@ def check_supported(cfg) -> None:
             f"layer ('attn', 'mlp'), no encoder, no prefix tokens) run in "
             f"the port so far; layer kinds {sorted(kinds)}, is_encdec="
             f"{cfg.is_encdec}, n_prefix_tokens={cfg.n_prefix_tokens} wait "
-            f"for ROADMAP Queue 1 item 7")
+            f"for ROADMAP Queue 1 item 2 (the layer kinds) and item 3 "
+            f"(expert parallelism, sharding)")
 
 
 def _apply_norm(np_, x, cfg):
@@ -135,7 +148,132 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    "v": torch.zeros(shape, dtype=dtype, device=dev)}}
 
 
-# -- the model -----------------------------------------------------------------
+# -- one layer, and the training forward ---------------------------------------
+
+def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """One ("attn", "mlp") layer over its parameter dict ``lp`` (``norm1``,
+    ``attn``, ``norm2``, ``mlp``). Returns (x, (k, v))."""
+    h = _apply_norm(lp["norm1"], x, cfg)
+    y, kv = attention.self_attention(lp["attn"], h, positions, cfg,
+                                     causal=True, prefix_len=0)
+    x = x + y
+    h2 = _apply_norm(lp["norm2"], x, cfg)
+    return x + mlp.mlp(lp["mlp"], h2, cfg), kv
+
+
+def _layer(lp, x, positions, cfg):
+    return layer_forward(lp, x, positions, cfg)[0]
+
+
+def _saves_dots(ctx, op, *args, **kwargs):
+    """The JAX package's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions (the projections and the
+    MLP; einsum lowers them to ``mm``, or ``bmm`` over a batch of one),
+    recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_saves_dots)
+
+
+def _unbind_layers(stacked: Dict) -> List[Dict]:
+    """The per-layer dicts of a stacked layer tree, from one ``unbind`` of
+    each leaf (whose backward is one ``stack``; indexing each layer would
+    write a zero-filled stacked gradient per layer)."""
+    split = {name: {k: t.unbind(0) for k, t in sub.items()}
+             for name, sub in stacked.items()}
+    n = len(next(iter(split["norm1"].values())))
+    return [{name: {k: ts[i] for k, ts in sub.items()}
+             for name, sub in split.items()} for i in range(n)]
+
+
+def embed_tokens(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        # the factor is cast to the activations' dtype first
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
+    return x
+
+
+def logits_from_hidden(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The tied or untied vocab projection, in the operands' promoted
+    dtype (``jnp.einsum``'s)."""
+    if cfg.tie_embeddings:
+        return einsum("...d,vd->...v", h, params["embed"])
+    return einsum("...d,dv->...v", h, params["lm_head"])
+
+
+def forward(params: Dict, tokens: torch.Tensor,
+            cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over a parameter tree (``param_specs``'
+    layout, in the compute dtype). tokens: (B, S) -> (hidden (B, S, D),
+    moe_aux scalar). Each layer runs under ``cfg.remat``: ``"full"``
+    recomputes it in the backward (``torch.utils.checkpoint``), ``"dots"``
+    keeps its products' outputs (selective checkpointing), ``"none"`` keeps
+    everything; the numbers are the same."""
+    check_supported(cfg)
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat={cfg.remat!r}: full, dots or none")
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in _unbind_layers(params["layers"]["l0"]):
+        if cfg.remat == "none":
+            x = _layer(lp, x, positions, cfg)
+        elif cfg.remat == "full":
+            x = checkpoint(_layer, lp, x, positions, cfg, use_reentrant=False)
+        else:
+            x = checkpoint(_layer, lp, x, positions, cfg, use_reentrant=False,
+                           context_fn=_dots_context)
+    x = _apply_norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _loss_chunk(params, hc, yc, cfg):
+    """(sum of the chunk's token losses, its token count), float32."""
+    logits = logits_from_hidden(params, hc, cfg).float()
+    if cfg.logit_softcap > 0.0:
+        logits = cfg.logit_softcap * torch.tanh(div(logits, cfg.logit_softcap))
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = torch.clamp(yc, 0, cfg.padded_vocab - 1).long()
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    m = (yc >= 0).float()
+    return torch.sum((lse - ll) * m), torch.sum(m)
+
+
+def lm_loss(params: Dict, hidden: torch.Tensor, labels: torch.Tensor, cfg,
+            moe_aux=0.0, aux_weight: float = 0.01):
+    """Chunked-vocab cross entropy. labels: (B, S) int, -1 = ignore.
+    Returns (nll + aux_weight * moe_aux, nll).
+
+    Chunks along the sequence (``c_s = max(1, min(S, loss_chunk // B))``
+    positions, labels padded with -1), each chunk's logits computed under
+    ``torch.utils.checkpoint``: the (B, S, V) float32 logits never exist at
+    once, a chunk's are recomputed in the backward.
+    """
+    b, s, _d = hidden.shape
+    c_s = max(1, min(s, cfg.loss_chunk // max(b, 1)))
+    pad = (-s) % c_s
+    h, y = hidden, labels
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=-1)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tok_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, h.shape[1], c_s):
+        ls, ts = checkpoint(_loss_chunk, params, h[:, c0:c0 + c_s],
+                            y[:, c0:c0 + c_s], cfg, use_reentrant=False)
+        loss_sum = loss_sum + ls
+        tok_sum = tok_sum + ts
+    nll = loss_sum / torch.clamp_min(tok_sum, 1.0)
+    return nll + aux_weight * moe_aux, nll
+
+
+# -- the serving model ---------------------------------------------------------
 
 def _frozen(tree: Dict) -> nn.ParameterDict:
     return nn.ParameterDict(
@@ -150,13 +288,12 @@ class Block(nn.Module):
         for name in ("norm1", "attn", "norm2", "mlp"):
             setattr(self, name, _frozen({k: t[i] for k, t in layer[name].items()}))
 
+    def params(self) -> Dict:
+        return {"norm1": self.norm1, "attn": self.attn, "norm2": self.norm2,
+                "mlp": self.mlp}
+
     def forward(self, x, positions, cfg):
-        h = _apply_norm(self.norm1, x, cfg)
-        y, kv = attention.self_attention(self.attn, h, positions, cfg,
-                                         causal=True, prefix_len=0)
-        x = x + y
-        h2 = _apply_norm(self.norm2, x, cfg)
-        return x + mlp.mlp(self.mlp, h2, cfg), kv
+        return layer_forward(self.params(), x, positions, cfg)
 
     def decode(self, x, cache, cache_pos, cfg):
         h = _apply_norm(self.norm1, x, cfg)
@@ -201,12 +338,7 @@ class Transformer(nn.Module):
         return tree
 
     def embed_tokens(self, tokens):
-        x = self.embed[tokens]
-        if self.cfg.embed_scale:
-            # the factor is cast to the activations' dtype first
-            x = x * torch.full((), math.sqrt(self.cfg.d_model), dtype=x.dtype,
-                               device=x.device)
-        return x
+        return embed_tokens({"embed": self.embed}, tokens, self.cfg)
 
     @torch.no_grad()
     def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,9 +351,8 @@ class Transformer(nn.Module):
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def logits_from_hidden(self, h):
-        if self.cfg.tie_embeddings:
-            return einsum("...d,vd->...v", h, self.embed)
-        return einsum("...d,dv->...v", h, self.lm_head)
+        return logits_from_hidden({"embed": self.embed,
+                                   "lm_head": self.lm_head}, h, self.cfg)
 
     @torch.no_grad()
     def decode_step(self, token, caches: Dict, cache_pos: int):

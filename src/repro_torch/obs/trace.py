@@ -38,6 +38,7 @@ import atexit
 import functools
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -316,12 +317,25 @@ def traced(name: Optional[str] = None, cat: str = "analysis"):
     return deco
 
 
+def _other_rank() -> bool:
+    """True in a rank other than 0 of a process group of more than one
+    rank (``torch.distributed``, looked up only if the process imported
+    it)."""
+    dist = sys.modules.get("torch.distributed")
+    return (dist is not None and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1 and dist.get_rank() != 0)
+
+
 def log(event: str, **fields) -> None:
     """Structured progress line: ``[event] key=value ...`` on stdout plus an
     instant trace event — the one replacement for ad-hoc CLI prints, so
-    human-readable output and the trace never disagree."""
-    parts = " ".join(f"{k}={_json_safe(v)}" for k, v in fields.items())
-    print(f"[{event}] {parts}" if parts else f"[{event}]")
+    human-readable output and the trace never disagree. Inside a process
+    group of several ranks only rank 0 prints (a mesh prints each line
+    once, as the JAX package's one process does); every rank records the
+    event."""
+    if not _other_rank():
+        parts = " ".join(f"{k}={_json_safe(v)}" for k, v in fields.items())
+        print(f"[{event}] {parts}" if parts else f"[{event}]")
     _TRACER.instant(event, cat="log", **fields)
 
 

@@ -120,15 +120,6 @@ def test_flash_forward_matches_jax(case, dtype):
         _close(got, oracle, 0, tol)
 
 
-def test_flash_forward_refuses_a_gradient():
-    q = torch.zeros((1, 4, 1, 1, 8), requires_grad=True)
-    k = torch.zeros((1, 4, 1, 8))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q, k, k)
-    with torch.no_grad():
-        assert flash_attention(q, k, k).shape == q.shape
-
-
 @pytest.mark.parametrize("softcap", [0.0, 5.0])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chunked_attention_matches_jax(dtype, softcap):
@@ -304,7 +295,7 @@ def test_prefill_and_forward_match_jax(arch, dtype):
     else:
         _close(tl, jl, 0, BF16_TOL)
         _close(full, hidden, 0, BF16_TOL)
-    got = convert.caches_to_numpy(tcaches)
+    got = convert.tree_to_numpy(tcaches)
     for name in ("k", "v"):
         assert tcaches["l0"][name].dtype == torch.bfloat16
         want = _np(jcaches["l0"][name])
@@ -333,7 +324,7 @@ def test_teacher_forced_decode_matches_jax(arch, dtype):
             assert np.array_equal(tn.numpy(), np.asarray(jn)), t
         else:
             _close(tl, jl, 0, BF16_TOL, f"step {t}")
-    got = convert.caches_to_numpy(tc)
+    got = convert.tree_to_numpy(tc)
     for name in ("k", "v"):
         want = _np(jc["l0"][name])
         _close(got["l0"][name], want, 0, 2.0 ** -6 * np.abs(want).max(), name)
@@ -418,12 +409,13 @@ def test_caches_round_trip():
     jcfg, cfg = _configs("gemma-2b", kv_cache_dtype="int8")
     jc = JT.init_decode_caches(jcfg, 2, 5)
     jc = jax.tree.map(lambda a: a + jnp.ones_like(a), jc)
-    tc = convert.caches_from_jax(jax.tree.map(np.asarray, jc), "cpu")
+    tc = convert.tree_from_jax(jax.tree.map(np.asarray, jc), "cpu")
     assert tc["l0"]["k"].dtype == torch.int8
     assert tc["l0"]["k_scale"].dtype == torch.bfloat16
-    back = convert.caches_to_numpy(tc)
+    back = convert.tree_to_numpy(tc)
     for name in jc["l0"]:
-        assert np.array_equal(back["l0"][name], _np(jc["l0"][name])), name
+        assert back["l0"][name].dtype == np.asarray(jc["l0"][name]).dtype
+        assert np.array_equal(_np(back["l0"][name]), _np(jc["l0"][name])), name
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m",
@@ -431,7 +423,7 @@ def test_caches_round_trip():
                                   "paligemma-3b"])
 def test_unported_layer_kinds_raise(arch):
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         T.check_supported(cfg)
     with pytest.raises(NotImplementedError):
         T.init_decode_caches(cfg, 1, 4, device="cpu")
@@ -461,7 +453,7 @@ def test_entry_points_default_to_the_card():
                  lambda: T.init_decode_caches(cfg, 1, 4),
                  lambda: convert.from_jax_params(
                      cfg, convert.numpy_params(cfg, 0)),
-                 lambda: convert.caches_from_jax({"l0": {}}),
+                 lambda: convert.tree_from_jax({"l0": {}}),
                  lambda: SV.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

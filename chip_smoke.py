@@ -142,8 +142,29 @@ against autograd through ``chunked_attention``; (d) with
 ``allow_bf16_reduced_precision_reduction`` on, the train and decode steps
 refuse a CUDA model. It prints each step's median time against the 6 N T
 bound at the bf16 peak, tokens/s, the busy share of a short profiled
-window and peak device memory, and claims no speed. Every phase prints
-its wall (``[wall]`` lines).
+window and peak device memory, and claims no speed.
+Phase 15 runs the other layer kinds of the LM substrate (the MoE local
+path, the Mamba-2 SSD mixer, the Jamba hybrid pattern, PaliGemma's
+prefix, Whisper's encoder-decoder), which launch none of the kernels:
+(a) the port held to ``experiments/layers/reference.json`` (made by the
+JAX package) for granite-moe-1b-a400m, mamba2-370m, jamba-1.5-large-398b,
+whisper-tiny and paligemma-3b, each ``.reduced()`` on conditioned weights
+(``convert.conditioned_params``), in float32 and bfloat16: the prefill's
+last-token logits, teacher-forced decode
+continuing from a prefill's caches, each MoE layer's routing above a
+margin, what the ``Server`` serves, and one train step's loss, grad_norm
+and every leaf's gradient (in bfloat16 also the whole gradient's distance
+from float32, so that float32 arithmetic fails), under the tolerances that
+``experiments/layers/conditioning.py`` measures; (b) granite-moe-1b-a400m,
+mamba2-370m, whisper-tiny and paligemma-3b at full width (bf16 weights
+drawn on the card): the ``Server`` answers 8 requests, the decode step is
+timed against its byte bound (for MoE the experts its routing touches),
+and a prefill of half a prompt (after 1500 frames or 256 prefix
+embeddings) continued by teacher-forced decode holds layer 0's caches or
+SSM state to the prefill of the whole prompt; (c) the same four train 2
+steps of one 2048-position sequence (remat full), timed against 6 N T;
+(d) the exact-GEMM guard refuses an MoE, an SSM and an enc-dec step.
+Every phase prints its wall (``[wall]`` lines).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -156,6 +177,7 @@ machine without a CUDA device or a directory without the package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -3729,10 +3751,10 @@ def _held(what, got, want, rtol, atol):
     return float(err.max())
 
 
-def _served_tokens_held(what, calls, want, exact):
+def _served_tokens_held(what, calls, want, exact, near=BF16_TOL):
     """Hold a run's decode calls to the file's, call by call: each call's
     next tokens (all slots) equal, except, where ``exact`` is false, at a
-    slot whose top-2 gap in the file is within BF16_TOL; the first such
+    slot whose top-2 gap in the file is within ``near``; the first such
     difference ends the comparison (the histories part there). Returns
     (calls compared, the near-tie differences printed)."""
     check(len(calls) == len(want["calls"]),
@@ -3745,14 +3767,14 @@ def _served_tokens_held(what, calls, want, exact):
         if diff.size == 0:
             continue
         gaps = np.asarray(ref["gap"])[diff]
-        check(not exact and (gaps <= BF16_TOL).all(),
+        check(not exact and (gaps <= near).all(),
               f"{what}: call {i} slots {diff.tolist()} serve "
               f"{got['next'][diff].tolist()}, the file "
               f"{np.asarray(ref['next'])[diff].tolist()} (top-2 gaps "
               f"{gaps.tolist()})")
         print(f"  {what}: call {i} (position {ref['pos']}) slots "
               f"{diff.tolist()} differ at top-2 gaps {gaps.tolist()} <= "
-              f"{BF16_TOL}; compared up to there")
+              f"{near:.3g}; compared up to there")
         return i, 1
     return len(calls), 0
 
@@ -4676,6 +4698,781 @@ def guard_phase(sref, device="cuda"):
     return refused
 
 
+# -- phase 15: the other layer kinds (MoE, SSD, hybrid, enc-dec, prefix) -----
+
+#: 15a's float32 tolerances, per config: LAYERS_F32_MULTIPLE x the larger
+#: of the JAX package's and the port's own float32-vs-float64 gap on the
+#: CPU (experiments/layers/conditioning.py (A), on the reference's
+#: conditioned weights): the prefill's last-token logits (atol), the
+#: teacher-forced decode continuing from a prefill's caches (atol) and the
+#: gradients (per leaf max |delta| / max |g|). The prefill writes those
+#: caches in bf16 in both packages, so another float32 round-off re-rounds
+#: the entries next to a bf16 rounding boundary by an ulp: the decode's
+#: gap is at least the largest change that round-off-sized weight moves
+#: make (conditioning.py (A'): 4.4e-4 on paligemma, as on the card)
+LAYERS_F32_MULTIPLE = 4
+LAYERS_F32_GAPS = {
+    "granite-moe-1b-a400m": {"prefill": 7.41e-7, "decode": 4.88e-5,
+                             "grads": 1.96e-6},
+    "mamba2-370m": {"prefill": 1.17e-6, "decode": 3.2e-5, "grads": 3.18e-6},
+    "jamba-1.5-large-398b": {"prefill": 1.15e-6, "decode": 3.83e-4,
+                             "grads": 9.84e-6},
+    "whisper-tiny": {"prefill": 3.75e-7, "decode": 3.28e-5, "grads": 1.27e-6},
+    "paligemma-3b": {"prefill": 1.14e-6, "decode": 4.39e-4, "grads": 1.64e-6},
+}
+#: the JAX package's own gaps between its two bf16 programs (XLA's excess
+#: precision on, the default, and off; conditioning.py (B), (B')): the
+#: logits (15a holds the port's within LAYERS_F32_MULTIPLE x these, at
+#: least BF16_TOL; granite's decode gap is a token routed otherwise), the
+#: train step's loss and the gradients' global norm. The port's gaps to the
+#: file on the CPU are of the same size (0.1-1.6 x these)
+LAYERS_BF16_GAPS = {
+    "granite-moe-1b-a400m": {"prefill": 0.0137, "decode": 0.194,
+                             "loss": 4.35e-4, "grad_norm": 3.97e-3},
+    "mamba2-370m": {"prefill": 0.0117, "decode": 0.0127, "loss": 2.68e-4,
+                    "grad_norm": 6.33e-3},
+    "jamba-1.5-large-398b": {"prefill": 0.0186, "decode": 0.0244,
+                             "loss": 3.2e-4, "grad_norm": 1.94e-3},
+    "whisper-tiny": {"prefill": 5.86e-3, "decode": 7.81e-3, "loss": 5.39e-5,
+                     "grad_norm": 2.94e-3},
+    "paligemma-3b": {"prefill": 9.77e-3, "decode": 0.0117, "loss": 2.48e-4,
+                     "grad_norm": 3.11e-3},
+}
+#: 15a's bfloat16 train step against the file's bfloat16, every leaf held
+#: (conditioning.py (B)). Two bf16 programs round in other places, and
+#: their gradients lie about as far apart as each lies from float32: XLA's
+#: two are up to 1.07 x a leaf's own bf16-vs-f32 gap apart, the port is up
+#: to 1.02 x from the JAX package's on the CPU. So a distance to the bf16
+#: file cannot tell a bf16 gradient from a float32 one (at 1.0 x), and
+#: 14a's half-gap rule is out of reach of XLA itself. 15a holds each leaf's
+#: relative L2 distance (from the file's sketch) within BF16_NOISE_MULTIPLE
+#: x its gap, at most BF16_GRAD_RTOL (on these weights the gaps are
+#: 0.003-0.29, so a zero (1) or negated (2) gradient misses), and the whole
+#: gradient at least BF16_ROUNDING_FLOOR x the JAX package's whole bf16 gap
+#: from the file's float32 (a float32 gradient is ~1e-6 from it); the
+#: loss within BF16_NOISE_MULTIPLE x its bf16 gap or LAYERS_F32_MULTIPLE x
+#: XLA's own, whichever is larger, and grad_norm within BF16_NOISE_MULTIPLE
+#: x the whole gap (the triangle inequality over the leaves' rule)
+BF16_NOISE_MULTIPLE, BF16_ROUNDING_FLOOR = 2.0, 0.25
+#: a MoE token's routing (its set of k expert ids) is held equal to the
+#: file's where the file's top-k margin (k-th minus (k+1)-th router
+#: probability) exceeds ROUTE_MARGIN[dtype]: the router probabilities of
+#: the port and the JAX package are at most 1.8e-6 apart in float32 and
+#: 1.6e-3 / 7.7e-3 in the first MoE layer in bfloat16 (granite / jamba;
+#: conditioning.py (C)). From the first layer where a token below the
+#: margin routes otherwise, later layers' inputs differ by a whole
+#: expert's output (carried to other tokens by attention; 0.13 of a
+#: probability in granite's second), so their routing is printed, not
+#: held; in float32 so are the logits (bf16's tolerances cover XLA's own
+#: flips)
+ROUTE_MARGIN = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
+
+
+def _whole_gap(want, f32):
+    """The JAX package's whole-gradient bf16-vs-f32 distance over the f32
+    gradient's norm, from the file's per-leaf gaps and norms (its bf16 and
+    float32 ``train`` records)."""
+    n32 = {p: r["norm"] for p, r in f32["grads"].items()}
+    num = sum((want["grads"][p]["bf16_gap"] * n) ** 2 for p, n in n32.items())
+    return (num / sum(n * n for n in n32.values())) ** 0.5
+
+
+def _layers_bf16_tols(arch, want, f32):
+    """15a's bfloat16 train-step tolerances from the file's bf16 and
+    float32 ``train`` records: (tol_of(path), loss_tol, grad_norm_tol)."""
+    g = want["grads"]
+
+    def tol_of(path):
+        return min(BF16_NOISE_MULTIPLE * g[path]["bf16_gap"], BF16_GRAD_RTOL)
+
+    loss_tol = max(BF16_NOISE_MULTIPLE * abs(want["step"]["loss"]
+                                             - f32["step"]["loss"]),
+                   LAYERS_F32_MULTIPLE * LAYERS_BF16_GAPS[arch]["loss"])
+    gn_tol = min(BF16_NOISE_MULTIPLE * _whole_gap(want, f32),
+                 BF16_GRAD_RTOL) * want["step"]["grad_norm"]
+    return tol_of, loss_tol, gn_tol
+
+
+def _bf16_rounding_held(what, grads, want, f32, seed):
+    """The whole gradient's distance to the file's float32 one (from the
+    sketches) at least BF16_ROUNDING_FLOOR x the JAX package's whole bf16
+    gap: a bfloat16 config run in float32 fails. Returns that distance
+    over the gap."""
+    from repro_torch.models.common import sorted_leaves
+
+    got = dict(sorted_leaves(grads))
+    sq = sum(float(np.sum((_sketch(got[p], p, len(r["sketch"]), seed)
+                           - np.asarray(r["sketch"])) ** 2))
+             for p, r in f32["grads"].items())
+    dist = (sq / sum(r["norm"] ** 2 for r in f32["grads"].values())) ** 0.5
+    gap = _whole_gap(want, f32)
+    check(dist >= BF16_ROUNDING_FLOOR * gap, f"{what}: the whole gradient "
+          f"is {dist:.3g} from the float32 file's, under "
+          f"{BF16_ROUNDING_FLOOR} x the bf16 gap {gap:.3g}: not rounded as "
+          f"bfloat16")
+    return dist / gap
+
+
+def _layers_extra(cfg, batch, seed):
+    """experiments/layers/make_reference.py's ``extra_inputs``."""
+    rng = np.random.default_rng(seed)
+    if cfg.is_encdec:
+        return {"frames": rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model), np.float32)}
+    if cfg.n_prefix_tokens:
+        return {"prefix_embeds": rng.standard_normal(
+            (batch, cfg.n_prefix_tokens, cfg.d_model), np.float32)}
+    return {}
+
+
+def _layers_batch(cfg, toks, extra, dt, dev):
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32).to(dev)}
+    batch.update({k: torch.from_numpy(v).to(dev).to(dt)
+                  for k, v in extra.items()})
+    return batch
+
+
+def _layers_train_batch(cfg, spec, dev):
+    """experiments/layers/make_reference.py's ``train_batch``, on ``dev``
+    (float32 frames / prefix embeddings: the step casts them)."""
+    batch = dict(_train_batches(cfg, spec, 1)[0])
+    batch.update(_layers_extra(cfg, spec["batch"], spec["input_seed"]))
+    if cfg.n_prefix_tokens:
+        batch["tokens"] = batch["tokens"][:, :spec["seq"] - cfg.n_prefix_tokens]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def _continued_caches(cfg, caches, batch, window, dt, dev):
+    """A prefill's caches in zeroed decode caches of ``window`` positions
+    and dtype ``dt`` (make_reference.py's ``continued_caches``)."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.common import sorted_leaves, unflatten
+
+    mod = encdec if cfg.is_encdec else transformer
+    out = dict(sorted_leaves(mod.init_decode_caches(cfg, batch, window,
+                                                    dtype=dt, device=dev)))
+    for path, got in sorted_leaves(caches):
+        zero = out[path]
+        got = got.to(zero.dtype)
+        if zero.shape == got.shape:
+            out[path] = got.clone()
+        else:
+            zero[:, :, :got.shape[2]] = got
+    return unflatten(out)
+
+
+def _decode_from_prefill(cfg, model, batch, half, at, dev):
+    """Prefill of the first ``half`` tokens (with the frames or prefix),
+    teacher-forced decode of the rest from its caches in the model's
+    dtype; the logits at the steps ``at`` as (len(at), B, V) float32."""
+    from repro_torch.models import steps
+
+    toks = batch["tokens"]
+    b, s = toks.shape
+    p = cfg.n_prefix_tokens
+    _, caches = steps.make_prefill_step(cfg)(
+        model, dict(batch, tokens=toks[:, :half]))
+    caches = _continued_caches(cfg, caches, b, p + s, model.dtype, dev)
+    step = steps.make_decode_step(cfg)
+    out = []
+    for t in range(half, s):
+        _, logits, caches = step(model, toks[:, t:t + 1], caches, p + t)
+        if t - half in at:
+            out.append(logits[:, 0].float().cpu().numpy())
+    return np.stack(out)
+
+
+class _RouteRecorder:
+    """While active, keeps each ``moe._route`` call's expert ids and router
+    probabilities (host copies: outside timed windows)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route = self._route = self.moe._route
+
+        def recording(xf, router, k):
+            gate, idx, p_mean = route(xf, router, k)
+            probs = torch.softmax(xf @ router, dim=-1)
+            self.calls.append((idx.cpu().numpy(), probs.float().cpu().numpy()))
+            return gate, idx, p_mean
+
+        self.moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self._route
+
+
+def _margins(probs, k):
+    top = -np.sort(-probs, axis=-1)
+    return top[:, k - 1] - top[:, k]
+
+
+def _routing_held(what, calls, want, threshold):
+    """Each MoE layer's routed expert sets equal to the file's on every
+    token whose file margin exceeds ``threshold``, layer by layer up to the
+    first layer where a token below the margin routed otherwise. Returns
+    {"held", "below", "moved": token-layers, "layers": layers compared,
+    "smallest": the file's smallest margin}."""
+    check(len(calls) == len(want), f"{what}: {len(calls)} MoE layers routed, "
+          f"the file {len(want)}")
+    out = {"held": 0, "below": 0, "moved": 0, "layers": 0,
+           "smallest": min(float(_ref_array(r["margin"]).min())
+                           for r in want) if want else None}
+    for li, ((idx, _probs), rec) in enumerate(zip(calls, want)):
+        ref_idx = np.sort(np.asarray(rec["idx"]), axis=1)
+        margin = _ref_array(rec["margin"])
+        ok = margin > threshold
+        same = (np.sort(idx, axis=1) == ref_idx).all(axis=1)
+        bad = np.flatnonzero(ok & ~same)
+        check(bad.size == 0, f"{what} MoE layer {li}: tokens {bad.tolist()} "
+              f"routed to {idx[bad].tolist()}, the file "
+              f"{np.asarray(rec['idx'])[bad].tolist()} at margins "
+              f"{margin[bad].tolist()} > {threshold}")
+        out["layers"] += 1
+        out["held"] += int(ok.sum())
+        out["below"] += int((~ok).sum())
+        out["moved"] += int((~ok & ~same).sum())
+        if out["moved"]:
+            break
+    return out
+
+
+def layers_reference_phase(ref, device="cuda", archs=None, dtypes=None):
+    """15a: the port held to ``experiments/layers/reference.json`` (made by
+    the JAX package) for each config (``archs``, default all) in float32
+    and bfloat16 (``dtypes``): the spec tree and seeded weights; the
+    prefill's last-token logits; teacher-forced decode continuing from a
+    prefill's caches; each MoE layer's routing above the margin threshold;
+    what the ``Server`` serves (the near-tie rule of 13a); one train
+    step's loss, nll, grad_norm and per-leaf gradients. Returns {case:
+    largest gap}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import convert, steps
+    from repro_torch.models.common import sorted_leaves, tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw
+
+    dev = torch.device(device)
+    dtypes_of = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gaps = {}
+    for arch in archs or list(ref["configs"]):
+        rec = ref["configs"][arch]
+        base = get_config(arch).reduced()
+        specs = sorted([p, list(s.shape)] for p, s in
+                       tree_leaves(steps.model_param_specs(base)))
+        check(specs == rec["specs"], f"15a {arch}: the port's spec tree "
+              f"differs from the file's")
+        tree = convert.conditioned_params(base, ref["seed"])
+        check(convert.params_sha256(tree) == rec["weights_sha256"],
+              f"15a {arch}: the numpy weight rule drew other weights than "
+              f"the file's (numpy {np.__version__})")
+        toks = np.asarray(rec["prompt"], np.int32)
+        extra = _layers_extra(base, toks.shape[0], ref["input_seed"])
+        f32 = rec["float32"]
+        for name in dtypes or ("float32", "bfloat16"):
+            dt = dtypes_of[name]
+            is32 = name == "float32"
+            want = rec[name]
+            key = f"{arch} {name}"
+            cfg = dataclasses.replace(base, param_dtype=name)
+            model = steps.cast_model(cfg, convert.from_jax_params(cfg, tree,
+                                                                  dev))
+            batch = _layers_batch(cfg, toks, extra, dt, dev)
+            if is32:
+                tol = {k: LAYERS_F32_MULTIPLE * v
+                       for k, v in LAYERS_F32_GAPS[arch].items()}
+            else:
+                tol = {k: max(BF16_TOL, LAYERS_F32_MULTIPLE
+                              * LAYERS_BF16_GAPS[arch][k])
+                       for k in ("prefill", "decode")}
+            with _RouteRecorder() as rr:
+                logits, _ = steps.make_prefill_step(cfg)(model, batch)
+            route = _routing_held(f"15a {key} routing", rr.calls,
+                                  want["routing"], ROUTE_MARGIN[name])
+            # in float32 a token routed otherwise (below the margin) moves
+            # the logits of every later position by a whole expert's output
+            tied = is32 and route["moved"] > 0
+            got = logits[:, 0].float().cpu().numpy()
+            pre = _ref_array(want["prefill_logits"])
+            gaps[f"{key} prefill"] = (
+                float(np.abs(got - pre).max()) if tied else
+                _held(f"15a {key} prefill", got, pre, 0.0, tol["prefill"]))
+            got = _decode_from_prefill(cfg, model, batch, ref["half"],
+                                       ref["decode_at"], dev)
+            dec = _ref_array(want["decode_logits"])
+            gaps[f"{key} decode"] = (
+                float(np.abs(got - dec).max()) if tied else
+                _held(f"15a {key} decode", got, dec, 0.0, tol["decode"]))
+            srv = Server(cfg, model, max_batch=ref["serve"]["max_batch"],
+                         max_len=ref["serve"]["max_len"])
+            calls = _recording(srv)
+            for req in _serve_requests(cfg, ref["serve"], Request):
+                srv.submit(req)
+            while srv.step():
+                pass
+            # the server's caches are bf16 in both dtypes: a served token may
+            # differ where the file's top-2 gap is within twice the prefill
+            # logits' tolerance (at least BF16_TOL); the first difference
+            # ends the comparison
+            near = max(BF16_TOL, 2 * tol["prefill"])
+            compared, ties = _served_tokens_held(
+                f"15a {key} serve", calls, want["serve"], exact=False,
+                near=near)
+            check(srv.steps == want["serve"]["steps"]
+                  and [r.rid for r in srv.done] == want["serve"]["done_order"],
+                  f"15a {key} serve: {srv.steps} steps, done order "
+                  f"{[r.rid for r in srv.done]}")
+            if not ties:
+                check({str(r.rid): r.out for r in srv.done}
+                      == want["serve"]["tokens"],
+                      f"15a {key} serve: tokens differ from the file's")
+            del model, srv
+
+            # one train step from the float32 master
+            tb = _layers_train_batch(cfg, ref["train"], dev)
+            wt = want["train"]
+            g = wt["grads"]
+            if is32:
+                gtol_of = lambda path: tol["grads"]  # noqa: E731
+                loss_tol = F32_LOSS_RTOL * abs(wt["step"]["loss"])
+                gn_tol = tol["grads"] * wt["step"]["grad_norm"]
+            else:
+                gtol_of, loss_tol, gn_tol = _layers_bf16_tols(
+                    arch, wt, f32["train"])
+            params = tree_map(lambda a: torch.from_numpy(a.copy()).to(dev),
+                              tree)
+            (loss, nll), grads = steps._value_and_grad(
+                steps._forward_loss(cfg))(params, tb)
+            check(abs(float(loss) - wt["step"]["value_and_grad_loss"])
+                  <= loss_tol, f"15a {key}: loss {float(loss)} against "
+                  f"{wt['step']['value_and_grad_loss']} (tol {loss_tol:.3g})")
+            gaps[f"{key} grads"] = _grads_held(
+                f"15a {key} grads", grads, g, gtol_of, ref["sketch_seed"])
+            rounded = (None if is32 else _bf16_rounding_held(
+                f"15a {key} grads", grads, wt, f32["train"],
+                ref["sketch_seed"]))
+            del grads
+            state = {"params": params,
+                     "opt": adamw.init_state(params, AdamWConfig())}
+            state, m = steps.make_train_step(cfg, AdamWConfig())(state, tb)
+            check(abs(float(m["loss"]) - wt["step"]["loss"]) <= loss_tol
+                  and abs(float(m["grad_norm"]) - wt["step"]["grad_norm"])
+                  <= gn_tol, f"15a {key}: train step loss "
+                  f"{float(m['loss'])}, grad_norm {float(m['grad_norm'])} "
+                  f"against {wt['step']} (tols {loss_tol:.3g}, {gn_tol:.3g})")
+            del state
+            print(f"  15a {key}: prefill {gaps[f'{key} prefill']:.3g} (tol "
+                  f"{tol['prefill']:.3g}), decode from prefill "
+                  f"{gaps[f'{key} decode']:.3g} (tol {tol['decode']:.3g}) "
+                  f"largest logit gap"
+                  + (" (printed, not held: a token below the margin routed "
+                     "otherwise)" if tied else "")
+                  + (f"; routing of {route['layers']}/{len(want['routing'])}"
+                     f" MoE layers: {route['held']} token-layers held equal, "
+                     f"{route['below']} below margin "
+                     f"{ROUTE_MARGIN[name]:.3g} ({route['moved']} routed "
+                     f"otherwise), the file's smallest margin "
+                     f"{route['smallest']:.3g}" if want["routing"] else "")
+                  + f"; served {compared}/{len(calls)} decode calls equal"
+                  + (f" (then a near-tie within {near:.3g})" if ties else "")
+                  + f"; train step loss {float(m['loss']):.6f} (file "
+                  f"{wt['step']['loss']:.6f}, tol {loss_tol:.3g}), grad_norm "
+                  f"{float(m['grad_norm']):.5g} (file "
+                  f"{wt['step']['grad_norm']:.5g}, tol {gn_tol:.3g}); all "
+                  f"{len(g)} gradient leaves held, within "
+                  f"{gaps[f'{key} grads']:.3g} relative L2"
+                  + ("" if is32 else
+                     f" (each within {BF16_NOISE_MULTIPLE} x its own bf16 "
+                     f"gap, at most {BF16_GRAD_RTOL}; the gaps "
+                     f"{min(r['bf16_gap'] for r in g.values()):.3g}-"
+                     f"{max(r['bf16_gap'] for r in g.values()):.3g}); the "
+                     f"whole gradient {rounded:.3g} x the bf16 gap from the "
+                     f"float32 file (at least {BF16_ROUNDING_FLOOR})"))
+    return gaps
+
+
+#: 15b and 15c: the four configs at full width
+LAYERS_FULL = ("granite-moe-1b-a400m", "mamba2-370m", "whisper-tiny",
+               "paligemma-3b")
+#: 15b: prefill of the first half of LAYERS_PROMPT tokens (with 1500
+#: frames or 256 prefix embeddings), teacher-forced decode of the rest from
+#: its caches, against the prefill of the whole prompt (one SSD chunk: the
+#: decode runs at ~60 ms a step; 15c's 2048 tokens run eight chunks)
+LAYERS_PROMPT = 256
+#: 15b's serving run: 13b's, 16 new tokens a request
+LAYERS_SERVE = dict(FULL_SERVE, max_new=16)
+#: 15c: one sequence a step: 2048 positions (paligemma: 256 prefix + 1792
+#: tokens; whisper: 1500 frames + 448 decoder tokens)
+LAYERS_TRAIN = {"batch": 1, "seq": 2048, "steps": 2, "seed": 5,
+                "input_seed": 6, "whisper_tokens": 448}
+
+
+def _full_model(cfg, dev):
+    """Weights drawn by ``init_params`` in float32 on the device, cast to
+    bf16 as the serve CLI casts them; (model, parameters, weight bytes)."""
+    from repro_torch.models import steps
+    from repro_torch.models.common import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(steps.model_param_specs(cfg), gen, torch.float32, dev)
+    model = steps.make_model(cfg, params).to(torch.bfloat16)
+    del params
+    n = sum(p.numel() for p in model.parameters())
+    return model, n, sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+
+
+def _expert_bytes(model, cfg):
+    """bf16 bytes of one expert of one MoE layer, and of all experts of
+    all MoE layers."""
+    total = sum(p.numel() * p.element_size()
+                for name, p in model.named_parameters()
+                if ".moe." in f".{name}." and not name.endswith("router"))
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    return (total // (n_moe * cfg.n_experts) if n_moe else 0), total
+
+
+def _cache_bytes(caches):
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(caches))
+
+
+def layers_serve_full_width(cfg, part, device="cuda", serve=LAYERS_SERVE,
+                            prompt_len=LAYERS_PROMPT):
+    """15b: ``cfg`` at full width on weights drawn on the device, bf16:
+    the ``Server`` answers ``serve``'s requests (tokens in range, logits
+    finite); prefill of half a ``prompt_len``-token prompt (with 1500
+    seeded frames or 256 seeded prefix embeddings) and teacher-forced
+    decode of the rest from its caches, layer 0's caches (or SSM state)
+    held to the prefill of the whole prompt. Prints and returns the decode
+    step's median ms, tokens/s, busy share, peak memory and the step's
+    byte bound: the weights it reads (for MoE, the experts its batch's
+    routing touches) and its caches, at the card's memory rate."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import encdec, steps, transformer
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, n_params, weight_bytes = _full_model(cfg, dev)
+    check(n_params == cfg.param_count(), f"15b {cfg.arch}: {n_params:,} "
+          f"parameters, the config {cfg.param_count():,}")
+    one_expert, all_experts = _expert_bytes(model, cfg)
+    kinds = sorted({k for k in cfg.layer_kinds()})
+    print(f"  15b {cfg.arch}: {cfg.n_layers} layers {kinds}"
+          + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+             f"frames" if cfg.is_encdec else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.padded_vocab}: "
+          f"{n_params:,} parameters ({cfg.active_param_count():,} active), "
+          f"{weight_bytes / 1e9:.3f} GB bf16, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def run_server(record):
+        srv = Server(cfg, model, max_batch=serve["max_batch"],
+                     max_len=serve["max_len"])
+        calls = _recording(srv) if record else None
+        for req in _serve_requests(cfg, serve, Request):
+            srv.submit(req)
+        with (_RouteRecorder() if record else contextlib.nullcontext()) as rr:
+            while srv.step():
+                pass
+        return srv, calls, rr.calls if record else None
+
+    t1 = time.perf_counter()
+    srv, calls, routes = run_server(True)
+    t_checked = time.perf_counter() - t1
+    # argmax runs over the padded vocabulary, as in the JAX package, and
+    # random weights fill the padded rows too: a served id may lie past
+    # vocab_size (whisper: 51,865 of 51,968)
+    for i, c in enumerate(calls):
+        check(c["finite"], f"15b {cfg.arch} serve: non-finite logits in "
+              f"decode call {i}")
+        check(((c["next"] >= 0) & (c["next"] < cfg.padded_vocab)).all(),
+              f"15b {cfg.arch} serve: call {i} serves {c['next'].tolist()}")
+    served = [t for r in srv.done for t in r.out]
+    check(len(srv.done) == serve["requests"]
+          and all(len(r.out) == serve["max_new"] for r in srv.done),
+          f"15b {cfg.arch} serve: {len(srv.done)} requests done")
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    touched = ([len(np.unique(idx)) for idx, _ in routes] if n_moe else [])
+    if on_card:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    srv, _, _ = run_server(False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    tok_s = len(served) / wall
+
+    # the decode step alone at batch max_batch over a max_len cache, on
+    # distinct tokens; its own routing gives its bound
+    mod = encdec if cfg.is_encdec else transformer
+    step = steps.make_decode_step(cfg)
+    caches = mod.init_decode_caches(cfg, serve["max_batch"], serve["max_len"],
+                                    device=dev)
+    rng = np.random.default_rng(serve["seed"] + 2)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (serve["max_batch"], 1),
+                                        dtype=np.int32)).to(dev)
+    with _RouteRecorder() as rr:
+        step(model, tok, caches, 100)
+    step_touched = [len(np.unique(idx)) for idx, _ in rr.calls]
+    read = (weight_bytes - all_experts + one_expert * sum(step_touched)
+            + _cache_bytes(caches))
+    bound = read / PEAKS[part][1] * 1e3
+    busy = step_ms = peak = None
+    if on_card:
+        step_ms = timed_ms(lambda: step(model, tok, caches, 100), iters=20,
+                           warmup=3)
+        busy, dev_ms, pwall = _device_busy(lambda: [
+            step(model, tok, caches, 100) for _ in range(PROFILED_CALLS)])
+    del caches
+    print(f"  15b {cfg.arch} serve: {len(srv.done)} requests, {len(served)} "
+          f"tokens in {srv.steps} batch steps and {len(calls)} decode calls; "
+          f"every token in [0, {cfg.padded_vocab}), every logit finite "
+          f"(checked run {t_checked:.2f} s)"
+          + (f"; experts touched per MoE layer per decode call (batch "
+             f"{serve['max_batch']} x top-{cfg.top_k} of {cfg.n_experts}): "
+             f"mean {np.mean(touched):.2f}, min {min(touched)}, max "
+             f"{max(touched)} over {len(touched)} layer-calls" if n_moe
+             else ""))
+
+    # prefill of half the prompt, teacher-forced decode of the rest from its
+    # caches, against the prefill of the whole prompt: layer 0
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prompt_len),
+                                         dtype=np.int32)).to(dev)
+    extra = {k: torch.from_numpy(v).to(dev).to(torch.bfloat16)
+             for k, v in _layers_extra(cfg, 1, serve["seed"] + 3).items()}
+    batch = dict(extra, tokens=toks)
+    half = prompt_len // 2
+    p = cfg.n_prefix_tokens
+    prefill = steps.make_prefill_step(cfg)
+    logits_w, full = prefill(model, batch)
+    _, part_c = prefill(model, dict(batch, tokens=toks[:, :half]))
+    caches = _continued_caches(cfg, part_c, 1, p + prompt_len,
+                               torch.bfloat16, dev)
+    del part_c
+    for t in range(half, prompt_len):
+        _, logits_d, caches = step(model, toks[:, t:t + 1], caches, p + t)
+    lw = logits_w[0, 0].float().cpu().numpy()
+    ld = logits_d[0, 0].float().cpu().numpy()
+    check(np.isfinite(lw).all() and np.isfinite(ld).all(),
+          f"15b {cfg.arch} prefill/decode: non-finite logits")
+    # layer 0: the decoded rows of its k/v, or its SSM state
+    if cfg.is_encdec:
+        rows = slice(half, prompt_len)
+        pairs = {f"self {k}": (full["self"][k][0][:, rows],
+                               caches["self"][k][0][:, rows])
+                 for k in ("k", "v")}
+    elif "ssm" in full["l0"]:
+        pairs = {f"SSM {k}": (full["l0"][k][0], caches["l0"][k][0])
+                 for k in ("ssm", "conv")}
+    else:
+        rows = slice(p + half, p + prompt_len)
+        pairs = {k: (full["l0"][k][0][:, rows], caches["l0"][k][0][:, rows])
+                 for k in ("k", "v")}
+    held = []
+    for name, (want, got) in pairs.items():
+        err = float((got.float() - want.float()).abs().max())
+        tol = PREFILL_DECODE_TOL * float(want.float().abs().max())
+        check(err <= tol, f"15b {cfg.arch}: layer 0's {name} after decode "
+              f"from the prefill's caches differs from the whole prefill's "
+              f"by {err:.4g} > {tol:.4g}")
+        held.append(f"{name} {err:.3g} (<= {tol:.3g})")
+    del full, caches
+    print(f"  15b {cfg.arch} prefill of {half} tokens"
+          + (f" after {p} prefix embeddings" if p else "")
+          + (f" over {cfg.enc_seq} frames" if cfg.is_encdec else "")
+          + f", teacher-forced decode of {prompt_len - half} more from its "
+          f"caches, against the prefill of all {prompt_len} "
+          f"({time.perf_counter() - t1:.2f} s): layer 0's "
+          + ", ".join(held) + f" (held within 2^-7 of the largest entry); "
+          f"last-token logits {np.abs(lw - ld).max():.4g} apart, top-1 "
+          f"{int(lw.argmax())} / {int(ld.argmax())} (printed, not held: "
+          f"chaotic weights)")
+    if on_card:
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  15b {cfg.arch} decode step (batch {serve['max_batch']}, "
+              f"cache {serve['max_len']}): median {step_ms:.3f} ms against a "
+              f"byte bound of {bound:.3f} ms ({read:,} bytes: weights"
+              + (f" with the {sum(step_touched)} experts its routing touches "
+                 f"of {n_moe * cfg.n_experts}" if n_moe else "")
+              + f" and caches, at {PEAKS[part][1] / 1e12:.2f} TB/s); serve "
+              f"loop {wall:.3f} s, {tok_s:.1f} tokens/s; device busy "
+              f"{100 * busy:.1f}% of {PROFILED_CALLS} profiled decode steps "
+              f"({dev_ms:.1f} of {pwall:.1f} ms); peak device memory "
+              f"{peak:.2f} GiB")
+    del model
+    return {"step_ms": step_ms, "tok_s": tok_s, "busy": busy,
+            "peak_gib": peak, "bound_ms": bound, "wall_s": wall,
+            "touched": touched}
+
+
+def _layers_full_batch(cfg, run, dev):
+    """15c's batch: SyntheticLM tokens and labels over ``run["seq"]``
+    positions, with seeded prefix embeddings (paligemma: the first 256
+    positions) or 1500 seeded frames and ``whisper_tokens`` decoder
+    tokens (whisper), in bf16 as the JAX package's arch smoke test feeds
+    them."""
+    spec = dict(run)
+    if cfg.is_encdec:
+        spec["seq"] = run["whisper_tokens"]
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+            for k, v in _layers_train_batch(cfg, spec, dev).items()}
+
+
+def layers_train_full_width(cfg, part, device="cuda", run=LAYERS_TRAIN):
+    """15c: ``cfg`` at full width (remat "full") trains ``run["steps"]``
+    steps of one sequence on a float32 master drawn by ``init_params`` on
+    the device: finite loss and grad_norm, params that change; each step
+    timed against the 6 N T bound (MoE: N active; whisper: the encoder's
+    parameters over the frames, the rest over the decoder tokens); the
+    device's busy share over one more step, profiled; peak memory. It
+    checks memory, time and finiteness, not learning (chaotic weights)."""
+    from repro_torch.models import steps
+    from repro_torch.optim import AdamWConfig
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt_cfg = AdamWConfig(moment_dtype=steps._dtype(cfg.moment_dtype))
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, dev)
+    paths = _paths(state["params"])
+    n_params = sum(t.numel() for _, t in paths)
+    check(n_params == cfg.param_count(), f"15c: {n_params:,} parameters")
+    batch = _layers_full_batch(cfg, run, dev)
+    if cfg.is_encdec:
+        n_enc = sum(t.numel() for p, t in paths if p.startswith("enc_"))
+        work = n_enc * cfg.enc_seq + (n_params - n_enc) * batch[
+            "tokens"].shape[1]
+        shape = (f"{cfg.enc_seq} frames + {batch['tokens'].shape[1]} tokens")
+    else:
+        work = cfg.active_param_count() * run["seq"]
+        shape = (f"{cfg.n_prefix_tokens} prefix + "
+                 f"{batch['tokens'].shape[1]} tokens" if cfg.n_prefix_tokens
+                 else f"{run['seq']} tokens")
+    bound = 6 * work * run["batch"] / BF16_PEAK[part] * 1e3
+    print(f"  15c {cfg.arch}: {n_params:,} parameters "
+          f"({cfg.active_param_count():,} active), remat {cfg.remat}, float32 "
+          f"master, m and v drawn in {time.perf_counter() - t0:.2f} s")
+    watch = {p: t.reshape(-1)[:64].clone() for p, t in paths}
+    step = steps.make_train_step(cfg, opt_cfg)
+    ms, metrics = [], []
+    for i in range(run["steps"]):
+        if on_card:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    busy = dev_ms = pwall = peak = None
+    if on_card:
+        busy, dev_ms, pwall = _device_busy(lambda: step(state, batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()),
+              f"15c {cfg.arch} step {i + 1}: {m}")
+    moved = sum(not torch.equal(t.reshape(-1)[:64], watch[p])
+                for p, t in _paths(state["params"]))
+    check(moved == len(watch), f"15c {cfg.arch}: {len(watch) - moved} leaves "
+          f"did not change")
+    del state, watch, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  15c {cfg.arch}: {run['steps']} steps of {run['batch']} x "
+          f"({shape}): "
+          + "; ".join(f"step {i + 1} loss {m['loss']:.4f} grad_norm "
+                      f"{m['grad_norm']:.4g} in {t:.1f} ms"
+                      for i, (m, t) in enumerate(zip(metrics, ms)))
+          + f" (printed, not held: chaotic weights); every leaf changed; 6 N "
+          f"T bound {bound:.2f} ms at {BF16_PEAK[part] / 1e12:.0f} TFLOP/s, "
+          f"{100 * bound / ms[-1]:.2f}% of step {run['steps']}"
+          + (f"; device busy {100 * busy:.1f}% of one more step, profiled "
+             f"({dev_ms:.1f} of {pwall:.1f} ms); peak device memory "
+             f"{peak:.2f} GiB" if on_card else ""))
+    return {"step_ms": ms, "bound_ms": bound, "busy": busy, "peak_gib": peak,
+            "metrics": metrics}
+
+
+def layers_guard_phase(ref, device="cuda"):
+    """15d: with ``allow_bf16_reduced_precision_reduction`` True, an MoE
+    train step, an SSM decode step and an enc-dec prefill step refuse a
+    CUDA model; the flag is reset after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert, steps, transformer
+    from repro_torch.optim import AdamWConfig, adamw
+
+    dev = torch.device(device)
+
+    def cfg_of(arch):
+        return dataclasses.replace(get_config(arch).reduced(),
+                                   param_dtype="bfloat16")
+
+    moe_cfg = cfg_of("granite-moe-1b-a400m")
+    params = convert.tree_from_jax(convert.numpy_params(moe_cfg, ref["seed"]),
+                                   dev)
+    state = {"params": params, "opt": adamw.init_state(params, AdamWConfig())}
+    tb = _layers_train_batch(moe_cfg, ref["train"], dev)
+    ssm_cfg = cfg_of("mamba2-370m")
+    ssm_model = steps.cast_model(ssm_cfg, convert.from_jax_params(
+        ssm_cfg, convert.numpy_params(ssm_cfg, ref["seed"]), dev))
+    ed_cfg = cfg_of("whisper-tiny")
+    ed_model = steps.cast_model(ed_cfg, convert.from_jax_params(
+        ed_cfg, convert.numpy_params(ed_cfg, ref["seed"]), dev))
+    toks = torch.tensor(ref["configs"]["whisper-tiny"]["prompt"],
+                        dtype=torch.int32, device=dev)
+    ed_batch = _layers_batch(ed_cfg, toks.cpu().numpy(), _layers_extra(
+        ed_cfg, toks.shape[0], ref["input_seed"]), torch.bfloat16, dev)
+    refused = []
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        for name, call in (
+                ("MoE train step", lambda: steps.make_train_step(moe_cfg)(
+                    state, tb)),
+                ("SSM decode step", lambda: steps.make_decode_step(ssm_cfg)(
+                    ssm_model, toks[:, :1], transformer.init_decode_caches(
+                        ssm_cfg, toks.shape[0], 4, device=dev), 0)),
+                ("enc-dec prefill step", lambda: steps.make_prefill_step(
+                    ed_cfg)(ed_model, ed_batch))):
+            try:
+                call()
+            except RuntimeError as exc:
+                if "exact GEMMs" not in str(exc):
+                    raise
+                refused.append(name)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    want = ["MoE train step", "SSM decode step", "enc-dec prefill step"]
+    check(refused == want, f"15d: the guard refused {refused}")
+    print(f"  15d with allow_bf16_reduced_precision_reduction=True: "
+          f"{', '.join(refused)} refuse a CUDA model; the flag reset to {flag}")
+    return refused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4946,6 +5743,36 @@ def main() -> int:
     print(f"[14 train] {time.perf_counter() - t0:.2f} s; none of the 11 "
           f"kernels launched")
     wall("14", t0)
+
+    # 15. the other layer kinds: the reference configs, four configs at full
+    # width serving and training, the GEMM guard
+    before = dict(S.launches)
+    t0 = time.perf_counter()
+    lref = json.loads((ROOT / "experiments" / "layers"
+                       / "reference.json").read_text())
+    print("[15 layers] 15a: the port against experiments/layers/reference.json")
+    layers_reference_phase(lref)
+    wall("15a", t0)
+    t1 = time.perf_counter()
+    print(f"[15 layers] 15b: serving at full width ({smi})")
+    for arch in LAYERS_FULL:
+        layers_serve_full_width(get_config(arch), part)
+    wall("15b", t1)
+    t1 = time.perf_counter()
+    print(f"[15 layers] 15c: training at full width ({smi})")
+    for arch in LAYERS_FULL:
+        layers_train_full_width(get_config(arch), part)
+    wall("15c", t1)
+    print("[15 layers] 15d: the exact-GEMM guard")
+    layers_guard_phase(lref)
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "15d left bf16 reduction on")
+    check(dict(S.launches) == before,
+          f"the layer kinds launched a kernel: {dict(S.launches)} against "
+          f"{before}")
+    print(f"[15 layers] {time.perf_counter() - t0:.2f} s; none of the 11 "
+          f"kernels launched")
+    wall("15", t0)
     print("[wall] " + ", ".join(f"{k} {v:.1f}" for k, v in
                                 phase_walls.items()))
 

@@ -10,7 +10,11 @@ included:
   that position in every other slot's cache row;
 * the batch decodes at one position, ``slot_pos`` of the first active
   slot;
-* a freed slot keeps its position and its cache rows.
+* a freed slot keeps its position and its cache rows;
+* for an SSM layer the naive prefill therefore advances every slot's
+  recurrent state, not only the admitted one's;
+* an encoder-decoder's cross caches stay zero (prompts go through
+  ``decode_step``; nothing calls ``encode``).
 
 One host read of the next tokens a step. Runs on the card (``device="cuda"``
 by default, ``--device`` on the CLI) and raises without one; it never
@@ -28,8 +32,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..configs import get_config
-from ..models import steps as steps_mod, transformer
+from ..configs import ARCHS, get_config
+from ..models import encdec, steps as steps_mod, transformer
 from ..models.common import init_params
 
 
@@ -43,7 +47,8 @@ class Request:
 
 class Server:
     """Fixed-slot continuous-batching decode server over a `Transformer`
-    (cast once to ``cfg.param_dtype`` here), on the model's device."""
+    or an `EncDec` (cast once to ``cfg.param_dtype`` here), on the model's
+    device."""
 
     def __init__(self, cfg, model, max_batch: int = 8, max_len: int = 512):
         self.cfg = cfg
@@ -52,8 +57,9 @@ class Server:
         self.max_len = max_len
         self.decode = steps_mod.make_decode_step(cfg)
         dev = model.embed.device
-        self.caches = transformer.init_decode_caches(cfg, max_batch, max_len,
-                                                     device=dev)
+        mod = encdec if cfg.is_encdec else transformer
+        self.caches = mod.init_decode_caches(cfg, max_batch, max_len,
+                                             device=dev)
         self.slot_pos = np.zeros(max_batch, dtype=np.int32)   # next write slot
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.queue: List[Request] = []
@@ -109,7 +115,7 @@ def main(argv=None):
     from ..core.analysis.wavefront import resolve_device
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--arch", default="gemma-2b", choices=sorted(ARCHS))
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda",
@@ -122,7 +128,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(steps_mod.model_param_specs(cfg), gen,
                          torch.float32, dev)
-    model = transformer.Transformer(cfg, params).to(torch.bfloat16)
+    model = steps_mod.make_model(cfg, params).to(torch.bfloat16)
     del params
     srv = Server(cfg, model, max_batch=4, max_len=128)
 

@@ -35,8 +35,21 @@ def build_trainer(cfg, *, lr=3e-4, warmup=20, total_steps=200, seed=0,
                   accum_steps: int = 1, device="cuda"):
     """Returns (init_state_fn, step_fn, data_fn, like_state_fn): the last
     gives the train state's structure as meta tensors (what a restore
-    needs, nothing allocated)."""
+    needs, nothing allocated).
+
+    ``SyntheticLM`` yields tokens and labels only, so an encoder-decoder
+    (which needs ``frames``) or a prefix config (``prefix_embeds``) is
+    refused here; the JAX package's ``launch.train`` fails on them at its
+    first step."""
     from ..core.analysis.wavefront import resolve_device
+
+    missing = ("frames" if cfg.is_encdec else
+               "prefix_embeds" if cfg.n_prefix_tokens else None)
+    if missing:
+        raise ValueError(
+            f"{cfg.arch}: its train step needs batch[{missing!r}], which "
+            f"the synthetic data source (data.SyntheticLM: tokens and "
+            f"labels) does not yield")
 
     dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr)

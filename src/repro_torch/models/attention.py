@@ -12,10 +12,10 @@ Decode runs the gathered path: the whole cache is read each step. The JAX
 package's seq-sharded flash-decode (``_decode_attention_sharded``) runs
 only under a sharding plan; without one it falls through to the gathered
 path, and the port has no plan (``sharding/`` waits, ROADMAP Queue 1
-item 3). ``cross_attention`` and ``memory_kv`` wait for the enc-dec
-layers (item 2). The int8 cache is the KIVI-style per-(token, head) symmetric
-quantization of the reference (``torch.round`` is round-half-to-even, as
-``jnp.round`` is).
+item 3). ``cross_attention`` (the enc-dec decoder's, non-causal over the
+memory's k and v from ``memory_kv``) runs the same flash. The int8 cache
+is the KIVI-style per-(token, head) symmetric quantization of the
+reference (``torch.round`` is round-half-to-even, as ``jnp.round`` is).
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ import torch.nn.functional as F
 
 from .common import Spec, apply_rope, div, einsum, einsum_f32
 
-__all__ = ["param_specs", "self_attention", "decode_attention",
-           "chunked_attention"]
+__all__ = ["param_specs", "self_attention", "cross_attention", "memory_kv",
+           "decode_attention", "chunked_attention"]
 
 _NEG = -1e30
 
@@ -155,6 +155,20 @@ def self_attention(p, x, positions, cfg, *, causal=True, prefix_len=0,
         k = apply_rope(k, positions[None, :], cfg.rope_theta)
     out = _flash(q, k, v, causal=causal, prefix_len=prefix_len, cfg=cfg)
     return einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+
+
+def cross_attention(p, x, memory_kv, cfg):
+    """x: (B, Sq, D); memory_kv: (k, v) precomputed from encoder output."""
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = memory_kv
+    out = _flash(q, k, v, causal=False, prefix_len=0, cfg=cfg)
+    return einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def memory_kv(p, memory):
+    k = einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = einsum("bsd,dhk->bshk", memory, p["wv"])
+    return k, v
 
 
 def _quant_token(t):

@@ -18,7 +18,8 @@ __all__ = [
     "Spec", "tree_leaves", "sorted_leaves", "tree_map", "unflatten",
     "host_array",
     "init_params", "rms_norm",
-    "layer_norm", "apply_rope", "einsum", "einsum_f32", "div",
+    "layer_norm", "apply_rope", "sinusoidal_positions", "einsum",
+    "einsum_f32", "div",
 ]
 
 
@@ -175,3 +176,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position table (seq, dim), float32,
+    in the JAX package's op order."""
+    half = dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=device)
+    freq = torch.exp(div(-math.log(10_000.0) * ar, float(max(half - 1, 1))))
+    ang = (torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+           * freq[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -32,13 +32,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import transformer
+from . import encdec, transformer
 from .common import init_params, sorted_leaves, tree_map, unflatten
 from ..optim import AdamWConfig, adamw
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
            "init_train_state", "cast_model", "model_param_specs",
-           "exact_gemms", "set_exact_gemms"]
+           "exact_gemms", "set_exact_gemms", "make_model"]
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -47,8 +47,15 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def model_param_specs(cfg):
-    transformer.check_supported(cfg)
-    return transformer.param_specs(cfg)
+    return (encdec if cfg.is_encdec else transformer).param_specs(cfg)
+
+
+def make_model(cfg, params: Dict):
+    """The serving module for ``cfg`` over a parameter tree of tensors: an
+    `encdec.EncDec` for an encoder-decoder, else a
+    `transformer.Transformer`."""
+    return (encdec.EncDec if cfg.is_encdec else transformer.Transformer)(
+        cfg, params)
 
 
 def exact_gemms(device) -> None:
@@ -83,7 +90,7 @@ def set_exact_gemms() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def cast_model(cfg, model: transformer.Transformer) -> transformer.Transformer:
+def cast_model(cfg, model):
     """``model`` in ``cfg.param_dtype`` (in place; a no-op when it is)."""
     return model.to(_dtype(cfg.param_dtype))
 
@@ -117,13 +124,21 @@ def init_train_state(cfg, generator: torch.Generator,
 
 def _forward_loss(cfg) -> Callable:
     """loss_fn(master, batch) -> (loss, nll): the master cast to
-    ``cfg.param_dtype`` inside autograd, the training forward, `lm_loss`."""
-    transformer.check_supported(cfg)
+    ``cfg.param_dtype`` inside autograd, the training forward (with the
+    batch's ``frames`` for an encoder-decoder, its ``prefix_embeds`` for a
+    prefix config), `lm_loss`."""
     compute_dtype = _dtype(cfg.param_dtype)
 
     def loss_fn(master_params: Dict, batch: Dict):
         p = tree_map(lambda x: x.to(compute_dtype), master_params)
-        hidden, aux = transformer.forward(p, batch["tokens"], cfg)
+        if cfg.is_encdec:
+            hidden, aux = encdec.forward(p, batch["frames"], batch["tokens"],
+                                         cfg)
+        elif cfg.n_prefix_tokens:
+            hidden, aux = transformer.forward(
+                p, batch["tokens"], cfg, prefix_embeds=batch["prefix_embeds"])
+        else:
+            hidden, aux = transformer.forward(p, batch["tokens"], cfg)
         return transformer.lm_loss(p, hidden, batch["labels"], cfg, aux)
 
     return loss_fn
@@ -153,8 +168,10 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
                     accum_dtype=torch.float32) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics), ``metrics`` =
     {loss, nll, grad_norm, lr} as device scalars. ``batch`` holds
-    ``tokens`` and ``labels`` (B, S), tensors or numpy arrays (moved to the
-    state's device).
+    ``tokens`` and ``labels`` (B, S), and ``frames`` (B, enc_seq, D) for
+    an encoder-decoder or ``prefix_embeds`` (B, P, D) for a prefix config
+    (labels then cover the P + S hidden positions), tensors or numpy
+    arrays (moved to the state's device).
 
     accum_steps > 1 splits the batch into microbatches whose gradients are
     summed into ``accum_dtype`` (bf16 halves the accumulator) and scaled by
@@ -206,18 +223,22 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
 # -- serving -------------------------------------------------------------------
 
 def make_prefill_step(cfg) -> Callable:
-    transformer.check_supported(cfg)
-
+    """prefill_step(model, batch) -> (last-token logits, caches); the
+    batch's ``frames`` go to an encoder-decoder, its ``prefix_embeds`` in
+    front of a prefix config's tokens."""
     def prefill_step(model, batch: Dict):
         _checked(cfg, model)
+        if cfg.is_encdec:
+            return model.prefill(batch["frames"], batch["tokens"])
+        if cfg.n_prefix_tokens:
+            return model.prefill(batch["tokens"],
+                                 prefix_embeds=batch["prefix_embeds"])
         return model.prefill(batch["tokens"])
 
     return prefill_step
 
 
 def make_decode_step(cfg) -> Callable:
-    transformer.check_supported(cfg)
-
     def decode_step(model, token: torch.Tensor, caches: Dict, cache_pos: int):
         _checked(cfg, model)
         logits, new_caches = model.decode_step(token, caches, cache_pos)

@@ -1,21 +1,26 @@
-"""Decoder-only LM: the dense layer stack, for serving and training.
+"""Decoder-only LM assembly: dense / MoE / SSM / hybrid, one code path,
+for serving and training.
 
-The port of the JAX package's ``models/transformer.py`` for the
-``("attn", "mlp")`` layer kind. Parameters keep the JAX einsum layouts
-(``wq (d, h, hd)``, ``wo (h, hd, d)``, ``embed (V, d)``, ``lm_head (d,
-V)``) in a nested dict with the layers stacked on a leading axis, so
-carrying weights across (``models.convert``) is a copy. `param_specs`
-covers every layer kind (the parameter counts need them); a config with
-MoE or SSM layers, an encoder-decoder or prefix tokens raises
-`NotImplementedError` (ROADMAP Queue 1 item 2 for the layer kinds, item 3
-for expert parallelism and sharding).
+The port of the JAX package's ``models/transformer.py``. The layer stack is
+the smallest repeating layer pattern (`cfg.layer_groups()`), run
+``repeats`` times; each pattern element ``l{i}`` is (mixer, ffn) with mixer
+in {attn, ssm} and ffn in {mlp, moe, none}. Parameters keep the JAX einsum
+layouts (``wq (d, h, hd)``, ``wo (h, hd, d)``, ``embed (V, d)``,
+``lm_head (d, V)``, ``layers/l{i}/moe/wi (R, E, d, f)``) in a nested dict
+with each pattern element's layers stacked on a leading axis, so carrying
+weights across (``models.convert``) is a copy. The layers run in the
+reference's order: repeat by repeat, the pattern unrolled inside.
 
 One layer's computation is `layer_forward`, a function of that layer's
-parameter dict; the serving `Transformer` and the training `forward` both
-call it.
+parameter dict (its keys name its kind); the serving `Transformer` and the
+training `forward` both call it. ``prefix_embeds`` (PaliGemma's image
+stub, (B, P, D)) are cast to the activations' dtype and put in front of
+the scaled token embeddings; self-attention is bidirectional over them
+(``prefix_len``), and the hidden states cover all P + S positions.
 
 Training (functions of a parameter tree, differentiable):
-  forward(params, tokens, cfg)       — hidden states; per-layer remat
+  forward(params, tokens, cfg)       — hidden states and the summed MoE
+                                       aux; per-layer remat
                                        (``cfg.remat``: full | dots | none)
   lm_loss(params, hidden, labels, cfg) — sequence-chunked cross entropy
   logits_from_hidden, embed_tokens   — the vocab projection and the lookup
@@ -23,11 +28,14 @@ Serving (methods of `Transformer`, frozen parameters, no autograd):
   forward(tokens)                    — hidden states (prefill; no remat)
   prefill(tokens)                    — last-token logits + decode caches
   decode_step(token, caches, pos)    — single-token step over the caches
-and `init_decode_caches` (bf16 and int8 layouts). Decode caches are
-nested dicts as in the JAX package (``{"l0": {"k": (L, B, Smax, KV, D),
-...}}``); `decode_step` writes them in place and returns them. Decode
-logits are never softcapped: as in the reference, only the decode scores
-are (``attention.decode_attention``).
+and `init_decode_caches`: per pattern element ``l{i}``, stacked over the
+repeats, attention k/v (bf16, or int8 with bf16 per-(token, head) scales)
+or the SSM state ``{"ssm" (float32), "conv" (the cache dtype)}``.
+`decode_step` writes them in place and returns them; `prefill` returns
+them sized to the prompt (k/v in bf16, the SSM states as ``ssm.ssd_forward``
+leaves them). Decode logits are never softcapped: as in the reference,
+only the decode scores are (``attention.decode_attention``). MoE layers
+drop their aux loss in decode and prefill.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from . import attention, mlp, moe, ssm
 from .common import Spec, div, einsum, layer_norm, rms_norm, tree_map
 
 __all__ = [
-    "param_specs", "init_decode_caches", "check_supported", "layer_forward",
+    "param_specs", "init_decode_caches", "layer_forward",
     "embed_tokens", "logits_from_hidden", "forward", "lm_loss", "Transformer",
 ]
 
@@ -102,20 +110,6 @@ def param_specs(cfg) -> Dict:
     return specs
 
 
-def check_supported(cfg) -> None:
-    """Raise unless every layer of ``cfg`` is the dense ("attn", "mlp")
-    kind, the one the port runs so far."""
-    kinds = set(cfg.layer_kinds())
-    if (cfg.is_encdec or cfg.n_prefix_tokens or kinds != {("attn", "mlp")}):
-        raise NotImplementedError(
-            f"{cfg.arch}: only dense decoder-only configurations (every "
-            f"layer ('attn', 'mlp'), no encoder, no prefix tokens) run in "
-            f"the port so far; layer kinds {sorted(kinds)}, is_encdec="
-            f"{cfg.is_encdec}, n_prefix_tokens={cfg.n_prefix_tokens} wait "
-            f"for ROADMAP Queue 1 item 2 (the layer kinds) and item 3 "
-            f"(expert parallelism, sharding)")
-
-
 def _apply_norm(np_, x, cfg):
     if cfg.norm == "rms":
         return rms_norm(x, np_["w"])
@@ -126,43 +120,73 @@ def _apply_norm(np_, x, cfg):
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                        device="cuda") -> Dict:
-    """Zeroed decode caches, stacked over the layers: bf16 (or ``dtype``)
-    k/v, or, with ``kv_cache_dtype="int8"``, int8 k/v and bf16 per-(token,
-    head) scales."""
+    """Zeroed decode caches, one entry per pattern element ``l{i}``
+    stacked over the repeats: bf16 (or ``dtype``) k/v, or, with
+    ``kv_cache_dtype="int8"``, int8 k/v and bf16 per-(token, head) scales;
+    an SSM layer's ``{"ssm" float32, "conv" dtype}``."""
     from ..core.analysis.wavefront import resolve_device
 
-    check_supported(cfg)
     dev = resolve_device(device)
-    (_pattern, repeats), = cfg.layer_groups()
+    (pattern, repeats), = cfg.layer_groups()
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     shape = (repeats, batch, max_len, kv, hd)
-    if cfg.kv_cache_dtype == "int8":
-        scale = (repeats, batch, max_len, kv, 1)
-        return {"l0": {
-            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "k_scale": torch.zeros(scale, dtype=torch.bfloat16, device=dev),
-            "v_scale": torch.zeros(scale, dtype=torch.bfloat16, device=dev),
-        }}
-    return {"l0": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    caches: Dict[str, Any] = {}
+    for i, (mixer, _ffn) in enumerate(pattern):
+        if mixer == "ssm":
+            st = ssm.init_decode_state(cfg, batch, dtype, dev)
+            caches[f"l{i}"] = {k: t[None].repeat(repeats, *([1] * t.ndim))
+                               for k, t in st.items()}
+        elif cfg.kv_cache_dtype == "int8":
+            scale = (repeats, batch, max_len, kv, 1)
+            i8, bf16 = torch.int8, torch.bfloat16
+            caches[f"l{i}"] = {
+                "k": torch.zeros(shape, dtype=i8, device=dev),
+                "v": torch.zeros(shape, dtype=i8, device=dev),
+                "k_scale": torch.zeros(scale, dtype=bf16, device=dev),
+                "v_scale": torch.zeros(scale, dtype=bf16, device=dev),
+            }
+        else:
+            caches[f"l{i}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return caches
 
 
 # -- one layer, and the training forward ---------------------------------------
 
-def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg):
-    """One ("attn", "mlp") layer over its parameter dict ``lp`` (``norm1``,
-    ``attn``, ``norm2``, ``mlp``). Returns (x, (k, v))."""
+def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+                  prefix_len: int = 0):
+    """One layer over its parameter dict ``lp``, whose keys name its kind:
+    ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
+    ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
+    otherwise), and attention's (k, v) or the SSM's decode state."""
     h = _apply_norm(lp["norm1"], x, cfg)
-    y, kv = attention.self_attention(lp["attn"], h, positions, cfg,
-                                     causal=True, prefix_len=0)
-    x = x + y
-    h2 = _apply_norm(lp["norm2"], x, cfg)
-    return x + mlp.mlp(lp["mlp"], h2, cfg), kv
+    if "attn" in lp:
+        y, cache = attention.self_attention(lp["attn"], h, positions, cfg,
+                                            causal=True,
+                                            prefix_len=prefix_len)
+    else:
+        y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True)
+    x, aux = _ffn(lp, x + y, cfg)
+    return x, aux, cache
 
 
-def _layer(lp, x, positions, cfg):
-    return layer_forward(lp, x, positions, cfg)[0]
+def _ffn(lp: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's second half (``norm2`` and ``mlp`` or ``moe``, or
+    nothing): (x, the MoE aux loss or 0)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "norm2" in lp:
+        h2 = _apply_norm(lp["norm2"], x, cfg)
+        if "moe" in lp:
+            y2, aux = moe.moe(lp["moe"], h2, cfg)
+        else:
+            y2 = mlp.mlp(lp["mlp"], h2, cfg)
+        x = x + y2
+    return x, aux
+
+
+def _layer(lp, x, positions, cfg, prefix_len):
+    return layer_forward(lp, x, positions, cfg, prefix_len)[:2]
 
 
 def _saves_dots(ctx, op, *args, **kwargs):
@@ -178,6 +202,20 @@ def _saves_dots(ctx, op, *args, **kwargs):
 
 def _dots_context():
     return create_selective_checkpoint_contexts(_saves_dots)
+
+
+def _remat(fn, cfg, *args):
+    """``fn(*args)`` under ``cfg.remat``: ``"full"`` recomputes it in the
+    backward (``torch.utils.checkpoint``), ``"dots"`` keeps its products'
+    outputs (selective checkpointing), ``"none"`` keeps everything; the
+    numbers are the same. Without autograd it is a plain call."""
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"remat={cfg.remat!r}: full, dots or none")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      **({"context_fn": _dots_context}
+                         if cfg.remat == "dots" else {}))
 
 
 def _unbind_layers(stacked: Dict) -> List[Dict]:
@@ -208,29 +246,36 @@ def logits_from_hidden(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
     return einsum("...d,dv->...v", h, params["lm_head"])
 
 
-def forward(params: Dict, tokens: torch.Tensor,
-            cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def _with_prefix(x: torch.Tensor, prefix_embeds) -> Tuple[torch.Tensor, int]:
+    if prefix_embeds is None:
+        return x, 0
+    return (torch.cat([prefix_embeds.to(x.dtype), x], dim=1),
+            prefix_embeds.shape[1])
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg, *,
+            prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward over a parameter tree (``param_specs``'
-    layout, in the compute dtype). tokens: (B, S) -> (hidden (B, S, D),
-    moe_aux scalar). Each layer runs under ``cfg.remat``: ``"full"``
-    recomputes it in the backward (``torch.utils.checkpoint``), ``"dots"``
-    keeps its products' outputs (selective checkpointing), ``"none"`` keeps
-    everything; the numbers are the same."""
-    check_supported(cfg)
-    if cfg.remat not in ("full", "dots", "none"):
-        raise ValueError(f"remat={cfg.remat!r}: full, dots or none")
-    x = embed_tokens(params, tokens, cfg)
+    layout, in the compute dtype). tokens: (B, S) -> (hidden (B, P + S,
+    D), moe_aux scalar), ``prefix_embeds`` (B, P, D) in front. Each layer
+    runs under ``cfg.remat`` (`_remat`). The aux sums each repeat's
+    pattern, then the repeats."""
+    x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg),
+                                 prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in _unbind_layers(params["layers"]["l0"]):
-        if cfg.remat == "none":
-            x = _layer(lp, x, positions, cfg)
-        elif cfg.remat == "full":
-            x = checkpoint(_layer, lp, x, positions, cfg, use_reentrant=False)
-        else:
-            x = checkpoint(_layer, lp, x, positions, cfg, use_reentrant=False,
-                           context_fn=_dots_context)
+    (pattern, repeats), = cfg.layer_groups()
+    layers = [_unbind_layers(params["layers"][f"l{i}"])
+              for i in range(len(pattern))]
+    auxs = []
+    for r in range(repeats):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for per_layer in layers:
+            x, a = _remat(_layer, cfg, per_layer[r], x, positions, cfg,
+                          prefix_len)
+            aux = aux + a
+        auxs.append(aux)
     x = _apply_norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.sum(torch.stack(auxs))
 
 
 def _loss_chunk(params, hc, yc, cfg):
@@ -281,42 +326,51 @@ def _frozen(tree: Dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One ("attn", "mlp") layer: its slice of the stacked JAX leaves."""
+    """One layer: its slice of its pattern element's stacked JAX leaves."""
 
-    def __init__(self, layer: Dict, i: int):
+    def __init__(self, layer: Dict, r: int):
         super().__init__()
-        for name in ("norm1", "attn", "norm2", "mlp"):
-            setattr(self, name, _frozen({k: t[i] for k, t in layer[name].items()}))
+        self.names = tuple(layer)
+        for name in self.names:
+            setattr(self, name,
+                    _frozen({k: t[r] for k, t in layer[name].items()}))
 
     def params(self) -> Dict:
-        return {"norm1": self.norm1, "attn": self.attn, "norm2": self.norm2,
-                "mlp": self.mlp}
+        return {name: getattr(self, name) for name in self.names}
 
-    def forward(self, x, positions, cfg):
-        return layer_forward(self.params(), x, positions, cfg)
+    def forward(self, x, positions, cfg, prefix_len=0):
+        return layer_forward(self.params(), x, positions, cfg, prefix_len)
 
     def decode(self, x, cache, cache_pos, cfg):
+        """One token through the layer; ``cache`` (this layer's views of
+        the stacked caches) is written in place."""
         h = _apply_norm(self.norm1, x, cfg)
-        y, cache = attention.decode_attention(self.attn, h, cache, cache_pos,
+        if "attn" in self.names:
+            y, _ = attention.decode_attention(self.attn, h, cache, cache_pos,
                                               cfg)
-        x = x + y
-        h2 = _apply_norm(self.norm2, x, cfg)
-        return x + mlp.mlp(self.mlp, h2, cfg)
+        else:
+            y, new = ssm.ssd_decode(self.ssm, h, cache, cfg)
+            for k, t in new.items():
+                cache[k].copy_(t)
+        return _ffn(self.params(), x + y, cfg)[0]
 
 
 class Transformer(nn.Module):
-    """The dense decoder-only LM over a parameter tree in the JAX layout
-    (``param_specs``' nested dict of tensors, layers stacked on a leading
-    axis). The parameters do not require gradients (serving only)."""
+    """The decoder-only LM over a parameter tree in the JAX layout
+    (``param_specs``' nested dict of tensors, each pattern element's layers
+    stacked on a leading axis). ``layers`` holds one `Block` per layer in
+    the order they run (repeat ``r``'s element ``i`` at ``r * len(pattern)
+    + i``). The parameters do not require gradients (serving only)."""
 
     def __init__(self, cfg, params: Dict):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        layer = params["layers"]["l0"]
-        (_pattern, repeats), = cfg.layer_groups()
-        self.layers = nn.ModuleList(Block(layer, i) for i in range(repeats))
+        (pattern, repeats), = cfg.layer_groups()
+        self.period = len(pattern)
+        self.layers = nn.ModuleList(
+            Block(params["layers"][f"l{i}"], r)
+            for r in range(repeats) for i in range(self.period))
         self.final_norm = _frozen(params["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings else
                         nn.Parameter(params["lm_head"], requires_grad=False))
@@ -327,11 +381,14 @@ class Transformer(nn.Module):
 
     def param_tree(self) -> Dict:
         """The parameters as a tree in the JAX layout (layers stacked)."""
-        blocks = list(self.layers)
-        layer = {name: {k: torch.stack([getattr(b, name)[k] for b in blocks])
-                        for k in getattr(blocks[0], name)}
-                 for name in ("norm1", "attn", "norm2", "mlp")}
-        tree = {"embed": self.embed, "layers": {"l0": layer},
+        layers = {}
+        for i in range(self.period):
+            blocks = list(self.layers)[i::self.period]
+            layers[f"l{i}"] = {
+                name: {k: torch.stack([getattr(b, name)[k] for b in blocks])
+                       for k in getattr(blocks[0], name)}
+                for name in blocks[0].names}
+        tree = {"embed": self.embed, "layers": layers,
                 "final_norm": dict(self.final_norm)}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
@@ -340,13 +397,21 @@ class Transformer(nn.Module):
     def embed_tokens(self, tokens):
         return embed_tokens({"embed": self.embed}, tokens, self.cfg)
 
-    @torch.no_grad()
-    def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B, S) -> (hidden (B, S, D), moe_aux scalar)."""
-        x = self.embed_tokens(tokens)
+    def _run(self, tokens, prefix_embeds):
+        """(hidden before the final norm, {l{i}: [each repeat's cache]})."""
+        x, prefix_len = _with_prefix(self.embed_tokens(tokens), prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
-        for block in self.layers:
-            x, _ = block(x, positions, self.cfg)
+        caches: Dict[str, list] = {}
+        for j, block in enumerate(self.layers):
+            x, _aux, cache = block(x, positions, self.cfg, prefix_len)
+            caches.setdefault(f"l{j % self.period}", []).append(cache)
+        return x, caches
+
+    @torch.no_grad()
+    def forward(self, tokens,
+                prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens: (B, S) -> (hidden (B, P + S, D), moe_aux scalar 0)."""
+        x, _ = self._run(tokens, prefix_embeds)
         x = _apply_norm(self.final_norm, x, self.cfg)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -360,24 +425,26 @@ class Transformer(nn.Module):
         the batch). Returns (logits (B, 1, V), caches written in place)."""
         x = self.embed_tokens(token)
         pos = int(cache_pos)
-        stacked = caches["l0"]
-        for i, block in enumerate(self.layers):
-            x = block.decode(x, {k: t[i] for k, t in stacked.items()}, pos,
-                             self.cfg)
+        for j, block in enumerate(self.layers):
+            r, i = divmod(j, self.period)
+            x = block.decode(x, {k: t[r] for k, t in caches[f"l{i}"].items()},
+                             pos, self.cfg)
         x = _apply_norm(self.final_norm, x, self.cfg)
         return self.logits_from_hidden(x), caches
 
     @torch.no_grad()
-    def prefill(self, tokens):
-        """Run the full prompt and return (last-token logits, decode caches
-        sized to the prompt, bf16)."""
-        x = self.embed_tokens(tokens)
-        positions = torch.arange(x.shape[1], device=x.device)
-        ks, vs = [], []
-        for block in self.layers:
-            x, (k, v) = block(x, positions, self.cfg)
-            ks.append(k.to(torch.bfloat16))
-            vs.append(v.to(torch.bfloat16))
+    def prefill(self, tokens, prefix_embeds=None):
+        """Run the full prompt (after ``prefix_embeds``) and return
+        (last-token logits, decode caches sized to it: k/v in bf16, SSM
+        states as ``ssd_forward`` returns them)."""
+        x, per_layer = self._run(tokens, prefix_embeds)
         x = _apply_norm(self.final_norm, x, self.cfg)
         logits = self.logits_from_hidden(x[:, -1:, :])
-        return logits, {"l0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        caches = {}
+        for name, lst in per_layer.items():
+            if isinstance(lst[0], tuple):
+                lst = [{"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+                       for k, v in lst]
+            caches[name] = {k: torch.stack([c[k] for c in lst])
+                            for k in lst[0]}
+        return logits, caches

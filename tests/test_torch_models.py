@@ -418,21 +418,6 @@ def test_caches_round_trip():
         assert np.array_equal(_np(back["l0"][name]), _np(jc["l0"][name])), name
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m",
-                                  "jamba-1.5-large-398b", "whisper-tiny",
-                                  "paligemma-3b"])
-def test_unported_layer_kinds_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        T.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        T.init_decode_caches(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        steps.make_decode_step(cfg)
-    with pytest.raises(NotImplementedError):
-        T.Transformer(cfg, {})
-
-
 def test_a_step_refuses_a_model_in_another_dtype():
     _, cfg = _configs("gemma-2b", "bfloat16")
     model = convert.from_jax_params(cfg, convert.numpy_params(cfg, 0), "cpu")

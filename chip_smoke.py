@@ -164,6 +164,22 @@ embeddings) continued by teacher-forced decode holds layer 0's caches or
 SSM state to the prefill of the whole prompt; (c) the same four train 2
 steps of one 2048-position sequence (remat full), timed against 6 N T;
 (d) the exact-GEMM guard refuses an MoE, an SSM and an enc-dec step.
+Phase 16 runs ``sharding/`` on four gloo ranks sharing the card
+(``distributed.launch_mesh``), which launch none of the kernels: (a)
+``sharding.mesh_cases`` held to ``experiments/sharding/reference.json``
+(made by the JAX package on four fake CPU devices): ``shard_tree`` blocks
+bit-equal to ``addressable_shards``, the expert-parallel MoE in each
+branch, the seq-sharded decode, ``pipeline_apply``, the int8 compressed
+step and its exchange, two sharded train steps each of gemma-2b and
+granite-moe-1b-a400m; the plans, spec trees and launch costs of the ten
+archs; (b) granite-moe-1b-a400m at full width trained 2 steps by
+``launch.train.build_trainer`` on a 2 x 2 mesh (FSDP over data, EP over
+model), its full-width EP layer held to ``_moe_local``; (c) gemma-2b
+decoding at full width with its 256-slot cache sequence-sharded over 4
+ranks, layer 0 held to the gathered decode; (d) the int8 pod-compressed
+step at train_100m.py's configuration beside the uncompressed one. It
+prints step times, each rank's peak memory and the bytes each collective
+moved, and claims no speed (the ranks share one card).
 Every phase prints its wall (``[wall]`` lines).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
@@ -5104,11 +5120,12 @@ LAYERS_FULL = ("granite-moe-1b-a400m", "mamba2-370m", "whisper-tiny",
                "paligemma-3b")
 #: 15b: prefill of the first half of LAYERS_PROMPT tokens (with 1500
 #: frames or 256 prefix embeddings), teacher-forced decode of the rest from
-#: its caches, against the prefill of the whole prompt (one SSD chunk: the
-#: decode runs at ~60 ms a step; 15c's 2048 tokens run eight chunks)
-LAYERS_PROMPT = 256
-#: 15b's serving run: 13b's, 16 new tokens a request
-LAYERS_SERVE = dict(FULL_SERVE, max_new=16)
+#: its caches, against the prefill of the whole prompt (within one SSD
+#: chunk: the decode runs at ~60 ms a step; 15c's 2048 tokens run eight
+#: chunks). 128 since phase 16 came (256 before): the script's wall
+LAYERS_PROMPT = 128
+#: 15b's serving run: 13b's, 8 new tokens a request (16 before phase 16)
+LAYERS_SERVE = dict(FULL_SERVE, max_new=8)
 #: 15c: one sequence a step: 2048 positions (paligemma: 256 prefix + 1792
 #: tokens; whisper: 1500 frames + 448 decoder tokens)
 LAYERS_TRAIN = {"batch": 1, "seq": 2048, "steps": 2, "seed": 5,
@@ -5473,6 +5490,621 @@ def layers_guard_phase(ref, device="cuda"):
     return refused
 
 
+# -- phase 16: sharding (four gloo ranks on the one card) ---------------------------
+
+#: ranks of phase 16: gloo ranks sharing the one card, as phase 12's
+SHARD_RANKS = 4
+#: 16's wall limit on the ranks (they are killed past it; it also bounds
+#: each collective)
+SHARD_TIMEOUT_S = 600
+#: 16b: granite-moe-1b-a400m as configured on (data, model) = (2, 2):
+#: FSDP over data, EP over model, a global batch of 2 x 2048 (one sequence
+#: per data rank), 2 steps of build_trainer
+SHARD_TRAIN = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 2,
+               "seq": 2048, "steps": 2, "seed": 5}
+#: 16c: gemma-2b as configured on (1, 4), decode_attention="sharded": its
+#: one KV head does not divide 4, so the 256-slot cache shards its
+#: sequence over model (64 slots a rank); batch 4, 8 decode steps
+SHARD_SERVE = {"arch": "gemma-2b", "mesh": (1, 4), "batch": 4,
+               "max_len": 256, "steps": 8, "seed": 0}
+#: 16d: the int8 pod-compressed step on (pod, data, model) = (2, 1, 1) at
+#: train_100m.py's configuration, 10 steps, beside the uncompressed step
+SHARD_COMPRESSED = {"mesh": (2, 1, 1), "steps": 10}
+#: 16d: the compressed run's last loss within this fraction of the
+#: uncompressed run's (error feedback keeps the two together)
+COMPRESSED_LOSS_RTOL = 1e-2
+#: lr of the reference's steps (AdamWConfig's default)
+SHARD_LR = 3e-4
+
+
+def _peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _mesh_bytes():
+    from repro_torch import obs
+
+    return {f"{k} {unit}": obs.counter(f"mesh.{k}_{unit}").value
+            for k in ("all_gather", "reduce_scatter", "all_reduce",
+                      "all_to_all", "ppermute") for unit in ("bytes", "us")}
+
+
+def _ep_layer_check(cfg, mesh, plan, spec, dev):
+    """16b: one granite MoE layer at full width (capacity_factor 8: no
+    drops) on the mesh's EP path against the port's ``_moe_local`` on the
+    whole batch, bf16; tokens whose top-k router margin is below
+    ROUTE_MARGIN["float32"] are left out (a near-tie may route otherwise
+    between two float32 products). Returns (the largest gap over the
+    layer's largest |out|, tokens held, tokens)."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    from repro_torch.sharding.comm import all_gather
+    from repro_torch.sharding.partition import activation_ctx, rebatch
+
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    p = init_params(moe.param_specs(cfg8), gen, torch.float32, dev)
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = (torch.randn((spec["batch"], spec["seq"], cfg.d_model), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    with torch.no_grad(), activation_ctx(plan, True):
+        y = moe.moe(p, rebatch(x, plan, False, True), cfg8)[0]
+        y = all_gather(y, mesh, plan.batch_axes, 0)
+    if mesh.rank != 0:
+        return None
+    with torch.no_grad():
+        x2 = x.reshape(-1, cfg.d_model)
+        want = moe._moe_local(x2, p["router"], p["wi"], p["wg"], p["wo"],
+                              cfg8)[0]
+        probs = torch.softmax(x2.float() @ p["router"].float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        held = (top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+                >= ROUTE_MARGIN["float32"])
+    got = y.reshape(-1, cfg.d_model)
+    gap = float((got - want).float().abs()[held].max()) / float(
+        want.float().abs().max())
+    return gap, int(held.sum()), int(held.numel())
+
+
+def _shard_train(mesh, dev, spec=SHARD_TRAIN):
+    """16b on this rank: ``build_trainer`` on the (2, 2) mesh, two steps."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import build_trainer
+
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    m = make_debug_mesh(spec["mesh"], device=dev)
+    _reset_peak(dev)
+    init_state, step_fn, data_at, _, plan = build_trainer(
+        cfg, m, seed=spec["seed"], data_cfg=DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+            global_batch=spec["batch"], seed=spec["seed"]), device=dev)
+    t0 = time.perf_counter()
+    state = init_state()
+    _sync(dev)
+    rec = {"init_s": time.perf_counter() - t0, "notes": list(plan.notes),
+           "ms": [], "loss": [], "bytes": []}
+    for i in range(spec["steps"]):
+        before = _mesh_bytes()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data_at(i))
+        _sync(dev)
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["loss"].append(float(metrics["loss"]))
+        rec["bytes"].append({k: v - before[k]
+                             for k, v in _mesh_bytes().items()})
+    rec["peak_gib"] = _peak_gib(dev)
+    rec["block_params"] = sum(t.numel() for _, t in
+                              _flat_leaves(state["params"]))
+    del state
+    _reset_peak(dev)
+    rec["ep_layer"] = _ep_layer_check(cfg, m, plan, spec, dev)
+    return rec
+
+
+def _flat_leaves(tree):
+    from repro_torch.models.common import sorted_leaves
+
+    return list(sorted_leaves(tree))
+
+
+def _shard_serve(mesh, dev, spec=SHARD_SERVE):
+    """16c on this rank: gemma-2b's decode steps with the cache
+    seq-sharded over model; then layer 0 at the next position, sharded
+    against the gathered decode on the whole cache."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import steps, transformer as TT
+    from repro_torch.sharding import make_plan
+    from repro_torch.sharding.partition import (activation_ctx, block,
+                                                decode_input_shardings,
+                                                gather_leaf)
+    from repro_torch.sharding.rules import P
+
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, decode_attention="sharded")
+    m = make_debug_mesh(spec["mesh"], device=dev)
+    plan = make_plan(cfg, m)
+    _reset_peak(dev)
+    from repro_torch.models.common import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = steps.make_model(cfg, init_params(steps.model_param_specs(cfg),
+                                              gen, torch.bfloat16, dev))
+    n = sum(p.numel() for p in model.parameters())
+    b, smax = spec["batch"], spec["max_len"]
+    whole = TT.init_decode_caches(cfg, b, smax, device=dev)
+    cspec = decode_input_shardings(cfg, plan, {"caches": whole})["caches"]
+    caches = {name: {k: block(t, cspec[name][k], m) for k, t in c.items()}
+              for name, c in whole.items()}
+    del whole
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    toks = torch.randint(0, cfg.vocab_size, (spec["steps"] + 1, b, 1),
+                         generator=gen, device=dev)
+    step = steps.make_decode_step(cfg)
+    rec = {"ms": [], "cache_spec": list(map(str, cspec["l0"]["k"])),
+           "slots": caches["l0"]["k"].shape[2],
+           "cache_seq_axis": plan.cache_seq_axis, "params": n}
+    with activation_ctx(plan, True):
+        for t in range(spec["steps"]):
+            tdist.barrier()
+            t0 = time.perf_counter()
+            step(model, toks[t], caches, t)
+            _sync(dev)
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+    # layer 0 at the next position: sharded against the gathered decode
+    pos = spec["steps"]
+    seq = P(None, "model", None, None)
+    mine = {k: v[0].clone() for k, v in caches["l0"].items()}
+    full = {k: gather_leaf(v, seq, m) for k, v in mine.items()}
+    with torch.no_grad():
+        x0 = model.embed_tokens(toks[pos])
+        with activation_ctx(plan, True):
+            y_sh = model.layers[0].decode(x0, mine, pos, cfg)
+        y_g = model.layers[0].decode(x0, full, pos, cfg)
+    rec["layer0_gap"] = float((y_sh - y_g).float().abs().max()) / float(
+        y_g.float().abs().max())
+    rec["peak_gib"] = _peak_gib(dev)
+    del model, caches
+    return rec
+
+
+def _shard_compressed(dev, spec=SHARD_COMPRESSED, run=TRAIN_100M_RUN,
+                      overrides=TRAIN_100M):
+    """16d on ranks 0 and 1: the compressed step at train_100m.py's
+    configuration, then (rank 0) the uncompressed step from the same
+    init on the same batches."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.optim.compression import init_error_state
+    from repro_torch.sharding import make_plan
+
+    m = make_debug_mesh(spec["mesh"], ("pod", "data", "model"), device=dev)
+    if m is None:
+        return None
+    cfg = _phi3(overrides)
+    opt_cfg = AdamWConfig(lr=run["lr"], weight_decay=run["weight_decay"])
+    batches = _train_batches(cfg, run, spec["steps"])
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(run["seed"])
+        params = init_params(steps.model_param_specs(cfg), gen,
+                             torch.float32, dev)
+        return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+
+    _reset_peak(dev)
+    state, err = fresh(), None
+    err = init_error_state(state["params"])
+    step = steps.make_compressed_train_step(cfg, make_plan(cfg, m), opt_cfg)
+    rec = {"loss": [], "ms": []}
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics, err = step(state, batch, err)
+        rec["loss"].append(float(metrics["loss"]))
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+    rec["peak_gib"] = _peak_gib(dev)
+    del state, err
+    if m.rank == 0:
+        state = fresh()
+        plain = steps.make_train_step(cfg, opt_cfg)
+        rec["plain_loss"] = []
+        for batch in batches:
+            state, metrics = plain(state, batch)
+            rec["plain_loss"].append(float(metrics["loss"]))
+        del state
+    return rec
+
+
+#: what phase 16's ranks run (``sharding_rank``'s ``sizes``; a rehearsal on
+#: the host passes smaller ones)
+SHARD_SIZES = {"train": SHARD_TRAIN, "serve": SHARD_SERVE,
+               "compressed": SHARD_COMPRESSED, "run": TRAIN_100M_RUN,
+               "overrides": TRAIN_100M}
+
+
+def sharding_rank(mesh, exchange, sizes=SHARD_SIZES):
+    """Phase 16 on one of four ranks: (a) ``sharding.mesh_cases.run`` and
+    the compressed exchange on the reference's gradients (ranks 0-1),
+    (b) granite-moe-1b-a400m's sharded training, (c) gemma-2b's
+    seq-sharded decode, (d) the compressed step. Every rank's record goes
+    to rank 0, which returns them with 16a's arrays."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import steps
+    from repro_torch.sharding import mesh_cases as MC
+
+    t_enter = time.time()
+    dev = mesh.device
+    steps.set_exact_gemms()
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    rec = {"rank": mesh.rank, "walls": {}, "peaks": {}, "t_enter": t_enter}
+    t0 = time.perf_counter()
+    _reset_peak(dev)
+    rec["cuda_init_s"] = time.perf_counter() - t0
+    arrays, rec["a_walls"] = MC.run(mesh)
+    pods = make_debug_mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
+    exch = (MC.pod_exchange(pods, *exchange) if pods is not None else None)
+    rec["peaks"]["a"] = _peak_gib(dev)
+    rec["walls"]["a"] = time.perf_counter() - t0
+    for label, fn in (
+            ("b", lambda: _shard_train(mesh, dev, sizes["train"])),
+            ("c", lambda: _shard_serve(mesh, dev, sizes["serve"])),
+            ("d", lambda: _shard_compressed(dev, sizes["compressed"],
+                                            sizes["run"],
+                                            sizes["overrides"]))):
+        _sync(dev)
+        tdist.barrier()
+        t0 = time.perf_counter()
+        rec[label] = fn()
+        _sync(dev)
+        rec["walls"][label] = time.perf_counter() - t0
+        tdist.barrier()
+    rec["t_exit"] = time.time()
+    everyone = [None] * mesh.size
+    tdist.all_gather_object(everyone, rec)
+    return arrays, exch, everyone
+
+
+# -- 16a's comparisons against experiments/sharding/reference.json -------------
+
+def _ref_decode(rec):
+    """A reference.json array: whole (float32 or int32) or its summary."""
+    if "b64" in rec:
+        import base64
+
+        return np.frombuffer(base64.b64decode(rec["b64"]),
+                             dtype=rec["dtype"]).reshape(rec["shape"])
+    return rec
+
+
+def _sketch_of(flat, key, rows):
+    """experiments/sharding/make_reference.py's sketch of a flat array."""
+    rng = np.random.default_rng([REF_SKETCH_SEED, *key.encode()])
+    return np.array([np.sum(rng.standard_normal(flat.size) * flat)
+                     for _ in range(rows)]) / rows ** 0.5
+
+
+def _array_held(key, got, rec, rtol, atol):
+    """``got`` against the file's ``rec`` within ``atol + rtol x |want|``
+    per entry; for a summarized array (past the file's ``whole`` entries)
+    its 8 entries within ``atol + rtol x absmax``, its norm within that
+    times sqrt(n), and its sketch's distance within 1.5 times that times
+    sqrt(n) (a 64-row Gaussian sketch estimates the L2 distance to ~18%).
+    Returns the largest gap over its limit."""
+    want = _ref_decode(rec)
+    got = np.asarray(got)
+    if isinstance(want, np.ndarray):
+        check(got.shape == want.shape, f"16a {key}: shape {got.shape} "
+                                       f"against {want.shape}")
+        lim = atol + rtol * np.abs(want.astype(np.float64))
+        err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+        check(np.isfinite(got).all() and (err <= lim).all(),
+              f"16a {key}: off by {err.max():.4g} (limit "
+              f"{lim.reshape(-1)[np.argmax(err - lim)]:.4g})")
+        return float((err / np.maximum(lim, 1e-30)).max())
+    check(list(got.shape) == want["shape"], f"16a {key}: shape")
+    flat = got.astype(np.float64).reshape(-1)
+    lim = atol + rtol * want["absmax"]
+    idx = np.linspace(0, flat.size - 1, len(want["values"])).round().astype(
+        np.int64)
+    err = float(np.abs(flat[idx] - np.asarray(want["values"])).max())
+    root = flat.size ** 0.5
+    norm_err = abs(float(np.linalg.norm(flat)) - want["norm"])
+    sk_err = float(np.linalg.norm(_sketch_of(flat, key, len(want["sketch"]))
+                                  - np.asarray(want["sketch"])))
+    check(np.isfinite(flat).all() and err <= lim and norm_err <= lim * root
+          and sk_err <= 1.5 * lim * root,
+          f"16a {key}: entries off by {err:.4g}, norm by {norm_err:.4g}, "
+          f"sketch by {sk_err:.4g} (limit {lim:.4g} an entry)")
+    return max(err / lim, norm_err / (lim * root),
+               sk_err / (1.5 * lim * root))
+
+
+#: experiments/sharding/make_reference.py's sketch seed
+REF_SKETCH_SEED = 16
+
+
+def _tolerance(key, want):
+    """(rtol, atol) of a 16a array: ``tests/test_torch_sharding_mesh.py``'s
+    rules."""
+    part = key.split("/")
+    if part[0] == "ep":
+        return (1e-3, 0.0) if part[-1] == "aux" else (2e-4, 2e-4)
+    if part[0] == "decode":
+        if part[1] == "int8" and part[-1] == "out":
+            return 0.0, 2.0 ** -6 * float(np.abs(_ref_decode(want)).max())
+        if part[-1] in ("k_scale", "v_scale"):
+            return 2.0 ** -7, 0.0
+        return (0.0, 1.0) if part[1] == "int8" else (0.0, 5e-5)
+    if part[0] == "pipeline":
+        return (2e-5, 2e-5) if part[-1] == "out" else (1e-4, 1e-4)
+    if part[0] == "compressed":
+        if part[1] == "params":
+            return 0.0, 2 * SHARD_LR * 2 + 1e-6
+        return 1e-4, 0.0
+    if part[0] == "train":
+        if part[2] == "grad":
+            return 0.0, 5e-4 * (want["absmax"] if "absmax" in want else
+                                float(np.abs(_ref_decode(want)).max()))
+        if part[2] == "params":
+            return 0.0, 2 * SHARD_LR * 2 + 1e-6
+        if part[2] in ("loss", "nll"):
+            return 1e-5, 0.0
+        return 1e-4, 0.0
+    raise KeyError(key)
+
+
+def sharding_reference_check(ref, arrays, exch):
+    """16a: the ranks' arrays against the file's ``mesh`` part, the
+    compressed exchange on the file's gradients, and the port's plans,
+    spec trees and launch costs against its ``plans`` and ``costs``.
+    Returns {part: largest gap over its limit}."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import specs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.analytic import analytic_cost
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import steps
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding import make_plan, partition, spec_to_pspec
+
+    mesh_ref = ref["mesh"]
+    worst = {}
+    check(sorted(k for k in arrays if not k.startswith(("roundtrip/",
+                                                        "decode_gathered/")))
+          == sorted(k for k in mesh_ref if "/grad/0/" not in k
+                    and "/grad/1/" not in k and not k.startswith(
+                        ("compressed/0/q8", "compressed/1/q8",
+                         "compressed/0/scale", "compressed/1/scale",
+                         "compressed/0/err", "compressed/1/err"))),
+          "16a: the ranks' arrays and the file's differ in their names")
+    for key, got in sorted(arrays.items()):
+        part = key.split("/")[0]
+        if part == "roundtrip":
+            check(bool(got), f"16a {key}: gather_tree of shard_tree differs")
+            continue
+        if part == "blocks":
+            check(str(got) == mesh_ref[key]["sha256"],
+                  f"16a {key}: block differs from addressable_shards")
+            continue
+        if part == "decode_gathered":
+            want = arrays[key.replace("decode_gathered", "decode")]
+            rtol, atol = _tolerance(key.replace("decode_gathered", "decode"),
+                                    mesh_ref[key.replace("decode_gathered",
+                                                         "decode")])
+            err = float(np.abs(got - want).max())
+            check(err <= atol, f"16a {key}: the gathered decode differs "
+                               f"from the sharded by {err:.4g}")
+            continue
+        rtol, atol = _tolerance(key, mesh_ref[key])
+        worst[part] = max(worst.get(part, 0.0),
+                          _array_held(key, got, mesh_ref[key], rtol, atol))
+    # the exchange: int8 codes bit-equal, scales equal, errors 2 ulp
+    n = 0
+    for pod, leaves in exch.items():
+        for path, (red, new_e, q8, s, allq) in leaves.items():
+            want_q = _ref_decode(mesh_ref[f"compressed/1/q8/{pod}/{path}"])
+            check(np.array_equal(q8, want_q),
+                  f"16a compressed exchange {pod} {path}: int8 codes differ")
+            check(np.array_equal(allq, np.stack([_ref_decode(mesh_ref[
+                f"compressed/1/q8/{i}/{path}"]) for i in range(2)])),
+                f"16a compressed exchange {path}: gathered codes differ")
+            want_s = _ref_decode(mesh_ref[f"compressed/1/scale/{pod}/{path}"])
+            check(float(s) == float(want_s),
+                  f"16a compressed exchange {pod} {path}: scale {s} "
+                  f"against {want_s}")
+            g = _ref_decode(mesh_ref[f"compressed/1/grad/{pod}/{path}"])
+            e0 = _ref_decode(mesh_ref[f"compressed/0/err/{pod}/{path}"])
+            ulp = np.spacing(np.float32(np.abs(g + e0).max()))
+            err = np.abs(new_e - _ref_decode(
+                mesh_ref[f"compressed/1/err/{pod}/{path}"])).max()
+            check(err <= 2 * ulp, f"16a compressed exchange {pod} {path}: "
+                                  f"error state off by {err}")
+            n += 1
+    check(n > 0, "16a: no leaf of the compressed exchange was checked")
+    # plans, spec trees and costs: bit-equal, on the host
+
+    class Shape:
+        def __init__(self, shape):
+            self.shape = shape
+
+    def as_json(spec):
+        return json.loads(json.dumps([list(e) if isinstance(e, tuple)
+                                      else e for e in spec]))
+
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for name, want in ref["plans"][arch].items():
+            axes = (("pod", "data", "model") if name == "2x16x16"
+                    else ("data", "model"))
+            shape = (2, 16, 16) if name == "2x16x16" else (16, 16)
+            plan = make_plan(cfg, Shape(dict(zip(axes, shape))))
+            check(json.loads(json.dumps(plan.rules)) == want["rules"]
+                  and list(plan.notes) == want["notes"]
+                  and list(plan.batch_axes) == want["batch_axes"]
+                  and plan.seq_axis == want["seq_axis"]
+                  and plan.cache_seq_axis == want["cache_seq_axis"],
+                  f"16a {arch} {name}: plan differs from the file's")
+            check({p: as_json(spec_to_pspec(s, plan)) for p, s in
+                   tree_leaves(steps.model_param_specs(cfg))}
+                  == want["params"], f"16a {arch} {name}: param specs")
+            for shape_name in SHAPES:
+                inputs = specs.input_specs(cfg, shape_name)
+                fn = (partition.decode_input_shardings
+                      if specs.step_kind(shape_name) == "decode"
+                      else partition.batch_shardings)
+                check({p: as_json(s) for p, s in tree_leaves(
+                    fn(cfg, plan, inputs))} == want["inputs"][shape_name],
+                    f"16a {arch} {name} {shape_name}: input specs")
+        for shape_name, rec in ref["costs"][arch].items():
+            sh = SHAPES[shape_name]
+            check(model_flops(cfg, sh) == rec["model_flops"] and all(
+                json.loads(json.dumps(analytic_cost(cfg, sh, int(c))
+                                      .to_dict())) == rec[c]
+                for c in ("256", "512")),
+                f"16a {arch} {shape_name}: analytic cost differs")
+    return worst
+
+
+def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
+    """Phase 16: ``sharding_rank`` on four gloo ranks sharing the one card
+    (spawned by ``distributed.launch_mesh``); 16a's arrays held to
+    ``experiments/sharding/reference.json`` here, 16b-d's records checked
+    and printed. (``sizes`` and ``device="cpu"`` rehearse it at a small
+    size on the host.)"""
+    from repro_torch.core.analysis import distributed as D
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks have the card to themselves
+    mesh_ref = ref["mesh"]
+    small = [k[len("compressed/1/grad/0/"):] for k, v in mesh_ref.items()
+             if k.startswith("compressed/1/grad/0/") and "b64" in v]
+    exchange = ({p: {k: _ref_decode(mesh_ref[f"compressed/1/grad/{p}/{k}"])
+                     for k in small} for p in range(2)},
+                {p: {k: _ref_decode(mesh_ref[f"compressed/0/err/{p}/{k}"])
+                     for k in small} for p in range(2)})
+    t_launch = time.time()
+    arrays, exch, ranks = D.launch_mesh(
+        sharding_rank, SHARD_RANKS, exchange, sizes, device=device,
+        timeout_s=SHARD_TIMEOUT_S)
+    t_back = time.time()
+    wall = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    worst = sharding_reference_check(ref, arrays, exch)
+    print(f"[16 sharding] {SHARD_RANKS} gloo ranks on the one card; 16a "
+          f"held to experiments/sharding/reference.json in "
+          f"{time.perf_counter() - t0:.2f} s (largest gap over its limit: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+          + f"); blocks bit-equal to addressable_shards, the compressed "
+            f"exchange's int8 codes bit-equal on {len(small)} leaves a "
+            f"pod, plans, spec trees and costs bit-equal")
+    print("  16a parts (rank 0): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in ranks[0]["a_walls"].items()))
+    b0 = ranks[0]["b"]
+    spec = sizes["train"]
+    for note in b0["notes"]:
+        print(f"  [plan] {note}")
+    for rec in ranks:
+        b = rec["b"]
+        check(all(np.isfinite(b["loss"])),
+              f"16b rank {rec['rank']}: loss {b['loss']}")
+        check(b["loss"] == b0["loss"],
+              f"16b: rank {rec['rank']}'s loss {b['loss']} differs from "
+              f"rank 0's {b0['loss']}")
+    print(f"[16 sharding] 16b: {spec['arch']} at full width on (data, "
+          f"model) = {spec['mesh']}, global batch {spec['batch']} x "
+          f"{spec['seq']}: loss {b0['loss']}; step ms (rank 0) "
+          + ", ".join(f"{t:.1f}" for t in b0["ms"]))
+    for rec in ranks:
+        b = rec["b"]
+        print(f"  rank {rec['rank']}: peak {b['peak_gib']:.2f} GiB; "
+              f"{b['block_params']} parameters in its blocks; init "
+              f"{b['init_s']:.2f} s; step ms "
+              + ", ".join(f"{t:.1f}" for t in b["ms"])
+              + "; collectives a step (bytes in, wall us) " + "; ".join(
+                  ", ".join(f"{k} {v}" for k, v in s.items())
+                  for s in b["bytes"]))
+    gap, held, total = b0["ep_layer"]
+    check(gap <= BF16_TOL, f"16b: the EP layer at full width differs from "
+                           f"_moe_local by {gap:.4g} of its largest |out| "
+                           f"(limit {BF16_TOL})")
+    print(f"  16b EP layer (capacity_factor 8, bf16): {held} of {total} "
+          f"tokens above the router margin, largest gap to _moe_local "
+          f"{gap:.4g} of max |out| (limit {BF16_TOL})")
+    c0 = ranks[0]["c"]
+    for rec in ranks:
+        c = rec["c"]
+        check(c["layer0_gap"] <= BF16_TOL,
+              f"16c rank {rec['rank']}: layer 0's sharded decode differs "
+              f"from the gathered by {c['layer0_gap']:.4g} of its largest "
+              f"|out|")
+    serve = sizes["serve"]
+    print(f"[16 sharding] 16c: {serve['arch']} at full width "
+          f"({c0['params']} parameters, bf16, whole on every rank) on "
+          f"{serve['mesh']}, cache sequence over "
+          f"{c0['cache_seq_axis']} ({c0['slots']} of "
+          f"{serve['max_len']} slots a rank, spec {c0['cache_spec']}),"
+          f" batch {serve['batch']}: layer 0 within "
+          f"{max(r['c']['layer0_gap'] for r in ranks):.3g} of the gathered "
+          f"decode's max |out|")
+    for rec in ranks:
+        c = rec["c"]
+        print(f"  rank {rec['rank']}: decode step ms "
+              + ", ".join(f"{t:.1f}" for t in c["ms"])
+              + f"; peak {c['peak_gib']:.2f} GiB")
+    d0 = ranks[0]["d"]
+    check(all(np.isfinite(d0["loss"])) and abs(
+        d0["loss"][-1] - d0["plain_loss"][-1])
+        <= COMPRESSED_LOSS_RTOL * abs(d0["plain_loss"][-1]),
+        f"16d: compressed loss {d0['loss']} against uncompressed "
+        f"{d0['plain_loss']}")
+    print(f"[16 sharding] 16d: train_100m.py's configuration on (pod, data, "
+          f"model) = {sizes['compressed']['mesh']}, int8 pod-compressed, "
+          f"{sizes['compressed']['steps']} steps: loss "
+          + ", ".join(f"{x:.4f}" for x in d0["loss"])
+          + "; uncompressed " + ", ".join(f"{x:.4f}"
+                                          for x in d0["plain_loss"])
+          + f"; step ms (rank 0) " + ", ".join(f"{t:.1f}" for t in d0["ms"])
+          + f"; peak {d0['peak_gib']:.2f} GiB")
+    for rec in ranks:
+        print(f"  rank {rec['rank']}: walls " + ", ".join(
+            f"16{k} {v:.2f} s" for k, v in rec["walls"].items())
+            + "; peaks " + ", ".join(f"16{k} {v:.2f} GiB"
+                                     for k, v in rec["peaks"].items()))
+    print(f"  spawn to the ranks' first line "
+          f"{min(r['t_enter'] for r in ranks) - t_launch:.2f}-"
+          f"{max(r['t_enter'] for r in ranks) - t_launch:.2f} s; CUDA "
+          f"initialization {max(r['cuda_init_s'] for r in ranks):.2f} s; "
+          f"the ranks' last line to the result "
+          f"{t_back - max(r['t_exit'] for r in ranks):.2f} s")
+    print(f"[16 sharding] {wall:.2f} s for the ranks (spawn included); no "
+          f"claim of speed: the four ranks share one card and every "
+          f"collective goes through the host (gloo)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5773,6 +6405,22 @@ def main() -> int:
     print(f"[15 layers] {time.perf_counter() - t0:.2f} s; none of the 11 "
           f"kernels launched")
     wall("15", t0)
+
+    # 16. sharding: four gloo ranks on the one card (16a the reference,
+    # 16b granite's sharded training, 16c gemma's seq-sharded decode, 16d
+    # the compressed step)
+    before = dict(S.launches)
+    t0 = time.perf_counter()
+    shref = json.loads((ROOT / "experiments" / "sharding"
+                        / "reference.json").read_text())
+    print(f"[16 sharding] four gloo ranks sharing the card ({smi})")
+    sharding_phase(shref)
+    check(dict(S.launches) == before,
+          f"the sharding phase launched a kernel: {dict(S.launches)} "
+          f"against {before}")
+    print(f"[16 sharding] {time.perf_counter() - t0:.2f} s; none of the 11 "
+          f"kernels launched")
+    wall("16", t0)
     print("[wall] " + ", ".join(f"{k} {v:.1f}" for k, v in
                                 phase_walls.items()))
 

@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
 The ten assigned architectures, exact hyper-parameters from the assignment
-table (the JAX package's data, copied). The JAX package's ``specs`` module
-(input specs for the dry-run) is not part of the port.
+table (the JAX package's data, copied). ``specs`` builds every cell's
+input trees as meta tensors.
 """
 from __future__ import annotations
 

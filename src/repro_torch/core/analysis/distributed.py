@@ -280,9 +280,14 @@ def gather_rows(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
 
 # -- the ranks -------------------------------------------------------------------
 
-def launch_mesh(fn: Callable, num_shards: int, *args, device="cuda",
-                timeout_s: float = 900.0):
+def launch_mesh(fn: Callable, num_shards, *args, device="cuda",
+                timeout_s: float = 900.0, axes=None):
     """``fn(mesh, *args)`` on ``num_shards`` ranks; returns rank 0's result.
+
+    ``num_shards`` is a rank count (``fn`` gets this rank's
+    :class:`RowMesh`) or a tuple, the shape of a named-axis mesh over
+    ``axes`` (``launch.mesh.MESH_AXES`` by default): ``fn`` then gets this
+    rank's ``launch.mesh.Mesh`` (``make_debug_mesh(shape, axes)``).
 
     In a process group that exists already, or the one ``torchrun``
     describes in the environment (joined here, :func:`_join_torchrun`),
@@ -299,13 +304,20 @@ def launch_mesh(fn: Callable, num_shards: int, *args, device="cuda",
     ``fn(None, *args)`` here.
     """
     dev = resolve_device(device)
+    named = None
+    if isinstance(num_shards, (tuple, list)):
+        from ...launch.mesh import MESH_AXES
+
+        named = (tuple(num_shards), tuple(axes or MESH_AXES))
+        num_shards = int(np.prod(named[0]))
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
             "MASTER_ADDR" in os.environ and not tdist.is_initialized():
         _join_torchrun(dev, timeout_s)
     if tdist.is_available() and tdist.is_initialized():
-        return fn(device_mesh(num_shards, device=dev), *args)
+        return fn(_rank_mesh(num_shards, named, dev), *args)
     if num_shards <= 1:
-        return fn(None, *args)
+        return fn(_rank_mesh(num_shards, named, dev) if named else None,
+                  *args)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = "nccl" if 0 < num_shards <= cards else "gloo"
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -315,7 +327,7 @@ def launch_mesh(fn: Callable, num_shards: int, *args, device="cuda",
     with tempfile.TemporaryDirectory(prefix="repro_mesh_") as tmp:
         procs = [ctx.Process(target=_rank_main,
                              args=(rank, num_shards, backend, dev.type, tmp,
-                                   timeout_s, fn, args))
+                                   timeout_s, fn, args, named))
                  for rank in range(num_shards)]
         try:
             for rank, proc in enumerate(procs):
@@ -386,8 +398,19 @@ def _join(procs, deadline: float) -> Optional[int]:
     return failed
 
 
+def _rank_mesh(size: int, named, device):
+    """This rank's mesh: its :func:`device_mesh` row, or, for ``named`` =
+    (shape, axes), its view of that named-axis mesh."""
+    if named is None:
+        return device_mesh(size, device=device)
+    from ...launch.mesh import make_debug_mesh
+
+    return make_debug_mesh(named[0], named[1], device=device)
+
+
 def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
-               timeout_s: float, fn: Callable, args: tuple) -> None:
+               timeout_s: float, fn: Callable, args: tuple,
+               named=None) -> None:
     """One spawned rank: join the group, run ``fn`` on the mesh, and (rank
     0) leave its result beside the rendezvous file; a failure leaves its
     traceback there, before the group is torn down (which fails the
@@ -407,7 +430,7 @@ def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
             world_size=size, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = fn(device_mesh(size, device=device), *args)
+            out = fn(_rank_mesh(size, named, device), *args)
             if rank == 0:
                 path = os.path.join(tmp, "result.pkl")
                 with open(path + ".part", "wb") as fh:

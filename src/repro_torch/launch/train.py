@@ -1,14 +1,21 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver.
 
 The port of the JAX package's ``launch/train.py``: config -> init (or
 restore) -> train loop -> checkpoints -> metrics, with the same flags and
-printed lines, plus ``--device`` (``cuda`` by default; it raises without a
-card and never moves to the CPU on its own). The JAX driver's 1 x 1 debug
-mesh has no sharding plan, and neither has this one; ``--mesh
-production`` waits for the sharding slice (ROADMAP Queue 1 item 3)::
+printed lines (the plan's ``[plan]`` notes first), plus ``--device``
+(``cuda`` by default; it raises without a card and never moves to the CPU
+on its own). ``--mesh debug`` trains under the 1 x 1 debug mesh's plan on
+this process's device; ``--mesh production`` asks
+``launch.mesh.make_production_mesh`` for its 256 ranks, which raises in a
+single process, as ``jax.make_mesh`` does without the devices::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --reduced --steps 200 --batch 8 --seq 256 --ckpt-dir <dir>
+
+`build_trainer(cfg, mesh)` takes any mesh: on one of several ranks
+(``core.analysis.distributed.launch_mesh(fn, shape, axes=...)``) each rank
+keeps only its blocks of the master and the moments, takes its block of
+the batch, and runs ``steps.make_train_step(..., plan=)``.
 """
 from __future__ import annotations
 
@@ -26,22 +33,28 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config
 from ..data import DataConfig, SyntheticLM
 from ..models import steps as steps_mod
-from ..models.common import tree_map
+from ..models.common import init_params, tree_map
 from ..optim import AdamWConfig, adamw, warmup_cosine
 
 
-def build_trainer(cfg, *, lr=3e-4, warmup=20, total_steps=200, seed=0,
-                  data_cfg: Optional[DataConfig] = None,
+def build_trainer(cfg, mesh=None, *, lr=3e-4, warmup=20, total_steps=200,
+                  seed=0, data_cfg: Optional[DataConfig] = None,
                   accum_steps: int = 1, device="cuda"):
-    """Returns (init_state_fn, step_fn, data_fn, like_state_fn): the last
-    gives the train state's structure as meta tensors (what a restore
-    needs, nothing allocated).
+    """Returns (init_state_fn, step_fn, data_fn, like_state_fn, plan): the
+    fourth gives the train state's structure as meta tensors (what a
+    restore needs, nothing allocated), the fifth the sharding plan of
+    ``mesh`` (``launch.mesh.make_debug_mesh((1, 1))`` on ``device`` by
+    default). On a mesh of more than one rank the state is this rank's
+    blocks (``sharding.partition.train_state_shardings``), drawn whole from
+    the seed and cut, and the step takes the global batch.
 
     ``SyntheticLM`` yields tokens and labels only, so an encoder-decoder
     (which needs ``frames``) or a prefix config (``prefix_embeds``) is
     refused here; the JAX package's ``launch.train`` fails on them at its
     first step."""
-    from ..core.analysis.wavefront import resolve_device
+    from ..sharding import make_plan
+    from ..sharding.partition import shard_tree, train_state_shardings
+    from .mesh import make_debug_mesh
 
     missing = ("frames" if cfg.is_encdec else
                "prefix_embeds" if cfg.n_prefix_tokens else None)
@@ -51,10 +64,16 @@ def build_trainer(cfg, *, lr=3e-4, warmup=20, total_steps=200, seed=0,
             f"the synthetic data source (data.SyntheticLM: tokens and "
             f"labels) does not yield")
 
-    dev = resolve_device(device)
+    mesh = mesh if mesh is not None else make_debug_mesh((1, 1),
+                                                         device=device)
+    dev = mesh.device
+    plan = make_plan(cfg, mesh)
+    sharded = mesh.size > 1
     opt_cfg = AdamWConfig(lr=lr)
     sched = lambda step: warmup_cosine(step, lr, warmup, total_steps)  # noqa: E731
-    step_fn = steps_mod.make_train_step(cfg, opt_cfg, sched, accum_steps)
+    step_fn = steps_mod.make_train_step(cfg, opt_cfg, sched, accum_steps,
+                                        plan=plan if sharded else None)
+    specs = train_state_shardings(cfg, plan)
 
     data_cfg = data_cfg or DataConfig(
         vocab_size=cfg.vocab_size, seq_len=512, global_batch=8, seed=seed)
@@ -65,14 +84,21 @@ def build_trainer(cfg, *, lr=3e-4, warmup=20, total_steps=200, seed=0,
 
     def init_state():
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return steps_mod.init_train_state(cfg, gen, opt_cfg, dev)
+        if not sharded:
+            return steps_mod.init_train_state(cfg, gen, opt_cfg, dev)
+        params = init_params(steps_mod.model_param_specs(cfg), gen,
+                             steps_mod._dtype(cfg.master_dtype), dev)
+        params = shard_tree(params, specs["params"], mesh)
+        return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
 
     def like_state():
         params = tree_map(lambda s: torch.empty(s.shape, device="meta"),
                           steps_mod.model_param_specs(cfg))
+        if sharded:
+            params = shard_tree(params, specs["params"], mesh)
         return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
 
-    return init_state, step_fn, data_at, like_state
+    return init_state, step_fn, data_at, like_state, plan
 
 
 def main(argv=None):
@@ -95,23 +121,24 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh == "production":
-        raise NotImplementedError(
-            "--mesh production needs the sharding slice (ROADMAP Queue 1 "
-            "item 3); the port trains on one device (--mesh debug)")
-    dev = resolve_device(args.device)
-    steps_mod.set_exact_gemms()
+    from .mesh import make_debug_mesh, make_production_mesh
 
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, loss_chunk=max(512, args.batch * 64))
 
+    mesh = (make_production_mesh(device=dev) if args.mesh == "production"
+            else make_debug_mesh((1, 1), device=dev))
+    steps_mod.set_exact_gemms()
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
-    init_state, run_step, data_at, like_state = build_trainer(
-        cfg, lr=args.lr, total_steps=args.steps, data_cfg=data_cfg,
-        accum_steps=args.accum, device=dev)
+    init_state, run_step, data_at, like_state, plan = build_trainer(
+        cfg, mesh, lr=args.lr, total_steps=args.steps, data_cfg=data_cfg,
+        accum_steps=args.accum)
+    for note in plan.notes:
+        print(f"[plan] {note}")
 
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
 

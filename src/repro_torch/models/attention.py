@@ -8,11 +8,13 @@ with an online softmax in `kv_chunk` blocks (`flash.flash_attention`;
 products of the operands, P is cast to V's dtype before the PV product,
 and masked scores are ``_NEG = -1e30``, as the reference computes them.
 
-Decode runs the gathered path: the whole cache is read each step. The JAX
-package's seq-sharded flash-decode (``_decode_attention_sharded``) runs
-only under a sharding plan; without one it falls through to the gathered
-path, and the port has no plan (``sharding/`` waits, ROADMAP Queue 1
-item 3). ``cross_attention`` (the enc-dec decoder's, non-causal over the
+Decode runs the gathered path (the whole cache read each step) unless
+``cfg.decode_attention == "sharded"`` and a sharding plan with a
+``cache_seq_axis`` is current: then `_decode_attention_sharded` runs the
+reference's seq-sharded flash-decode on this rank's slice of the cache
+(FlashDecoding's split-K over the ranks of that axis: local partial
+softmax, then an LSE merge by ``all_reduce(MAX)`` and ``all_reduce(SUM)``).
+As in the reference, that path applies no logit softcap. ``cross_attention`` (the enc-dec decoder's, non-causal over the
 memory's k and v from ``memory_kv``) runs the same flash. The int8 cache
 is the KIVI-style per-(token, head) symmetric quantization of the
 reference (``torch.round`` is round-half-to-even, as ``jnp.round`` is).
@@ -171,6 +173,57 @@ def memory_kv(p, memory):
     return k, v
 
 
+def _decode_attention_sharded(p, q, k, v, cache, cache_pos: int, cfg, plan):
+    """Distributed flash-decode: the KV cache stays SEQ-SHARDED over
+    ``plan.cache_seq_axis``; every rank attends over its local slice and
+    the partial (m, l, acc) softmax states merge with an LSE-weighted sum
+    (``comm.pmax``, ``comm.psum``). ``cache``: this rank's block (B_c,
+    Smax / n, KV, D) — its block of the batch when the batch shards —
+    written in place by the rank that owns ``cache_pos`` only. q, k, v:
+    this rank's stream (its block of the batch when
+    ``partition.split_batch()``). No softcap (the reference has none here).
+    """
+    from ..sharding import comm
+    from ..sharding.partition import batch_axis, rebatch, split_batch
+
+    mesh = plan.mesh
+    ax = plan.cache_seq_axis
+    _, s_loc, kvh, d = cache["k"].shape
+    h = q.shape[2]
+    g = h // kvh
+    split = split_batch()
+    b = q.shape[0] * (plan.axis_size(plan.batch_axes) if split else 1)
+    bax = batch_axis(plan, b) is not None
+    q, k, v = (rebatch(t, plan, split, bax) for t in (q, k, v))
+    bl = q.shape[0]
+    start = mesh.axis_index(ax) * s_loc
+    pos = int(cache_pos)
+    # -- write: only the rank owning `pos` commits the new token ----------
+    if start <= pos < start + s_loc:
+        _cache_write(cache, k, v, pos - start)
+    # -- local partial attention --------------------------------------------
+    ck, cv = _cache_read(cache)
+    qg = q.reshape(bl, 1, kvh, g, d)
+    s = div(einsum_f32("bqhgd,bkhd->bhgqk", qg, ck), math.sqrt(d))
+    kpos = start + torch.arange(s_loc, device=q.device)
+    s = torch.where((kpos <= pos)[None, None, None, None, :], s, _NEG)
+    m = torch.amax(s, dim=-1)                              # (B,KV,G,1)
+    pexp = torch.exp(s - m[..., None])
+    lsum = torch.sum(pexp, dim=-1)
+    acc = einsum_f32("bhgqk,bkhd->bhgqd", pexp.to(cv.dtype), cv)
+    # -- LSE merge across ranks ------------------------------------------------
+    m_all = comm.pmax(m, mesh, ax)
+    corr = torch.exp(m - m_all)
+    # one all_reduce(SUM) carries both l * corr and acc * corr
+    both = comm.psum(torch.cat([(lsum * corr)[..., None],
+                                acc * corr[..., None]], dim=-1), mesh, ax)
+    l_tot, acc_tot = both[..., 0], both[..., 1:]
+    out = acc_tot / torch.clamp_min(l_tot[..., None], 1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(bl, 1, h, d).to(q.dtype)
+    out = rebatch(out, plan, bax, split)
+    return einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
 def _quant_token(t):
     """Symmetric int8 per-(token, head): t (B, 1, KV, D) -> (q8, scale)."""
     tf = t.float()
@@ -220,6 +273,13 @@ def decode_attention(p, x, cache, cache_pos: int, cfg, *, use_rope=True,
         q = apply_rope(q, pos[None, :], cfg.rope_theta)
         k = apply_rope(k, pos[None, :], cfg.rope_theta)
 
+    if cfg.decode_attention == "sharded":
+        from ..sharding.partition import current_plan
+
+        plan = current_plan()
+        if plan is not None and plan.cache_seq_axis:
+            return _decode_attention_sharded(p, q, k, v, cache, cache_pos,
+                                             cfg, plan)
     new_cache = _cache_write(cache, k, v, cache_pos) if update_cache else dict(cache)
     ck, cv = _cache_read(new_cache)
     b, smax, kvh, d = ck.shape

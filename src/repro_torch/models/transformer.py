@@ -39,6 +39,7 @@ drop their aux loss in decode and prefill.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
@@ -53,7 +54,8 @@ from .common import Spec, div, einsum, layer_norm, rms_norm, tree_map
 
 __all__ = [
     "param_specs", "init_decode_caches", "layer_forward",
-    "embed_tokens", "logits_from_hidden", "forward", "lm_loss", "Transformer",
+    "embed_tokens", "logits_from_hidden", "forward", "lm_loss", "lm_loss_sums",
+    "Transformer",
 ]
 
 
@@ -160,6 +162,9 @@ def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
     ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
     otherwise), and attention's (k, v) or the SSM's decode state."""
+    from ..sharding.partition import maybe_constrain
+
+    x = maybe_constrain(x)
     h = _apply_norm(lp["norm1"], x, cfg)
     if "attn" in lp:
         y, cache = attention.self_attention(lp["attn"], h, positions, cfg,
@@ -168,7 +173,7 @@ def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     else:
         y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True)
     x, aux = _ffn(lp, x + y, cfg)
-    return x, aux, cache
+    return maybe_constrain(x), aux, cache
 
 
 def _ffn(lp: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,7 +190,12 @@ def _ffn(lp: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     return x, aux
 
 
-def _layer(lp, x, positions, cfg, prefix_len):
+def _layer(lp, x, positions, cfg, prefix_len, gather=None):
+    """One training layer; ``gather(lp)`` first makes whole the parameters
+    of a rank that holds blocks of them (inside the remat, so the backward
+    gathers again instead of keeping them)."""
+    if gather is not None:
+        lp = gather(lp)
     return layer_forward(lp, x, positions, cfg, prefix_len)[:2]
 
 
@@ -254,14 +264,23 @@ def _with_prefix(x: torch.Tensor, prefix_embeds) -> Tuple[torch.Tensor, int]:
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg, *,
-            prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefix_embeds=None,
+            gather_layer=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward over a parameter tree (``param_specs``'
     layout, in the compute dtype). tokens: (B, S) -> (hidden (B, P + S,
     D), moe_aux scalar), ``prefix_embeds`` (B, P, D) in front. Each layer
     runs under ``cfg.remat`` (`_remat`). The aux sums each repeat's
-    pattern, then the repeats."""
+    pattern, then the repeats.
+
+    ``gather_layer(i, lp)``, when given, turns pattern element ``i``'s
+    per-layer dict of blocks (a rank's share under a sharding plan) into
+    the whole parameters, inside each layer's remat: the counterpart of
+    the ZeRO-3 gather inside the reference's layer scan."""
+    from ..sharding.partition import maybe_constrain
+
     x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg),
                                  prefix_embeds)
+    x = maybe_constrain(x)
     positions = torch.arange(x.shape[1], device=x.device)
     (pattern, repeats), = cfg.layer_groups()
     layers = [_unbind_layers(params["layers"][f"l{i}"])
@@ -269,9 +288,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
     auxs = []
     for r in range(repeats):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for per_layer in layers:
+        for i, per_layer in enumerate(layers):
+            gather = (None if gather_layer is None else
+                      functools.partial(gather_layer, i))
             x, a = _remat(_layer, cfg, per_layer[r], x, positions, cfg,
-                          prefix_len)
+                          prefix_len, gather)
             aux = aux + a
         auxs.append(aux)
     x = _apply_norm(params["final_norm"], x, cfg)
@@ -300,6 +321,16 @@ def lm_loss(params: Dict, hidden: torch.Tensor, labels: torch.Tensor, cfg,
     ``torch.utils.checkpoint``: the (B, S, V) float32 logits never exist at
     once, a chunk's are recomputed in the backward.
     """
+    loss_sum, tok_sum = lm_loss_sums(params, hidden, labels, cfg)
+    nll = loss_sum / torch.clamp_min(tok_sum, 1.0)
+    return nll + aux_weight * moe_aux, nll
+
+
+def lm_loss_sums(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
+                 cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`lm_loss`'s (sum of the token losses, count of the labelled tokens),
+    float32: what a rank holding a block of the batch adds up with the
+    others."""
     b, s, _d = hidden.shape
     c_s = max(1, min(s, cfg.loss_chunk // max(b, 1)))
     pad = (-s) % c_s
@@ -314,8 +345,7 @@ def lm_loss(params: Dict, hidden: torch.Tensor, labels: torch.Tensor, cfg,
                             y[:, c0:c0 + c_s], cfg, use_reentrant=False)
         loss_sum = loss_sum + ls
         tok_sum = tok_sum + ts
-    nll = loss_sum / torch.clamp_min(tok_sum, 1.0)
-    return nll + aux_weight * moe_aux, nll
+    return loss_sum, tok_sum
 
 
 # -- the serving model ---------------------------------------------------------
@@ -422,13 +452,32 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, token, caches: Dict, cache_pos: int):
         """token: (B, 1) int; cache_pos: the next write slot (same across
-        the batch). Returns (logits (B, 1, V), caches written in place)."""
+        the batch). Returns (logits (B, 1, V), caches written in place).
+
+        Under a sharding plan ``token`` and the logits are this rank's
+        block of the batch when ``partition.split_batch()``; with
+        ``cfg.decode_stream == "replicated"`` the stream between the
+        layers is the whole batch on every rank of the batch axes (the
+        same values). The caches are this rank's blocks
+        (``partition.decode_input_shardings``) on the seq-sharded path,
+        else the stream's batch."""
+        from ..sharding.partition import (activation_ctx, current_plan,
+                                          rebatch, split_batch)
+
+        plan, split = current_plan(), split_batch()
+        whole = (self.cfg.decode_stream == "replicated" and plan is not None
+                 and split)
         x = self.embed_tokens(token)
+        if whole:
+            x = rebatch(x, plan, True, False)
         pos = int(cache_pos)
-        for j, block in enumerate(self.layers):
-            r, i = divmod(j, self.period)
-            x = block.decode(x, {k: t[r] for k, t in caches[f"l{i}"].items()},
-                             pos, self.cfg)
+        with activation_ctx(plan, split and not whole):
+            for j, block in enumerate(self.layers):
+                r, i = divmod(j, self.period)
+                x = block.decode(x, {k: t[r] for k, t in
+                                     caches[f"l{i}"].items()}, pos, self.cfg)
+        if whole:
+            x = rebatch(x, plan, False, True)
         x = _apply_norm(self.final_norm, x, self.cfg)
         return self.logits_from_hidden(x), caches
 

@@ -73,21 +73,24 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: Dict, cfg: AdamWConfig,
-                  lr: Optional[torch.Tensor] = None) -> Tuple[Any, Dict]:
+                  lr: Optional[torch.Tensor] = None,
+                  norm: Optional[torch.Tensor] = None) -> Tuple[Any, Dict]:
     """One AdamW step; returns (params, {"m", "v", "step"}), the params and
     moments updated in place and the step a new tensor. ``lr`` (a device
     scalar or a float) defaults to ``cfg.lr``. With ``grad_clip > 0`` the
     gradients are clipped by their global norm first, leaf by leaf as
     `clip_by_global_norm` rounds them (no clipped copy of the tree is
-    kept)."""
+    kept); ``norm`` is that norm when the caller has it (a rank holding
+    blocks of the gradient passes the whole gradient's)."""
     step = state["step"] + 1
     lr = cfg.lr if lr is None else lr
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
-    scale = (_clip_scale(global_norm(grads), cfg.grad_clip)
-             if cfg.grad_clip > 0 else None)
+    if norm is None and cfg.grad_clip > 0:
+        norm = global_norm(grads)
+    scale = _clip_scale(norm, cfg.grad_clip) if cfg.grad_clip > 0 else None
 
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(state["m"]), _leaves(state["v"])):

@@ -8,8 +8,7 @@ function (the identity by default). ``torch.round`` rounds half to even as
 ``jnp.round`` does, and the scale's constant divisor is the product by its
 float32 reciprocal (``models.common.div``) as in the jitted JAX step, so
 ``q`` is bit-equal to the JAX package's. The train step that all-gathers
-int8 over a ``pod`` mesh axis waits for the sharding slice (ROADMAP
-Queue 1 item 3).
+int8 over a ``pod`` mesh axis is ``models.steps.make_compressed_train_step``.
 """
 from __future__ import annotations
 

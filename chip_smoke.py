@@ -180,6 +180,21 @@ ranks, layer 0 held to the gathered decode; (d) the int8 pod-compressed
 step at train_100m.py's configuration beside the uncompressed one. It
 prints step times, each rank's peak memory and the bytes each collective
 moved, and claims no speed (the ranks share one card).
+Phase 17 runs the dry run and the autotuner (``launch.dryrun``,
+``kernels.autotune``): (a) in a child process that sees no card, phase
+16's three cells traced on meta tensors in a fake process group of their
+meshes' ranks, each collective kind's bytes a step held equal to what
+phase 16 measured on rank 0, the argument bytes to the step's resident
+state and batch, and the predicted peak (arguments + temp) to within
+[0.8, 1.25] of the step's own peak; (b) in the same child, gemma-2b's
+``train_4k`` and ``decode_32k`` and hill-climb's ``podfsdp`` on the
+production meshes, held to ``experiments/dryrun/reference.json`` (made by
+the JAX package) in plan notes, the analytic roofline and the argument
+bytes of the JAX step's spec trees; (c) on the card, the min-plus tile
+and split picks tuned into a temporary table (``minplus`` and
+``minplus_count`` at p = 512, ``batched_minplus`` at B=12, 2048), every
+candidate bit-equal to the default pick and timed beside it, and the
+next op call on the winner's tile counter.
 Every phase prints its wall (``[wall]`` lines).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
@@ -5536,6 +5551,49 @@ def _mesh_bytes():
                       "all_to_all", "ppermute") for unit in ("bytes", "us")}
 
 
+def _storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages under ``trees`` (a step's resident
+    arguments)."""
+    from torch.utils._pytree import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(list(trees)):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def _batch_block_bytes(batch, plan) -> int:
+    """Bytes of this rank's block of a global batch over the plan's batch
+    axes (the whole batch where it does not divide them)."""
+    from repro_torch.sharding.partition import batch_axis
+
+    b = next(iter(batch.values())).shape[0]
+    n = (plan.axis_size(plan.batch_axes) if batch_axis(plan, b) is not None
+         else 1)
+    return sum(v.nbytes // n for v in batch.values())
+
+
+def _step_start(dev) -> int:
+    """Before a step: the peak reset (so the step alone sets it); returns
+    the bytes allocated now."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _step_growth(dev, start: int) -> int:
+    """After a step: how far its peak rose above the bytes allocated at
+    its start."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - start
+
+
 def _ep_layer_check(cfg, mesh, plan, spec, dev):
     """16b: one granite MoE layer at full width (capacity_factor 8: no
     drops) on the mesh's EP path against the port's ``_moe_local`` on the
@@ -5595,14 +5653,18 @@ def _shard_train(mesh, dev, spec=SHARD_TRAIN):
     state = init_state()
     _sync(dev)
     rec = {"init_s": time.perf_counter() - t0, "notes": list(plan.notes),
-           "ms": [], "loss": [], "bytes": []}
+           "ms": [], "loss": [], "bytes": [], "step_mem": [],
+           "resident": (_storage_bytes(state)
+                        + _batch_block_bytes(data_at(0), plan))}
     for i in range(spec["steps"]):
         before = _mesh_bytes()
+        start = _step_start(dev)
         tdist.barrier()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, data_at(i))
         _sync(dev)
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["step_mem"].append((start, _step_growth(dev, start)))
         rec["loss"].append(float(metrics["loss"]))
         rec["bytes"].append({k: v - before[k]
                              for k, v in _mesh_bytes().items()})
@@ -5657,18 +5719,27 @@ def _shard_serve(mesh, dev, spec=SHARD_SERVE):
     del whole
     gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     toks = torch.randint(0, cfg.vocab_size, (spec["steps"] + 1, b, 1),
-                         generator=gen, device=dev)
+                         generator=gen, device=dev, dtype=torch.int32)
     step = steps.make_decode_step(cfg)
     rec = {"ms": [], "cache_spec": list(map(str, cspec["l0"]["k"])),
            "slots": caches["l0"]["k"].shape[2],
-           "cache_seq_axis": plan.cache_seq_axis, "params": n}
+           "cache_seq_axis": plan.cache_seq_axis, "params": n,
+           "bytes": [], "step_mem": [],
+           "resident": (_storage_bytes(list(model.parameters())
+                                       + list(model.buffers()), caches)
+                        + toks[0].numel() * toks.element_size())}
     with activation_ctx(plan, True):
         for t in range(spec["steps"]):
+            before = _mesh_bytes()
+            start = _step_start(dev)
             tdist.barrier()
             t0 = time.perf_counter()
             step(model, toks[t], caches, t)
             _sync(dev)
             rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["step_mem"].append((start, _step_growth(dev, start)))
+            rec["bytes"].append({k: v - before[k]
+                                 for k, v in _mesh_bytes().items()})
     # layer 0 at the next position: sharded against the gathered decode
     pos = spec["steps"]
     seq = P(None, "model", None, None)
@@ -5714,13 +5785,21 @@ def _shard_compressed(dev, spec=SHARD_COMPRESSED, run=TRAIN_100M_RUN,
     _reset_peak(dev)
     state, err = fresh(), None
     err = init_error_state(state["params"])
-    step = steps.make_compressed_train_step(cfg, make_plan(cfg, m), opt_cfg)
-    rec = {"loss": [], "ms": []}
+    plan = make_plan(cfg, m)
+    step = steps.make_compressed_train_step(cfg, plan, opt_cfg)
+    rec = {"loss": [], "ms": [], "bytes": [], "step_mem": [],
+           "resident": (_storage_bytes(state, err)
+                        + _batch_block_bytes(batches[0], plan))}
     for batch in batches:
+        before = _mesh_bytes()
+        start = _step_start(dev)
         t0 = time.perf_counter()
         state, metrics, err = step(state, batch, err)
         rec["loss"].append(float(metrics["loss"]))
         rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["step_mem"].append((start, _step_growth(dev, start)))
+        rec["bytes"].append({k: v - before[k]
+                             for k, v in _mesh_bytes().items()})
     rec["peak_gib"] = _peak_gib(dev)
     del state, err
     if m.rank == 0:
@@ -6103,6 +6182,225 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
     print(f"[16 sharding] {wall:.2f} s for the ranks (spawn included); no "
           f"claim of speed: the four ranks share one card and every "
           f"collective goes through the host (gloo)")
+    return ranks
+
+
+# -- phase 17: the dry run and the autotuner ---------------------------------------
+
+#: 17a: a dry run's predicted step peak (arguments + temp) within these
+#: factors of the peak phase 16 measured for the step alone
+DRYRUN_PEAK = (0.8, 1.25)
+#: 17a/17b's child process: its wall limit
+DRYRUN_TIMEOUT_S = 600
+#: 17b: production cells held to experiments/dryrun/reference.json (the
+#: grid's gemma-2b train and decode on 16x16, hill-climb's podfsdp)
+DRYRUN_PRODUCTION = (("gemma-2b", "train_4k", False, None, ""),
+                     ("gemma-2b", "decode_32k", False, None, ""),
+                     ("phi3-mini-3.8b", "train_4k", True,
+                      {"fsdp": "pod_data"}, "+podfsdp"))
+#: 17c: the autotuner's cells (op, size, batch): the MWU's min-plus and
+#: the count product at p = 512, the sweep's squarings at B=12, 2048
+TUNE_CELLS = (("minplus", 512, 0), ("minplus_count", 512, 0),
+              ("batched_minplus", 2048, 12))
+_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
+          "ppermute")
+
+
+def dryrun_cells(sizes) -> dict:
+    """17a and 17b in this process (a child with no card): phase 16's three
+    cells dry-run on meta in fake groups of their meshes' ranks, then the
+    production cells through ``launch.dryrun.run_cell``. Returns
+    {"a": {"b"|"c"|"d": trace summary}, "b": {key: record}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    def cfg_of(spec, **over):
+        cfg = get_config(spec["arch"])
+        cfg = cfg.reduced() if spec.get("reduced") else cfg
+        return dataclasses.replace(cfg, **over)
+
+    train, serve = sizes["train"], sizes["serve"]
+    run = sizes["run"]
+    cells = {
+        "b": (cfg_of(train), ShapeSpec("16b", train["seq"], train["batch"],
+                                       "train"),
+              train["mesh"], ("data", "model")),
+        "c": (cfg_of(serve, decode_attention="sharded"),
+              ShapeSpec("16c", serve["max_len"], serve["batch"], "decode"),
+              serve["mesh"], ("data", "model")),
+        "d": (dataclasses.replace(_phi3(sizes["overrides"]),
+                                  grad_compression="int8_pod"),
+              ShapeSpec("16d", run["seq"], run["batch"], "train"),
+              sizes["compressed"]["mesh"], ("pod", "data", "model")),
+    }
+    out = {"a": {}, "b": {}}
+    for label, (cfg, shape, mesh, axes) in cells.items():
+        t0 = time.perf_counter()
+        tr = dryrun.dry_run(cfg, shape, mesh, axes)
+        out["a"][label] = {"collective_bytes": tr["collective_bytes"],
+                           "memory": tr["memory"],
+                           "n_collectives": len(tr["ops"]),
+                           "port_notes": tr["port_notes"],
+                           "trace_s": time.perf_counter() - t0}
+    for arch, shape, multi, overrides, tag in DRYRUN_PRODUCTION:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi, save=False,
+                              overrides=overrides, tag=tag)
+        rec.pop("collectives", None)
+        rec["wall_s"] = time.perf_counter() - t0
+        out["b"][f"{arch}__{shape}__{rec['mesh']}{tag}"] = rec
+    return out
+
+
+def _dryrun_child(sizes):
+    """``dryrun_cells`` in a child process that sees no card."""
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    with tempfile.TemporaryDirectory() as tmp:
+        spec, out = pathlib.Path(tmp) / "sizes.json", pathlib.Path(tmp) / "out.json"
+        spec.write_text(json.dumps(sizes))
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             str(spec), str(out)], env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S)
+        check(res.returncode == 0, f"17: the dry-run child failed:\n"
+                                   f"{res.stdout[-3000:]}{res.stderr[-6000:]}")
+        return json.loads(out.read_text())
+
+
+def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES):
+    """Phase 17a-b: the dry run of phase 16's three cells against what
+    phase 16 measured on rank 0 (each collective kind's bytes a step equal
+    exactly, the argument bytes equal to the step's resident state and
+    batch, the predicted peak within DRYRUN_PEAK of the step's own), then
+    the production cells against experiments/dryrun/reference.json."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    got = _dryrun_child(sizes)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    names = {"b": "16b granite-moe-1b-a400m train (2, 2)",
+             "c": "16c gemma-2b seq-sharded decode (1, 4)",
+             "d": "16d compressed 110M step (2, 1, 1)"}
+    for label, name in names.items():
+        pred, meas = got["a"][label], r0[label]
+        mem = pred["memory"]
+        for i, step in enumerate(meas["bytes"]):
+            seen = {k: step[f"{k} bytes"] for k in _KINDS}
+            check(seen == pred["collective_bytes"],
+                  f"17a {name} step {i}: measured collective bytes {seen}, "
+                  f"the dry run predicts {pred['collective_bytes']}")
+        check(mem["argument_bytes"] == meas["resident"],
+              f"17a {name}: the dry run's argument bytes "
+              f"{mem['argument_bytes']} != the step's resident "
+              f"{meas['resident']}")
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        ratios = []
+        for start, growth in meas["step_mem"]:
+            if device == "cuda":
+                alone = meas["resident"] + growth
+                ratios.append(predicted / alone)
+                check(DRYRUN_PEAK[0] <= ratios[-1] <= DRYRUN_PEAK[1],
+                      f"17a {name}: predicted peak {predicted} B against "
+                      f"the step's {alone} B (ratio {ratios[-1]:.3f})")
+        print(f"[17 dryrun] 17a {name}: collectives a step (bytes) "
+              + ", ".join(f"{k} {v}" for k, v in
+                          pred["collective_bytes"].items() if v)
+              + f" = phase 16's on every step ({len(meas['bytes'])}); "
+              f"argument bytes {mem['argument_bytes']} = resident; "
+              f"predicted peak {predicted / 2**30:.3f} GiB (temp "
+              f"{mem['temp_bytes'] / 2**30:.3f}) against the step's "
+              + (", ".join(f"{(meas['resident'] + g) / 2**30:.3f}"
+                           for _, g in meas["step_mem"])
+                 + " GiB: ratio " + ", ".join(f"{x:.3f}" for x in ratios)
+                 if device == "cuda" else "not measured (host rehearsal)")
+              + f"; {pred['n_collectives']} collectives; traced in "
+              f"{pred['trace_s']:.2f} s; allocated at the step's start "
+              + ", ".join(str(st) for st, _ in meas["step_mem"]))
+        for note in pred["port_notes"]:
+            print(f"  [port] {note}")
+    ref = json.loads((ROOT / "experiments" / "dryrun"
+                      / "reference.json").read_text())["cells"]
+    for key, rec in got["b"].items():
+        bad = dryrun.compare_to_reference(rec, ref[key])
+        check(not bad, f"17b {key}: {bad}")
+        mem, xla = rec["memory"], ref[key]["memory"]
+        r = rec["roofline"]
+        print(f"[17 dryrun] 17b {key}: plan notes, analytic roofline and "
+              f"the JAX argument bytes ({mem['jax_argument_bytes']}) equal "
+              f"the reference's; traced in {rec['trace_s']:.1f} s; port "
+              f"argument {mem['argument_bytes']} B, temp "
+              f"{mem['temp_bytes']} B (XLA's {xla['temp_bytes']}), "
+              f"{r['n_collectives']} collectives (XLA's "
+              f"{ref[key]['roofline']['n_collectives']}), wire "
+              f"{r['collective_wire_bytes']:.6g} B (XLA's "
+              f"{ref[key]['roofline']['collective_wire_bytes']:.6g}), in "
+              + ", ".join(f"{k} {v}" for k, v in
+                          rec["collective_bytes"].items() if v)
+              + f"; traced flops {r['traced_flops']:.4g}")
+    print(f"[17 dryrun] 17a-b in a child process with no card: "
+          f"{wall:.2f} s")
+
+
+def autotune_phase(S, ops):
+    """Phase 17c: the autotuner on the card into a temporary table: every
+    candidate's median time beside the default pick's, every candidate
+    bit-equal to the default (autotune raises otherwise), and a following
+    op call on the winner's column of ``tile_launches()``."""
+    import tempfile
+
+    from repro_torch.kernels import autotune as AT
+
+    old = os.environ.get("REPRO_TORCH_TUNE_TABLE")
+    t_ph = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        table = pathlib.Path(tmp) / "tuning_table.json"
+        os.environ["REPRO_TORCH_TUNE_TABLE"] = str(table)
+        AT.load_table(refresh=True)
+        try:
+            for op, size, batch in TUNE_CELLS:
+                t0 = time.perf_counter()
+                res = AT.autotune(op, size, batch=batch)
+                wall = time.perf_counter() - t0
+                wrapper, column = res["column"]
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                shape = (batch, size, size) if batch else (size, size)
+                x = torch.randint(0, 5, shape, generator=gen,
+                                  device="cuda").float()
+                before = S.tile_launches()[wrapper][column]
+                if op == "minplus":
+                    ops.minplus_matmul(x, x)
+                elif op == "batched_minplus":
+                    ops.batched_minplus_matmul(x, x)
+                else:
+                    ops.minplus_count_matmul(x, x + 1, x, x + 1)
+                after = S.tile_launches()[wrapper][column]
+                check(after == before + 1,
+                      f"17c {op}: the call after tuning did not run on the "
+                      f"winner's {column} ({before} -> {after})")
+                saved = json.loads(table.read_text())[op][res["key"]]
+                print(f"[17 autotune] 17c {op} at {res['key']} (batch "
+                      f"{batch or 1}): default {res['default']} "
+                      f"{res['default_ms']:.4f} ms; winner "
+                      f"{saved} {1e3 * res['seconds']:.4f} ms; candidates "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  res["times"].items())
+                      + f" ms (median of 7 after a warm-up, CUDA events); "
+                      f"all bit-equal to the default; not launchable here: "
+                      f"{res['skipped'] or 'none'}; the next call ran on "
+                      f"{wrapper}'s {column}; {wall:.2f} s")
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TORCH_TUNE_TABLE", None)
+            else:
+                os.environ["REPRO_TORCH_TUNE_TABLE"] = old
+            AT.load_table(refresh=True)
+    print(f"[17 autotune] {time.perf_counter() - t_ph:.2f} s")
 
 
 def main() -> int:
@@ -6414,13 +6712,22 @@ def main() -> int:
     shref = json.loads((ROOT / "experiments" / "sharding"
                         / "reference.json").read_text())
     print(f"[16 sharding] four gloo ranks sharing the card ({smi})")
-    sharding_phase(shref)
+    shard_ranks = sharding_phase(shref)
     check(dict(S.launches) == before,
           f"the sharding phase launched a kernel: {dict(S.launches)} "
           f"against {before}")
     print(f"[16 sharding] {time.perf_counter() - t0:.2f} s; none of the 11 "
           f"kernels launched")
     wall("16", t0)
+
+    # 17. the dry run (phase 16's cells on meta, production cells against
+    # experiments/dryrun/reference.json) and the autotuner on the card
+    t0 = time.perf_counter()
+    print(f"[17 dryrun] one rank's step on meta in a fake process group; "
+          f"17c tunes on the card ({smi})")
+    dryrun_phase(shard_ranks)
+    autotune_phase(S, ops)
+    wall("17", t0)
     print("[wall] " + ", ".join(f"{k} {v:.1f}" for k, v in
                                 phase_walls.items()))
 
@@ -6495,4 +6802,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        sizes = json.loads(pathlib.Path(sys.argv[2]).read_text())
+        pathlib.Path(sys.argv[3]).write_text(json.dumps(dryrun_cells(sizes)))
+        sys.exit(0)
     sys.exit(main())

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .base import ModelConfig, shape_for
+from .base import ModelConfig, ShapeSpec, shape_for
 from ..models import encdec, steps, transformer
 from ..models.common import tree_map
 
@@ -42,14 +42,18 @@ def step_kind(shape_name: str) -> str:
     return shape_for(shape_name).kind  # train | prefill | decode
 
 
-def input_specs(cfg: ModelConfig, shape_name: str) -> Dict:
+def input_specs(cfg: ModelConfig, shape_name: str,
+                shape: Optional[ShapeSpec] = None) -> Dict:
     """Inputs for the step function of this cell (no state/params).
 
     train:   {tokens, labels[, frames | prefix_embeds]}
     prefill: {tokens[, frames | prefix_embeds]}
     decode:  {token, caches, cache_pos}
+
+    ``shape`` (a ``ShapeSpec``) stands in for the named shape: the same
+    trees at another batch and length (``launch.dryrun``'s small cells).
     """
-    sh = shape_for(shape_name)
+    sh = shape or shape_for(shape_name)
     b, s = sh.global_batch, sh.seq_len
     pdt = _dtype(cfg.param_dtype)
 

@@ -5,7 +5,7 @@
 device); `semiring` and `seghist` hold the kernels' wrappers with their
 plain versions beside them, and `ref` gathers those plain versions under
 the JAX package's names; `build` compiles ``csrc/`` with ``nvcc`` at first
-use. The extension point, :class:`Semiring` with
+use; `autotune` keeps the tuned tile picks of the min-plus products. The extension point, :class:`Semiring` with
 :func:`semiring_matmul` / :func:`semiring_matmul_batched`, is exported
 here: a spec with device code runs on the card through a kernel generated
 from it. Nothing is compiled or loaded when the package is imported.

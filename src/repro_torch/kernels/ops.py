@@ -11,10 +11,14 @@ versions directly (`kernels.ref`).
 
 Outputs have the JAX ops' dtypes, except the packed steps, which return
 the port's int32 multiplicity cell (`kernels.semiring` documents why)
-where the JAX package returns uint32. Unlike the JAX ops these take no
-block shapes (``bm``/``bn``/``bk``/``sub_k``): each kernel has one tile,
-and the JAX package's block-shape tuner has no counterpart. Ragged shapes
-need no padding: the kernels mask their edges.
+where the JAX package returns uint32. Where the JAX ops take block shapes
+(``bm``/``bn``/``bk``/``sub_k``) from the autotuner's table, the three
+min-plus ops here take the host's tile pick (``tile="large"|"small"``,
+``split=1..8``; the count product ``split`` only) from the port's
+autotuner (`kernels.autotune`): explicit keywords win, then the tuned
+table, then the rule. The counting ops pick their tile on the card from
+the operand and take no such keyword. Ragged shapes need no padding: the
+kernels mask their edges.
 
 The extension point is here too: :class:`Semiring`, the four shipped specs
 and :func:`semiring_matmul` / :func:`semiring_matmul_batched` (from
@@ -60,10 +64,12 @@ def _stacked(name: str, *xs: torch.Tensor) -> None:
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
-                   use_kernel: bool = True) -> torch.Tensor:
+                   use_kernel: bool = True, tile: Optional[str] = None,
+                   split: Optional[int] = None) -> torch.Tensor:
     """Tropical (min, +) product of (m, k) x (k, n); ragged edges act as
-    +inf."""
-    return S.minplus_matmul(_f32(a), _f32(b), use_kernel=use_kernel)
+    +inf. ``tile`` / ``split``: the launch's pick (`kernels.autotune`)."""
+    return S.minplus_matmul(_f32(a), _f32(b), use_kernel=use_kernel,
+                            tile=tile, split=split)
 
 
 def reachability_step(a: torch.Tensor, b: torch.Tensor,
@@ -81,11 +87,13 @@ def count_matmul(a: torch.Tensor, b: torch.Tensor,
 
 def minplus_count_matmul(da: torch.Tensor, ca: torch.Tensor,
                          db: torch.Tensor, cb: torch.Tensor,
-                         use_kernel: bool = True):
+                         use_kernel: bool = True,
+                         split: Optional[int] = None):
     """Fused tropical-with-count product over (dist, count) pairs; ragged
-    edges act as (+inf, 0). Returns (dist, count)."""
+    edges act as (+inf, 0). Returns (dist, count). ``split``: the launch's
+    split of K (`kernels.autotune`)."""
     return S.minplus_count_matmul(_f32(da), _f32(ca), _f32(db), _f32(cb),
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, split=split)
 
 
 def frontier_step(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
@@ -104,16 +112,20 @@ def frontier_step_packed(f: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
 
 def batched_minplus_matmul(a: torch.Tensor, b: torch.Tensor,
                            use_kernel: bool = True,
-                           compare: Optional[torch.Tensor] = None):
+                           compare: Optional[torch.Tensor] = None,
+                           tile: Optional[str] = None,
+                           split: Optional[int] = None):
     """Tropical product over a stacked leading axis: (B, M, K) x (B, K, N),
     one kernel launch for the whole stack. With ``compare``, a (B, M, N)
     stack, returns ``(out, changed)``: one int32 flag for the whole stack,
     nonzero iff ``out`` differs from ``compare`` (the sweep's squaring
-    loop reads it once per squaring)."""
+    loop reads it once per squaring). ``tile`` / ``split``: the launch's
+    pick (`kernels.autotune`)."""
     _stacked("batched_minplus_matmul", a, b)
     return S.batched_minplus_matmul(
         _f32(a), _f32(b), use_kernel=use_kernel,
-        compare=None if compare is None else _f32(compare))
+        compare=None if compare is None else _f32(compare), tile=tile,
+        split=split)
 
 
 def batched_count_matmul(a: torch.Tensor, b: torch.Tensor,

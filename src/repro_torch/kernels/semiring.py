@@ -828,17 +828,15 @@ def _minplus_tile(batch: int, m: int, n: int) -> str:
     return "large" if blocks >= _MINPLUS_LARGE_MIN_BLOCKS else "small"
 
 
-def _minplus_plan(batch: int, m: int, n: int, k: int, nf: int = 1,
-                  split: Optional[int] = None) -> Tuple[str, int]:
+def _minplus_rule(batch: int, m: int, n: int, k: int,
+                  nf: int = 1) -> Tuple[str, int]:
     """The tile and split of K that ``csrc/tropical.cu``'s ``plan`` gives a
     product of ``batch`` (m, n, k) over ``nf`` fields (1: min-plus, 2: the
-    count product): ("large", 1) where :func:`_minplus_tile` takes the
-    large tile (min-plus only), else ("small", S): the split tile with K
-    split over S blocks of a cluster, as many as keep the grid within 128
-    blocks (one an SM) but at least 2, as far as every split keeps two K
-    steps, at most 8. ``split`` forces the split tile with that split."""
-    if split is not None:
-        return "small", split
+    count product) when no split is forced: ("large", 1) where
+    :func:`_minplus_tile` takes the large tile (min-plus only), else
+    ("small", S): the split tile with K split over S blocks of a cluster,
+    as many as keep the grid within 128 blocks (one an SM) but at least 2,
+    as far as every split keeps two K steps, at most 8."""
     if nf == 1 and _minplus_tile(batch, m, n) == "large":
         return "large", 1
     c = _MINPLUS_SPLIT
@@ -847,6 +845,31 @@ def _minplus_plan(batch: int, m: int, n: int, k: int, nf: int = 1,
     s = max(_MINPLUS_SPLIT_BLOCKS // max(blocks, 1), _MINPLUS_SPLIT_LEAST)
     s = min(s, steps // _MINPLUS_SPLIT_MIN_STEPS, _MINPLUS_SPLIT_MAX)
     return "small", max(1, s)
+
+
+def _minplus_plan(batch: int, m: int, n: int, k: int, nf: int = 1,
+                  split: Optional[int] = None, tile: Optional[str] = None,
+                  op: Optional[str] = None) -> Tuple[str, int]:
+    """The tile and split a min-plus launch of ``batch`` (m, n, k) over
+    ``nf`` fields runs on: ``kernels.autotune.resolve`` of the op
+    (``op``: "minplus", "batched_minplus" or "minplus_count"; by default
+    "minplus_count" for two fields, "batched_minplus" for a stack of more
+    than one, else "minplus"), so explicit ``tile`` / ``split`` win, then
+    the tuning table, then :func:`_minplus_rule`. A forced ``split`` alone
+    means the split tile."""
+    from . import autotune
+
+    op = op or ("minplus_count" if nf == 2 else
+                "batched_minplus" if batch > 1 else "minplus")
+    if op == "minplus_count" and tile not in (None, "small"):
+        raise ValueError(f"the count product runs on the split tile only, "
+                         f"not {tile!r}")
+    if tile == "large" and split not in (None, 1):
+        raise ValueError(f"the large tile does not split K: split {split}")
+    if split is not None:
+        _split_arg(batch, split)
+    cfg = autotune.resolve(op, m, n, k, batch=batch, tile=tile, split=split)
+    return cfg.get("tile", "small"), cfg["split"]
 
 
 def _minplus_column(tile: str, split: int) -> str:
@@ -964,27 +987,35 @@ def _contiguous(what: str, **xs: torch.Tensor) -> None:
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = True,
-                   compare: Optional[torch.Tensor] = None):
+                   compare: Optional[torch.Tensor] = None,
+                   tile: Optional[str] = None, split: Optional[int] = None):
     """Tropical product ``min_k a[i,k] + b[k,j]`` of fp32 (m, k) x (k, n).
 
     Pads (ragged edges) behave as +inf. With ``compare``, an (m, n) tensor,
     returns ``(out, changed)``: ``changed`` is a one-element int32 tensor on
     the operands' device, nonzero iff ``out`` differs from ``compare``
     anywhere. The kernel computes it in its store, so the squaring loop's
-    convergence test costs no extra pass over the matrix.
+    convergence test costs no extra pass over the matrix. ``tile``
+    ("large" or "small") and ``split`` (1..8) pick the launch's tile and
+    split of K over the tuning table and the rule (:func:`_minplus_plan`;
+    every pick gives the same bits).
     """
-    return _minplus(a, b, use_kernel, compare, batched=False)
+    return _minplus(a, b, use_kernel, compare, batched=False, split=split,
+                    tile=tile)
 
 
 def batched_minplus_matmul(a: torch.Tensor, b: torch.Tensor,
                            use_kernel: bool = True,
-                           compare: Optional[torch.Tensor] = None):
+                           compare: Optional[torch.Tensor] = None,
+                           tile: Optional[str] = None,
+                           split: Optional[int] = None):
     """Stacked tropical product of fp32 (B, m, k) x (B, k, n): one launch
     for the whole stack. With ``compare``, a (B, m, n) tensor, returns
     ``(out, changed)`` as :func:`minplus_matmul` does, with one flag for
     the whole stack: the stacked squaring loop reads one flag per
-    squaring."""
-    return _minplus(a, b, use_kernel, compare, batched=True)
+    squaring. ``tile`` and ``split`` as in :func:`minplus_matmul`."""
+    return _minplus(a, b, use_kernel, compare, batched=True, split=split,
+                    tile=tile)
 
 
 def _split_arg(batch: int, split: Optional[int]) -> int:
@@ -999,11 +1030,13 @@ def _split_arg(batch: int, split: Optional[int]) -> int:
     return split
 
 
-def _minplus(a, b, use_kernel, compare, batched, split=None):
-    """The two min-plus wrappers' body. ``split`` runs the split tile with
-    K split over that many blocks of a cluster, whatever the grid (a
-    private seam: every tile and split agrees bit for bit, and the card's
-    checks hold them to it); None runs what :func:`_minplus_plan` picks."""
+def _minplus(a, b, use_kernel, compare, batched, split=None, tile=None):
+    """The two min-plus wrappers' body: the launch runs on what
+    :func:`_minplus_plan` picks (``split`` alone forces the split tile with
+    K split over that many blocks of a cluster, whatever the grid; every
+    tile and split agrees bit for bit, and the card's checks hold them to
+    it). The C entry takes the pick as its split argument: 0 for the large
+    tile (its own rule takes it there), else the split."""
     name = "batched_minplus_matmul" if batched else "minplus_matmul"
     xs = (a, b) if compare is None else (a, b, compare)
     if not _use_kernel(use_kernel, *xs):
@@ -1022,7 +1055,9 @@ def _minplus(a, b, use_kernel, compare, batched, split=None):
             raise ValueError(f"rows {m} exceed the launch grid")
     else:
         batch, (m, n, k) = 1, _dims_2d(a, b)
-    forced = _split_arg(batch, split)
+    picked, s = _minplus_plan(batch, m, n, k, 1, split, tile,
+                              "batched_minplus" if batched else "minplus")
+    forced = 0 if picked == "large" else _split_arg(batch, s)
     _contiguous(name, a=a, b=b)
     shape = (*a.shape[:-1], n)
     if compare is not None:
@@ -1049,15 +1084,17 @@ def _minplus(a, b, use_kernel, compare, batched, split=None):
 
 def minplus_count_matmul(da: torch.Tensor, ca: torch.Tensor,
                          db: torch.Tensor, cb: torch.Tensor,
-                         use_kernel: bool = True):
+                         use_kernel: bool = True,
+                         split: Optional[int] = None):
     """Lexicographic min-plus over (dist, count) pairs, fp32 (m, k) x (k, n).
 
     Returns ``(d, c)``: ``d`` the min-plus product of the dists, ``c`` the
     sum of ``ca[i,k] * cb[k,j]`` over the k that attain ``d[i,j]``. Pads
     behave as (+inf, 0), which never contributes. Counts are exact below
-    2**24.
+    2**24. ``split`` (1..8) picks the split of K over the tuning table and
+    the rule (:func:`_minplus_plan`; the split tile always runs).
     """
-    return _minplus_count(da, ca, db, cb, use_kernel)
+    return _minplus_count(da, ca, db, cb, use_kernel, split)
 
 
 def _minplus_count(da, ca, db, cb, use_kernel, split=None):
@@ -1068,7 +1105,7 @@ def _minplus_count(da, ca, db, cb, use_kernel, split=None):
     m, n, k = _dims_2d(da, db)
     if ca.shape != da.shape or cb.shape != db.shape:
         raise ValueError("count fields must match their dist fields")
-    forced = _split_arg(1, split)
+    forced = _split_arg(1, _minplus_plan(1, m, n, k, 2, split)[1])
     _contiguous("minplus_count_matmul", da=da, ca=ca, db=db, cb=cb)
     d = torch.empty((m, n), dtype=torch.float32, device=da.device)
     c = torch.empty((m, n), dtype=torch.float32, device=da.device)

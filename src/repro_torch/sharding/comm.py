@@ -31,7 +31,9 @@ On gloo a CUDA tensor goes through a host copy and back
 rank's input) to the ``mesh.<kind>_bytes`` counter of ``obs`` (kinds
 ``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
 ``ppermute``), and its wall microseconds, host staging and the wait for
-the peers included, to ``mesh.<kind>_us``.
+the peers included, to ``mesh.<kind>_us``. Inside `record_collectives`
+each call also appends one ``launch.roofline.CollectiveOp`` (the dry
+run's collective list; ``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -45,11 +47,69 @@ from .. import obs
 from ..launch.mesh import Axes, Mesh, axes_tuple
 
 __all__ = ["psum", "pmean", "pmax", "all_gather", "all_to_all", "ppermute",
-           "reduce_grads"]
+           "reduce_grads", "record_collectives", "HLO_KINDS"]
+
+#: the counters' kinds under the HLO names ``launch.roofline`` uses
+HLO_KINDS = {"all_reduce": "all-reduce", "reduce_scatter": "reduce-scatter",
+             "all_gather": "all-gather", "all_to_all": "all-to-all",
+             "ppermute": "collective-permute"}
+
+_RECORDERS: list = []
+
+
+class record_collectives:
+    """``with record_collectives() as rec:`` appends one
+    ``launch.roofline.CollectiveOp`` to ``rec.ops`` for every collective
+    this rank issues inside the block: its HLO kind, this rank's result
+    bytes, the group's size and mesh axes (in the mesh's order) and the
+    modelled wire bytes (``roofline._wire_factor``); ``rec.operand_bytes``
+    holds each call's input bytes, what ``mesh.<kind>_bytes`` adds. A
+    ``ppermute`` is one entry a send, a group of two."""
+
+    def __init__(self):
+        self.ops = []
+        self.operand_bytes = []
+
+    def __enter__(self):
+        _RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDERS.remove(self)
+
+    def by_kind(self):
+        """{counter kind: summed input bytes}, the counters' own sums."""
+        names = {v: k for k, v in HLO_KINDS.items()}
+        out = {k: 0 for k in HLO_KINDS}
+        for op, b in zip(self.ops, self.operand_bytes):
+            out[names[op.kind]] += b
+        return out
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
-    obs.counter(f"mesh.{kind}_bytes").add(x.numel() * x.element_size())
+    obs.counter(f"mesh.{kind}_bytes").add(_nbytes(x))
+
+
+def _record(kind: str, x: torch.Tensor, result_bytes: int, mesh: Mesh,
+            axes: Axes, group_size: int = 0) -> None:
+    """One entry in every active `record_collectives`."""
+    if not _RECORDERS:
+        return
+    from ..launch.roofline import CollectiveOp, _wire_factor
+
+    names = axes_tuple(axes)
+    names = tuple(a for a in mesh.axis_names if a in names)
+    n = group_size or mesh.axis_size(names)
+    hlo = HLO_KINDS[kind]
+    op = CollectiveOp(hlo, int(result_bytes), n, names,
+                      _wire_factor(hlo, n) * result_bytes)
+    for rec in _RECORDERS:
+        rec.ops.append(op)
+        rec.operand_bytes.append(_nbytes(x))
 
 
 class _timed:
@@ -86,6 +146,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axes: Axes,
         if not staged:
             t = t.clone()
         tdist.all_reduce(t, op=op, group=group)
+        _record("all_reduce", x, _nbytes(x), mesh, axes)
         return t.to(x.device) if staged else t
 
 
@@ -112,6 +173,7 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes,
         out = by_rank[members[0]].clone()
         for r in members[1:]:
             out += by_rank[r]
+        _record("reduce_scatter", x, _nbytes(out), mesh, axes)
         return out.to(x.device) if staged else out
 
 
@@ -128,6 +190,7 @@ def _gather_list(x: torch.Tensor, mesh: Mesh, axes: Axes):
         order = tdist.get_process_group_ranks(group)
         by_rank = dict(zip(order, bufs))
         out = [by_rank[r] for r in members]
+        _record("all_gather", x, sum(map(_nbytes, out)), mesh, axes)
         return [b.to(x.device) for b in out] if staged else out
 
 
@@ -173,6 +236,7 @@ def _exchange(x: torch.Tensor, mesh: Mesh, axis: str, split: int,
         tdist.all_to_all_single(recv, send, group=group)
         by_rank = dict(zip(order, recv.unbind(0)))
         out = torch.cat([by_rank[r] for r in members], dim=concat)
+        _record("all_to_all", x, _nbytes(out), mesh, axis)
         return out.to(x.device) if staged else out
 
 
@@ -203,6 +267,7 @@ def _permute(x: torch.Tensor, mesh: Mesh, axis: str,
             out.copy_(t)
         elif s == me:
             _count("ppermute", x)
+            _record("ppermute", x, _nbytes(x), mesh, axis, group_size=2)
             reqs.append(tdist.isend(t, members[d]))
         elif d == me:
             reqs.append(tdist.irecv(out, members[s]))

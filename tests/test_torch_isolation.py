@@ -52,7 +52,9 @@ def test_importing_the_sweep_loads_neither_package():
             "repro_torch.core.analysis.mesh_ranks, repro_torch.configs, "
             "repro_torch.models, repro_torch.launch.serve, "
             "repro_torch.optim, repro_torch.data, repro_torch.runtime, "
-            "repro_torch.checkpoint, repro_torch.launch.train; "
+            "repro_torch.checkpoint, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun, repro_torch.launch.hillclimb, "
+            "repro_torch.kernels.autotune; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),

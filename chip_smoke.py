@@ -172,19 +172,32 @@ bit-equal to ``addressable_shards``, the expert-parallel MoE in each
 branch, the seq-sharded decode, ``pipeline_apply``, the int8 compressed
 step and its exchange, two sharded train steps each of gemma-2b and
 granite-moe-1b-a400m; the plans, spec trees and launch costs of the ten
-archs; (b) granite-moe-1b-a400m at full width trained 2 steps by
+archs; (b) granite-moe-1b-a400m at full width trained one step by
 ``launch.train.build_trainer`` on a 2 x 2 mesh (FSDP over data, EP over
 model), its full-width EP layer held to ``_moe_local``; (c) gemma-2b
-decoding at full width with its 256-slot cache sequence-sharded over 4
-ranks, layer 0 held to the gathered decode; (d) the int8 pod-compressed
-step at train_100m.py's configuration beside the uncompressed one. It
-prints step times, each rank's peak memory and the bytes each collective
-moved, and claims no speed (the ranks share one card).
+decoding at full width, each rank on its blocks of the weights (the MLP
+and the vocabulary over model) with its 256-slot cache sequence-sharded
+over 4 ranks, layer 0 held to the whole layer's gathered decode; (d) the
+int8 pod-compressed step at train_100m.py's configuration beside the
+uncompressed one. It prints step times, each rank's peak memory and the
+bytes each collective moved, and claims no speed (the ranks share one
+card). Phase 18, on the same ranks, serves under a plan on each rank's
+blocks of the weights and caches (tensor parallelism over model): (a)
+``sharding.mesh_cases``' ``tp`` cases (MHA, GQA with qkv bias, MQA under
+both decode forms, MoE; ``.reduced()``) held to the reference's JAX
+sharded steps and to the port's unsharded steps, each rank's storage to
+its blocks' bytes; (b) phi3-mini-3.8b at full width on (data, model) =
+(1, 4) and (c) yi-34b at full width cut to 8 of its 60 layers on (2, 2)
+(FSDP over data): a 64-token prefill, then 64 and 16 decode steps, each
+rank's weights and caches held to its blocks' bytes and layer 0's
+prefill caches to rank 0's whole-model oracle; times, peaks and each
+collective's bytes and wall a step printed.
 Phase 17 runs the dry run and the autotuner (``launch.dryrun``,
 ``kernels.autotune``): (a) in a child process that sees no card, phase
-16's three cells traced on meta tensors in a fake process group of their
-meshes' ranks, each collective kind's bytes a step held equal to what
-phase 16 measured on rank 0, the argument bytes to the step's resident
+16's three cells and 18b's decode traced on meta tensors in a fake
+process group of their meshes' ranks, each collective kind's bytes a step
+held equal to what phases 16 and 18 measured on rank 0, the argument
+bytes to the step's resident
 state and batch, and the predicted peak (arguments + temp) to within
 [0.8, 1.25] of the step's own peak; (b) in the same child, gemma-2b's
 ``train_4k`` and ``decode_32k`` and hill-climb's ``podfsdp`` on the
@@ -211,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -5514,12 +5528,15 @@ SHARD_RANKS = 4
 SHARD_TIMEOUT_S = 600
 #: 16b: granite-moe-1b-a400m as configured on (data, model) = (2, 2):
 #: FSDP over data, EP over model, a global batch of 2 x 2048 (one sequence
-#: per data rank), 2 steps of build_trainer
+#: per data rank), one step of build_trainer (two before phase 18 came: the
+#: script's wall)
 SHARD_TRAIN = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 2,
-               "seq": 2048, "steps": 2, "seed": 5}
-#: 16c: gemma-2b as configured on (1, 4), decode_attention="sharded": its
-#: one KV head does not divide 4, so the 256-slot cache shards its
-#: sequence over model (64 slots a rank); batch 4, 8 decode steps
+               "seq": 2048, "steps": 1, "seed": 5}
+#: 16c: gemma-2b as configured on (1, 4), decode_attention="sharded", on
+#: each rank's blocks (the MLP and the vocabulary over model): its one KV
+#: head does not divide 4, so the heads stay whole and the 256-slot cache
+#: shards its sequence over model (64 slots a rank); batch 4, 8 decode
+#: steps
 SHARD_SERVE = {"arch": "gemma-2b", "mesh": (1, 4), "batch": 4,
                "max_len": 256, "steps": 8, "seed": 0}
 #: 16d: the int8 pod-compressed step on (pod, data, model) = (2, 1, 1) at
@@ -5632,7 +5649,8 @@ def _ep_layer_check(cfg, mesh, plan, spec, dev):
 
 
 def _shard_train(mesh, dev, spec=SHARD_TRAIN):
-    """16b on this rank: ``build_trainer`` on the (2, 2) mesh, two steps."""
+    """16b on this rank: ``build_trainer`` on the (2, 2) mesh,
+    ``spec["steps"]`` steps."""
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
@@ -5683,17 +5701,67 @@ def _flat_leaves(tree):
     return list(sorted_leaves(tree))
 
 
+def _rank_model(cfg, m, plan, dev, seed=0):
+    """This rank's model at full width: its blocks of every leaf
+    (``partition.serving_shardings``), each drawn whole on the card from
+    one seeded generator in ``init_params``' order and cut at once, so the
+    whole model never exists here; rank 0's oracle draws the same stream
+    whole (``init_params``). Returns (model, its blocks' bytes from the
+    spec tree, the whole model's bytes)."""
+    from repro_torch.models import steps
+    from repro_torch.models.common import init_params, sorted_leaves
+    from repro_torch.sharding.partition import block, serving_shardings
+
+    specs = dict(sorted_leaves(serving_shardings(cfg, plan)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = init_params(steps.model_param_specs(cfg), gen, torch.bfloat16,
+                         dev, cut=lambda path, t: block(t, specs[path], m))
+    model = steps.make_model(cfg, blocks, plan)
+    whole = held = 0
+    for path, sp in sorted_leaves(steps.model_param_specs(cfg)):
+        n = 2 * math.prod(sp.shape)
+        whole += n
+        for e in specs[path]:
+            if e is not None:
+                n //= m.axis_size(e)
+        held += n
+    return model, held, whole
+
+
+def _oracle_model(cfg, dev, seed=0):
+    from repro_torch.models import steps
+    from repro_torch.models.common import init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return steps.make_model(cfg, init_params(steps.model_param_specs(cfg),
+                                             gen, torch.bfloat16, dev))
+
+
+def _layer0_oracle(model, m):
+    """Layer 0 whole, from this rank's blocks (gathered over every axis):
+    a `Block` outside any plan."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.sharding.partition import gather_leaf
+
+    b = model.layers[0]
+    return TT.Block({name: {k: gather_leaf(t, b.spec[name][k], m)[None]
+                            for k, t in getattr(b, name).items()}
+                     for name in b.names}, 0)
+
+
 def _shard_serve(mesh, dev, spec=SHARD_SERVE):
-    """16c on this rank: gemma-2b's decode steps with the cache
-    seq-sharded over model; then layer 0 at the next position, sharded
-    against the gathered decode on the whole cache."""
+    """16c on this rank: gemma-2b's decode steps on this rank's blocks of
+    the weights (``params_only_shardings``: the MLP and the vocabulary over
+    model, the heads whole) with the cache seq-sharded over model; then
+    layer 0 at the next position, sharded against the gathered decode of
+    the whole layer on the whole cache."""
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import steps, transformer as TT
     from repro_torch.sharding import make_plan
-    from repro_torch.sharding.partition import (activation_ctx, block,
+    from repro_torch.sharding.partition import (activation_ctx,
                                                 decode_input_shardings,
                                                 gather_leaf)
     from repro_torch.sharding.rules import P
@@ -5705,28 +5773,24 @@ def _shard_serve(mesh, dev, spec=SHARD_SERVE):
     m = make_debug_mesh(spec["mesh"], device=dev)
     plan = make_plan(cfg, m)
     _reset_peak(dev)
-    from repro_torch.models.common import init_params
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = steps.make_model(cfg, init_params(steps.model_param_specs(cfg),
-                                              gen, torch.bfloat16, dev))
+    model, held, whole_bytes = _rank_model(cfg, m, plan, dev)
     n = sum(p.numel() for p in model.parameters())
     b, smax = spec["batch"], spec["max_len"]
-    whole = TT.init_decode_caches(cfg, b, smax, device=dev)
+    whole = TT.init_decode_caches(cfg, b, smax, device="meta")
     cspec = decode_input_shardings(cfg, plan, {"caches": whole})["caches"]
-    caches = {name: {k: block(t, cspec[name][k], m) for k, t in c.items()}
-              for name, c in whole.items()}
-    del whole
+    caches = TT.init_decode_caches(cfg, b, smax, device=dev, plan=plan)
     gen = torch.Generator(device=dev).manual_seed(spec["seed"])
     toks = torch.randint(0, cfg.vocab_size, (spec["steps"] + 1, b, 1),
                          generator=gen, device=dev, dtype=torch.int32)
     step = steps.make_decode_step(cfg)
+    params_bytes = _storage_bytes(list(model.parameters())
+                                  + list(model.buffers()))
     rec = {"ms": [], "cache_spec": list(map(str, cspec["l0"]["k"])),
            "slots": caches["l0"]["k"].shape[2],
            "cache_seq_axis": plan.cache_seq_axis, "params": n,
-           "bytes": [], "step_mem": [],
-           "resident": (_storage_bytes(list(model.parameters())
-                                       + list(model.buffers()), caches)
+           "params_bytes": params_bytes, "block_bytes": held,
+           "whole_bytes": whole_bytes, "bytes": [], "step_mem": [],
+           "resident": (params_bytes + _storage_bytes(caches)
                         + toks[0].numel() * toks.element_size())}
     with activation_ctx(plan, True):
         for t in range(spec["steps"]):
@@ -5740,20 +5804,22 @@ def _shard_serve(mesh, dev, spec=SHARD_SERVE):
             rec["step_mem"].append((start, _step_growth(dev, start)))
             rec["bytes"].append({k: v - before[k]
                                  for k, v in _mesh_bytes().items()})
-    # layer 0 at the next position: sharded against the gathered decode
+    # layer 0 at the next position: the rank's blocks under the plan
+    # against the whole layer's gathered decode on the whole cache
     pos = spec["steps"]
     seq = P(None, "model", None, None)
     mine = {k: v[0].clone() for k, v in caches["l0"].items()}
     full = {k: gather_leaf(v, seq, m) for k, v in mine.items()}
+    layer0 = _layer0_oracle(model, m)
     with torch.no_grad():
-        x0 = model.embed_tokens(toks[pos])
-        with activation_ctx(plan, True):
+        with activation_ctx(plan, True, blocks=True):
+            x0 = model.embed_tokens(toks[pos])
             y_sh = model.layers[0].decode(x0, mine, pos, cfg)
-        y_g = model.layers[0].decode(x0, full, pos, cfg)
+        y_g = layer0.decode(x0, full, pos, cfg)
     rec["layer0_gap"] = float((y_sh - y_g).float().abs().max()) / float(
         y_g.float().abs().max())
     rec["peak_gib"] = _peak_gib(dev)
-    del model, caches
+    del model, caches, layer0
     return rec
 
 
@@ -5813,19 +5879,188 @@ def _shard_compressed(dev, spec=SHARD_COMPRESSED, run=TRAIN_100M_RUN,
     return rec
 
 
+# -- phase 18: serving on the rank's blocks (tensor parallelism over model) ---
+
+#: 18b: phi3-mini-3.8b as configured on (data, model) = (1, 4): pure tensor
+#: parallelism (8 q and 8 kv heads, d_ff 2048 and 8032 vocabulary rows a
+#: rank); a batch of 4, a 64-token prefill padded to a 256-slot window,
+#: then 64 decode steps
+TP_FULL = {"arch": "phi3-mini-3.8b", "mesh": (1, 4), "batch": 4,
+           "prompt": 64, "max_len": 256, "steps": 64, "seed": 1}
+#: 18c: yi-34b at full width cut to 8 of its 60 layers, on (2, 2): FSDP
+#: over data on embed, GQA over model (28 q and 4 kv heads a rank); a batch
+#: of 2, a 64-token prefill padded to a 256-slot window, 16 decode steps
+TP_FSDP = {"arch": "yi-34b", "n_layers": 8, "mesh": (2, 2), "batch": 2,
+           "prompt": 64, "max_len": 256, "steps": 16, "seed": 2}
+
+
+def _tp_config(spec):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced"):
+        cfg = cfg.reduced(**spec.get("overrides", {}))
+    if spec.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg
+
+
+def _tp_serve(mesh, dev, spec):
+    """18b / 18c on this rank: the model on its blocks (drawn leaf by leaf
+    and cut), the prefill of its block of the batch, the caches padded to
+    the window, the teacher-forced decode steps, each timed with its
+    collectives' bytes and wall; then, on rank 0 only, the whole model as
+    the oracle on the whole batch: layer 0's prefill caches held, the
+    logits' gaps printed."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import steps, transformer as TT
+    from repro_torch.sharding import make_plan
+    from repro_torch.sharding.partition import (
+        activation_ctx, batch_axis, block, decode_input_shardings,
+        gather_leaf, serving_cache_shardings)
+    from repro_torch.sharding.rules import P
+
+    cfg = _tp_config(spec)
+    m = make_debug_mesh(spec["mesh"], device=dev)
+    plan = make_plan(cfg, m)
+    b, pr, n = spec["batch"], spec["prompt"], spec["steps"]
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    model, held, whole_bytes = _rank_model(cfg, m, plan, dev, spec["seed"])
+    _sync(dev)
+    init_peak = _peak_gib(dev)
+    # the serving peak: from the blocks on (a whole leaf at a time was drawn
+    # before, init_peak_gib)
+    _reset_peak(dev)
+    rec = {"init_s": time.perf_counter() - t0, "init_peak_gib": init_peak,
+           "block_bytes": held,
+           "whole_bytes": whole_bytes,
+           "params_bytes": _storage_bytes(list(model.parameters())),
+           "heads": model.layers[0].attn["wq"].shape[1],
+           "kv_heads": model.layers[0].attn["wk"].shape[1],
+           "d_ff": model.layers[0].mlp["wo"].shape[0],
+           "vocab_rows": (model.embed.shape[0] if cfg.tie_embeddings
+                          else model.lm_head.shape[1]),
+           "ms": [], "bytes": [], "step_mem": []}
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 100)
+    toks = torch.randint(0, cfg.vocab_size, (b, pr + n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    split = batch_axis(plan, b) is not None
+    bspec = P(plan.batch_axes if split else None, None)
+    mine = block(toks, bspec, m)
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    prompt_caches = TT.init_decode_caches(cfg, b, pr, device="meta")
+    pspec = serving_cache_shardings(cfg, plan, prompt_caches, split)["l0"]
+    window = TT.init_decode_caches(cfg, b, spec["max_len"], device="meta")
+    wspec = decode_input_shardings(cfg, plan, {"caches": window})["caches"]
+    rec["cache_block_bytes"] = sum(
+        2 * math.prod(t.shape) // math.prod(
+            m.axis_size(e) for e in wspec[name][k] if e is not None)
+        for name, c in window.items() for k, t in c.items())
+    with activation_ctx(plan, split):
+        before = _mesh_bytes()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, {"tokens": mine[:, :pr]})
+        _sync(dev)
+        rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["prefill_bytes"] = {k: v - before[k]
+                                for k, v in _mesh_bytes().items()}
+        pre_logits = gather_leaf(logits, P(bspec[0], None, None), m)
+        pre_l0 = {k: gather_leaf(caches["l0"][k][0], P(*pspec[k][1:]), m)
+                  for k in ("k", "v")}
+        caches = model.pad_caches(caches, spec["max_len"])
+        rec["cache_bytes"] = _storage_bytes(caches)
+        rec["resident"] = (rec["params_bytes"] + rec["cache_bytes"]
+                           + mine[:, :1].numel() * mine.element_size())
+        step_logits = []
+        for t in range(n):
+            before = _mesh_bytes()
+            start = _step_start(dev)
+            tdist.barrier()
+            t0 = time.perf_counter()
+            _, logits, caches = decode(model, mine[:, pr + t:pr + t + 1],
+                                       caches, pr + t)
+            _sync(dev)
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["step_mem"].append((start, _step_growth(dev, start)))
+            rec["bytes"].append({k: v - before[k]
+                                 for k, v in _mesh_bytes().items()})
+            step_logits.append(gather_leaf(logits, P(bspec[0], None, None),
+                                           m))
+    rec["peak_gib"] = _peak_gib(dev)
+    rec["finite"] = bool(torch.isfinite(pre_logits).all()) and all(
+        bool(torch.isfinite(x).all()) for x in step_logits)
+    rec["shape_ok"] = tuple(pre_logits.shape) == (b, 1, cfg.padded_vocab)
+    del model, caches
+    if m.rank == 0:
+        _reset_peak(dev)
+        oracle = _oracle_model(cfg, dev, spec["seed"])
+        rec["oracle_peak_gib"] = _peak_gib(dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lo, co = prefill(oracle, {"tokens": toks[:, :pr]})
+            _sync(dev)
+            rec["oracle_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["layer0"] = {}
+            for k in ("k", "v"):
+                want = co["l0"][k][0].float()
+                err = float((pre_l0[k].float() - want).abs().max())
+                rec["layer0"][k] = (err, float(want.abs().max()))
+            rec["prefill_logits_gap"] = float(
+                (pre_logits.float() - lo.float()).abs().max())
+            rec["logits_max"] = float(lo.float().abs().max())
+            co = oracle.pad_caches(co, spec["max_len"])
+            rec["oracle_ms"], rec["step_gaps"], rec["top1"] = [], [], []
+            for t in range(n):
+                t0 = time.perf_counter()
+                _, lg, co = decode(oracle, toks[:, pr + t:pr + t + 1], co,
+                                   pr + t)
+                _sync(dev)
+                rec["oracle_ms"].append(1e3 * (time.perf_counter() - t0))
+                got = step_logits[t].float()
+                rec["step_gaps"].append(float((got - lg.float()).abs()
+                                              .max()))
+                rec["top1"].append(float((got.argmax(-1) == lg.float()
+                                          .argmax(-1)).float().mean()))
+        del oracle, co
+    return rec
+
+
+def _tp_reference(mesh, tp_start):
+    """18a on this rank: ``mesh_cases.run``'s ``tp`` part (the shared
+    decode start ``tp_start`` from the reference file); rank 0 keeps the
+    arrays (every rank's bytes and collectives are among them)."""
+    arrays, walls = _mc().run(mesh, ("tp",), tp_start)
+    return {"walls": walls, "arrays": arrays if mesh.rank == 0 else None}
+
+
+def _mc():
+    from repro_torch.sharding import mesh_cases
+
+    return mesh_cases
+
+
 #: what phase 16's ranks run (``sharding_rank``'s ``sizes``; a rehearsal on
 #: the host passes smaller ones)
 SHARD_SIZES = {"train": SHARD_TRAIN, "serve": SHARD_SERVE,
                "compressed": SHARD_COMPRESSED, "run": TRAIN_100M_RUN,
-               "overrides": TRAIN_100M}
+               "overrides": TRAIN_100M, "tp_full": TP_FULL,
+               "tp_fsdp": TP_FSDP}
 
 
-def sharding_rank(mesh, exchange, sizes=SHARD_SIZES):
-    """Phase 16 on one of four ranks: (a) ``sharding.mesh_cases.run`` and
-    the compressed exchange on the reference's gradients (ranks 0-1),
-    (b) granite-moe-1b-a400m's sharded training, (c) gemma-2b's
-    seq-sharded decode, (d) the compressed step. Every rank's record goes
-    to rank 0, which returns them with 16a's arrays."""
+def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
+    """Phases 16 and 18 on one of four ranks: (16a)
+    ``sharding.mesh_cases.run`` and the compressed exchange on the
+    reference's gradients (ranks 0-1), (16b) granite-moe-1b-a400m's
+    sharded training, (16c) gemma-2b's seq-sharded decode on its blocks,
+    (16d) the compressed step; (18a) ``mesh_cases.run``'s ``tp`` part,
+    (18b) phi3-mini-3.8b and (18c) yi-34b served on their blocks. Every
+    rank's record goes to rank 0, which returns them with 16a's and 18a's
+    arrays."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -5841,17 +6076,27 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES):
     t0 = time.perf_counter()
     _reset_peak(dev)
     rec["cuda_init_s"] = time.perf_counter() - t0
-    arrays, rec["a_walls"] = MC.run(mesh)
+    # ``sizes["parts"]``: the labels to run (a driver iterating on some)
+    parts = sizes.get("parts", ("a", "b", "c", "d", "18a", "18b", "18c"))
+    arrays = exch = None
     pods = make_debug_mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
-    exch = (MC.pod_exchange(pods, *exchange) if pods is not None else None)
-    rec["peaks"]["a"] = _peak_gib(dev)
-    rec["walls"]["a"] = time.perf_counter() - t0
+    if "a" in parts:
+        arrays, rec["a_walls"] = MC.run(mesh)
+        exch = (MC.pod_exchange(pods, *exchange) if pods is not None
+                else None)
+        rec["peaks"]["a"] = _peak_gib(dev)
+        rec["walls"]["a"] = time.perf_counter() - t0
     for label, fn in (
             ("b", lambda: _shard_train(mesh, dev, sizes["train"])),
             ("c", lambda: _shard_serve(mesh, dev, sizes["serve"])),
             ("d", lambda: _shard_compressed(dev, sizes["compressed"],
                                             sizes["run"],
-                                            sizes["overrides"]))):
+                                            sizes["overrides"])),
+            ("18a", lambda: _tp_reference(mesh, tp_start)),
+            ("18b", lambda: _tp_serve(mesh, dev, sizes["tp_full"])),
+            ("18c", lambda: _tp_serve(mesh, dev, sizes["tp_fsdp"]))):
+        if label not in parts:
+            continue
         _sync(dev)
         tdist.barrier()
         t0 = time.perf_counter()
@@ -5976,7 +6221,8 @@ def sharding_reference_check(ref, arrays, exch):
                     and "/grad/1/" not in k and not k.startswith(
                         ("compressed/0/q8", "compressed/1/q8",
                          "compressed/0/scale", "compressed/1/scale",
-                         "compressed/0/err", "compressed/1/err"))),
+                         "compressed/0/err", "compressed/1/err",
+                         "tp/", "tp_plain/"))),
           "16a: the ranks' arrays and the file's differ in their names")
     for key, got in sorted(arrays.items()):
         part = key.split("/")[0]
@@ -6085,9 +6331,12 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
                      for k in small} for p in range(2)},
                 {p: {k: _ref_decode(mesh_ref[f"compressed/0/err/{p}/{k}"])
                      for k in small} for p in range(2)})
+    tp_start = _mc().tp_start_caches(
+        {k: _ref_decode(v) for k, v in mesh_ref.items()
+         if k.startswith("tp/")})
     t_launch = time.time()
     arrays, exch, ranks = D.launch_mesh(
-        sharding_rank, SHARD_RANKS, exchange, sizes, device=device,
+        sharding_rank, SHARD_RANKS, exchange, sizes, tp_start, device=device,
         timeout_s=SHARD_TIMEOUT_S)
     t_back = time.time()
     wall = time.perf_counter() - t_phase
@@ -6141,19 +6390,27 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
               f"from the gathered by {c['layer0_gap']:.4g} of its largest "
               f"|out|")
     serve = sizes["serve"]
-    print(f"[16 sharding] 16c: {serve['arch']} at full width "
-          f"({c0['params']} parameters, bf16, whole on every rank) on "
-          f"{serve['mesh']}, cache sequence over "
+    for rec in ranks:
+        c = rec["c"]
+        check(c["params_bytes"] == c["block_bytes"] < c["whole_bytes"],
+              f"16c rank {rec['rank']}: {c['params_bytes']} B of weights, "
+              f"its blocks {c['block_bytes']} B")
+    print(f"[16 sharding] 16c: {serve['arch']} at full width on "
+          f"{serve['mesh']}, each rank on its blocks "
+          f"({c0['params']} parameters, {c0['block_bytes']} B of the whole "
+          f"{c0['whole_bytes']} B: the MLP and the vocabulary over model, "
+          f"the heads whole), cache sequence over "
           f"{c0['cache_seq_axis']} ({c0['slots']} of "
           f"{serve['max_len']} slots a rank, spec {c0['cache_spec']}),"
           f" batch {serve['batch']}: layer 0 within "
-          f"{max(r['c']['layer0_gap'] for r in ranks):.3g} of the gathered "
-          f"decode's max |out|")
+          f"{max(r['c']['layer0_gap'] for r in ranks):.3g} of the whole "
+          f"layer's gathered decode's max |out|")
     for rec in ranks:
         c = rec["c"]
         print(f"  rank {rec['rank']}: decode step ms "
               + ", ".join(f"{t:.1f}" for t in c["ms"])
-              + f"; peak {c['peak_gib']:.2f} GiB")
+              + f"; peak {c['peak_gib']:.2f} GiB (9.23 GiB when every rank "
+              f"held the weights whole)")
     d0 = ranks[0]["d"]
     check(all(np.isfinite(d0["loss"])) and abs(
         d0["loss"][-1] - d0["plain_loss"][-1])
@@ -6170,7 +6427,8 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
           + f"; peak {d0['peak_gib']:.2f} GiB")
     for rec in ranks:
         print(f"  rank {rec['rank']}: walls " + ", ".join(
-            f"16{k} {v:.2f} s" for k, v in rec["walls"].items())
+            f"{'' if k.startswith('18') else '16'}{k} {v:.2f} s"
+            for k, v in rec["walls"].items())
             + "; peaks " + ", ".join(f"16{k} {v:.2f} GiB"
                                      for k, v in rec["peaks"].items()))
     print(f"  spawn to the ranks' first line "
@@ -6179,10 +6437,190 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
           f"initialization {max(r['cuda_init_s'] for r in ranks):.2f} s; "
           f"the ranks' last line to the result "
           f"{t_back - max(r['t_exit'] for r in ranks):.2f} s")
-    print(f"[16 sharding] {wall:.2f} s for the ranks (spawn included); no "
-          f"claim of speed: the four ranks share one card and every "
-          f"collective goes through the host (gloo)")
+    print(f"[16 sharding] {wall:.2f} s for the ranks (spawn included, "
+          f"phase 18's parts too); no claim of speed: the four ranks share "
+          f"one card and every collective goes through the host (gloo)")
     return ranks
+
+
+#: 18a / 18b-c: a bf16 prefill cache entry may sit one bf16 rounding from
+#: the other program's (a float32 gap of ~1e-7 crossing a rounding)
+TP_ATOL = 5e-5
+TP_BF16_RTOL = 2.0 ** -7
+
+
+def _tp_tolerance(key):
+    """(rtol, atol) of an 18a array: ``tests/test_torch_sharding_tp.py``'s
+    rule (logits and the float32 decode window atol 5e-5; the bf16
+    prefill caches plus one bf16 rounding)."""
+    return (TP_BF16_RTOL if "/prefill/l" in key else 0.0), TP_ATOL
+
+
+def tp_serving_phase(ref, ranks, sizes=SHARD_SIZES):
+    """Phase 18 from the ranks' records: (a) the ``tp`` cases against
+    ``experiments/sharding/reference.json`` and the port's unsharded
+    steps, each rank's storage against its blocks; (b) phi3-mini-3.8b and
+    (c) yi-34b on their blocks: prefill and decode times, each rank's peak
+    beside its blocks' bytes, the collectives' bytes and wall a step,
+    layer 0 against rank 0's whole-model oracle."""
+    MC = _mc()
+    fails = []
+    if "18a" in ranks[0]:
+        fails += _tp_reference_check(ref, ranks, MC)
+    for label, spec in (("18b", sizes["tp_full"]), ("18c", sizes["tp_fsdp"])):
+        if label in ranks[0]:
+            fails += _tp_serve_report(label, spec, ranks)
+    check(not fails, "; ".join(fails))
+
+
+def _tp_reference_check(ref, ranks, MC) -> list:
+    """18a: the ``tp`` cases against the file and the port's unsharded
+    steps, each rank's storage against its blocks. Returns the failures."""
+    from repro_torch.configs.specs import abstract_params_tree
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.sharding import (decode_input_shardings, make_plan,
+                                      params_only_shardings)
+
+    arrays = ranks[0]["18a"]["arrays"]
+    mesh_ref = ref["mesh"]
+    keys = sorted(k for k in mesh_ref if k.startswith("tp/"))
+    check(keys and keys == sorted(k for k in arrays if k.startswith("tp/")
+                                  and "/continued/" not in k),
+          "18a: the ranks' tp arrays and the file's differ in their names")
+    fails = []
+    worst = {}
+    mine = sorted(k for k in arrays if k.startswith("tp/"))
+    for key in mine:
+        rtol, atol = _tp_tolerance(key)
+        case = key.split("/")[1]
+        wants = [("plain", arrays[key.replace("tp/", "tp_plain/", 1)])]
+        if key in mesh_ref:
+            wants.append(("jax", _ref_decode(mesh_ref[key])))
+        for against, want in wants:
+            want = np.asarray(want, np.float64)
+            err = np.abs(np.asarray(arrays[key], np.float64) - want)
+            over = float((err / (atol + rtol * np.abs(want))).max())
+            worst[(case, against)] = max(worst.get((case, against), 0.0),
+                                         over)
+            if not np.isfinite(arrays[key]).all() or over > 1.0:
+                what = ("reference" if against == "jax"
+                        else "unsharded port")
+                fails.append(f"18a {key} off the {what} by "
+                             f"{err.max():.4g}")
+    for case in MC.TP_CASES:
+        print(f"  18a {case}: largest gap over its limit, against the "
+              f"reference {worst[(case, 'jax')]:.3g}, against the "
+              f"unsharded port {worst[(case, 'plain')]:.3g}")
+
+    class Shape:
+        def __init__(self, shape):
+            self.shape = shape
+
+    for case, (_arch, shape, _over) in MC.TP_CASES.items():
+        cfg = MC.tp_config(case)
+        plan = make_plan(cfg, Shape(dict(zip(("data", "model"), shape))))
+
+        def blocks(tree, specs):
+            spec_of = dict(sorted_leaves(specs))
+            return sum(math.prod(t.shape) * t.element_size() // math.prod(
+                plan.axis_size(e) for e in spec_of[p] if e is not None)
+                for p, t in sorted_leaves(tree))
+
+        window = TT.init_decode_caches(cfg, MC.TP["batch"],
+                                       MC.TP["max_len"], dtype=torch.float32,
+                                       device="meta")
+        want = (blocks(abstract_params_tree(cfg),
+                       params_only_shardings(cfg, plan)),
+                blocks(window, decode_input_shardings(
+                    cfg, plan, {"caches": window})["caches"]))
+        for c in ("".join(map(str, x)) for x in np.ndindex(*shape)):
+            got = (int(arrays[f"tp_bytes/{case}/{c}/params"]),
+                   int(arrays[f"tp_bytes/{case}/{c}/caches"]))
+            if got != want:
+                fails.append(f"18a {case} rank {c}: storage {got} B, its "
+                             f"blocks {want} B")
+    print(f"[18 tp serving] 18a: {len(MC.TP_CASES)} cases ("
+          + ", ".join(MC.TP_CASES) + ") against "
+          f"experiments/sharding/reference.json (largest gap over its "
+          f"limit {max(v for (c, a), v in worst.items() if a == 'jax'):.3g})"
+          f" and the port's unsharded steps ("
+          f"{max(v for (c, a), v in worst.items() if a == 'plain'):.3g}); "
+          f"every rank's weights and caches against its blocks' bytes; rank 0 "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in
+                      ranks[0]["18a"]["walls"].items()))
+    return fails
+
+
+def _tp_serve_report(label, spec, ranks) -> list:
+    """18b / 18c: each rank's storage against its blocks, layer 0 against
+    rank 0's oracle; the times, peaks and collectives printed. Returns the
+    failures."""
+    fails = []
+    cfg = _tp_config(spec)
+    r0 = ranks[0][label]
+    for rec in ranks:
+        r = rec[label]
+        if not r["params_bytes"] == r["block_bytes"] < r["whole_bytes"]:
+            fails.append(f"{label} rank {rec['rank']}: "
+                         f"{r['params_bytes']} B of weights, its blocks "
+                         f"{r['block_bytes']} B")
+        if r["cache_bytes"] != r["cache_block_bytes"]:
+            fails.append(f"{label} rank {rec['rank']}: "
+                         f"{r['cache_bytes']} B of caches, its blocks "
+                         f"{r['cache_block_bytes']} B")
+        if not (r["finite"] and r["shape_ok"]):
+            fails.append(f"{label} rank {rec['rank']}: non-finite "
+                         f"logits or a wrong shape")
+    for k, (err, top) in r0["layer0"].items():
+        if err > PREFILL_DECODE_TOL * top:
+            fails.append(f"{label}: layer 0's prefill {k} cache off the "
+                         f"oracle by {err:.4g} (limit "
+                         f"{PREFILL_DECODE_TOL * top:.4g})")
+    cut = (f", cut to {cfg.n_layers} of "
+           f"{_tp_config(dict(spec, n_layers=0)).n_layers} layers"
+           if spec.get("n_layers") else "")
+    print(f"[18 tp serving] {label}: {cfg.arch} at full width{cut} on "
+          f"(data, model) = {spec['mesh']}: {r0['heads']} q and "
+          f"{r0['kv_heads']} kv heads, d_ff {r0['d_ff']}, "
+          f"{r0['vocab_rows']} vocabulary rows a rank; batch "
+          f"{spec['batch']}, {spec['prompt']}-token prefill into a "
+          f"{spec['max_len']}-slot window, {spec['steps']} decode steps")
+    print(f"  rank 0: prefill {r0['prefill_ms']:.1f} ms; decode step "
+          f"median {statistics.median(r0['ms']):.1f} ms (min "
+          f"{min(r0['ms']):.1f}, max {max(r0['ms']):.1f}); the whole "
+          f"model on one rank (oracle): prefill "
+          f"{r0['oracle_prefill_ms']:.1f} ms, decode median "
+          f"{statistics.median(r0['oracle_ms']):.1f} ms")
+    print(f"  layer 0's prefill k, v against the oracle: " + ", ".join(
+        f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
+        r0["layer0"].items()) + f" (held within 2^-7); prefill logits "
+        f"{r0['prefill_logits_gap']:.4g} apart (max |logit| "
+        f"{r0['logits_max']:.4g}); decode logits apart by step: "
+        + " ".join(f"{g:.3g}" for g in r0["step_gaps"][:8])
+        + f" ...; top-1 agreement by step: "
+        + " ".join(f"{a:.2f}" for a in r0["top1"][:8])
+        + " ... (printed, not held: chaotic full-width weights)")
+    for rec in ranks:
+        r = rec[label]
+        per = {}
+        for step in r["bytes"]:
+            for k, v in step.items():
+                per[k] = per.get(k, 0) + v / len(r["bytes"])
+        print(f"  rank {rec['rank']}: peak {r['peak_gib']:.2f} GiB "
+              f"beside its blocks' {r['block_bytes'] / 2**30:.3f} GiB "
+              f"(the whole model {r['whole_bytes'] / 2**30:.3f} GiB) "
+              f"and caches {r['cache_bytes'] / 2**20:.1f} MiB; init "
+              f"{r['init_s']:.2f} s (peak {r['init_peak_gib']:.2f} GiB "
+              f"drawing a leaf at a time); decode median "
+              f"{statistics.median(r['ms']):.1f} ms; a step: "
+              + ", ".join(f"{k} {v:.0f}" for k, v in per.items() if v)
+              + "; prefill: " + ", ".join(
+                  f"{k} {v}" for k, v in r["prefill_bytes"].items()
+                  if v))
+    if "oracle_peak_gib" in r0:
+        print(f"  rank 0's oracle: {r0['oracle_peak_gib']:.2f} GiB")
+    return fails
 
 
 # -- phase 17: the dry run and the autotuner ---------------------------------------
@@ -6208,7 +6646,8 @@ _KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
 
 def dryrun_cells(sizes) -> dict:
     """17a and 17b in this process (a child with no card): phase 16's three
-    cells dry-run on meta in fake groups of their meshes' ranks, then the
+    cells and 18b's decode dry-run on meta in fake groups of their meshes'
+    ranks, then the
     production cells through ``launch.dryrun.run_cell``. Returns
     {"a": {"b"|"c"|"d": trace summary}, "b": {key: record}}."""
     from repro_torch.configs import get_config
@@ -6234,6 +6673,10 @@ def dryrun_cells(sizes) -> dict:
               ShapeSpec("16d", run["seq"], run["batch"], "train"),
               sizes["compressed"]["mesh"], ("pod", "data", "model")),
     }
+    full = sizes["tp_full"]
+    cells["18b"] = (_tp_config(full), ShapeSpec(
+        "18b", full["max_len"], full["batch"], "decode"), full["mesh"],
+        ("data", "model"))
     out = {"a": {}, "b": {}}
     for label, (cfg, shape, mesh, axes) in cells.items():
         t0 = time.perf_counter()
@@ -6286,7 +6729,8 @@ def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES):
     r0 = ranks[0]
     names = {"b": "16b granite-moe-1b-a400m train (2, 2)",
              "c": "16c gemma-2b seq-sharded decode (1, 4)",
-             "d": "16d compressed 110M step (2, 1, 1)"}
+             "d": "16d compressed 110M step (2, 1, 1)",
+             "18b": "18b phi3-mini-3.8b decode on its blocks (1, 4)"}
     for label, name in names.items():
         pred, meas = got["a"][label], r0[label]
         mem = pred["memory"]
@@ -6705,8 +7149,8 @@ def main() -> int:
     wall("15", t0)
 
     # 16. sharding: four gloo ranks on the one card (16a the reference,
-    # 16b granite's sharded training, 16c gemma's seq-sharded decode, 16d
-    # the compressed step)
+    # 16b granite's sharded training, 16c gemma's seq-sharded decode on
+    # its blocks, 16d the compressed step; phase 18's parts after them)
     before = dict(S.launches)
     t0 = time.perf_counter()
     shref = json.loads((ROOT / "experiments" / "sharding"
@@ -6719,6 +7163,20 @@ def main() -> int:
     print(f"[16 sharding] {time.perf_counter() - t0:.2f} s; none of the 11 "
           f"kernels launched")
     wall("16", t0)
+
+    # 18. serving on the rank's blocks (the same ranks: 18a the tp cases
+    # against the reference, 18b phi3-mini-3.8b on (1, 4), 18c yi-34b cut
+    # to 8 layers on (2, 2))
+    t0 = time.perf_counter()
+    print(f"[18 tp serving] the ranks of phase 16 ({smi}); their walls: "
+          + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"
+                      for k in ("18a", "18b", "18c")))
+    tp_serving_phase(shref, shard_ranks)
+    print(f"[18 tp serving] {time.perf_counter() - t0:.2f} s to check; none "
+          f"of the 11 kernels launched")
+    phase_walls["18 (ranks)"] = sum(
+        max(r["walls"][k] for r in shard_ranks) for k in ("18a", "18b",
+                                                          "18c"))
 
     # 17. the dry run (phase 16's cells on meta, production cells against
     # experiments/dryrun/reference.json) and the autotuner on the card

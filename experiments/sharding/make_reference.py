@@ -49,6 +49,22 @@ Writes ``experiments/sharding/reference.json``. Its parts:
     (``train_state_shardings``, ``batch_shardings``) under
     ``activation_ctx(plan)``, their metrics and the params after them.
 
+  - ``tp/<case>/...``: serving under a plan, each ``TP_CASES`` config
+    (``.reduced()``, float32, the layers reference's conditioned weights)
+    on its (data, model) mesh: ``steps.make_prefill_step`` jitted with the
+    dry run's ``in_shardings`` (``params_only_shardings``,
+    ``batch_shardings``) and its caches pinned to
+    ``decode_input_shardings`` (``src/repro/launch/dryrun.py:110-137``),
+    the prefill logits and caches (``prefill/...``); the caches padded to
+    the decode window (in float32: the decode's own writes then round no
+    further than its float32), then ``TP["steps"]`` teacher-forced
+    ``steps.make_decode_step`` calls jitted with
+    ``decode_input_shardings``, each step's logits and the written window
+    of the caches (``decode/...``). ``tp_plain/<case>/...`` is the same
+    run jitted with no shardings on one device: XLA against itself, the
+    scale of what reordering the partial sums moves once the caches round
+    to bf16.
+
   In the file an array of up to 4096 entries is whole (float32, or int for
   integer arrays, little-endian, base64); a larger one keeps its L2 norm,
   largest |entry|, 8 entries and a 64-row Gaussian sketch (as
@@ -95,7 +111,7 @@ from repro.optim import AdamWConfig, adamw
 from repro.optim.compression import quantize_int8
 from repro.sharding import (activation_ctx, batch_shardings,
                             decode_input_shardings, make_plan,
-                            train_state_shardings)
+                            params_only_shardings, train_state_shardings)
 from repro.sharding.pipeline import pipeline_apply
 from repro.sharding.rules import spec_to_pspec
 
@@ -121,6 +137,20 @@ COMPRESSED_CUT = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=128,
 DATA = {"seed": 3, "batch": 4, "seq": 32}
 STEPS = 2
 TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
+#: serving on blocks: a batch of 2, an 8-token prompt prefilled, padded to
+#: a 16-slot window, then 8 teacher-forced decode steps
+TP = {"batch": 2, "prompt": 8, "max_len": 16, "steps": 8, "seed": 7}
+#: case: (arch, (data, model), overrides of its ``.reduced()`` config)
+TP_CASES = {
+    "mha_1x4": ("phi3-mini-3.8b", (1, 4), {"n_layers": 2, "n_kv_heads": 4}),
+    "mha_2x2": ("phi3-mini-3.8b", (2, 2), {"n_layers": 2, "n_kv_heads": 4}),
+    "gqa_bias_2x2": ("qwen1.5-32b", (2, 2), {"n_layers": 2}),
+    "mqa_gathered_1x4": ("gemma-2b", (1, 4), {"n_layers": 2}),
+    "mqa_sharded_1x4": ("gemma-2b", (1, 4), {"n_layers": 2,
+                                             "decode_attention": "sharded"}),
+    "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
+                                                 "capacity_factor": 8.0}),
+}
 
 
 # -- weights --------------------------------------------------------------------
@@ -435,12 +465,92 @@ def _train(out: dict):
             out[f"train/{arch}/params/{path}"] = np.asarray(v)
 
 
-def cases() -> dict:
-    """Every mesh case's arrays, whole (needs 4 devices)."""
+def tp_config(case: str):
+    arch, _, over = TP_CASES[case]
+    return dataclasses.replace(get_config(arch).reduced(**over),
+                               param_dtype="float32")
+
+
+def tp_tokens(cfg) -> np.ndarray:
+    rng = np.random.default_rng(TP["seed"])
+    return rng.integers(0, cfg.vocab_size,
+                        (TP["batch"], TP["prompt"] + TP["steps"]),
+                        dtype=np.int32)
+
+
+def _serve(cfg, params, toks, out, key, plan=None):
+    """Prefill, the caches padded to the window, the teacher-forced decode
+    steps; jitted with the dry run's shardings under ``plan``, else with
+    none."""
+    pr, n = TP["prompt"], TP["steps"]
+    batch = {"tokens": jnp.asarray(toks[:, :pr])}
+    prefill_step = steps.make_prefill_step(cfg)
+    decode_step = steps.make_decode_step(cfg)
+    if plan is None:
+        prefill = jax.jit(prefill_step)
+        decode = jax.jit(decode_step)
+    else:
+        p_sh = params_only_shardings(cfg, plan)
+        out_abs = jax.eval_shape(prefill_step, params, batch)
+        cache_sh = decode_input_shardings(cfg, plan, {"caches": out_abs[1]})
+        prefill = jax.jit(prefill_step,
+                          in_shardings=(p_sh, batch_shardings(cfg, plan,
+                                                              batch)),
+                          out_shardings=(None, cache_sh["caches"]))
+    with activation_ctx(plan):
+        logits, caches = prefill(params, batch)
+    out[f"{key}/prefill/logits"] = np.asarray(logits)
+    for path, v in leaves(caches).items():
+        out[f"{key}/prefill/{path}"] = np.asarray(v.astype(jnp.float32))
+    pad = TP["max_len"] - pr
+    # the decode window in float32 (the port's cases do the same)
+    caches = jax.tree.map(lambda c: jnp.pad(
+        c, ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0))).astype(jnp.float32),
+        caches)
+    if plan is not None:
+        inputs = {"token": jnp.asarray(toks[:, pr:pr + 1]), "caches": caches,
+                  "cache_pos": jnp.int32(pr)}
+        dec_sh = decode_input_shardings(cfg, plan, inputs)
+        decode = jax.jit(decode_step, in_shardings=(
+            p_sh, dec_sh["token"], dec_sh["caches"], dec_sh["cache_pos"]),
+            out_shardings=(None, None, dec_sh["caches"]))
+    for t in range(n):
+        with activation_ctx(plan):
+            _, logits, caches = decode(
+                params, jnp.asarray(toks[:, pr + t:pr + t + 1]), caches,
+                jnp.int32(pr + t))
+        out[f"{key}/decode/{t}/logits"] = np.asarray(logits)
+    for path, v in leaves(caches).items():
+        out[f"{key}/decode/{path}"] = np.asarray(
+            v[:, :, pr:pr + n].astype(jnp.float32))
+
+
+def _tp(out: dict):
+    for case, (_arch, shape, _over) in TP_CASES.items():
+        cfg = tp_config(case)
+        params = jax.tree.map(jnp.asarray, _layers_rule()(cfg, SEED))
+        toks = tp_tokens(cfg)
+        mesh = _mesh(shape, ("data", "model"))
+        with mesh:
+            _serve(cfg, params, toks, out, f"tp/{case}",
+                   make_plan(cfg, mesh))
+        _serve(cfg, params, toks, out, f"tp_plain/{case}")
+
+
+PARTS = {"blocks": _blocks, "ep": _ep, "decode": _decode,
+         "pipeline": _pipeline, "compressed": _compressed, "train": _train,
+         "tp": _tp}
+#: the parts ``tests/test_torch_sharding_mesh.py`` recomputes
+BASE_PARTS = ("blocks", "ep", "decode", "pipeline", "compressed", "train")
+
+
+def cases(parts=BASE_PARTS) -> dict:
+    """The arrays of the mesh cases of ``parts``, whole (needs 4
+    devices)."""
     assert jax.device_count() >= 4, "set XLA_FLAGS first (4 host devices)"
     out: dict = {}
-    for part in (_blocks, _ep, _decode, _pipeline, _compressed, _train):
-        part(out)
+    for part in parts:
+        PARTS[part](out)
     return out
 
 
@@ -530,6 +640,8 @@ def header() -> dict:
     return {"seed": SEED, "ep_cut": EP_CUT, "ep_x": EP_X, "decode": DECODE,
             "pipeline": PIPELINE, "compressed_cut": COMPRESSED_CUT,
             "data": DATA, "steps": STEPS, "train_archs": list(TRAIN_ARCHS),
+            "tp": TP, "tp_cases": {k: [a, list(m), o] for k, (a, m, o)
+                                   in TP_CASES.items()},
             "whole": WHOLE, "entries": ENTRIES, "sketch": SKETCH,
             "sketch_seed": SKETCH_SEED, "jax": jax.__version__}
 
@@ -537,10 +649,12 @@ def header() -> dict:
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "--npz":
-        np.savez(argv[1], **cases())
+        # --npz PATH [PART ...]: the whole arrays of those parts (the base
+        # parts by default)
+        np.savez(argv[1], **cases(tuple(argv[2:]) or BASE_PARTS))
         return
     path = pathlib.Path(argv[0]) if argv else OUT
-    mesh = {k: encode(k, v) for k, v in cases().items()}
+    mesh = {k: encode(k, v) for k, v in cases(tuple(PARTS)).items()}
     path.write_text(json.dumps({**header(), "plans": plans(),
                                 "costs": costs(), "mesh": mesh}) + "\n")
 

@@ -18,12 +18,15 @@ storage, no arithmetic) exactly as the port runs it under a plan:
   accum_dtype=)`` on the rank's blocks of the train state
   (``train_state_shardings``), or ``make_compressed_train_step`` where
   ``grad_compression == "int8_pod"`` on the multi-pod mesh;
-* **decode**: the form phase 16c of ``chip_smoke.py`` runs: the weights
-  whole on every rank, the caches the rank's blocks under
-  ``decode_input_shardings``, the stream the rank's block of the batch
-  (``activation_ctx(plan, True)``) where the batch divides its axes;
-* **prefill**: the port has no sharded prefill, so each rank prefills its
-  block of the batch with the weights whole.
+* **decode** and **prefill**: the steps on the rank's blocks of the
+  weights (``partition.serving_shardings``: the JAX step's
+  ``params_only_shardings`` for the dense and MoE configs) and of the
+  caches (``partition.serving_cache_shardings``: its kv heads or its slots
+  of the sequence), the stream the rank's block of the batch
+  (``activation_ctx(plan, True)``) where the batch divides its axes; the
+  SSM, hybrid, encoder-decoder and prefix configs keep their weights whole
+  on every rank and their caches' batch block only (the seq-sharded
+  flash-decode's blocks under ``decode_attention="sharded"``).
 
 Where the port's form differs from the JAX step's, the record says so in
 ``port_notes``. A record holds:
@@ -81,6 +84,8 @@ from ..sharding import (
     activation_ctx, batch_shardings, decode_input_shardings, make_plan,
     shard_tree, train_state_shardings,
 )
+from ..sharding.partition import (serving_cache_shardings, serving_shardings,
+                                  tensor_parallel)
 from ..sharding.comm import record_collectives
 from ..sharding.partition import batch_axis, block
 from ..sharding.rules import P
@@ -105,8 +110,6 @@ TRAIN_ACCUM = {
     "yi-34b": (2, None),
     "qwen1.5-32b": (2, None),
 }
-
-_CACHE_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
 class SkipCell(Exception):
@@ -281,33 +284,32 @@ def _map_path(fn, tree, specs, path=()):
 
 
 def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
-    """The specs of the cache blocks the port's decode takes on this rank:
-    ``decode_input_shardings``' where the port's seq-sharded flash-decode
-    runs (``decode_attention="sharded"`` with a ``cache_seq_axis``: phase
-    16c's form); elsewhere the port's decode has no head-parallel or
-    gathered-over-the-sequence form, so a rank keeps every head and slot
-    of its batch block (the batch entry only, and only while the stream
-    is split)."""
+    """The specs of the cache blocks the port's decode takes on this rank
+    (``partition.serving_cache_shardings``), each difference from the JAX
+    step's ``decode_input_shardings`` named in ``notes``: a whole batch
+    where the stream is replicated, and for the layer kinds the port
+    serves on whole weights every head and slot of the rank's batch
+    block."""
     want = decode_input_shardings(cfg, plan, {"caches": caches})["caches"]
+    ours = serving_cache_shardings(cfg, plan, caches, split)
     changed: Dict = {}
 
-    def one(path, leaf, spec):
-        if (path[-1] in _CACHE_LEAVES and cfg.decode_attention == "sharded"
-                and plan.cache_seq_axis):
-            return spec
-        ours = P(None, spec[1] if split else None,
-                 *([None] * (len(spec) - 2)))
-        if ours != spec:
-            changed.setdefault((str(spec), str(ours)), []).append(
+    def note(path, leaf, spec):
+        got = ours
+        for k in path:
+            got = got[k]
+        if got != spec:
+            changed.setdefault((str(spec), str(got)), []).append(
                 "/".join(path))
-        return ours
+        return got
 
-    out = _map_path(one, caches, want)
-    for (jax_spec, ours), paths in sorted(changed.items()):
+    out = _map_path(note, caches, want)
+    why = ("the stream is the whole batch" if tensor_parallel(cfg) else
+           "no head-parallel or gathered-sequence decode for this layer "
+           "kind in the port: every head and slot of the rank's batch")
+    for (jax_spec, mine), paths in sorted(changed.items()):
         notes.append(f"decode caches {', '.join(paths)}: the port holds "
-                     f"{ours} where the JAX step shards {jax_spec} (no "
-                     f"head-parallel or gathered-sequence decode in the "
-                     f"port: every head and slot of the rank's batch)")
+                     f"{mine} where the JAX step shards {jax_spec} ({why})")
     return out
 
 
@@ -365,13 +367,19 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
         parts["opt"] = _storage_bytes(state["opt"])
         ctx = activation_ctx(None)
     else:
-        ptree = placed(abstract_params_tree(cfg))
-        model = steps_mod.make_model(cfg, ptree)
+        tp = tensor_parallel(cfg)
+        ptree = shard_tree(placed(abstract_params_tree(cfg)),
+                           serving_shardings(cfg, plan), mesh) if tp \
+            else placed(abstract_params_tree(cfg))
+        model = steps_mod.make_model(cfg, ptree, plan)
         parts["params"] = _storage_bytes(list(model.parameters())
                                          + list(model.buffers()))
-        notes.append(f"{kind}: the weights whole ({cfg.param_dtype}) on "
-                     f"every rank, as the port serves under a plan (the JAX "
-                     f"step shards them by params_only_shardings)")
+        if not tp:
+            notes.append(f"{kind}: the weights whole ({cfg.param_dtype}) on "
+                         f"every rank, as the port serves the SSM, hybrid, "
+                         f"encoder-decoder and prefix configs under a plan "
+                         f"(the JAX step shards them by "
+                         f"params_only_shardings)")
         if kind == "decode":
             b = inputs["token"].shape[0]
             split = batch_axis(plan, b) is not None and not replicate_stream
@@ -398,10 +406,11 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
             batch = _map_path(lambda p, t, s: block(t, s, mesh),
                               placed(inputs), bsh)
             parts["batch"] = _storage_bytes(batch)
-            notes.append("prefill: the port has no sharded prefill; each "
-                         "rank runs Transformer.prefill on its block of the "
-                         "batch, and the caches it returns are that block's "
-                         "with every head and position")
+            if not tp:
+                notes.append("prefill: each rank runs the prefill on its "
+                             "block of the batch with the weights whole, and "
+                             "the caches it returns are that block's with "
+                             "every head and position")
             step = steps_mod.make_prefill_step(cfg)
             args = (model, batch)
         ctx = activation_ctx(plan, split)

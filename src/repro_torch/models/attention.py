@@ -15,7 +15,23 @@ reference's seq-sharded flash-decode on this rank's slice of the cache
 (FlashDecoding's split-K over the ranks of that axis: local partial
 softmax, then an LSE merge by ``all_reduce(MAX)`` and ``all_reduce(SUM)``).
 As in the reference, that path applies no logit softcap. ``cross_attention`` (the enc-dec decoder's, non-causal over the
-memory's k and v from ``memory_kv``) runs the same flash. The int8 cache
+memory's k and v from ``memory_kv``) runs the same flash.
+
+Under a plan, a model built on this rank's blocks
+(``sharding.partition.serving_shardings``, the JAX serving steps'
+``params_only_shardings``) runs the reference's partitioned program by
+hand. Where the heads shard over ``model`` (wq/wk/wv, bq/bk/bv and wo are
+the rank's heads, the cache its kv heads) the projections, the flash and
+the decode attention run on the local heads, whose group ratio is the
+whole's, and wo's partial sum is reduced over ``model``
+(``partition.psum_rule``). Where they stay whole (one kv head) the cache
+shards its sequence over ``plan.cache_seq_axis``: the default decode runs
+the gathered decode's softmax partitioned over that axis as XLA
+partitions it (`_decode_attention_seq`: the maximum and the sum over the
+axis, the weights-times-values partial summed),
+``decode_attention="sharded"`` merges partial softmaxes
+(`_decode_attention_sharded`); either writes the new token only on the
+rank that owns slot ``cache_pos``. The int8 cache
 is the KIVI-style per-(token, head) symmetric quantization of the
 reference (``torch.round`` is round-half-to-even, as ``jnp.round`` is).
 """
@@ -131,6 +147,15 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
     return out[:, :sq].to(q.dtype)
 
 
+def _out_proj(out, wo, cfg):
+    """``out @ wo`` over (heads, head_dim); a rank holding a block of the
+    heads reduces its partial sum over their mesh axes."""
+    from ..sharding.partition import psum_rule, rule_of_block
+
+    y = einsum("bshk,hkd->bsd", out, wo)
+    return psum_rule(y, rule_of_block("heads", wo.shape[0], cfg.n_heads))
+
+
 def _grouped(q, kvh):
     b, s, h, d = q.shape
     return q.reshape(b, s, kvh, h // kvh, d)
@@ -156,7 +181,7 @@ def self_attention(p, x, positions, cfg, *, causal=True, prefix_len=0,
         q = apply_rope(q, positions[None, :], cfg.rope_theta)
         k = apply_rope(k, positions[None, :], cfg.rope_theta)
     out = _flash(q, k, v, causal=causal, prefix_len=prefix_len, cfg=cfg)
-    return einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+    return _out_proj(out, p["wo"], cfg), (k, v)
 
 
 def cross_attention(p, x, memory_kv, cfg):
@@ -259,13 +284,69 @@ def _cache_read(cache):
     return cache["k"], cache["v"]
 
 
+def _scores(q, ck, cache_pos: int, cfg, start: int = 0):
+    """One query token's float32 scores over cache slots ``start`` on
+    (B, S, KV, D), softcapped, the slots past ``cache_pos`` masked:
+    (B, KV, G, 1, S)."""
+    b, s_len, kvh, d = ck.shape
+    qg = q.reshape(b, 1, kvh, q.shape[2] // kvh, d)
+    s = div(einsum_f32("bqhgd,bkhd->bhgqk", qg, ck), math.sqrt(d))
+    if cfg.logit_softcap > 0.0:
+        s = cfg.logit_softcap * torch.tanh(div(s, cfg.logit_softcap))
+    kpos = torch.arange(start, start + s_len, device=q.device)
+    return torch.where((kpos <= cache_pos)[None, None, None, None, :], s,
+                       _NEG)
+
+
+def _attend(q, ck, cv, cache_pos: int, cfg):
+    """One query token over a whole cache (B, Smax, KV, D): the softmax
+    of `_scores`, the PV product in V's dtype. Returns (B, 1, H, D)."""
+    w = torch.softmax(_scores(q, ck, cache_pos, cfg), dim=-1)
+    out = einsum("bhgqk,bkhd->bqhgd", w.to(cv.dtype), cv)
+    return out.reshape(q.shape[0], 1, q.shape[2], q.shape[3])
+
+
+def _decode_attention_seq(p, q, k, v, cache, cache_pos: int, cfg, plan):
+    """The gathered decode on a cache whose SEQUENCE shards over
+    ``plan.cache_seq_axis`` (``decode_input_shardings`` where the heads
+    stay whole), partitioned as XLA partitions the reference's gathered
+    decode there: the rank that owns slot ``cache_pos`` writes the new
+    token into its block (in place); each rank scores its slots (the
+    softcap and the mask as the gathered decode's); the softmax takes the
+    maximum and the sum over the axis (``comm.pmax``, ``comm.psum``); each
+    rank's weights times its values is a partial sum in V's dtype, summed
+    over the axis (``partition.psum_rule``: a bf16 partial in float32, as
+    XLA's CPU all-reduce promotes it). ``cache``: this rank's block
+    (B, Smax / n, KV, D) of its stream's batch."""
+    from ..sharding import comm
+    from ..sharding.partition import psum_rule
+
+    mesh = plan.mesh
+    ax = plan.cache_seq_axis
+    s_loc = cache["k"].shape[1]
+    n = mesh.axis_size(ax)
+    start = mesh.axis_index(ax) * s_loc
+    pos = min(max(int(cache_pos), 0), s_loc * n - 1)
+    if start <= pos < start + s_loc:
+        _cache_write(cache, k, v, pos - start)
+    ck, cv = _cache_read(cache)
+    s = _scores(q, ck, cache_pos, cfg, start)
+    e = torch.exp(s - comm.pmax(torch.amax(s, dim=-1, keepdim=True), mesh,
+                                ax))
+    w = e / comm.psum(torch.sum(e, dim=-1, keepdim=True), mesh, ax)
+    out = einsum("bhgqk,bkhd->bqhgd", w.to(cv.dtype), cv)
+    out = psum_rule(out, ax).reshape(q.shape[0], 1, q.shape[2], q.shape[3])
+    return _out_proj(out, p["wo"], cfg), cache
+
+
 def decode_attention(p, x, cache, cache_pos: int, cfg, *, use_rope=True,
                      update_cache=True):
     """Single-token decode. x: (B, 1, D); cache: {"k","v"[,scales]}:
     (B, Smax, KV, D), written in place at ``cache_pos``.
 
     cache_pos: int — current write offset (same across batch).
-    Returns (out (B, 1, D), cache).
+    Returns (out (B, 1, D), cache). Under a plan: see the module
+    docstring (the rank's heads, or its block of the cache's sequence).
     """
     q, k, v = _project_qkv(p, x)
     if use_rope:
@@ -273,26 +354,18 @@ def decode_attention(p, x, cache, cache_pos: int, cfg, *, use_rope=True,
         q = apply_rope(q, pos[None, :], cfg.rope_theta)
         k = apply_rope(k, pos[None, :], cfg.rope_theta)
 
-    if cfg.decode_attention == "sharded":
-        from ..sharding.partition import current_plan
+    from ..sharding.partition import (cache_seq_sharded, current_plan,
+                                      holds_blocks)
 
-        plan = current_plan()
-        if plan is not None and plan.cache_seq_axis:
+    plan = current_plan()
+    if plan is not None and plan.cache_seq_axis:
+        if cfg.decode_attention == "sharded":
             return _decode_attention_sharded(p, q, k, v, cache, cache_pos,
                                              cfg, plan)
+        if holds_blocks() and cache_seq_sharded(cfg, plan):
+            return _decode_attention_seq(p, q, k, v, cache, cache_pos,
+                                         cfg, plan)
     new_cache = _cache_write(cache, k, v, cache_pos) if update_cache else dict(cache)
     ck, cv = _cache_read(new_cache)
-    b, smax, kvh, d = ck.shape
-    h = q.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, 1, kvh, g, d)
-    s = div(einsum_f32("bqhgd,bkhd->bhgqk", qg, ck), math.sqrt(d))
-    if cfg.logit_softcap > 0.0:
-        s = cfg.logit_softcap * torch.tanh(div(s, cfg.logit_softcap))
-    kpos = torch.arange(smax, device=x.device)
-    s = torch.where((kpos <= cache_pos)[None, None, None, None, :], s, _NEG)
-    w = torch.softmax(s, dim=-1)
-    out = einsum("bhgqk,bkhd->bqhgd", w.to(cv.dtype), cv)
-    out = out.reshape(b, 1, h, d)
-    y = einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, new_cache
+    out = _attend(q, ck, cv, cache_pos, cfg)
+    return _out_proj(out, p["wo"], cfg), new_cache

@@ -75,12 +75,15 @@ def tree_map(fn, tree: Any) -> Any:
 
 
 def init_params(specs: Any, generator: torch.Generator,
-                dtype=torch.float32, device="cuda") -> Dict:
+                dtype=torch.float32, device="cuda", cut=None) -> Dict:
     """Materialize a Spec tree into tensors on ``device``, drawn from
     ``generator`` (which must live on that device) leaf by leaf in path
     order: normal leaves N(0, stddev²) in float32, then cast to ``dtype``.
     The values differ from the JAX package's ``jax.random`` draw; weights
-    that both packages share come from ``models.convert.numpy_params``."""
+    that both packages share come from ``models.convert.numpy_params``.
+    ``cut(path, leaf)``, when given, keeps what it returns of each drawn
+    leaf (a rank's block: ``sharding.partition.block``), so the whole tree
+    never exists at once; the draws are the same."""
     from ..core.analysis.wavefront import resolve_device
 
     dev = resolve_device(device)
@@ -95,7 +98,10 @@ def init_params(specs: Any, generator: torch.Generator,
         else:
             x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                             device=dev)
-            drawn[path] = (x * s.stddev()).to(dtype)
+            drawn[path] = x.mul_(s.stddev()).to(dtype)
+            del x
+        if cut is not None:
+            drawn[path] = cut(path, drawn[path])
     return unflatten(drawn)
 
 

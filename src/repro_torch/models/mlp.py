@@ -3,6 +3,12 @@
 The port of the JAX package's ``models/mlp.py``: GeGLU's
 ``jax.nn.gelu(approximate=True)`` is ``F.gelu(approximate="tanh")``, SwiGLU
 gates with ``F.silu``; the products keep the operands' dtype.
+
+A rank holding its block of d_ff (wi / wg its column blocks, wo its row
+block along ``mlp``; ``sharding.partition.serving_shardings``) computes
+its share of the hidden units and reduces the down-projection's partial
+sum over their mesh axes, as XLA partitions the reference under
+``params_only_shardings``.
 """
 from __future__ import annotations
 
@@ -44,4 +50,7 @@ def mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         h = act(einsum("...d,df->...f", x, p["wg"])) * h
     else:
         h = act(h)
-    return einsum("...f,fd->...d", h, p["wo"])
+    from ..sharding.partition import psum_rule, rule_of_block
+
+    y = einsum("...f,fd->...d", h, p["wo"])
+    return psum_rule(y, rule_of_block("mlp", p["wo"].shape[0], cfg.d_ff))

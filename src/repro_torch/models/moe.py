@@ -124,7 +124,7 @@ def _pad_experts(w, e_pad: int):
     return F.pad(w, (0, 0, 0, 0, 0, e_pad - w.shape[0])) if e_pad > w.shape[0] else w
 
 
-def _moe_ep(x, router, wi, wg, wo, cfg, plan):
+def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True):
     """Expert-parallel MoE on this rank (the reference's ``shard_map`` body
     and its in/out specs). x: this rank's (B_loc, S, D) activations, its
     block of the batch when ``partition.split_batch()``, else the whole
@@ -172,12 +172,15 @@ def _moe_ep(x, router, wi, wg, wo, cfg, plan):
     gate, idx, p_mean = _route(x2.float(), router.float(), k, e_pad)
     cap = capacity(t_loc, e_pad, cfg)
     flat, keep, counts = _positions(idx, e_pad, cap)
-    # global aux: average across every shard
-    f_e = comm.pmean(div(counts, float(t_loc * k)), mesh, ep_axis)
-    f_e = comm.pmean(f_e, mesh, dp) if dp else f_e
-    p_m = comm.pmean(p_mean, mesh, ep_axis)
-    p_m = comm.pmean(p_m, mesh, dp) if dp else p_m
-    aux = e * torch.sum(f_e * p_m)
+    if need_aux:
+        # global aux: average across every shard
+        f_e = comm.pmean(div(counts, float(t_loc * k)), mesh, ep_axis)
+        f_e = comm.pmean(f_e, mesh, dp) if dp else f_e
+        p_m = comm.pmean(p_mean, mesh, ep_axis)
+        p_m = comm.pmean(p_m, mesh, dp) if dp else p_m
+        aux = e * torch.sum(f_e * p_m)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=xl.device)
 
     xk = x2[:, None].expand(t_loc, k, d).reshape(t_loc * k, d)
     buf = torch.zeros((e_pad * cap + 1, d), dtype=xl.dtype, device=xl.device)
@@ -217,13 +220,18 @@ def _moe_ep(x, router, wi, wg, wo, cfg, plan):
     return rebatch(out, plan, dp is not None, split), aux.float()
 
 
-def moe(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+def moe(p: Dict, x: torch.Tensor, cfg,
+        need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar). Under a plan with
+    ``model > 1``, `_moe_ep` on ``p``'s experts: whole, or this rank's
+    block of them over ``model`` (a model served on its blocks; the router
+    whole)."""
     from ..sharding.partition import current_plan, rebatch, split_batch
 
     plan = current_plan()
     if plan is not None and plan.mesh.shape.get("model", 1) > 1:
-        return _moe_ep(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, plan)
+        return _moe_ep(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, plan,
+                       need_aux)
     split = plan is not None and split_batch()
     if split:
         x = rebatch(x, plan, True, False)

@@ -13,8 +13,11 @@ step. The step updates the state's tensors in place and returns it (a
 jitted JAX step with its state donated does the same): the caller keeps
 no reference to the old state.
 
-Serving: the JAX steps cast the params to ``cfg.param_dtype`` on every
-call (a no-op in its serve path, whose params are bf16 already); here the
+Serving: under a plan the prefill and decode steps run on this rank's
+blocks of the weights and caches (`make_model(cfg, blocks, plan)`, the
+steps inside ``partition.activation_ctx(plan, split)``;
+``models.transformer``). The JAX steps cast the params to
+``cfg.param_dtype`` on every call (a no-op in its serve path, whose params are bf16 already); here the
 model is cast once when it is built (`cast_model`) and a step refuses a
 model in another dtype, so no step re-casts the weights (5 GB a token at
 gemma-2b's full width).
@@ -65,12 +68,18 @@ def model_param_specs(cfg):
     return (encdec if cfg.is_encdec else transformer).param_specs(cfg)
 
 
-def make_model(cfg, params: Dict):
+def make_model(cfg, params: Dict, plan=None):
     """The serving module for ``cfg`` over a parameter tree of tensors: an
     `encdec.EncDec` for an encoder-decoder, else a
-    `transformer.Transformer`."""
-    return (encdec.EncDec if cfg.is_encdec else transformer.Transformer)(
-        cfg, params)
+    `transformer.Transformer`. Under a sharding ``plan`` a dense or MoE
+    config's ``params`` are this rank's blocks
+    (``partition.shard_tree(params, partition.serving_shardings(cfg,
+    plan), mesh)``: the JAX serving steps' ``params_only_shardings``) and
+    the model runs only under that plan; the other kinds take their
+    weights whole."""
+    if cfg.is_encdec:
+        return encdec.EncDec(cfg, params)
+    return transformer.Transformer(cfg, params, plan)
 
 
 def exact_gemms(device) -> None:

@@ -36,6 +36,21 @@ them sized to the prompt (k/v in bf16, the SSM states as ``ssm.ssd_forward``
 leaves them). Decode logits are never softcapped: as in the reference,
 only the decode scores are (``attention.decode_attention``). MoE layers
 drop their aux loss in decode and prefill.
+
+Under a sharding plan (``Transformer(cfg, params, plan)``, what
+``steps.make_model(cfg, params, plan)`` builds) a dense or MoE model
+(``sharding.partition.tensor_parallel``) holds only this rank's blocks of
+its weights (``partition.serving_shardings``: the JAX serving steps'
+``params_only_shardings``) and decodes into this rank's cache blocks
+(``init_decode_caches(..., plan=)``, `Transformer.prefill`'s output:
+``decode_input_shardings``' blocks). Each layer gathers its leaves over
+the axes other than ``model`` (FSDP's ``embed``) just before it runs and
+computes its share: attention and the MLP on their ``model`` blocks with
+their partial sums reduced (``models.attention``, ``models.mlp``), the
+MoE on its experts' block (``moe._moe_ep``). The embedding is
+vocab-parallel (ids outside the rank's rows look up zero, the sum over
+``model``, then the scale) and the logits are gathered over the vocabulary.
+The other layer kinds keep their weights whole under a plan.
 """
 from __future__ import annotations
 
@@ -121,14 +136,28 @@ def _apply_norm(np_, x, cfg):
 # -- decode caches -------------------------------------------------------------
 
 def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                       device="cuda") -> Dict:
+                       device="cuda", plan=None) -> Dict:
     """Zeroed decode caches, one entry per pattern element ``l{i}``
     stacked over the repeats: bf16 (or ``dtype``) k/v, or, with
     ``kv_cache_dtype="int8"``, int8 k/v and bf16 per-(token, head) scales;
-    an SSM layer's ``{"ssm" float32, "conv" dtype}``."""
+    an SSM layer's ``{"ssm" float32, "conv" dtype}``. With ``plan``, only
+    this rank's blocks of the global caches (``batch`` and ``max_len``
+    global; ``partition.serving_cache_shardings``, the batch block where
+    the batch divides the plan's batch axes)."""
     from ..core.analysis.wavefront import resolve_device
 
     dev = resolve_device(device)
+    if plan is not None:
+        from ..sharding.partition import (batch_axis, block_shape,
+                                          serving_cache_shardings)
+
+        whole = init_decode_caches(cfg, batch, max_len, dtype, "meta")
+        specs = serving_cache_shardings(
+            cfg, plan, whole, batch_axis(plan, batch) is not None)
+        return {name: {k: torch.zeros(block_shape(t.shape, specs[name][k],
+                                                  plan.mesh),
+                                      dtype=t.dtype, device=dev)
+                       for k, t in c.items()} for name, c in whole.items()}
     (pattern, repeats), = cfg.layer_groups()
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     shape = (repeats, batch, max_len, kv, hd)
@@ -157,11 +186,12 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # -- one layer, and the training forward ---------------------------------------
 
 def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-                  prefix_len: int = 0):
+                  prefix_len: int = 0, need_aux: bool = True):
     """One layer over its parameter dict ``lp``, whose keys name its kind:
     ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
     ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
-    otherwise), and attention's (k, v) or the SSM's decode state."""
+    otherwise, or without ``need_aux``), and attention's (k, v) or the
+    SSM's decode state."""
     from ..sharding.partition import maybe_constrain
 
     x = maybe_constrain(x)
@@ -172,18 +202,19 @@ def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                                             prefix_len=prefix_len)
     else:
         y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True)
-    x, aux = _ffn(lp, x + y, cfg)
+    x, aux = _ffn(lp, x + y, cfg, need_aux)
     return maybe_constrain(x), aux, cache
 
 
-def _ffn(lp: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(lp: Dict, x: torch.Tensor, cfg,
+         need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's second half (``norm2`` and ``mlp`` or ``moe``, or
     nothing): (x, the MoE aux loss or 0)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "norm2" in lp:
         h2 = _apply_norm(lp["norm2"], x, cfg)
         if "moe" in lp:
-            y2, aux = moe.moe(lp["moe"], h2, cfg)
+            y2, aux = moe.moe(lp["moe"], h2, cfg, need_aux)
         else:
             y2 = mlp.mlp(lp["mlp"], h2, cfg)
         x = x + y2
@@ -240,7 +271,22 @@ def _unbind_layers(stacked: Dict) -> List[Dict]:
 
 
 def embed_tokens(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["embed"][tokens]
+    """The lookup, then the scale. A rank holding a block of the
+    vocabulary's rows looks up the ids inside it, zeros the others and
+    sums over the block's mesh axes (one row is not zero: exact)."""
+    from ..sharding.partition import current_plan, psum_rule, rule_of_block
+
+    emb = params["embed"]
+    axes = rule_of_block("vocab", emb.shape[0], cfg.padded_vocab)
+    if axes is None:
+        x = emb[tokens]
+    else:
+        v = emb.shape[0]
+        local = tokens.long() - current_plan().mesh.axis_index(axes) * v
+        mine = (local >= 0) & (local < v)
+        x = torch.where(mine[..., None], emb[torch.where(mine, local, 0)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        x = psum_rule(x, axes)
     if cfg.embed_scale:
         # the factor is cast to the activations' dtype first
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -250,10 +296,21 @@ def embed_tokens(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 def logits_from_hidden(params: Dict, h: torch.Tensor, cfg) -> torch.Tensor:
     """The tied or untied vocab projection, in the operands' promoted
-    dtype (``jnp.einsum``'s)."""
+    dtype (``jnp.einsum``'s); a rank holding a block of the vocabulary
+    gathers the logits over the block's mesh axes."""
+    from ..sharding.comm import all_gather
+    from ..sharding.partition import current_plan, rule_of_block
+
     if cfg.tie_embeddings:
-        return einsum("...d,vd->...v", h, params["embed"])
-    return einsum("...d,dv->...v", h, params["lm_head"])
+        out = einsum("...d,vd->...v", h, params["embed"])
+        local = params["embed"].shape[0]
+    else:
+        out = einsum("...d,dv->...v", h, params["lm_head"])
+        local = params["lm_head"].shape[1]
+    axes = rule_of_block("vocab", local, cfg.padded_vocab)
+    if axes is None:
+        return out
+    return all_gather(out, current_plan().mesh, axes, out.ndim - 1)
 
 
 def _with_prefix(x: torch.Tensor, prefix_embeds) -> Tuple[torch.Tensor, int]:
@@ -356,11 +413,14 @@ def _frozen(tree: Dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One layer: its slice of its pattern element's stacked JAX leaves."""
+    """One layer: its slice of its pattern element's stacked JAX leaves,
+    or, on a mesh, this rank's blocks of them (``spec``: the per-layer
+    spec of each leaf, the stacked spec without its ``layers`` entry)."""
 
-    def __init__(self, layer: Dict, r: int):
+    def __init__(self, layer: Dict, r: int, spec: Dict = None, mesh=None):
         super().__init__()
         self.names = tuple(layer)
+        self.spec, self.mesh = spec, mesh
         for name in self.names:
             setattr(self, name,
                     _frozen({k: t[r] for k, t in layer[name].items()}))
@@ -368,21 +428,49 @@ class Block(nn.Module):
     def params(self) -> Dict:
         return {name: getattr(self, name) for name in self.names}
 
+    def local_params(self) -> Dict:
+        """What the layer computes on: its parameters, or on a mesh its
+        blocks gathered just in time over every axis but ``model`` (the
+        FSDP ``embed`` gather); an MoE layer's router whole, its experts
+        this rank's block where ``model`` shards the experts (else whole,
+        as the train step gathers them)."""
+        from ..sharding.partition import gather_leaf
+
+        if self.spec is None:
+            return self.params()
+        out = {}
+        for name in self.names:
+            spec = self.spec[name]
+
+            def keep(k):
+                # an MoE layer's router whole, and its experts whole where
+                # model does not split them
+                if name == "moe" and (k == "router"
+                                      or spec["wi"][0] != "model"):
+                    return ()
+                return ("model",)
+
+            out[name] = {k: gather_leaf(t, spec[k], self.mesh, keep(k))
+                         for k, t in getattr(self, name).items()}
+        return out
+
     def forward(self, x, positions, cfg, prefix_len=0):
-        return layer_forward(self.params(), x, positions, cfg, prefix_len)
+        return layer_forward(self.local_params(), x, positions, cfg,
+                             prefix_len, need_aux=False)
 
     def decode(self, x, cache, cache_pos, cfg):
         """One token through the layer; ``cache`` (this layer's views of
         the stacked caches) is written in place."""
-        h = _apply_norm(self.norm1, x, cfg)
+        p = self.local_params()
+        h = _apply_norm(p["norm1"], x, cfg)
         if "attn" in self.names:
-            y, _ = attention.decode_attention(self.attn, h, cache, cache_pos,
+            y, _ = attention.decode_attention(p["attn"], h, cache, cache_pos,
                                               cfg)
         else:
-            y, new = ssm.ssd_decode(self.ssm, h, cache, cfg)
+            y, new = ssm.ssd_decode(p["ssm"], h, cache, cfg)
             for k, t in new.items():
                 cache[k].copy_(t)
-        return _ffn(self.params(), x + y, cfg)[0]
+        return _ffn(p, x + y, cfg, need_aux=False)[0]
 
 
 class Transformer(nn.Module):
@@ -390,16 +478,52 @@ class Transformer(nn.Module):
     (``param_specs``' nested dict of tensors, each pattern element's layers
     stacked on a leading axis). ``layers`` holds one `Block` per layer in
     the order they run (repeat ``r``'s element ``i`` at ``r * len(pattern)
-    + i``). The parameters do not require gradients (serving only)."""
+    + i``). The parameters do not require gradients (serving only).
 
-    def __init__(self, cfg, params: Dict):
+    With ``plan`` and a `partition.tensor_parallel` config, ``params`` is
+    this rank's blocks under ``partition.serving_shardings`` (each leaf's
+    shape is checked), and the model runs only under that plan (the
+    module docstring); the other configs' ``params`` stay whole."""
+
+    def __init__(self, cfg, params: Dict, plan=None):
         super().__init__()
+        from ..sharding.partition import (block_shape, params_only_shardings,
+                                          tensor_parallel)
+
         self.cfg = cfg
+        self.plan = plan if plan is not None and tensor_parallel(cfg) \
+            else None
+        specs = (None if self.plan is None else
+                 params_only_shardings(cfg, self.plan))
+        if specs is not None:
+            from .common import sorted_leaves
+
+            whole = dict(sorted_leaves(param_specs(cfg)))
+            for path, pspec in sorted_leaves(specs):
+                node = params
+                for key in path.split("/"):
+                    node = node[key]
+                want = block_shape(whole[path].shape, pspec, plan.mesh)
+                if tuple(node.shape) != want:
+                    raise ValueError(
+                        f"{path}: a block of {tuple(node.shape)} where the "
+                        f"plan gives this rank {want} (build the model on "
+                        f"partition.shard_tree(params, serving_shardings("
+                        f"cfg, plan), mesh))")
+        self.specs = specs
+        mesh = None if specs is None else plan.mesh
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         (pattern, repeats), = cfg.layer_groups()
         self.period = len(pattern)
+
+        def layer_spec(i):
+            if specs is None:
+                return None
+            return tree_map(lambda sp: type(sp)(*sp[1:]),
+                            specs["layers"][f"l{i}"])
+
         self.layers = nn.ModuleList(
-            Block(params["layers"][f"l{i}"], r)
+            Block(params["layers"][f"l{i}"], r, layer_spec(i), mesh)
             for r in range(repeats) for i in range(self.period))
         self.final_norm = _frozen(params["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings else
@@ -424,12 +548,39 @@ class Transformer(nn.Module):
             tree["lm_head"] = self.lm_head
         return tree
 
-    def embed_tokens(self, tokens):
-        return embed_tokens({"embed": self.embed}, tokens, self.cfg)
+    def _plan(self):
+        """The current plan, checked to be this model's where it holds
+        blocks."""
+        from ..sharding.partition import current_plan
 
-    def _run(self, tokens, prefix_embeds):
+        plan = current_plan()
+        if self.plan is not None and (plan is None or plan.mesh is not
+                                      self.plan.mesh or plan.rules !=
+                                      self.plan.rules):
+            raise ValueError("a model built on a plan's blocks runs under "
+                             "that plan (partition.activation_ctx(plan, "
+                             "split))")
+        return plan
+
+    def _top(self) -> Dict:
+        """The embedding, the final norm and the head the step computes
+        on: on a mesh gathered over every axis but ``model``."""
+        top = {"embed": self.embed, "final_norm": dict(self.final_norm)}
+        if self.lm_head is not None:
+            top["lm_head"] = self.lm_head
+        if self.specs is None:
+            return top
+        from ..sharding.partition import gather_tree
+
+        return gather_tree(top, self.specs, self.plan.mesh, ("model",))
+
+    def embed_tokens(self, tokens):
+        return embed_tokens(self._top(), tokens, self.cfg)
+
+    def _run(self, tokens, prefix_embeds, top):
         """(hidden before the final norm, {l{i}: [each repeat's cache]})."""
-        x, prefix_len = _with_prefix(self.embed_tokens(tokens), prefix_embeds)
+        x, prefix_len = _with_prefix(embed_tokens(top, tokens, self.cfg),
+                                     prefix_embeds)
         positions = torch.arange(x.shape[1], device=x.device)
         caches: Dict[str, list] = {}
         for j, block in enumerate(self.layers):
@@ -441,13 +592,17 @@ class Transformer(nn.Module):
     def forward(self, tokens,
                 prefix_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (hidden (B, P + S, D), moe_aux scalar 0)."""
-        x, _ = self._run(tokens, prefix_embeds)
-        x = _apply_norm(self.final_norm, x, self.cfg)
+        from ..sharding.partition import activation_ctx, split_batch
+
+        plan = self._plan()
+        with activation_ctx(plan, split_batch(), self.plan is not None):
+            top = self._top()
+            x, _ = self._run(tokens, prefix_embeds, top)
+            x = _apply_norm(top["final_norm"], x, self.cfg)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def logits_from_hidden(self, h):
-        return logits_from_hidden({"embed": self.embed,
-                                   "lm_head": self.lm_head}, h, self.cfg)
+        return logits_from_hidden(self._top(), h, self.cfg)
 
     @torch.no_grad()
     def decode_step(self, token, caches: Dict, cache_pos: int):
@@ -458,42 +613,99 @@ class Transformer(nn.Module):
         block of the batch when ``partition.split_batch()``; with
         ``cfg.decode_stream == "replicated"`` the stream between the
         layers is the whole batch on every rank of the batch axes (the
-        same values). The caches are this rank's blocks
-        (``partition.decode_input_shardings``) on the seq-sharded path,
-        else the stream's batch."""
-        from ..sharding.partition import (activation_ctx, current_plan,
-                                          rebatch, split_batch)
+        same values). The caches are this rank's blocks: of a model on its
+        blocks, ``partition.serving_cache_shardings``' (its kv heads or
+        its slots of the sequence); else ``decode_input_shardings``' on
+        the seq-sharded path, the stream's batch elsewhere."""
+        from ..sharding.partition import activation_ctx, rebatch, split_batch
 
-        plan, split = current_plan(), split_batch()
+        plan, split = self._plan(), split_batch()
+        blocks = self.plan is not None
         whole = (self.cfg.decode_stream == "replicated" and plan is not None
                  and split)
-        x = self.embed_tokens(token)
+        with activation_ctx(plan, split, blocks):
+            top = self._top()
+            x = embed_tokens(top, token, self.cfg)
         if whole:
             x = rebatch(x, plan, True, False)
         pos = int(cache_pos)
-        with activation_ctx(plan, split and not whole):
+        with activation_ctx(plan, split and not whole, blocks):
             for j, block in enumerate(self.layers):
                 r, i = divmod(j, self.period)
                 x = block.decode(x, {k: t[r] for k, t in
                                      caches[f"l{i}"].items()}, pos, self.cfg)
         if whole:
             x = rebatch(x, plan, False, True)
-        x = _apply_norm(self.final_norm, x, self.cfg)
-        return self.logits_from_hidden(x), caches
+        with activation_ctx(plan, split, blocks):
+            x = _apply_norm(top["final_norm"], x, self.cfg)
+            return logits_from_hidden(top, x, self.cfg), caches
 
     @torch.no_grad()
     def prefill(self, tokens, prefix_embeds=None):
         """Run the full prompt (after ``prefix_embeds``) and return
         (last-token logits, decode caches sized to it: k/v in bf16, SSM
-        states as ``ssd_forward`` returns them)."""
-        x, per_layer = self._run(tokens, prefix_embeds)
-        x = _apply_norm(self.final_norm, x, self.cfg)
-        logits = self.logits_from_hidden(x[:, -1:, :])
+        states as ``ssd_forward`` returns them). On a mesh ``tokens`` is
+        this rank's block of the batch when ``partition.split_batch()``,
+        and the caches are this rank's blocks
+        (``partition.serving_cache_shardings`` of the prompt-sized
+        caches)."""
+        from ..sharding.partition import (activation_ctx, block,
+                                          cache_seq_sharded, split_batch)
+
+        plan = self._plan()
+        with activation_ctx(plan, split_batch(), self.plan is not None):
+            top = self._top()
+            x, per_layer = self._run(tokens, prefix_embeds, top)
+            x = _apply_norm(top["final_norm"], x, self.cfg)
+            logits = logits_from_hidden(top, x[:, -1:, :], self.cfg)
+        seq = self.plan is not None and cache_seq_sharded(self.cfg,
+                                                          self.plan)
+        if seq:
+            ax = self.plan.cache_seq_axis
+            n = self.plan.mesh.axis_size(ax)
+            if x.shape[1] % n:
+                raise ValueError(
+                    f"a {x.shape[1]}-token prompt does not divide the "
+                    f"cache's sequence axis {ax!r} ({n} ranks)")
+            from ..sharding.rules import P
+
+            cut = P(None, ax, None, None)
         caches = {}
         for name, lst in per_layer.items():
             if isinstance(lst[0], tuple):
                 lst = [{"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
                        for k, v in lst]
+                if seq:
+                    lst = [{k: block(t, cut, self.plan.mesh)
+                            for k, t in c.items()} for c in lst]
             caches[name] = {k: torch.stack([c[k] for c in lst])
                             for k in lst[0]}
         return logits, caches
+
+    def pad_caches(self, caches: Dict, max_len: int) -> Dict:
+        """Prefill's attention caches (sized to the prompt) with zero
+        slots appended up to ``max_len``, as serving code pads them to its
+        decode window (``jnp.pad`` in the reference). Where the caches
+        shard their sequence (a model on its blocks), each block becomes
+        its part of the padded whole: gathered over
+        ``plan.cache_seq_axis``, padded, cut again."""
+        from ..sharding.comm import all_gather
+        from ..sharding.partition import block, cache_seq_sharded
+        from ..sharding.rules import P
+
+        seq = self.plan is not None and cache_seq_sharded(self.cfg,
+                                                          self.plan)
+        out = {}
+        for name, c in caches.items():
+            out[name] = {}
+            for k, t in c.items():
+                if k in ("k", "v", "k_scale", "v_scale"):
+                    if seq:
+                        t = all_gather(t, self.plan.mesh,
+                                       self.plan.cache_seq_axis, 2)
+                    t = F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+                    if seq:
+                        t = block(t, P(None, None, self.plan.cache_seq_axis,
+                                       None, None), self.plan.mesh)
+                out[name][k] = t
+        return out

@@ -7,8 +7,13 @@ uses, the arrays of every case: the blocks' sha256 (``blocks/...``), the
 expert-parallel MoE and its gradients (``ep/...``), the seq-sharded decode
 and the gathered decode on the same inputs (``decode/...``,
 ``decode_gathered/...``), ``pipeline_apply`` and its gradients
-(``pipeline/...``), two compressed steps (``compressed/...``) and two
-sharded train steps with the first step's gradients (``train/...``).
+(``pipeline/...``), two compressed steps (``compressed/...``), two
+sharded train steps with the first step's gradients (``train/...``) and,
+in the ``tp`` part, serving on this rank's blocks: each `TP_CASES`
+config's prefill and decode steps (``tp/...``) beside the port's
+unsharded steps on the whole weights (``tp_plain/...``), each rank's
+storage bytes (``tp_bytes/...``) and one decode step's collectives
+(``tp_ops/...``).
 Outputs and gradients are gathered whole; rank 0 returns them with each
 part's wall time. `pod_exchange` runs `steps.pod_reduce` on given
 gradients and errors (one pod a rank). ``tests/test_torch_sharding_mesh.py``
@@ -28,7 +33,8 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["run", "pod_exchange", "EP_X", "DECODE", "PIPELINE",
-           "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED"]
+           "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED",
+           "TP", "TP_CASES", "tp_config", "tp_tokens", "tp_start_caches"]
 
 SEED = 0
 EP_CUT = dict(d_model=64, moe_d_ff=32)
@@ -42,6 +48,26 @@ COMPRESSED_CUT = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=128,
 DATA = {"seed": 3, "batch": 4, "seq": 32}
 STEPS = 2
 TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
+#: serving on blocks: a batch of 2, an 8-token prompt prefilled, padded to
+#: a 16-slot window, then 8 teacher-forced decode steps
+TP = {"batch": 2, "prompt": 8, "max_len": 16, "steps": 8, "seed": 7}
+#: case: (arch, (data, model), overrides of its ``.reduced()`` config; two
+#: layers, so that every array of a case is whole in the reference file).
+#: MHA: phi3 with 4 kv heads (1 q and 1 kv head a rank on (1, 4), 2 and 2
+#: with FSDP on (2, 2)); GQA with qkv bias: qwen's 4 q / 2 kv heads on
+#: (2, 2); MQA: gemma's one kv head, heads replicated and the cache's
+#: sequence over model under each decode form; MoE: granite's 4 experts
+#: over model (no drops at capacity factor 8), FSDP over data
+TP_CASES = {
+    "mha_1x4": ("phi3-mini-3.8b", (1, 4), {"n_layers": 2, "n_kv_heads": 4}),
+    "mha_2x2": ("phi3-mini-3.8b", (2, 2), {"n_layers": 2, "n_kv_heads": 4}),
+    "gqa_bias_2x2": ("qwen1.5-32b", (2, 2), {"n_layers": 2}),
+    "mqa_gathered_1x4": ("gemma-2b", (1, 4), {"n_layers": 2}),
+    "mqa_sharded_1x4": ("gemma-2b", (1, 4), {"n_layers": 2,
+                                             "decode_attention": "sharded"}),
+    "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
+                                                 "capacity_factor": 8.0}),
+}
 
 
 # -- inputs (the reference's rules) ---------------------------------------------------
@@ -116,6 +142,23 @@ def decode_inputs(cache: str):
         c = {"k": rng.standard_normal(shape, np.float32),
              "v": rng.standard_normal(shape, np.float32)}
     return cfg, p, x, c
+
+
+def tp_config(case: str):
+    from ..configs import get_config
+
+    arch, _, over = TP_CASES[case]
+    return dataclasses.replace(get_config(arch).reduced(**over),
+                               param_dtype="float32")
+
+
+def tp_tokens(cfg) -> np.ndarray:
+    """(batch, prompt + steps) int32: the prompt, then the decode steps'
+    teacher-forced tokens."""
+    rng = np.random.default_rng(TP["seed"])
+    return rng.integers(0, cfg.vocab_size,
+                        (TP["batch"], TP["prompt"] + TP["steps"]),
+                        dtype=np.int32)
 
 
 def pipeline_weights(stages: int):
@@ -373,13 +416,182 @@ def _train(out, dev):
             out[f"train/{arch}/params/{path}"] = _np(v)
 
 
+class _Serving:
+    """One case's steps on one model (this rank's blocks under ``plan``,
+    or the whole model with ``plan`` None), recording whole arrays
+    (gathered over the batch and the cache blocks)."""
+
+    def __init__(self, cfg, model, toks, plan, out):
+        self.cfg, self.model, self.plan, self.out = cfg, model, plan, out
+        self.split = plan is not None and toks.shape[0] < TP["batch"]
+        self.toks = toks
+
+    def _specs(self, length):
+        from ..models import transformer
+        from .partition import serving_cache_shardings
+
+        return serving_cache_shardings(
+            self.cfg, self.plan, transformer.init_decode_caches(
+                self.cfg, TP["batch"], length, device="meta"), self.split)
+
+    def whole(self, caches, length):
+        """The global caches from this rank's blocks."""
+        from .partition import gather_leaf
+
+        if self.plan is None:
+            return caches
+        specs = self._specs(length)
+        return {name: {k: gather_leaf(t, specs[name][k], self.plan.mesh)
+                       for k, t in c.items()} for name, c in caches.items()}
+
+    def window(self, prompt_caches):
+        """This rank's blocks of the decode window (float32, ``max_len``
+        slots) holding the given global prompt caches (a tree of arrays)."""
+        from .partition import block
+
+        dev = self.toks.device
+        pad = TP["max_len"] - TP["prompt"]
+        specs = None if self.plan is None else self._specs(TP["max_len"])
+        out = {}
+        for name, c in prompt_caches.items():
+            out[name] = {}
+            for k, t in c.items():
+                w = torch.nn.functional.pad(
+                    torch.from_numpy(np.array(t, np.float32)).to(dev),
+                    (0, 0, 0, 0, 0, pad))
+                out[name][k] = (w if specs is None else
+                                block(w, specs[name][k], self.plan.mesh))
+        return out
+
+    def _batch(self, t):
+        from .partition import gather_leaf
+        from .rules import P
+
+        if not self.split:
+            return t
+        return gather_leaf(t, P(self.plan.batch_axes), self.plan.mesh)
+
+    def prefill(self, key):
+        """The prompt's prefill, its logits and caches under ``key``;
+        returns this rank's cache blocks."""
+        from ..models import steps
+        from .partition import activation_ctx
+
+        with activation_ctx(self.plan, self.split):
+            logits, caches = steps.make_prefill_step(self.cfg)(
+                self.model, {"tokens": self.toks[:, :TP["prompt"]]})
+            self.out[f"{key}/prefill/logits"] = _np(self._batch(logits))
+            for name, c in self.whole(caches, TP["prompt"]).items():
+                for k, t in c.items():
+                    self.out[f"{key}/prefill/{name}/{k}"] = _np(t)
+        return caches
+
+    def decode(self, caches, key, rec_ops=None):
+        """The teacher-forced decode steps from the window ``caches``;
+        each step's logits and the written window under ``key``."""
+        from ..models import steps
+        from .comm import record_collectives
+        from .partition import activation_ctx
+
+        pr, n = TP["prompt"], TP["steps"]
+        step = steps.make_decode_step(self.cfg)
+        with activation_ctx(self.plan, self.split):
+            for t in range(n):
+                tok = self.toks[:, pr + t:pr + t + 1]
+                if t == 0 and rec_ops is not None:
+                    with record_collectives() as rec:
+                        _, logits, caches = step(self.model, tok, caches, pr)
+                    rec_ops.extend(rec.ops)
+                else:
+                    _, logits, caches = step(self.model, tok, caches, pr + t)
+                self.out[f"{key}/{t}/logits"] = _np(self._batch(logits))
+            for name, c in self.whole(caches, TP["max_len"]).items():
+                for k, t in c.items():
+                    self.out[f"{key}/{name}/{k}"] = _np(t[:, :, pr:pr + n])
+        return caches
+
+
+def _tp(out, dev, start=None):
+    """Each `TP_CASES` case on this rank's blocks (``tp/<case>/...``):
+    the prefill; the decode continued from its own prefill blocks, padded
+    (``continued/...``); with ``start`` ({case: the reference's prefill
+    caches, whole}) the decode from those (``decode/...``, where the JAX
+    decode starts: the two programs' bf16 prefill caches may round an
+    entry apart, and a decode carries that). Rank 0 runs the same on the
+    whole model (``tp_plain/<case>/...``), its continued decode from the
+    blocks' own prefill caches gathered whole. Every rank's storage bytes
+    (``tp_bytes/...``) and its first continued decode step's collectives
+    (``tp_ops/...``) are all-gathered."""
+    from ..models import convert, steps
+    from ..models.common import tree_leaves, tree_map
+    from . import make_plan
+    from .partition import batch_axis, block, serving_shardings, shard_tree
+    from .rules import P
+
+    mine = {}
+    for case, (_arch, shape, _over) in TP_CASES.items():
+        cfg = tp_config(case)
+        mesh = _mesh(shape, ("data", "model"), dev)
+        plan = make_plan(cfg, mesh)
+        whole = _t(convert.conditioned_params(cfg, SEED), dev)
+        model = steps.make_model(
+            cfg, shard_tree(whole, serving_shardings(cfg, plan), mesh), plan)
+        toks = torch.from_numpy(tp_tokens(cfg)).to(dev)
+        split = batch_axis(plan, toks.shape[0]) is not None
+        tp = _Serving(cfg, model, block(
+            toks, P(plan.batch_axes if split else None, None), mesh), plan,
+            out)
+        key = f"tp/{case}"
+        prompt = tp.prefill(key)
+        own = tree_map(lambda t: t.detach().float().cpu().numpy(),
+                       tp.whole(prompt, TP["prompt"]))
+        ops = []
+        caches = tp.decode(tree_map(lambda t: t.float(), model.pad_caches(
+            prompt, TP["max_len"])), f"{key}/continued", ops)
+        if start is not None:
+            tp.decode(tp.window(start[case]), f"{key}/decode")
+        c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
+        mine[f"tp_bytes/{case}/{c}/params"] = _storage_bytes(
+            list(model.parameters()))
+        mine[f"tp_bytes/{case}/{c}/caches"] = _storage_bytes(
+            [t for _, t in tree_leaves(caches)])
+        mine[f"tp_ops/{case}/{c}"] = [
+            f"{op.kind} {'+'.join(op.axes)}" for op in ops]
+        del model, caches
+        if mesh.rank == 0:
+            plain = _Serving(cfg, steps.make_model(cfg, whole), toks, None,
+                             out)
+            key = f"tp_plain/{case}"
+            plain.prefill(key)
+            plain.decode(plain.window(own), f"{key}/continued")
+            if start is not None:
+                plain.decode(plain.window(start[case]), f"{key}/decode")
+    everyone = [None] * tdist.get_world_size()
+    tdist.all_gather_object(everyone, mine)
+    for rec in everyone:
+        for k, v in rec.items():
+            out[k] = np.array(v)
+
+
+def _storage_bytes(tensors) -> int:
+    """Bytes of the distinct storages under ``tensors`` (a block's layers
+    are views of its stacked leaves)."""
+    return sum({t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
 PARTS = {"blocks": _blocks, "ep": _ep, "decode": _decode,
-         "pipeline": _pipeline, "compressed": _compressed, "train": _train}
+         "pipeline": _pipeline, "compressed": _compressed, "train": _train,
+         "tp": _tp}
+#: the parts of ``experiments/sharding/reference.json``'s mesh cases before
+#: serving on blocks (``tp``, run on its own)
+BASE_PARTS = ("blocks", "ep", "decode", "pipeline", "compressed", "train")
 
 
-def run(mesh, parts=tuple(PARTS)) -> Dict:
+def run(mesh, parts=BASE_PARTS, tp_start=None) -> Dict:
     """One rank of four: every case of ``parts``; rank 0 returns
-    ``(arrays, {part: wall seconds})``."""
+    ``(arrays, {part: wall seconds})``. ``tp_start``: the ``tp`` part's
+    shared decode start (`tp_start_caches` of the reference file)."""
     from ..models import steps
 
     dev = mesh.device
@@ -390,10 +602,29 @@ def run(mesh, parts=tuple(PARTS)) -> Dict:
         _sync(dev)
         tdist.barrier()
         t0 = time.perf_counter()
-        PARTS[name](out, dev)
+        if name == "tp":
+            _tp(out, dev, tp_start)
+        else:
+            PARTS[name](out, dev)
         _sync(dev)
         walls[name] = time.perf_counter() - t0
     return out, walls
+
+
+def tp_start_caches(arrays: Dict) -> Dict:
+    """{case: the reference's prefill caches, whole} from its ``tp/<case>/
+    prefill/<l>/<k>`` arrays (``experiments/sharding/reference.json``'s
+    mesh part, decoded): `run`'s ``tp_start``."""
+    from ..models.common import unflatten
+
+    out = {}
+    for case in TP_CASES:
+        head = f"tp/{case}/prefill/"
+        out[case] = unflatten({k[len(head):]: np.asarray(v, np.float32)
+                               for k, v in arrays.items()
+                               if k.startswith(head) and not
+                               k.endswith("/logits")})
+    return out
 
 
 def pod_exchange(mesh, grads: Dict, errs: Dict) -> Dict:

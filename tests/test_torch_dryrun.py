@@ -5,12 +5,13 @@ package's (``experiments/dryrun/reference.json``, from
 Held bit for bit: status and skip reasons, plan notes, the analytic
 roofline fields, and the argument bytes the JAX step's spec trees give a
 rank against XLA's ``argument_size_in_bytes``. Leaf by leaf: the port's
-own argument and output bytes against XLA's (the serving steps hold the
-weights whole; XLA's outputs carry an 8-byte tuple entry a leaf). The
-port's own fields (its collective list, its peak) are held to the port
-run for real on four gloo CPU ranks, and the live-bytes tracker to a toy
-step counted by hand. The 32k-token prefill cells trace 1024 flash blocks
-a layer on meta (minutes) and are ``slow``."""
+own argument and output bytes against XLA's (the serving steps hold bf16
+weights, whole for whisper-tiny and the rank's blocks for gemma-2b; XLA's
+outputs carry an 8-byte tuple entry a leaf). The port's own fields (its
+collective list, its peak) are held to the port run for real on four gloo
+CPU ranks, and the live-bytes tracker to a toy step counted by hand. The
+32k-token prefill cells trace 1024 flash blocks a layer on meta (minutes)
+and are ``slow``."""
 import json
 import math
 import pathlib
@@ -97,13 +98,16 @@ class _Shape:
 def test_argument_and_output_bytes_leaf_by_leaf(key, ref):
     """The port's argument bytes against XLA's, and its output bytes
     against XLA's: train steps take the same blocks (XLA's outputs add an
-    8-byte tuple entry a leaf); serving steps hold the weights whole in
-    bf16 where the JAX dry run passes float32 master blocks, and the
-    decode takes ``cache_pos`` as a Python int (4 B in XLA's)."""
+    8-byte tuple entry a leaf); serving steps hold bf16 weights where the
+    JAX dry run passes float32 master blocks: the blocks of
+    ``params_only_shardings`` (gemma-2b), or the whole (whisper-tiny), and
+    the decode takes ``cache_pos`` as a Python int (4 B in XLA's)."""
     from repro_torch.configs import get_config, shape_for
     from repro_torch.configs.specs import (abstract_params_tree,
                                            abstract_train_state, input_specs)
-    from repro_torch.sharding import decode_input_shardings, make_plan
+    from repro_torch.sharding import (decode_input_shardings, make_plan,
+                                      params_only_shardings)
+    from repro_torch.sharding.partition import tensor_parallel
 
     rec, want = _rec(key), ref[key]
     if rec["status"] == "skipped":
@@ -125,12 +129,17 @@ def test_argument_and_output_bytes_leaf_by_leaf(key, ref):
         n_out = len(_tree_leaves(state)) + 4  # the four metric scalars
         assert xla["output_bytes"] == mem["output_bytes"] + 8 * n_out
         return
-    # serving: the weights whole here, float32 blocks of the read leaves
-    # in XLA's arguments
-    whole = sum(t.numel() * t.element_size()
-                for t in _tree_leaves(abstract_params_tree(cfg)))
-    assert parts["params"] == whole
-    assert mem["argument_bytes"] - whole == \
+    # serving: bf16 blocks (or the whole) here, float32 blocks of the read
+    # leaves in XLA's arguments
+    ptree = abstract_params_tree(cfg)
+    if tensor_parallel(cfg):
+        held = sum(_blocks(t, sp, mesh_shape) for t, sp in zip(
+            _tree_leaves(ptree),
+            _tree_leaves(params_only_shardings(cfg, plan))))
+    else:
+        held = sum(t.numel() * t.element_size() for t in _tree_leaves(ptree))
+    assert parts["params"] == held
+    assert mem["argument_bytes"] - held == \
         xla["argument_bytes"] - mem["jax_argument_bytes"] + sum(
             v for k, v in parts.items() if k != "params")
     if kind == "decode":
@@ -140,6 +149,8 @@ def test_argument_and_output_bytes_leaf_by_leaf(key, ref):
         token = _blocks(inputs["token"], dec["token"], mesh_shape)
         assert mem["jax_argument_bytes"] - xla["argument_bytes"] == 0
         assert parts["token"] == token
+        if tensor_parallel(cfg):
+            assert parts["caches"] == jax_caches
         # XLA's outputs: the next token, the bf16 logits over the batch
         # axes and the vocabulary over model (no constraint: XLA's pick),
         # the caches in their input blocks, 8 B a leaf
@@ -155,11 +166,71 @@ def test_argument_and_output_bytes_leaf_by_leaf(key, ref):
 
 
 def test_port_notes_name_every_form_the_port_lacks():
+    # gemma-2b serves on its blocks: only the Python-int position remains
     rec = _rec(_key("gemma-2b", "decode_32k", "16x16"))
     notes = " ".join(rec["port_notes"])
+    assert "cache_pos" in notes and "weights whole" not in notes
+    assert "decode caches" not in notes
+    # whisper-tiny (an encoder-decoder) keeps its weights whole and every
+    # head and slot of its batch block
+    notes = " ".join(_rec(_key("whisper-tiny", "decode_32k",
+                               "16x16"))["port_notes"])
     assert "weights whole" in notes and "cache_pos" in notes
-    assert "P(None, 'data', 'model', None, None)" in notes
+    assert "decode caches" in notes
     assert _rec(_key("gemma-2b", "train_4k", "16x16"))["port_notes"] == []
+
+
+#: serving cells of dense configs, which serve on the rank's blocks: the
+#: 32k-token prefill traces 1024 flash blocks a layer (~7 min), so a
+#: 1024-token prefill of the same batch stands in for it in tier-1
+TP_CELLS = [("gemma-2b", "decode_32k", None),
+            ("phi3-mini-3.8b", "prefill_1k", 1024),
+            pytest.param("phi3-mini-3.8b", "prefill_32k", None,
+                         marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("arch,shape_name,seq", TP_CELLS)
+def test_tensor_parallel_serving_records_hold_the_blocks(arch, shape_name,
+                                                         seq):
+    """A dense config's serving record on 16x16: its argument bytes are
+    the rank's blocks (the bf16 weights under ``params_only_shardings``,
+    the batch under ``batch_shardings``, the token and the caches under
+    ``decode_input_shardings``), computed here from the spec trees; its
+    notes no longer say the weights are whole or the prefill unsharded."""
+    from repro_torch.configs import get_config, shape_for
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.specs import abstract_params_tree, input_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import (batch_shardings,
+                                      decode_input_shardings, make_plan,
+                                      params_only_shardings)
+
+    cfg = get_config(arch)
+    sh = (ShapeSpec(shape_name, seq, shape_for("prefill_32k").global_batch,
+                    "prefill") if seq else shape_for(shape_name))
+    mesh_shape = {"data": 16, "model": 16}
+    plan = make_plan(cfg, _Shape(mesh_shape))
+    inputs = input_specs(cfg, sh.name, shape=sh)
+    want = sum(_blocks(t, sp, mesh_shape) for t, sp in zip(
+        _tree_leaves(abstract_params_tree(cfg)),
+        _tree_leaves(params_only_shardings(cfg, plan))))
+    if sh.kind == "decode":
+        dec = decode_input_shardings(cfg, plan, inputs)
+        want += sum(_blocks(t, sp, mesh_shape) for t, sp in zip(
+            _tree_leaves(inputs["caches"]), _tree_leaves(dec["caches"])))
+        want += _blocks(inputs["token"], dec["token"], mesh_shape)
+    else:
+        want += sum(_blocks(t, sp, mesh_shape) for t, sp in zip(
+            _tree_leaves(inputs), _tree_leaves(batch_shardings(
+                cfg, plan, inputs))))
+    tr = dryrun.dry_run(cfg, sh, (16, 16), ("data", "model"))
+    assert tr["memory"]["argument_bytes"] == want
+    notes = " ".join(tr["port_notes"])
+    assert "weights whole" not in notes and "sharded prefill" not in notes
+    assert "decode caches" not in notes
+    if sh.kind == "decode":
+        assert want < 0.5e9     # 9.84 GB with the weights whole
+    assert not tdist.is_initialized()
 
 
 @pytest.mark.parametrize("key", [k for k in CELLS if "train" in k])
@@ -291,6 +362,10 @@ def test_hillclimb_registry_equals_the_jax_one(capsys, tmp_path,
     out = capsys.readouterr().out
     assert out.startswith("=== hillclimb int8kv: qwen1.5-32b decode_32k "
                           "16x16 {'kv_cache_dtype': 'int8'} ===")
-    assert " dom=memory wire=" in out
+    # qwen's 40 kv heads do not divide model=16: the decode gathers each
+    # layer's replicated attention weights over data (FSDP) every step,
+    # ~16 GB of wire, which dominates the HBM term (XLA's program keeps the
+    # weights in place: memory-bound, 0.27 GB of wire)
+    assert " dom=collective wire=" in out
     assert [p.name for p in tmp_path.iterdir()] == [
         "qwen1.5-32b__decode_32k__16x16+int8kv.json"]

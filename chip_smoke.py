@@ -173,8 +173,11 @@ branch, the seq-sharded decode, ``pipeline_apply``, the int8 compressed
 step and its exchange, two sharded train steps each of gemma-2b and
 granite-moe-1b-a400m; the plans, spec trees and launch costs of the ten
 archs; (b) granite-moe-1b-a400m at full width trained one step by
-``launch.train.build_trainer`` on a 2 x 2 mesh (FSDP over data, EP over
-model), its full-width EP layer held to ``_moe_local``; (c) gemma-2b
+``launch.train.build_trainer`` on a 2 x 2 mesh on each rank's blocks
+(FSDP over data; kv heads, the vocabulary and the experts over model; the
+stream's sequence over model), its collectives a step and peak printed
+beside the form that gathered every layer whole, its full-width EP layer
+held to ``_moe_local``; (c) gemma-2b
 decoding at full width, each rank on its blocks of the weights (the MLP
 and the vocabulary over model) with its 256-slot cache sequence-sharded
 over 4 ranks, layer 0 held to the whole layer's gathered decode; (d) the
@@ -191,12 +194,25 @@ its blocks' bytes; (b) phi3-mini-3.8b at full width on (data, model) =
 (FSDP over data): a 64-token prefill, then 64 and 16 decode steps, each
 rank's weights and caches held to its blocks' bytes and layer 0's
 prefill caches to rank 0's whole-model oracle; times, peaks and each
-collective's bytes and wall a step printed.
+collective's bytes and wall a step printed. Phase 19, on the same ranks,
+trains under a plan on each rank's blocks (tensor parallelism over model,
+the sequence-parallel residual stream, the vocab-parallel loss): (a)
+``sharding.mesh_cases``' ``tp_train`` cases (``.reduced()``, float32)
+held to the reference's JAX sharded step and to the port's form that
+gathers every leaf whole, their collectives over model the sequence
+seams only, ``build_trainer``'s state the blocks of the whole draw and
+the vocab-parallel cross-entropy the whole vocabulary's; (b) gemma-2b at
+full width on (1, 4), one step of 1 x 2048 tokens, its loss, gradient norm
+and layer 0's and the embedding's gradient blocks held to the
+gather-whole form on the same blocks within the bf16 gap, its time, each
+rank's peak beside its state's bytes, its collectives and its largest
+loss-chunk logits printed.
 Phase 17 runs the dry run and the autotuner (``launch.dryrun``,
 ``kernels.autotune``): (a) in a child process that sees no card, phase
-16's three cells and 18b's decode traced on meta tensors in a fake
-process group of their meshes' ranks, each collective kind's bytes a step
-held equal to what phases 16 and 18 measured on rank 0, the argument
+16's three cells, 18b's decode and 19b's train step traced on meta
+tensors in a fake process group of their meshes' ranks, each collective
+kind's bytes a step held equal to what phases 16, 18 and 19 measured on
+rank 0, the argument
 bytes to the step's resident
 state and batch, and the predicted peak (arguments + temp) to within
 [0.8, 1.25] of the step's own peak; (b) in the same child, gemma-2b's
@@ -5532,6 +5548,11 @@ SHARD_TIMEOUT_S = 600
 #: script's wall)
 SHARD_TRAIN = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 2,
                "seq": 2048, "steps": 1, "seed": 5}
+#: 16b's collectives a step (rank 0's input bytes by kind) and peak when
+#: the step gathered every layer whole over every axis (PERF.md)
+SHARD_TRAIN_WHOLE = {"bytes": {"all_gather": 2.82e9, "reduce_scatter": 3.00e9,
+                               "all_reduce": 3.02e9, "all_to_all": 6.04e9},
+                     "peak_gib": 6.91}
 #: 16c: gemma-2b as configured on (1, 4), decode_attention="sharded", on
 #: each rank's blocks (the MLP and the vocabulary over model): its one KV
 #: head does not divide 4, so the heads stay whole and the 256-slot cache
@@ -6044,23 +6065,176 @@ def _mc():
     return mesh_cases
 
 
+# -- phase 19: training on the rank's blocks (tensor parallelism over model) --
+
+#: 19b: gemma-2b as configured (18 layers, full width) on (data, model) =
+#: (1, 4): one train step of 1 x 2048 tokens (14c's shape) on each rank's
+#: blocks of the state (the vocabulary's 64,000 rows and a quarter of each
+#: MLP a rank; its one kv head leaves the heads whole), the residual stream
+#: its block of the sequence, the loss vocab-parallel; the oracle, the form
+#: that gathers every layer whole, on the same blocks and batch (its
+#: gradients, no update). The weights are the layers reference's
+#: conditioned rule drawn on the card (fan-in scaled), so that two bf16
+#: programs' gradients stay comparable at full width
+TP_TRAIN_FULL = {"arch": "gemma-2b", "mesh": (1, 4), "batch": 1,
+                 "seq": 2048, "seed": 9}
+
+
+def _logits_probe(lead, vocab, rows):
+    """A dispatch mode whose ``most`` is (bytes, shape) of the largest
+    float32 ``lead + (V',)`` tensor an op returns, ``V'`` ``vocab`` (the
+    rank's block of the vocabulary) or ``rows`` (the whole): a loss
+    chunk's logits (``lead`` = (batch, positions a chunk))."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Probe(TorchDispatchMode):
+        most = (0, None)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (isinstance(out, torch.Tensor) and out.ndim == 3
+                    and out.dtype == torch.float32
+                    and tuple(out.shape[:2]) == lead
+                    and out.shape[-1] in (vocab, rows)
+                    and out.numel() * 4 > self.most[0]):
+                self.most = (out.numel() * 4, tuple(out.shape))
+            return out
+
+    return Probe()
+
+
+def _grad_parts(grads, spec_of):
+    """(layer 0's gradient blocks, the embedding's block), on the host."""
+    out = {}
+    for path, g in _flat_leaves(grads):
+        if path == "embed" or path.startswith("layers/l0/"):
+            out[path] = (g[0] if path.startswith("layers/") else g).detach(
+            ).float().cpu()
+    return out
+
+
+def _tp_train_full(mesh, dev, spec):
+    """19b on this rank: its blocks of the float32 master (drawn leaf by
+    leaf and cut), the oracle's gradients (the form that gathers every
+    layer whole, no update), the tensor-parallel form's gradients (timed,
+    then once more under a probe of the loss chunk's logits), then one
+    train step of ``make_train_step`` on the state (master, m, v), timed
+    with its collectives' bytes and wall, its peak beside the state's
+    bytes."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import convert, steps
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.sharding import make_plan
+    from repro_torch.sharding.partition import block, train_state_shardings
+
+    cfg = _tp_config(spec)
+    m = make_debug_mesh(spec["mesh"], device=dev)
+    plan = make_plan(cfg, m)
+    specs = train_state_shardings(cfg, plan)["params"]
+    spec_of = dict(_flat_leaves(specs))
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    master = convert.conditioned_params(
+        cfg, generator=gen, cut=lambda p, t: block(t, spec_of[p], m))
+    _sync(dev)
+    rec = {"init_s": time.perf_counter() - t0, "init_peak_gib": _peak_gib(dev),
+           "block_params": sum(t.numel() for _, t in _flat_leaves(master)),
+           "whole_params": cfg.param_count(),
+           "vocab_rows": master["embed"].shape[0],
+           "d_ff": master["layers"]["l0"]["mlp"]["wo"].shape[1],
+           "heads": master["layers"]["l0"]["attn"]["wq"].shape[2]}
+    data = _train_batches(cfg, spec, 1)[0]
+    batch, split = steps._batch_block(data, plan, dev)
+    rec["split"] = split
+
+    def grads(tp, probe=None):
+        fn = steps._mesh_grad_fn(cfg, plan, specs, tp=tp)
+        _reset_peak(dev)
+        before = _mesh_bytes()
+        tdist.barrier()
+        t1 = time.perf_counter()
+        with (probe or contextlib.nullcontext()):
+            (loss, _nll), g = fn(master, batch, split)
+        gnorm = steps._block_norm(g, specs, m)
+        _sync(dev)
+        ms = 1e3 * (time.perf_counter() - t1)
+        out = {"loss": float(loss), "gnorm": float(gnorm), "ms": ms,
+               "peak_gib": _peak_gib(dev),
+               "parts": _grad_parts(g, spec_of),
+               "bytes": {k: v - before[k]
+                         for k, v in _mesh_bytes().items()}}
+        del g
+        return out
+
+    rec["whole"] = grads(False)
+    rec["tp"] = grads(True)
+    b = batch["tokens"].shape[0]
+    probe = _logits_probe((b, min(spec["seq"], cfg.loss_chunk // b)),
+                          cfg.padded_vocab // m.axis_size("model"),
+                          cfg.padded_vocab)
+    rec["tp_probe_ms"] = grads(True, probe)["ms"]
+    rec["logits"] = probe.most
+    rec["gaps"] = {}
+    for path, want in rec["whole"]["parts"].items():
+        got = rec["tp"]["parts"][path]
+        rec["gaps"][path] = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+    for form in ("whole", "tp"):
+        del rec[form]["parts"]
+    # one train step on the state (master, m, v) in the tensor-parallel form
+    opt_cfg = AdamWConfig(moment_dtype=steps._dtype(cfg.moment_dtype))
+    state = {"params": master, "opt": adamw.init_state(master, opt_cfg)}
+    del master
+    step = steps.make_train_step(cfg, opt_cfg, plan=plan)
+    rec["state_bytes"] = _storage_bytes(state)
+    rec["resident"] = rec["state_bytes"] + _batch_block_bytes(data, plan)
+    rec["ms"], rec["bytes"], rec["step_mem"], rec["step_loss"] = [], [], [], []
+    before = _mesh_bytes()
+    start = _step_start(dev)
+    tdist.barrier()
+    t1 = time.perf_counter()
+    state, metrics = step(state, data)
+    _sync(dev)
+    rec["ms"].append(1e3 * (time.perf_counter() - t1))
+    rec["step_mem"].append((start, _step_growth(dev, start)))
+    rec["bytes"].append({k: v - before[k] for k, v in _mesh_bytes().items()})
+    rec["step_loss"].append(float(metrics["loss"]))
+    rec["step_gnorm"] = float(metrics["grad_norm"])
+    rec["peak_gib"] = _peak_gib(dev)
+    del state
+    _reset_peak(dev)
+    return rec
+
+
+def _tp_train_reference(mesh):
+    """19a on this rank: ``mesh_cases.run``'s ``tp_train`` part; rank 0
+    keeps the arrays (every rank's collectives, saved shapes and init
+    checks are among them)."""
+    arrays, walls = _mc().run(mesh, ("tp_train",))
+    return {"walls": walls, "arrays": arrays if mesh.rank == 0 else None}
+
+
 #: what phase 16's ranks run (``sharding_rank``'s ``sizes``; a rehearsal on
 #: the host passes smaller ones)
 SHARD_SIZES = {"train": SHARD_TRAIN, "serve": SHARD_SERVE,
                "compressed": SHARD_COMPRESSED, "run": TRAIN_100M_RUN,
                "overrides": TRAIN_100M, "tp_full": TP_FULL,
-               "tp_fsdp": TP_FSDP}
+               "tp_fsdp": TP_FSDP, "tp_train_full": TP_TRAIN_FULL}
 
 
 def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
-    """Phases 16 and 18 on one of four ranks: (16a)
+    """Phases 16, 18 and 19 on one of four ranks: (16a)
     ``sharding.mesh_cases.run`` and the compressed exchange on the
     reference's gradients (ranks 0-1), (16b) granite-moe-1b-a400m's
     sharded training, (16c) gemma-2b's seq-sharded decode on its blocks,
     (16d) the compressed step; (18a) ``mesh_cases.run``'s ``tp`` part,
-    (18b) phi3-mini-3.8b and (18c) yi-34b served on their blocks. Every
-    rank's record goes to rank 0, which returns them with 16a's and 18a's
-    arrays."""
+    (18b) phi3-mini-3.8b and (18c) yi-34b served on their blocks; (19a)
+    its ``tp_train`` part, (19b) gemma-2b trained on its blocks. Every
+    rank's record goes to rank 0, which returns them with 16a's, 18a's
+    and 19a's arrays."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -6077,7 +6251,8 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
     _reset_peak(dev)
     rec["cuda_init_s"] = time.perf_counter() - t0
     # ``sizes["parts"]``: the labels to run (a driver iterating on some)
-    parts = sizes.get("parts", ("a", "b", "c", "d", "18a", "18b", "18c"))
+    parts = sizes.get("parts", ("a", "b", "c", "d", "18a", "18b", "18c",
+                                "19a", "19b"))
     arrays = exch = None
     pods = make_debug_mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
     if "a" in parts:
@@ -6094,7 +6269,10 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
                                             sizes["overrides"])),
             ("18a", lambda: _tp_reference(mesh, tp_start)),
             ("18b", lambda: _tp_serve(mesh, dev, sizes["tp_full"])),
-            ("18c", lambda: _tp_serve(mesh, dev, sizes["tp_fsdp"]))):
+            ("18c", lambda: _tp_serve(mesh, dev, sizes["tp_fsdp"])),
+            ("19a", lambda: _tp_train_reference(mesh)),
+            ("19b", lambda: _tp_train_full(mesh, dev,
+                                           sizes["tp_train_full"]))):
         if label not in parts:
             continue
         _sync(dev)
@@ -6222,7 +6400,7 @@ def sharding_reference_check(ref, arrays, exch):
                         ("compressed/0/q8", "compressed/1/q8",
                          "compressed/0/scale", "compressed/1/scale",
                          "compressed/0/err", "compressed/1/err",
-                         "tp/", "tp_plain/"))),
+                         "tp/", "tp_plain/", "tp_train/"))),
           "16a: the ranks' arrays and the file's differ in their names")
     for key, got in sorted(arrays.items()):
         part = key.split("/")[0]
@@ -6375,6 +6553,15 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
               + "; collectives a step (bytes in, wall us) " + "; ".join(
                   ", ".join(f"{k} {v}" for k, v in s.items())
                   for s in b["bytes"]))
+    step0 = b0["bytes"][0]
+    print(f"  16b on the ranks' blocks (kv heads, the padded vocabulary and "
+          f"the experts over model, FSDP over data, the stream's sequence "
+          f"over model): rank 0's collectives a step " + ", ".join(
+              f"{k} {step0[f'{k} bytes'] / 1e9:.2f} GB (every layer gathered "
+              f"whole: {v / 1e9:.2f})" for k, v in
+              SHARD_TRAIN_WHOLE["bytes"].items())
+          + f"; peak {b0['peak_gib']:.2f} GiB "
+            f"({SHARD_TRAIN_WHOLE['peak_gib']} GiB)")
     gap, held, total = b0["ep_layer"]
     check(gap <= BF16_TOL, f"16b: the EP layer at full width differs from "
                            f"_moe_local by {gap:.4g} of its largest |out| "
@@ -6427,7 +6614,7 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
           + f"; peak {d0['peak_gib']:.2f} GiB")
     for rec in ranks:
         print(f"  rank {rec['rank']}: walls " + ", ".join(
-            f"{'' if k.startswith('18') else '16'}{k} {v:.2f} s"
+            f"{'' if k[0].isdigit() else '16'}{k} {v:.2f} s"
             for k, v in rec["walls"].items())
             + "; peaks " + ", ".join(f"16{k} {v:.2f} GiB"
                                      for k, v in rec["peaks"].items()))
@@ -6623,6 +6810,181 @@ def _tp_serve_report(label, spec, ranks) -> list:
     return fails
 
 
+#: 19a: the first step's gradients in the tensor-parallel form against the
+#: form that gathers every leaf whole on the same blocks, and the
+#: vocab-parallel cross-entropy against the whole vocabulary's
+#: (``tests/test_torch_sharding_tp.py``'s rules)
+TP_TRAIN_FORMS = 1e-5
+TP_XENT_RTOL = 2e-6
+#: 19b: the one-rank full-width train step's peak (14c, gemma-2b, 1 x 2048)
+TRAIN_ONE_RANK_PEAK_GIB = 48.90
+
+
+def tp_training_phase(ref, ranks, sizes=SHARD_SIZES):
+    """Phase 19 from the ranks' records: (a) the ``tp_train`` cases against
+    ``experiments/sharding/reference.json`` (the CPU tests' tolerances),
+    their gradients against the gather-whole form's, the collectives over
+    model, the saved carry, the leaf-by-leaf init and the vocab-parallel
+    cross-entropy; (b) gemma-2b trained on its blocks at full width: the
+    loss, gradient norm and layer 0's and the embedding's gradient blocks
+    against the gather-whole form on the same blocks, the step's time,
+    each rank's peak beside its state's bytes, the collectives and the
+    largest loss-chunk logits."""
+    fails = []
+    if "19a" in ranks[0]:
+        fails += _tp_train_reference_check(ref, ranks)
+    if "19b" in ranks[0]:
+        fails += _tp_train_full_report(sizes["tp_train_full"], ranks)
+    check(not fails, "; ".join(fails))
+
+
+def _tp_train_reference_check(ref, ranks) -> list:
+    MC = _mc()
+    arrays = ranks[0]["19a"]["arrays"]
+    mesh_ref = ref["mesh"]
+    keys = sorted(k for k in mesh_ref if k.startswith("tp_train/"))
+    check(keys and keys == sorted(k for k in arrays
+                                  if k.startswith("tp_train/")),
+          "19a: the ranks' tp_train arrays and the file's differ in their "
+          "names")
+    worst, fails = {}, []
+    for key in keys:
+        rtol, atol = _tolerance(key.replace("tp_train/", "train/", 1),
+                                mesh_ref[key])
+        case = key.split("/")[1]
+        worst[case] = max(worst.get(case, 0.0), _array_held(
+            key, arrays[key], mesh_ref[key], rtol, atol))
+    forms = {}
+    for case in MC.TP_TRAIN:
+        head, whole = f"tp_train/{case}/grad/", f"tp_train_whole/{case}/grad/"
+        for key in (k for k in arrays if k.startswith(whole)):
+            want = np.asarray(arrays[key], np.float64)
+            got = np.asarray(arrays[head + key[len(whole):]], np.float64)
+            gap = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            forms[case] = max(forms.get(case, 0.0), gap)
+        if forms[case] > TP_TRAIN_FORMS:
+            fails.append(f"19a {case}: the gradients of the two forms "
+                         f"{forms[case]:.3g} apart")
+        inits = [bool(v) for k, v in arrays.items()
+                 if k.startswith(f"tp_train_init/{case}/")]
+        if len(inits) != 4 or not all(inits):
+            fails.append(f"19a {case}: build_trainer's state is not the "
+                         f"ranks' blocks of the whole draw")
+        ops = [list(v) for k, v in arrays.items()
+               if k.startswith(f"tp_train_ops/{case}/")]
+        if any(o != ops[0] for o in ops):
+            fails.append(f"19a {case}: the ranks issued other collectives")
+        seams = MC.seq_seams(case)
+        got = [ops[0].count(f"{k} model") for k in ("all-gather",
+                                                    "reduce-scatter")]
+        if got != [seams, seams]:
+            fails.append(f"19a {case}: {got} all-gathers and reduce-scatters "
+                         f"over model where the seams of the sequence-"
+                         f"parallel form are {seams} each")
+    for case in MC.TP_FALLBACK:
+        head = f"tp_fallback/{case}/"
+        for key in (k for k in arrays if k.startswith(head + "whole/grad/")):
+            want = np.asarray(arrays[key], np.float64)
+            got = np.asarray(arrays[key.replace("/whole/", "/tp/", 1)],
+                             np.float64)
+            gap = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            forms[case] = max(forms.get(case, 0.0), gap)
+        if forms[case] > TP_TRAIN_FORMS:
+            fails.append(f"19a {case} (a rule's fallback): the gradients "
+                         f"of the two forms {forms[case]:.3g} apart")
+    for form in ("tied", "untied"):
+        k = f"tp_xent/{form}"
+        for name in ("loss", "grad_h", "grad_w"):
+            want = np.asarray(arrays[f"{k}/whole/{name}"], np.float64)
+            got = np.asarray(arrays[f"{k}/vp/{name}"], np.float64)
+            gap = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            if gap > TP_XENT_RTOL:
+                fails.append(f"19a vocab-parallel {form} {name}: {gap:.3g} "
+                             f"off the whole vocabulary's")
+    print(f"[19 tp training] 19a: {len(MC.TP_TRAIN)} cases ("
+          + ", ".join(MC.TP_TRAIN) + ") trained on their blocks against "
+          f"experiments/sharding/reference.json (largest gap over its "
+          f"limit by case: " + ", ".join(f"{c} {v:.3g}" for c, v in
+                                         worst.items())
+          + "); the gradients against the gather-whole form's: "
+          + ", ".join(f"{c} {v:.3g}" for c, v in forms.items())
+          + f" of max |g| (limit {TP_TRAIN_FORMS}); build_trainer's blocks "
+          f"bit-equal to the whole draw's; the vocab-parallel "
+          f"cross-entropy within {TP_XENT_RTOL} of the whole vocabulary's; "
+          f"rank 0 " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                 ranks[0]["19a"]["walls"].items()))
+    return fails
+
+
+def _tp_train_full_report(spec, ranks) -> list:
+    cfg = _tp_config(spec)
+    r0 = ranks[0]["19b"]
+    fails = []
+    for rec in ranks:
+        r = rec["19b"]
+        for form in ("whole", "tp"):
+            if not (np.isfinite(r[form]["loss"])
+                    and np.isfinite(r[form]["gnorm"])):
+                fails.append(f"19b rank {rec['rank']}: {form} loss or "
+                             f"gradient norm not finite")
+        for what in ("loss", "gnorm"):
+            want, got = r["whole"][what], r["tp"][what]
+            if abs(got - want) > BF16_TOL * abs(want):
+                fails.append(f"19b rank {rec['rank']}: {what} {got} "
+                             f"against the gather-whole form's {want}")
+        for path, gap in r["gaps"].items():
+            if gap > BF16_TOL:
+                fails.append(f"19b rank {rec['rank']}: {path}'s gradient "
+                             f"block {gap:.4g} of its max |g| off the "
+                             f"gather-whole form's")
+        if not np.isfinite(r["step_loss"][0]):
+            fails.append(f"19b rank {rec['rank']}: the step's loss")
+    m = spec["mesh"][1]
+    c_s = min(spec["seq"], cfg.loss_chunk // spec["batch"])
+    want_logits = spec["batch"] * c_s * (cfg.padded_vocab // m) * 4
+    if r0["logits"][0] != want_logits:
+        fails.append(f"19b: the largest loss-chunk logits {r0['logits']} "
+                     f"where {want_logits} B were expected")
+    worst = max(((g, p, rec["rank"]) for rec in ranks
+                 for p, g in rec["19b"]["gaps"].items()))
+    print(f"[19 tp training] 19b: {cfg.arch} at full width ({cfg.n_layers} "
+          f"layers) on (data, model) = {spec['mesh']}, {spec['batch']} x "
+          f"{spec['seq']} tokens: {r0['block_params']:,} of "
+          f"{r0['whole_params']:,} parameters a rank ({r0['vocab_rows']} "
+          f"vocabulary rows, d_ff {r0['d_ff']} of {cfg.d_ff}, "
+          f"{r0['heads']} heads); rank 0's loss {r0['tp']['loss']:.6g} "
+          f"(gather-whole form {r0['whole']['loss']:.6g}), gradient norm "
+          f"{r0['tp']['gnorm']:.6g} ({r0['whole']['gnorm']:.6g}); the "
+          f"gradient blocks of layer 0 and the embedding within "
+          f"{worst[0]:.4g} of max |g| (limit {BF16_TOL}; the largest "
+          f"{worst[1]} on rank {worst[2]}) on every rank")
+    print(f"  rank 0: the tensor-parallel step {r0['ms'][0]:.1f} ms "
+          f"(gradients alone {r0['tp']['ms']:.1f} ms); the gather-whole "
+          f"form's gradients {r0['whole']['ms']:.1f} ms; the step's loss "
+          f"{r0['step_loss'][0]:.6g}, grad_norm {r0['step_gnorm']:.6g}; the "
+          f"largest loss-chunk logits a rank allocates {r0['logits'][0]} B "
+          f"{r0['logits'][1]} (c_s x {cfg.padded_vocab // m} x 4; the "
+          f"gather-whole form's c_s x {cfg.padded_vocab} x 4 = "
+          f"{want_logits * m} B)")
+    for rec in ranks:
+        r = rec["19b"]
+        print(f"  rank {rec['rank']}: step peak {r['peak_gib']:.2f} GiB "
+              f"beside its state's {r['state_bytes'] / 2**30:.2f} GiB (the "
+              f"whole model on one rank, 14c: {TRAIN_ONE_RANK_PEAK_GIB} "
+              f"GiB); gradients' peak {r['tp']['peak_gib']:.2f} GiB (the "
+              f"gather-whole form's {r['whole']['peak_gib']:.2f}); init "
+              f"{r['init_s']:.2f} s (peak {r['init_peak_gib']:.2f} GiB); the "
+              f"step's collectives (bytes in, wall us): "
+              + ", ".join(f"{k} {v}" for k, v in r["bytes"][0].items() if v)
+              + "; the gather-whole form's gradients: "
+              + ", ".join(f"{k} {v}" for k, v in r["whole"]["bytes"].items()
+                          if v))
+    return fails
+
+
 # -- phase 17: the dry run and the autotuner ---------------------------------------
 
 #: 17a: a dry run's predicted step peak (arguments + temp) within these
@@ -6646,8 +7008,8 @@ _KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
 
 def dryrun_cells(sizes) -> dict:
     """17a and 17b in this process (a child with no card): phase 16's three
-    cells and 18b's decode dry-run on meta in fake groups of their meshes'
-    ranks, then the
+    cells, 18b's decode and 19b's train step dry-run on meta in fake groups
+    of their meshes' ranks, then the
     production cells through ``launch.dryrun.run_cell``. Returns
     {"a": {"b"|"c"|"d": trace summary}, "b": {key: record}}."""
     from repro_torch.configs import get_config
@@ -6677,6 +7039,10 @@ def dryrun_cells(sizes) -> dict:
     cells["18b"] = (_tp_config(full), ShapeSpec(
         "18b", full["max_len"], full["batch"], "decode"), full["mesh"],
         ("data", "model"))
+    tpt = sizes["tp_train_full"]
+    cells["19b"] = (_tp_config(tpt), ShapeSpec("19b", tpt["seq"],
+                                               tpt["batch"], "train"),
+                    tpt["mesh"], ("data", "model"))
     out = {"a": {}, "b": {}}
     for label, (cfg, shape, mesh, axes) in cells.items():
         t0 = time.perf_counter()
@@ -6730,7 +7096,8 @@ def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES):
     names = {"b": "16b granite-moe-1b-a400m train (2, 2)",
              "c": "16c gemma-2b seq-sharded decode (1, 4)",
              "d": "16d compressed 110M step (2, 1, 1)",
-             "18b": "18b phi3-mini-3.8b decode on its blocks (1, 4)"}
+             "18b": "18b phi3-mini-3.8b decode on its blocks (1, 4)",
+             "19b": "19b gemma-2b train step on its blocks (1, 4)"}
     for label, name in names.items():
         pred, meas = got["a"][label], r0[label]
         mem = pred["memory"]
@@ -7177,6 +7544,19 @@ def main() -> int:
     phase_walls["18 (ranks)"] = sum(
         max(r["walls"][k] for r in shard_ranks) for k in ("18a", "18b",
                                                           "18c"))
+
+    # 19. training on the rank's blocks (the same ranks: 19a the tp_train
+    # cases against the reference, 19b gemma-2b at full width on (1, 4)
+    # against the gather-whole form on the same blocks)
+    t0 = time.perf_counter()
+    print(f"[19 tp training] the ranks of phase 16 ({smi}); their walls: "
+          + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"
+                      for k in ("19a", "19b")))
+    tp_training_phase(shref, shard_ranks)
+    print(f"[19 tp training] {time.perf_counter() - t0:.2f} s to check; none "
+          f"of the 11 kernels launched")
+    phase_walls["19 (ranks)"] = sum(
+        max(r["walls"][k] for r in shard_ranks) for k in ("19a", "19b"))
 
     # 17. the dry run (phase 16's cells on meta, production cells against
     # experiments/dryrun/reference.json) and the autotuner on the card

@@ -65,6 +65,12 @@ Writes ``experiments/sharding/reference.json``. Its parts:
     scale of what reordering the partial sums moves once the caches round
     to bf16.
 
+  - ``tp_train/<case>/...``: training under a plan, each ``TP_TRAIN``
+    config (the ``TP_CASES`` but ``mqa_sharded_1x4``; ``.reduced()``,
+    float32, the conditioned weights) on its own (data, model) mesh
+    through the ``train/...`` recipe: the first batch's ``value_and_grad``
+    and ``STEPS`` steps, their metrics and the params after them.
+
   In the file an array of up to 4096 entries is whole (float32, or int for
   integer arrays, little-endian, base64); a larger one keeps its L2 norm,
   largest |entry|, 8 entries and a 64-row Gaussian sketch (as
@@ -151,6 +157,9 @@ TP_CASES = {
     "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
                                                  "capacity_factor": 8.0}),
 }
+#: training on blocks: the TP_CASES configs but mqa_sharded_1x4 (its decode
+#: form changes nothing in training), through the train recipe
+TP_TRAIN = tuple(c for c in TP_CASES if c != "mqa_sharded_1x4")
 
 
 # -- weights --------------------------------------------------------------------
@@ -431,38 +440,46 @@ def _compressed(out: dict):
         out[f"compressed/params/{path}"] = np.asarray(v)
 
 
+def _train_on(out: dict, key: str, cfg, mesh, tree):
+    """The train recipe on ``mesh``: the first batch's ``value_and_grad``
+    of ``steps._forward_loss`` and ``STEPS`` steps of
+    ``steps.make_train_step``, jitted with ``train_state_shardings`` and
+    ``batch_shardings`` under ``activation_ctx(plan)``; their metrics and
+    the params after them, under ``key``."""
+    plan = make_plan(cfg, mesh)
+    batches = train_batches(cfg)
+    st_sh = train_state_shardings(cfg, plan)
+    b_sh = batch_shardings(cfg, plan, batches[0])
+    step = jax.jit(steps.make_train_step(cfg, AdamWConfig()),
+                   in_shardings=(st_sh, b_sh),
+                   out_shardings=(st_sh, None))
+    grad = jax.jit(jax.value_and_grad(steps._forward_loss(cfg),
+                                      has_aux=True),
+                   in_shardings=(st_sh["params"], b_sh))
+    with mesh, activation_ctx(plan):
+        (loss, nll), g = grad(tree, batches[0])
+        state = jax.device_put(
+            {"params": tree,
+             "opt": {"m": jax.tree.map(jnp.zeros_like, tree),
+                     "v": jax.tree.map(jnp.zeros_like, tree),
+                     "step": jnp.zeros((), jnp.int32)}}, st_sh)
+        for t, batch in enumerate(batches):
+            state, m = step(state, batch)
+            for k in ("loss", "nll", "grad_norm", "lr"):
+                out[f"{key}/{t}/{k}"] = np.asarray(m[k])
+    out[f"{key}/loss"] = np.asarray(loss)
+    out[f"{key}/nll"] = np.asarray(nll)
+    for path, v in leaves(g).items():
+        out[f"{key}/grad/{path}"] = np.asarray(v)
+    for path, v in leaves(state["params"]).items():
+        out[f"{key}/params/{path}"] = np.asarray(v)
+
+
 def _train(out: dict):
     for arch in TRAIN_ARCHS:
-        cfg = train_config(arch)
-        mesh = _mesh((2, 2), ("data", "model"))
-        plan = make_plan(cfg, mesh)
-        tree = jax.tree.map(jnp.asarray, train_weights(arch))
-        batches = train_batches(cfg)
-        st_sh = train_state_shardings(cfg, plan)
-        b_sh = batch_shardings(cfg, plan, batches[0])
-        step = jax.jit(steps.make_train_step(cfg, AdamWConfig()),
-                       in_shardings=(st_sh, b_sh),
-                       out_shardings=(st_sh, None))
-        grad = jax.jit(jax.value_and_grad(steps._forward_loss(cfg),
-                                          has_aux=True),
-                       in_shardings=(st_sh["params"], b_sh))
-        with mesh, activation_ctx(plan):
-            (loss, nll), g = grad(tree, batches[0])
-            state = jax.device_put(
-                {"params": tree,
-                 "opt": {"m": jax.tree.map(jnp.zeros_like, tree),
-                         "v": jax.tree.map(jnp.zeros_like, tree),
-                         "step": jnp.zeros((), jnp.int32)}}, st_sh)
-            for t, batch in enumerate(batches):
-                state, m = step(state, batch)
-                for k in ("loss", "nll", "grad_norm", "lr"):
-                    out[f"train/{arch}/{t}/{k}"] = np.asarray(m[k])
-        out[f"train/{arch}/loss"] = np.asarray(loss)
-        out[f"train/{arch}/nll"] = np.asarray(nll)
-        for path, v in leaves(g).items():
-            out[f"train/{arch}/grad/{path}"] = np.asarray(v)
-        for path, v in leaves(state["params"]).items():
-            out[f"train/{arch}/params/{path}"] = np.asarray(v)
+        _train_on(out, f"train/{arch}", train_config(arch),
+                  _mesh((2, 2), ("data", "model")),
+                  jax.tree.map(jnp.asarray, train_weights(arch)))
 
 
 def tp_config(case: str):
@@ -525,6 +542,14 @@ def _serve(cfg, params, toks, out, key, plan=None):
             v[:, :, pr:pr + n].astype(jnp.float32))
 
 
+def _tp_train(out: dict):
+    for case in TP_TRAIN:
+        cfg = tp_config(case)
+        _train_on(out, f"tp_train/{case}", cfg,
+                  _mesh(TP_CASES[case][1], ("data", "model")),
+                  jax.tree.map(jnp.asarray, _layers_rule()(cfg, SEED)))
+
+
 def _tp(out: dict):
     for case, (_arch, shape, _over) in TP_CASES.items():
         cfg = tp_config(case)
@@ -539,7 +564,7 @@ def _tp(out: dict):
 
 PARTS = {"blocks": _blocks, "ep": _ep, "decode": _decode,
          "pipeline": _pipeline, "compressed": _compressed, "train": _train,
-         "tp": _tp}
+         "tp": _tp, "tp_train": _tp_train}
 #: the parts ``tests/test_torch_sharding_mesh.py`` recomputes
 BASE_PARTS = ("blocks", "ep", "decode", "pipeline", "compressed", "train")
 
@@ -642,6 +667,7 @@ def header() -> dict:
             "data": DATA, "steps": STEPS, "train_archs": list(TRAIN_ARCHS),
             "tp": TP, "tp_cases": {k: [a, list(m), o] for k, (a, m, o)
                                    in TP_CASES.items()},
+            "tp_train": list(TP_TRAIN),
             "whole": WHOLE, "entries": ENTRIES, "sketch": SKETCH,
             "sketch_seed": SKETCH_SEED, "jax": jax.__version__}
 

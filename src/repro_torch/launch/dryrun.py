@@ -16,7 +16,10 @@ storage, no arithmetic) exactly as the port runs it under a plan:
 
 * **train**: ``steps.make_train_step(cfg, plan=, accum_steps=,
   accum_dtype=)`` on the rank's blocks of the train state
-  (``train_state_shardings``), or ``make_compressed_train_step`` where
+  (``train_state_shardings``): for the dense and MoE configs the layers
+  compute on the rank's ``model`` blocks with the residual stream its
+  block of the sequence and the loss vocab-parallel, the other kinds
+  gather each layer whole; or ``make_compressed_train_step`` where
   ``grad_compression == "int8_pod"`` on the multi-pod mesh;
 * **decode** and **prefill**: the steps on the rank's blocks of the
   weights (``partition.serving_shardings``: the JAX step's
@@ -96,7 +99,7 @@ from .roofline import model_flops, roofline_report
 __all__ = ["lower_cell", "run_cell", "dry_run", "trace_rank", "fake_group",
            "LiveBytes", "SkipCell", "TRAIN_ACCUM", "OUT_DIR", "small_cell",
            "rank_collectives", "compare_to_reference", "ANALYTIC_FIELDS",
-           "main"]
+           "train_notes", "main"]
 
 OUT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "experiments"
            / "dryrun" / "torch")
@@ -313,6 +316,30 @@ def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
     return out
 
 
+def train_notes(cfg, plan) -> list:
+    """What the port's sharded train step on ``plan`` does otherwise than
+    the JAX step, which XLA partitions by ``train_state_shardings``: the
+    layer kinds the port trains on whole layers; for the dense and MoE
+    configs (their ``model`` blocks, the sequence-parallel stream, the
+    vocab-parallel loss) attention run whole where its heads are
+    replicated."""
+    msize = plan.mesh.shape.get("model", 1)
+    if not tensor_parallel(cfg):
+        return ["train: the layers gathered whole over every axis, model "
+                "included, on every rank, with the residual stream whole "
+                "and the loss over the whole vocabulary, as the port "
+                "trains the SSM, hybrid, encoder-decoder and prefix "
+                "configs under a plan (the JAX step partitions them by "
+                "train_state_shardings)"]
+    if msize > 1 and plan.rules.get("heads") is None:
+        return [f"train: the heads replicated ({cfg.n_heads} q / "
+                f"{cfg.n_kv_heads} kv do not divide model={msize}): "
+                f"attention runs whole on every model rank from the "
+                f"gathered sequence, each rank keeping its block of the "
+                f"output (XLA partitions it itself)"]
+    return []
+
+
 def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
                replicate_stream: bool = False, accum=(1, None),
                compressed: bool = False, seed: int = 0) -> Dict:
@@ -363,6 +390,7 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
                 accum_dtype=(torch.bfloat16 if accum_dtype
                              else torch.float32))
             args = (state, batch)
+            notes.extend(train_notes(cfg, plan))
         parts["params"] = _storage_bytes(state["params"])
         parts["opt"] = _storage_bytes(state["opt"])
         ctx = activation_ctx(None)

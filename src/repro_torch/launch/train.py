@@ -45,15 +45,20 @@ def build_trainer(cfg, mesh=None, *, lr=3e-4, warmup=20, total_steps=200,
     restore needs, nothing allocated), the fifth the sharding plan of
     ``mesh`` (``launch.mesh.make_debug_mesh((1, 1))`` on ``device`` by
     default). On a mesh of more than one rank the state is this rank's
-    blocks (``sharding.partition.train_state_shardings``), drawn whole from
-    the seed and cut, and the step takes the global batch.
+    blocks (``sharding.partition.train_state_shardings``), drawn from the
+    seed leaf by leaf, each leaf cut to the rank's block and freed before
+    the next is drawn (the same stream in the same order as the whole
+    draw, so the blocks are its blocks bit for bit), and the step takes
+    the global batch.
 
     ``SyntheticLM`` yields tokens and labels only, so an encoder-decoder
     (which needs ``frames``) or a prefix config (``prefix_embeds``) is
     refused here; the JAX package's ``launch.train`` fails on them at its
     first step."""
     from ..sharding import make_plan
-    from ..sharding.partition import shard_tree, train_state_shardings
+    from ..models.common import sorted_leaves
+    from ..sharding.partition import (block, shard_tree,
+                                      train_state_shardings)
     from .mesh import make_debug_mesh
 
     missing = ("frames" if cfg.is_encdec else
@@ -86,9 +91,11 @@ def build_trainer(cfg, mesh=None, *, lr=3e-4, warmup=20, total_steps=200,
         gen = torch.Generator(device=dev).manual_seed(seed)
         if not sharded:
             return steps_mod.init_train_state(cfg, gen, opt_cfg, dev)
+        spec_of = dict(sorted_leaves(specs["params"]))
         params = init_params(steps_mod.model_param_specs(cfg), gen,
-                             steps_mod._dtype(cfg.master_dtype), dev)
-        params = shard_tree(params, specs["params"], mesh)
+                             steps_mod._dtype(cfg.master_dtype), dev,
+                             cut=lambda path, t: block(t, spec_of[path],
+                                                       mesh))
         return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
 
     def like_state():

@@ -19,12 +19,14 @@ memory's k and v from ``memory_kv``) runs the same flash.
 
 Under a plan, a model built on this rank's blocks
 (``sharding.partition.serving_shardings``, the JAX serving steps'
-``params_only_shardings``) runs the reference's partitioned program by
-hand. Where the heads shard over ``model`` (wq/wk/wv, bq/bk/bv and wo are
+``params_only_shardings``), and the sharded train step on the same
+blocks, run the reference's partitioned program by hand. Where the heads shard over ``model`` (wq/wk/wv, bq/bk/bv and wo are
 the rank's heads, the cache its kv heads) the projections, the flash and
 the decode attention run on the local heads, whose group ratio is the
 whole's, and wo's partial sum is reduced over ``model``
-(``partition.psum_rule``). Where they stay whole (one kv head) the cache
+(``partition.psum_rule``; in the sequence-parallel training forward onto
+the rank's block of the sequence, a reduce-scatter, and where the heads
+stay whole each rank keeps the block of its whole output). Where they stay whole (one kv head) the cache
 shards its sequence over ``plan.cache_seq_axis``: the default decode runs
 the gathered decode's softmax partitioned over that axis as XLA
 partitions it (`_decode_attention_seq`: the maximum and the sum over the
@@ -147,13 +149,18 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool,
     return out[:, :sq].to(q.dtype)
 
 
-def _out_proj(out, wo, cfg):
+def _out_proj(out, wo, cfg, seq=None):
     """``out @ wo`` over (heads, head_dim); a rank holding a block of the
-    heads reduces its partial sum over their mesh axes."""
+    heads reduces its partial sum over their mesh axes. ``seq`` (the
+    sequence-parallel training forward's axis): the result is this rank's
+    block of the sequence (``partition.psum_rule``: a reduce-scatter of the
+    partial, or the block of a whole one where the heads are
+    replicated)."""
     from ..sharding.partition import psum_rule, rule_of_block
 
     y = einsum("bshk,hkd->bsd", out, wo)
-    return psum_rule(y, rule_of_block("heads", wo.shape[0], cfg.n_heads))
+    return psum_rule(y, rule_of_block("heads", wo.shape[0], cfg.n_heads),
+                     seq)
 
 
 def _grouped(q, kvh):
@@ -174,14 +181,17 @@ def _flash(q, k, v, *, causal, prefix_len, cfg, q_offset: int = 0):
 
 
 def self_attention(p, x, positions, cfg, *, causal=True, prefix_len=0,
-                   use_rope=True):
-    """x: (B, S, D), positions: (S,). Returns (out (B, S, D), (k, v))."""
+                   use_rope=True, seq=None):
+    """x: (B, S, D), positions: (S,). Returns (out (B, S, D), (k, v));
+    with ``seq`` (the sequence-parallel training forward: ``x`` the
+    gathered sequence) ``out`` is this rank's block of the sequence
+    (`_out_proj`)."""
     q, k, v = _project_qkv(p, x)
     if use_rope:
         q = apply_rope(q, positions[None, :], cfg.rope_theta)
         k = apply_rope(k, positions[None, :], cfg.rope_theta)
     out = _flash(q, k, v, causal=causal, prefix_len=prefix_len, cfg=cfg)
-    return _out_proj(out, p["wo"], cfg), (k, v)
+    return _out_proj(out, p["wo"], cfg, seq), (k, v)
 
 
 def cross_attention(p, x, memory_kv, cfg):

@@ -77,25 +77,41 @@ def _fan_in(s) -> int:
                         if ax not in ("layers", "experts")]))
 
 
-def conditioned_params(cfg, seed: int) -> Dict:
-    """The layers reference's weight rule (float32; see the module
-    docstring)."""
+def _conditioned(path: str, s):
+    """(stddev, mean) of a leaf under the conditioned rule."""
+    if s.init != "normal":
+        mean = SSM_DT_BIAS if path.endswith("dt_bias") else float(
+            s.init == "ones")
+        return SMALL_LEAF_STD, mean
+    if "vocab" in s.axes:
+        return s.stddev(), 0.0
+    return 1.0 / float(np.sqrt(max(_fan_in(s), 1))), 0.0
+
+
+def conditioned_params(cfg, seed: int = 0, generator=None,
+                       cut=None) -> Dict:
+    """The layers reference's weight rule (float32 numpy; see the module
+    docstring). ``generator`` (a ``torch.Generator``): the same rule drawn
+    leaf by leaf from it with ``torch.randn`` on its device instead of from
+    numpy's generator of ``seed`` (other values, as tensors); ``cut(path,
+    leaf)`` keeps what it returns of each drawn leaf (a rank's block, as
+    ``common.init_params``' ``cut``), so the whole tree never exists at
+    once."""
     leaves = dict(tree_leaves(model_param_specs(cfg)))
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if generator is None else None
     out = {}
     for path in sorted(leaves):
         s = leaves[path]
-        mean = 0.0
-        if s.init != "normal":
-            std = SMALL_LEAF_STD
-            mean = SSM_DT_BIAS if path.endswith("dt_bias") else float(
-                s.init == "ones")
-        elif "vocab" in s.axes:
-            std = s.stddev()
+        std, mean = _conditioned(path, s)
+        if generator is None:
+            x = rng.standard_normal(s.shape, np.float32) * np.float32(
+                std) + np.float32(mean)
         else:
-            std = 1.0 / float(np.sqrt(max(_fan_in(s), 1)))
-        out[path] = rng.standard_normal(s.shape, np.float32) * np.float32(
-            std) + np.float32(mean)
+            x = torch.randn(s.shape, generator=generator,
+                            dtype=torch.float32,
+                            device=generator.device).mul_(std).add_(mean)
+        out[path] = x if cut is None else cut(path, x)
+        del x
     return unflatten(out)
 
 

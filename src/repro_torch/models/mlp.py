@@ -8,7 +8,9 @@ A rank holding its block of d_ff (wi / wg its column blocks, wo its row
 block along ``mlp``; ``sharding.partition.serving_shardings``) computes
 its share of the hidden units and reduces the down-projection's partial
 sum over their mesh axes, as XLA partitions the reference under
-``params_only_shardings``.
+``params_only_shardings``; in the sequence-parallel training forward
+(``seq``) the sum lands on the rank's block of the sequence
+(``partition.psum_rule``: a reduce-scatter).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def _act(cfg):
     return lambda x: F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp(p: Dict, x: torch.Tensor, cfg, seq=None) -> torch.Tensor:
     act = _act(cfg)
     h = einsum("...d,df->...f", x, p["wi"])
     if "wg" in p:
@@ -53,4 +55,5 @@ def mlp(p: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     from ..sharding.partition import psum_rule, rule_of_block
 
     y = einsum("...f,fd->...d", h, p["wo"])
-    return psum_rule(y, rule_of_block("mlp", p["wo"].shape[0], cfg.d_ff))
+    return psum_rule(y, rule_of_block("mlp", p["wo"].shape[0], cfg.d_ff),
+                     seq)

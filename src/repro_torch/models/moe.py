@@ -124,13 +124,18 @@ def _pad_experts(w, e_pad: int):
     return F.pad(w, (0, 0, 0, 0, 0, e_pad - w.shape[0])) if e_pad > w.shape[0] else w
 
 
-def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True):
+def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True,
+            seq=None):
     """Expert-parallel MoE on this rank (the reference's ``shard_map`` body
     and its in/out specs). x: this rank's (B_loc, S, D) activations, its
     block of the batch when ``partition.split_batch()``, else the whole
     batch; router whole; wi / wg / wo whole, or this rank's block of the
     experts over ``model`` when the plan shards experts (their d_model
-    whole). Returns (out like x, aux on every rank)."""
+    whole). ``seq`` (the sequence-parallel training forward's axis,
+    ``model``): ``x`` already is this rank's block of the sequence, the
+    ``seq_split`` tokens, as the ``shard_map``'s in-spec carries the split;
+    the output stays that block. Returns (out like x, aux on every
+    rank)."""
     from ..sharding import comm
     from ..sharding.partition import batch_axis, rebatch, split_batch
 
@@ -139,6 +144,12 @@ def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True):
     ep = mesh.shape[ep_axis]
     split = split_batch()
     b_loc, s, d = x.shape
+    if seq is not None:
+        if seq != ep_axis:
+            raise ValueError(f"a sequence block over {seq!r}: the expert "
+                             f"exchange splits the sequence over "
+                             f"{ep_axis!r}")
+        s = s * ep
     b = b_loc * plan.axis_size(plan.batch_axes) if split else b_loc
     e, k = cfg.n_experts, cfg.top_k
     e_pad = ((e + ep - 1) // ep) * ep
@@ -164,7 +175,7 @@ def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True):
 
     xl = rebatch(x, plan, split, dp is not None)
     s_loc = s // ep if seq_split else s
-    if seq_split:
+    if seq_split and seq is None:
         xl = xl[:, midx * s_loc:(midx + 1) * s_loc]
     bl = xl.shape[0]
     t_loc = bl * s_loc
@@ -215,23 +226,24 @@ def _moe_ep(x, router, wi, wg, wo, cfg, plan, need_aux: bool = True):
     safe = torch.clamp_max(flat, e_pad * cap - 1)
     yk = y_flat[safe] * (gate.reshape(t_loc * k, 1) * keep[:, None]).to(xl.dtype)
     out = yk.reshape(t_loc, k, d).sum(1).reshape(bl, s_loc, d)
-    if seq_split:
+    if seq_split and seq is None:
         out = comm.all_gather(out, mesh, ep_axis, 1)
     return rebatch(out, plan, dp is not None, split), aux.float()
 
 
-def moe(p: Dict, x: torch.Tensor, cfg,
-        need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(p: Dict, x: torch.Tensor, cfg, need_aux: bool = True,
+        seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux_loss scalar). Under a plan with
     ``model > 1``, `_moe_ep` on ``p``'s experts: whole, or this rank's
-    block of them over ``model`` (a model served on its blocks; the router
-    whole)."""
+    block of them over ``model`` (a model served or trained on its blocks;
+    the router whole). ``seq``: ``x`` is this rank's block of the
+    sequence over that axis (`_moe_ep`)."""
     from ..sharding.partition import current_plan, rebatch, split_batch
 
     plan = current_plan()
     if plan is not None and plan.mesh.shape.get("model", 1) > 1:
         return _moe_ep(x, p["router"], p["wi"], p["wg"], p["wo"], cfg, plan,
-                       need_aux)
+                       need_aux, seq)
     split = plan is not None and split_batch()
     if split:
         x = rebatch(x, plan, True, False)

@@ -29,8 +29,15 @@ batch splits over ``plan.batch_axes``. The loss casts the master blocks
 to ``cfg.param_dtype`` and gathers each cast leaf over its spec's axes
 before use (the bf16 cast, not the float32 master, as the reference pins
 the cast copy to the master's sharding): the top-level leaves once, each
-layer's inside its remat (`transformer.forward`'s ``gather_layer``); the
-experts of an expert-parallel layer stay this rank's. The loss and nll are
+layer's inside its remat (`transformer.forward`'s ``gather_layer``). A
+dense or MoE config (``partition.tensor_parallel``) gathers over every
+axis but ``model`` (FSDP's ``embed``) and computes on its ``model``
+blocks, as XLA partitions the reference under ``train_state_shardings``:
+heads, the MLP and the experts over ``model``, their partial sums reduced,
+the residual stream between the layers the rank's block of the sequence
+over ``plan.seq_axis`` (``partition.seq_axis_for``), the loss
+vocab-parallel. The other kinds gather each leaf whole (the experts of an
+expert-parallel layer stay this rank's). The loss and nll are
 global-batch means on every rank; the gradients follow
 ``sharding.comm``'s partial convention (the loss over ``mesh.size``, then
 each leaf summed over the axes its spec does not name), so each rank ends
@@ -183,51 +190,72 @@ def _value_and_grad(loss_fn) -> Callable:
 
 # -- training under a sharding plan ----------------------------------------------
 
-def _leaf_gather(cfg, plan, spec_of: Dict):
-    """(gather_top(path, t), gather_layer(i, lp)): a cast leaf whole from
-    this rank's block, over its spec's axes; an expert-parallel layer's
-    experts stay this rank's block along ``model``."""
-    from ..sharding.partition import gather_leaf
+def _leaf_gather(cfg, plan, spec_of: Dict, tp: bool):
+    """(gather_top(path, t), gather_layer(i, lp)): a cast leaf from this
+    rank's block, gathered over its spec's axes: with ``tp`` (a
+    `partition.tensor_parallel` config) over all but ``model``, whose
+    blocks the layers compute on (``partition.tp_keep``: an MoE router, and
+    experts that ``model`` does not split, whole); else whole, but an
+    expert-parallel layer's experts, which stay this rank's block along
+    ``model``."""
+    from ..sharding.partition import gather_leaf, tp_keep
     from ..sharding.rules import P
 
     mesh = plan.mesh
     ep = plan.mesh.shape.get("model", 1) > 1
+    # pattern element i's per-layer specs by part (the stacked spec without
+    # its layers entry)
+    layer_specs: Dict = {}
+    for path, sp in spec_of.items():
+        parts = path.split("/")
+        if parts[0] == "layers" and len(parts) == 4:
+            layer_specs.setdefault(parts[1], {}).setdefault(
+                parts[2], {})[parts[3]] = P(*sp[1:])
 
-    def spec(path: str, per_layer: bool):
-        sp = spec_of[path]
-        if per_layer:
-            sp = P(*sp[1:])
-        if ep and path.rsplit("/", 1)[-1] in ("wi", "wg", "wo") \
-                and "/moe/" in path and sp[0] == "model":
-            sp = P(None, *sp[1:])
-        return sp
+    def keep(ls: Dict, name: str, key: str) -> tuple:
+        if tp:
+            return tp_keep(name, key, ls)
+        if ep and name == "moe" and key in ("wi", "wg", "wo") \
+                and ls[name][key][0] == "model":
+            return ("model",)
+        return ()
 
     def gather_top(path, t):
-        return gather_leaf(t, spec(path, False), mesh)
+        return gather_leaf(t, spec_of[path], mesh, ("model",) if tp else ())
 
     def gather_layer(i, lp):
-        return {name: {k: gather_leaf(t, spec(f"layers/l{i}/{name}/{k}",
-                                              True), mesh)
+        ls = layer_specs[f"l{i}"]
+        return {name: {k: gather_leaf(t, ls[name][k], mesh,
+                                      keep(ls, name, k))
                        for k, t in sub.items()} for name, sub in lp.items()}
 
     return gather_top, gather_layer
 
 
-def _mesh_grad_fn(cfg, plan, spec_tree, outer=()):
+def _mesh_grad_fn(cfg, plan, spec_tree, outer=(), tp=None):
     """grad_fn(blocks, batch, split) -> ((loss, nll), grads) on this rank:
     the global-batch loss and nll (``batch`` is this rank's block of the
     batch when ``split``), and this rank's block of the gradient. Axes in
     ``outer`` are left alone (the compressed step's ``pod``): the ranks
-    along them run their own programs."""
+    along them run their own programs. ``tp`` (by default whether ``cfg``
+    is ``partition.tensor_parallel``; False gives the form that gathers
+    every leaf whole, the oracle of the checks): the layers compute on the
+    rank's ``model`` blocks, the residual stream between them is the
+    rank's block of the sequence over ``plan.seq_axis`` and the loss is
+    vocab-parallel (``models.transformer``); a leaf whole along ``model``
+    (a norm, the router, replicated heads) is still summed over it by
+    ``comm.reduce_grads``, a ``model`` block is not."""
     from ..sharding import comm
-    from ..sharding.partition import activation_ctx
+    from ..sharding.partition import activation_ctx, tensor_parallel
 
+    if tp is None:
+        tp = tensor_parallel(cfg)
     mesh = plan.mesh
     inner = tuple(a for a in mesh.axis_names if a not in outer)
     n_inner = mesh.axis_size(inner)
     compute_dtype = _dtype(cfg.param_dtype)
-    gather_top, gather_layer = _leaf_gather(cfg, plan,
-                                            dict(sorted_leaves(spec_tree)))
+    gather_top, gather_layer = _leaf_gather(
+        cfg, plan, dict(sorted_leaves(spec_tree)), tp)
 
     def gathered(path, v):
         if isinstance(v, dict):
@@ -256,7 +284,7 @@ def _mesh_grad_fn(cfg, plan, spec_tree, outer=()):
         leaves = [t.detach().requires_grad_() for t in leaves]
         p = tree_map(lambda x: x.to(compute_dtype),
                      unflatten(dict(zip(paths, leaves))))
-        with activation_ctx(plan, split):
+        with activation_ctx(plan, split, seq=tp):
             ls, ts, aux = loss_sums(p, batch)
             baxes = tuple(a for a in plan.batch_axes if a not in outer)
             if split and baxes:
@@ -434,7 +462,7 @@ def make_compressed_train_step(cfg, plan, opt_cfg: Optional[AdamWConfig] = None,
     inner_plan = _dc.replace(
         plan, batch_axes=tuple(a for a in plan.batch_axes if a != "pod"))
     rep = tree_map(lambda s: P(), model_param_specs(cfg))
-    grad_fn = _mesh_grad_fn(cfg, inner_plan, rep, outer=("pod",))
+    grad_fn = _mesh_grad_fn(cfg, inner_plan, rep, outer=("pod",), tp=False)
 
     def train_step(state: Dict, batch: Dict, err: Dict):
         params = state["params"]

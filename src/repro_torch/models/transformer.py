@@ -186,48 +186,60 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # -- one layer, and the training forward ---------------------------------------
 
 def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-                  prefix_len: int = 0, need_aux: bool = True):
+                  prefix_len: int = 0, need_aux: bool = True, seq=None):
     """One layer over its parameter dict ``lp``, whose keys name its kind:
     ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
     ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
     otherwise, or without ``need_aux``), and attention's (k, v) or the
-    SSM's decode state."""
-    from ..sharding.partition import maybe_constrain
+    SSM's decode state.
 
-    x = maybe_constrain(x)
+    ``seq`` (the sequence-parallel training forward's axis,
+    ``partition.seq_axis_for``): ``x`` is this rank's block of the
+    sequence; each norm runs on it, the sequence is gathered back into
+    attention and the MLP (``partition.seq_gather``) and their outputs are
+    reduced onto the block (``partition.psum_rule``'s ``seq``); the MoE
+    takes the block as its tokens."""
+    from ..sharding.partition import seq_gather
+
     h = _apply_norm(lp["norm1"], x, cfg)
     if "attn" in lp:
+        if seq is not None:
+            h = seq_gather(h, seq)
         y, cache = attention.self_attention(lp["attn"], h, positions, cfg,
                                             causal=True,
-                                            prefix_len=prefix_len)
+                                            prefix_len=prefix_len, seq=seq)
     else:
         y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True)
-    x, aux = _ffn(lp, x + y, cfg, need_aux)
-    return maybe_constrain(x), aux, cache
+    x, aux = _ffn(lp, x + y, cfg, need_aux, seq)
+    return x, aux, cache
 
 
-def _ffn(lp: Dict, x: torch.Tensor, cfg,
-         need_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(lp: Dict, x: torch.Tensor, cfg, need_aux: bool = True,
+         seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's second half (``norm2`` and ``mlp`` or ``moe``, or
-    nothing): (x, the MoE aux loss or 0)."""
+    nothing): (x, the MoE aux loss or 0); ``seq`` as `layer_forward`'s."""
+    from ..sharding.partition import seq_gather
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "norm2" in lp:
         h2 = _apply_norm(lp["norm2"], x, cfg)
         if "moe" in lp:
-            y2, aux = moe.moe(lp["moe"], h2, cfg, need_aux)
+            y2, aux = moe.moe(lp["moe"], h2, cfg, need_aux, seq=seq)
         else:
-            y2 = mlp.mlp(lp["mlp"], h2, cfg)
+            if seq is not None:
+                h2 = seq_gather(h2, seq)
+            y2 = mlp.mlp(lp["mlp"], h2, cfg, seq=seq)
         x = x + y2
     return x, aux
 
 
-def _layer(lp, x, positions, cfg, prefix_len, gather=None):
+def _layer(lp, x, positions, cfg, prefix_len, gather=None, seq=None):
     """One training layer; ``gather(lp)`` first makes whole the parameters
     of a rank that holds blocks of them (inside the remat, so the backward
-    gathers again instead of keeping them)."""
+    gathers again instead of keeping them); ``seq``: `layer_forward`'s."""
     if gather is not None:
         lp = gather(lp)
-    return layer_forward(lp, x, positions, cfg, prefix_len)[:2]
+    return layer_forward(lp, x, positions, cfg, prefix_len, seq=seq)[:2]
 
 
 def _saves_dots(ctx, op, *args, **kwargs):
@@ -270,23 +282,29 @@ def _unbind_layers(stacked: Dict) -> List[Dict]:
              for name, sub in split.items()} for i in range(n)]
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_tokens(params: Dict, tokens: torch.Tensor, cfg,
+                 seq=None) -> torch.Tensor:
     """The lookup, then the scale. A rank holding a block of the
     vocabulary's rows looks up the ids inside it, zeros the others and
-    sums over the block's mesh axes (one row is not zero: exact)."""
-    from ..sharding.partition import current_plan, psum_rule, rule_of_block
+    sums over the block's mesh axes (one row is not zero: exact). ``seq``
+    (the sequence-parallel training forward's axis): the result is this
+    rank's block of the sequence (the sum a reduce-scatter onto it)."""
+    from ..sharding.partition import (current_plan, psum_rule, rule_of_block,
+                                      seq_block)
 
     emb = params["embed"]
     axes = rule_of_block("vocab", emb.shape[0], cfg.padded_vocab)
     if axes is None:
         x = emb[tokens]
+        if seq is not None:
+            x = seq_block(x, seq)
     else:
         v = emb.shape[0]
         local = tokens.long() - current_plan().mesh.axis_index(axes) * v
         mine = (local >= 0) & (local < v)
         x = torch.where(mine[..., None], emb[torch.where(mine, local, 0)],
                         torch.zeros((), dtype=emb.dtype, device=emb.device))
-        x = psum_rule(x, axes)
+        x = psum_rule(x, axes, seq)
     if cfg.embed_scale:
         # the factor is cast to the activations' dtype first
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -331,14 +349,23 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
 
     ``gather_layer(i, lp)``, when given, turns pattern element ``i``'s
     per-layer dict of blocks (a rank's share under a sharding plan) into
-    the whole parameters, inside each layer's remat: the counterpart of
-    the ZeRO-3 gather inside the reference's layer scan."""
-    from ..sharding.partition import maybe_constrain
+    the parameters the layer computes on, inside each layer's remat: the
+    counterpart of the ZeRO-3 gather inside the reference's layer scan.
 
-    x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg),
+    In the sequence-parallel training forward (``partition.activation_ctx
+    (..., seq=True)``, the sharded train step of a tensor-parallel config,
+    no prefix) the stream is this rank's block of the sequence over
+    ``plan.seq_axis`` from the embedding on (``partition.seq_axis_for``:
+    where the sequence divides it): the carry between the layers (what
+    their remat keeps) and the final norm's input; the hidden states
+    returned are that block (`lm_loss_sums` gathers them)."""
+    from ..sharding.partition import seq_axis_for
+
+    seq = None if prefix_embeds is not None else seq_axis_for(
+        tokens.shape[1])
+    x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg, seq),
                                  prefix_embeds)
-    x = maybe_constrain(x)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(prefix_len + tokens.shape[1], device=x.device)
     (pattern, repeats), = cfg.layer_groups()
     layers = [_unbind_layers(params["layers"][f"l{i}"])
               for i in range(len(pattern))]
@@ -349,7 +376,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
             gather = (None if gather_layer is None else
                       functools.partial(gather_layer, i))
             x, a = _remat(_layer, cfg, per_layer[r], x, positions, cfg,
-                          prefix_len, gather)
+                          prefix_len, gather, seq)
             aux = aux + a
         auxs.append(aux)
     x = _apply_norm(params["final_norm"], x, cfg)
@@ -357,13 +384,59 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
 
 
 def _loss_chunk(params, hc, yc, cfg):
-    """(sum of the chunk's token losses, its token count), float32."""
+    """(sum of the chunk's token losses, its token count), float32. Where
+    the rank holds a block of the vocabulary the loss is vocab-parallel
+    (`_vocab_parallel_nll`): its logits never exist whole."""
+    from ..sharding.partition import rule_of_block
+
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    axes = rule_of_block("vocab", w.shape[0 if cfg.tie_embeddings else 1],
+                         cfg.padded_vocab)
+    if axes is not None:
+        return _vocab_parallel_nll(w, hc, yc, cfg, axes)
     logits = logits_from_hidden(params, hc, cfg).float()
     if cfg.logit_softcap > 0.0:
         logits = cfg.logit_softcap * torch.tanh(div(logits, cfg.logit_softcap))
     lse = torch.logsumexp(logits, dim=-1)
     safe = torch.clamp(yc, 0, cfg.padded_vocab - 1).long()
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    m = (yc >= 0).float()
+    return torch.sum((lse - ll) * m), torch.sum(m)
+
+
+def _vocab_parallel_nll(w, hc, yc, cfg, axes):
+    """`_loss_chunk` on this rank's block ``w`` of the vocab projection's
+    rows (tied: ``embed``'s, else ``lm_head``'s columns) over the mesh
+    ``axes``: the local float32 logits (B, c, V / n), softcapped
+    elementwise; the row maximum over the axes (``comm.pmax``, no
+    gradient: the log-sum-exp does not depend on the shift); the sum of
+    the exponentials over the axes (``comm.psum``); the label's logit from
+    the rank whose block holds it, zero elsewhere (``comm.psum``). The
+    padded vocabulary's rows count in the log-sum-exp, as in the JAX
+    loss over ``padded_vocab``."""
+    from ..sharding import comm
+    from ..sharding.partition import current_plan
+
+    mesh = current_plan().mesh
+    if cfg.tie_embeddings:
+        logits = einsum("...d,vd->...v", hc, w).float()
+    else:
+        logits = einsum("...d,dv->...v", hc, w).float()
+    if cfg.logit_softcap > 0.0:
+        logits = cfg.logit_softcap * torch.tanh(div(logits, cfg.logit_softcap))
+    v = logits.shape[-1]
+    top = comm.pmax(torch.amax(logits.detach(), dim=-1), mesh, axes)
+    sumexp = comm.psum(torch.sum(torch.exp(logits - top[..., None]), dim=-1),
+                       mesh, axes)
+    lse = top + torch.log(sumexp)
+    local = (torch.clamp(yc, 0, cfg.padded_vocab - 1).long()
+             - mesh.axis_index(axes) * v)
+    mine = (local >= 0) & (local < v)
+    ll = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[
+        ..., 0]
+    ll = comm.psum(torch.where(mine, ll, torch.zeros((), dtype=ll.dtype,
+                                                     device=ll.device)),
+                   mesh, axes)
     m = (yc >= 0).float()
     return torch.sum((lse - ll) * m), torch.sum(m)
 
@@ -387,7 +460,15 @@ def lm_loss_sums(params: Dict, hidden: torch.Tensor, labels: torch.Tensor,
                  cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """`lm_loss`'s (sum of the token losses, count of the labelled tokens),
     float32: what a rank holding a block of the batch adds up with the
-    others."""
+    others. ``hidden`` that is this rank's block of the sequence (the
+    sequence-parallel training forward's) is gathered first: one mesh
+    axis cannot shard both the sequence and the vocabulary of a chunk's
+    logits."""
+    from ..sharding.partition import seq_axis_for, seq_gather
+
+    seq = seq_axis_for(labels.shape[1])
+    if seq is not None and hidden.shape[1] != labels.shape[1]:
+        hidden = seq_gather(hidden, seq)
     b, s, _d = hidden.shape
     c_s = max(1, min(s, cfg.loss_chunk // max(b, 1)))
     pad = (-s) % c_s
@@ -434,25 +515,14 @@ class Block(nn.Module):
         FSDP ``embed`` gather); an MoE layer's router whole, its experts
         this rank's block where ``model`` shards the experts (else whole,
         as the train step gathers them)."""
-        from ..sharding.partition import gather_leaf
+        from ..sharding.partition import gather_leaf, tp_keep
 
         if self.spec is None:
             return self.params()
-        out = {}
-        for name in self.names:
-            spec = self.spec[name]
-
-            def keep(k):
-                # an MoE layer's router whole, and its experts whole where
-                # model does not split them
-                if name == "moe" and (k == "router"
-                                      or spec["wi"][0] != "model"):
-                    return ()
-                return ("model",)
-
-            out[name] = {k: gather_leaf(t, spec[k], self.mesh, keep(k))
-                         for k, t in getattr(self, name).items()}
-        return out
+        return {name: {k: gather_leaf(t, self.spec[name][k], self.mesh,
+                                      tp_keep(name, k, self.spec))
+                       for k, t in getattr(self, name).items()}
+                for name in self.names}
 
     def forward(self, x, positions, cfg, prefix_len=0):
         return layer_forward(self.local_params(), x, positions, cfg,

@@ -7,20 +7,24 @@ partitioner, so it runs SPMD by hand, each rank one process of a
 
 * a ``NamedSharding`` becomes the rank's own block of the tensor
   (`partition.shard_tree`; `partition.gather_tree` rebuilds the whole);
-* ``with_sharding_constraint`` changes no values
-  (`partition.maybe_constrain` returns its input);
+* ``with_sharding_constraint`` changes no values, so it has no
+  counterpart (the training forward of a tensor-parallel config makes its
+  residual stream the rank's block of the sequence where it makes the
+  stream: `partition.seq_axis_for`);
 * a ``shard_map`` collective becomes a ``torch.distributed`` collective on
   the subgroup of the named axis (`comm`), differentiable, its backward
   the exact adjoint.
 
-Compute outside the ``shard_map`` regions is replicated over the axes that
-do not split the batch: a step gathers each parameter over its spec's axes
-before use.
+Compute outside the ``shard_map`` regions is partitioned by hand: a dense
+or MoE config (`partition.tensor_parallel`) serves and trains on the
+rank's ``model`` blocks, each layer gathering its leaves over the other
+axes (FSDP) before use and reducing its partial sums over ``model``; the
+other layer kinds gather each parameter whole over its spec's axes.
 """
 from .rules import P, ShardingPlan, make_plan, param_shardings, spec_to_pspec  # noqa: F401
 from .partition import (  # noqa: F401
     activation_ctx, batch_shardings, current_plan, decode_input_shardings,
-    gather_tree, maybe_constrain, params_only_shardings, shard_tree,
+    gather_tree, params_only_shardings, shard_tree,
     train_state_shardings,
 )
 from .pipeline import bubble_fraction, pipeline_apply  # noqa: F401

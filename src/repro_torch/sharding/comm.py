@@ -13,6 +13,8 @@ JAX                    here (autograd: the exact adjoint)
 ``all_gather(tiled)``  `all_gather`; backward the reduce-scatter (gloo
                        has none: an ``all_to_all_single`` of the chunks,
                        then this rank's sum)
+``psum_scatter``       `psum_scatter`: that reduce-scatter; backward
+                       `all_gather`
 ``all_to_all(tiled)``  `all_to_all`; backward the reverse exchange
 ``ppermute``           `ppermute`: ``isend`` / ``irecv``; backward the
                        inverse permutation
@@ -46,8 +48,9 @@ import torch.distributed as tdist
 from .. import obs
 from ..launch.mesh import Axes, Mesh, axes_tuple
 
-__all__ = ["psum", "pmean", "pmax", "all_gather", "all_to_all", "ppermute",
-           "reduce_grads", "record_collectives", "HLO_KINDS"]
+__all__ = ["psum", "pmean", "pmax", "all_gather", "psum_scatter",
+           "all_to_all", "ppermute", "reduce_grads", "record_collectives",
+           "HLO_KINDS"]
 
 #: the counters' kinds under the HLO names ``launch.roofline`` uses
 HLO_KINDS = {"all_reduce": "all-reduce", "reduce_scatter": "reduce-scatter",
@@ -155,7 +158,11 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes,
     """This rank's slice along ``dim`` of the sum of every member's ``x``:
     gloo has no reduce-scatter, so chunk j goes to member j
     (``all_to_all_single``) and each rank sums what it receives, in the
-    members' order (the bytes of an all-reduce's first half)."""
+    members' order (the bytes of an all-reduce's first half). The chunks
+    travel in ``x``'s dtype; a bf16 sum is taken in float32 and rounded
+    once, as XLA's CPU reduce-scatter promotes it (its reduction
+    computation ``region_0.0_promoted``), where a bf16 sum would round at
+    every add."""
     group, members = mesh.group(axes)
     if group is None:
         return x.clone()
@@ -170,9 +177,11 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axes: Axes,
         recv = torch.empty_like(send)
         tdist.all_to_all_single(recv, send, group=group)
         by_rank = dict(zip(order, recv.unbind(0)))
-        out = by_rank[members[0]].clone()
+        acc = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+        out = by_rank[members[0]].to(acc, copy=True)
         for r in members[1:]:
             out += by_rank[r]
+        out = out.to(t.dtype)
         _record("reduce_scatter", x, _nbytes(out), mesh, axes)
         return out.to(x.device) if staged else out
 
@@ -215,6 +224,18 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         return (_reduce_scatter(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
                 None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter(x.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.cat(_gather_list(g.contiguous(), ctx.mesh, ctx.axes),
+                          dim=ctx.dim), None, None, None)
 
 
 def _exchange(x: torch.Tensor, mesh: Mesh, axis: str, split: int,
@@ -317,10 +338,23 @@ def pmax(x: torch.Tensor, mesh: Mesh, axes: Optional[Axes]) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh: Mesh, axes: Optional[Axes],
                dim: int) -> torch.Tensor:
     """``jax.lax.all_gather(x, axes, axis=dim, tiled=True)``: the members'
-    blocks concatenated along ``dim`` in linear order."""
+    blocks concatenated along ``dim`` in linear order; backward the
+    reduce-scatter (`psum_scatter`)."""
     if mesh.axis_size(axes) <= 1:
         return x
     return _AllGather.apply(x, mesh, axes_tuple(axes), dim % x.ndim)
+
+
+def psum_scatter(x: torch.Tensor, mesh: Mesh, axes: Optional[Axes],
+                 dim: int) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axes, scatter_dimension=dim,
+    tiled=True)``: this rank's slice along ``dim`` of the sum of every
+    member's ``x`` (the members' linear order); backward `all_gather`. A
+    bf16 ``x`` is summed in float32 and rounded once, as XLA's CPU
+    reduce-scatter promotes it."""
+    if mesh.axis_size(axes) <= 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axes_tuple(axes), dim % x.ndim)
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,

@@ -13,7 +13,11 @@ in the ``tp`` part, serving on this rank's blocks: each `TP_CASES`
 config's prefill and decode steps (``tp/...``) beside the port's
 unsharded steps on the whole weights (``tp_plain/...``), each rank's
 storage bytes (``tp_bytes/...``) and one decode step's collectives
-(``tp_ops/...``).
+(``tp_ops/...``); in the ``tp_train`` part, training on this rank's
+blocks: each `TP_TRAIN` config through the ``train`` recipe
+(``tp_train/...``) beside the gather-whole form's gradients, a step's
+collectives, the saved carry's shapes, ``build_trainer``'s state and the
+vocab-parallel cross-entropy (`_tp_train`).
 Outputs and gradients are gathered whole; rank 0 returns them with each
 part's wall time. `pod_exchange` runs `steps.pod_reduce` on given
 gradients and errors (one pod a rank). ``tests/test_torch_sharding_mesh.py``
@@ -34,7 +38,8 @@ import torch.distributed as tdist
 
 __all__ = ["run", "pod_exchange", "EP_X", "DECODE", "PIPELINE",
            "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED",
-           "TP", "TP_CASES", "tp_config", "tp_tokens", "tp_start_caches"]
+           "TP", "TP_CASES", "TP_TRAIN", "TP_XENT", "tp_config", "tp_tokens",
+           "tp_start_caches", "seq_seams", "TP_FALLBACK"]
 
 SEED = 0
 EP_CUT = dict(d_model=64, moe_d_ff=32)
@@ -68,6 +73,23 @@ TP_CASES = {
     "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
                                                  "capacity_factor": 8.0}),
 }
+#: training on blocks: the `TP_CASES` configs through the `train` recipe
+#: (`DATA`'s batch of 4 x 32, `STEPS` steps); the decode form of
+#: mqa_sharded_1x4 changes nothing in training
+TP_TRAIN = tuple(c for c in TP_CASES if c != "mqa_sharded_1x4")
+#: each rule's fallback, trained on (1, 4) in both forms: a sequence of 30
+#: positions (30 % 4: the stream stays whole), a 510-row vocabulary (510 %
+#: 4: the vocabulary stays whole); case: (arch, overrides, seq)
+TP_FALLBACK = {
+    "seq_30": ("phi3-mini-3.8b", {"n_layers": 2, "n_kv_heads": 4}, 30),
+    "vocab_510": ("gemma-2b", {"n_layers": 2, "vocab_size": 510,
+                               "vocab_pad_to": 2}, 32),
+}
+#: the vocab-parallel cross-entropy check: gemma-2b's ``.reduced()`` at a
+#: 500-token vocabulary padded to 512 (12 padded rows), a softcap, a chunk
+#: of 2 x 16 positions on (1, 4)
+TP_XENT = {"cut": {"vocab_size": 500, "logit_softcap": 30.0}, "chunk": 16,
+           "seed": 11}
 
 
 # -- inputs (the reference's rules) ---------------------------------------------------
@@ -383,37 +405,256 @@ def _compressed(out, dev):
         out[f"compressed/params/{path}"] = _np(v)
 
 
-def _train(out, dev):
+def _train_on(out, key, cfg, mesh, weights, dev, probes=None):
+    """The reference's train recipe on this rank's blocks of ``weights``:
+    the first batch's loss, nll and gradients (``key/grad/...``, gathered
+    whole), then `STEPS` steps of ``make_train_step`` (each step's metrics
+    under ``key/<t>/...``) and the params after them. Returns (the plan,
+    the spec tree, the blocks before the steps).
+
+    ``probes`` (a dict) gets ``"ops"``, the first gradients' collectives
+    ("kind axes" of each), taken with the remat off (the remat changes no
+    number, but re-issues a layer's collectives in the backward), and
+    ``"saved"``, the shapes autograd keeps outside the remat in the first
+    step."""
+    from contextlib import nullcontext
+
     from ..models import steps
+    from ..models.common import unflatten
     from ..optim import AdamWConfig, adamw
     from . import make_plan
+    from .comm import record_collectives
     from .partition import gather_tree, shard_tree, train_state_shardings
 
+    plan = make_plan(cfg, mesh)
+    specs = train_state_shardings(cfg, plan)["params"]
+    tree = shard_tree(_t(weights, dev), specs, mesh)
+    batches = train_batches(cfg)
+    first = cfg if probes is None else dataclasses.replace(cfg, remat="none")
+    grad_fn = steps._mesh_grad_fn(first, plan, specs)
+    batch, split = steps._batch_block(batches[0], plan, dev)
+    with (nullcontext() if probes is None else record_collectives()) as rec:
+        (loss, nll), g = grad_fn(tree, batch, split)
+    if probes is not None:
+        probes["ops"] = [f"{op.kind} {'+'.join(op.axes)}" for op in rec.ops]
+        probes["saved"] = saved = []
+
+        def pack(t):
+            saved.append("x".join(map(str, t.shape)))
+            return t
+    out[f"{key}/loss"] = _np(loss)
+    out[f"{key}/nll"] = _np(nll)
+    for path, v in _flat(gather_tree(g, specs, mesh)).items():
+        out[f"{key}/grad/{path}"] = _np(v)
+    del g
+    opt_cfg = AdamWConfig()
+    blocks = {p: t.clone() for p, t in _flat(tree).items()}
+    state = {"params": tree, "opt": adamw.init_state(tree, opt_cfg)}
+    step = steps.make_train_step(cfg, opt_cfg, plan=plan)
+    for t, batch in enumerate(batches):
+        with (torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x)
+              if probes is not None and t == 0 else nullcontext()):
+            state, m = step(state, batch)
+        for k in ("loss", "nll", "grad_norm", "lr"):
+            out[f"{key}/{t}/{k}"] = _np(m[k])
+    whole = gather_tree(state["params"], specs, mesh)
+    for path, v in _flat(whole).items():
+        out[f"{key}/params/{path}"] = _np(v)
+    return plan, specs, unflatten(blocks)
+
+
+def _train(out, dev):
     for arch in TRAIN_ARCHS:
         cfg = train_config(arch)
         mesh = _mesh((2, 2), ("data", "model"), dev)
+        _train_on(out, f"train/{arch}", cfg, mesh, train_weights(arch), dev)
+
+
+def _tp_train(out, dev):
+    """Each `TP_TRAIN` case trained on this rank's blocks (``tp_train/
+    <case>/...``: `_train_on`, the JAX reference's recipe), with, on the
+    same blocks and batch, the form that gathers every leaf whole
+    (``tp_train_whole/<case>/...``: loss, nll and gradients), `_train_on`'s
+    probes of the first gradients' collectives with the remat off
+    (``tp_train_ops/<case>/<c>``: "kind axes" of each, every rank) and of
+    the shapes autograd saved outside the remat in the first step
+    (``tp_train_saved/<case>/<c>``) and whether
+    ``launch.train.build_trainer``'s state is this rank's blocks of the
+    whole draw, bit for bit (``tp_train_init/<case>/<c>``). Then the
+    vocab-parallel cross-entropy against the whole-vocabulary one
+    (``tp_xent/...``, `_tp_xent`) and each rule's fallback
+    (``tp_fallback/...``, `_tp_fallback`)."""
+    from ..models import convert, steps
+    from .partition import gather_tree
+
+    mine = {}
+    for case in TP_TRAIN:
+        _arch, shape, _over = TP_CASES[case]
+        cfg = tp_config(case)
+        mesh = _mesh(shape, ("data", "model"), dev)
+        key = f"tp_train/{case}"
+        probes = {}
+        plan, specs, blocks = _train_on(
+            out, key, cfg, mesh, convert.conditioned_params(cfg, SEED), dev,
+            probes)
+        batch, split = steps._batch_block(train_batches(cfg)[0], plan, dev)
+        (loss, nll), g = steps._mesh_grad_fn(cfg, plan, specs, tp=False)(
+            blocks, batch, split)
+        out[f"tp_train_whole/{case}/loss"] = _np(loss)
+        out[f"tp_train_whole/{case}/nll"] = _np(nll)
+        for path, v in _flat(gather_tree(g, specs, mesh)).items():
+            out[f"tp_train_whole/{case}/grad/{path}"] = _np(v)
+        c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
+        mine[f"tp_train_ops/{case}/{c}"] = probes["ops"]
+        mine[f"tp_train_saved/{case}/{c}"] = probes["saved"]
+        mine[f"tp_train_init/{case}/{c}"] = _init_is_blocks(cfg, mesh, dev)
+    _tp_xent(out, dev)
+    _tp_fallback(out, mine, dev)
+    everyone = [None] * tdist.get_world_size()
+    tdist.all_gather_object(everyone, mine)
+    for rec in everyone:
+        for k, v in rec.items():
+            out[k] = np.array(v)
+
+
+def _tp_fallback(out, mine, dev):
+    """Each `TP_FALLBACK` case's first step on (1, 4) in the
+    tensor-parallel form and the gather-whole form on the same blocks
+    (``tp_fallback/<case>/{tp,whole}/...``: loss and gradients), and the
+    tensor-parallel step's collectives with the remat off
+    (``tp_fallback_ops/<case>/<c>``)."""
+    from ..configs import get_config
+    from ..data import DataConfig, SyntheticLM
+    from ..models import convert, steps
+    from . import make_plan
+    from .comm import record_collectives
+    from .partition import gather_tree, shard_tree, train_state_shardings
+
+    for case, (arch, over, seq) in TP_FALLBACK.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(**over),
+                                  param_dtype="float32")
+        mesh = _mesh((1, 4), ("data", "model"), dev)
         plan = make_plan(cfg, mesh)
         specs = train_state_shardings(cfg, plan)["params"]
-        tree = shard_tree(_t(train_weights(arch), dev), specs, mesh)
-        batches = train_batches(cfg)
-        grad_fn = steps._mesh_grad_fn(cfg, plan, specs)
-        batch, split = steps._batch_block(batches[0], plan, dev)
-        (loss, nll), g = grad_fn(tree, batch, split)
-        out[f"train/{arch}/loss"] = _np(loss)
-        out[f"train/{arch}/nll"] = _np(nll)
-        for path, v in _flat(gather_tree(g, specs, mesh)).items():
-            out[f"train/{arch}/grad/{path}"] = _np(v)
-        del g
-        opt_cfg = AdamWConfig()
-        state = {"params": tree, "opt": adamw.init_state(tree, opt_cfg)}
-        step = steps.make_train_step(cfg, opt_cfg, plan=plan)
-        for t, batch in enumerate(batches):
-            state, m = step(state, batch)
-            for k in ("loss", "nll", "grad_norm", "lr"):
-                out[f"train/{arch}/{t}/{k}"] = _np(m[k])
-        whole = gather_tree(state["params"], specs, mesh)
-        for path, v in _flat(whole).items():
-            out[f"train/{arch}/params/{path}"] = _np(v)
+        blocks = shard_tree(_t(convert.conditioned_params(cfg, SEED), dev),
+                            specs, mesh)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=DATA["batch"],
+                                      seed=DATA["seed"])).batch_at(0)
+        batch, split = steps._batch_block(data, plan, dev)
+        for form, tp in (("tp", True), ("whole", False)):
+            (loss, _), g = steps._mesh_grad_fn(cfg, plan, specs, tp=tp)(
+                blocks, batch, split)
+            out[f"tp_fallback/{case}/{form}/loss"] = _np(loss)
+            for path, v in _flat(gather_tree(g, specs, mesh)).items():
+                out[f"tp_fallback/{case}/{form}/grad/{path}"] = _np(v)
+        with record_collectives() as rec:
+            steps._mesh_grad_fn(dataclasses.replace(cfg, remat="none"),
+                                plan, specs)(blocks, batch, split)
+        c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
+        mine[f"tp_fallback_ops/{case}/{c}"] = [
+            f"{op.kind} {'+'.join(op.axes)}" for op in rec.ops]
+
+
+def seq_seams(case: str) -> int:
+    """A `TP_TRAIN` case's all-gathers over model in a train step with the
+    remat off, and as many reduce-scatters (each the other's adjoint): the
+    embedding's vocab-parallel sum reduced onto the sequence block, each
+    layer's gathers of the sequence into attention and the MLP and a
+    reduce after each whose weights are model blocks (an MoE's router
+    gathered whole instead of its MLP's), the gather before the loss. No
+    parameter leaf is gathered over model but the router."""
+    from . import make_plan
+
+    class Shape:
+        def __init__(self, shape):
+            self.shape = shape
+
+    cfg = tp_config(case)
+    plan = make_plan(cfg, Shape(dict(zip(("data", "model"),
+                                         TP_CASES[case][1]))))
+    n = 1 + (plan.rules["vocab"] is not None)
+    for _mixer, ffn in cfg.layer_kinds():
+        n += 1 + (plan.rules["heads"] is not None)
+        n += 1 if ffn == "moe" else 1 + (plan.rules["mlp"] is not None)
+    return n
+
+
+def _init_is_blocks(cfg, mesh, dev) -> bool:
+    """Whether ``build_trainer``'s state on ``mesh`` (drawn leaf by leaf,
+    each leaf cut at once) is this rank's blocks of the whole draw from
+    the same seed, bit for bit, moments included."""
+    from ..launch.train import build_trainer
+    from ..models import steps
+    from ..models.common import init_params
+    from .partition import shard_tree, train_state_shardings
+
+    init_state, _, _, _, plan = build_trainer(cfg, mesh, device=dev)
+    state = init_state()
+    specs = train_state_shardings(cfg, plan)["params"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = init_params(steps.model_param_specs(cfg), gen,
+                        steps._dtype(cfg.master_dtype), dev)
+    want = _flat(shard_tree(whole, specs, mesh))
+    got = _flat(state["params"])
+    return sorted(got) == sorted(want) and all(
+        torch.equal(got[p], want[p]) for p in want) and all(
+        not bool(t.any()) for part in ("m", "v")
+        for t in _flat(state["opt"][part]).values())
+
+
+def _tp_xent(out, dev):
+    """The vocab-parallel loss chunk (``transformer._loss_chunk`` on this
+    rank's block of the vocab projection over model) against the whole
+    vocabulary's on (1, 4): `TP_XENT`'s vocabulary has padded rows, a
+    softcap, and labels on every rank's block and -1; tied and untied.
+    Rank 0 keeps the loss sum, the token count and the gradients of the
+    hidden states and the projection (``tp_xent/<form>/{vp,whole}/...``;
+    the vocab-parallel ones summed and gathered: the partial convention,
+    the loss over the ranks)."""
+    from ..configs import get_config
+    from ..models import transformer
+    from . import comm, make_plan
+    from .partition import activation_ctx, block, gather_leaf
+    from .rules import P
+
+    mesh = _mesh((1, 4), ("data", "model"), dev)
+    for tied in (True, False):
+        cfg = dataclasses.replace(
+            get_config("gemma-2b").reduced(**TP_XENT["cut"]),
+            tie_embeddings=tied, param_dtype="float32")
+        plan = make_plan(cfg, mesh)
+        rng = np.random.default_rng(TP_XENT["seed"])
+        b, c, d, v = 2, TP_XENT["chunk"], cfg.d_model, cfg.padded_vocab
+        h = torch.from_numpy(rng.standard_normal((b, c, d), np.float32)).to(
+            dev)
+        w = torch.from_numpy(rng.standard_normal(
+            (v, d) if tied else (d, v), np.float32) * np.float32(0.2)).to(dev)
+        y = torch.from_numpy(rng.integers(-1, cfg.vocab_size, (b, c)).astype(
+            np.int32)).to(dev)
+        # one label in every rank's block (the last rank's in its last
+        # real row), one -1
+        for r in range(4):
+            y[0, r] = min((r + 1) * v // 4 - 1, cfg.vocab_size - 1)
+        y[1, 0] = -1
+        name = "embed" if tied else "lm_head"
+        spec = P("model", None) if tied else P(None, "model")
+        form = "tied" if tied else "untied"
+        hv = h.clone().requires_grad_()
+        wv = block(w, spec, mesh).requires_grad_()
+        with activation_ctx(plan):
+            ls, ts = transformer._loss_chunk({name: wv}, hv, y, cfg)
+            gh, gw = torch.autograd.grad(ls * (1.0 / mesh.size), [hv, wv])
+            gh = comm.psum(gh, mesh, "model")
+            gw = gather_leaf(gw, spec, mesh)
+        hw, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        lw, tw = transformer._loss_chunk({name: ww}, hw, y, cfg)
+        gwh, gww = torch.autograd.grad(lw, [hw, ww])
+        if mesh.rank == 0:
+            for tag, vals in (("vp", (ls, ts, gh, gw)),
+                              ("whole", (lw, tw, gwh, gww))):
+                for k, t in zip(("loss", "count", "grad_h", "grad_w"), vals):
+                    out[f"tp_xent/{form}/{tag}/{k}"] = _np(t)
 
 
 class _Serving:
@@ -582,7 +823,7 @@ def _storage_bytes(tensors) -> int:
 
 PARTS = {"blocks": _blocks, "ep": _ep, "decode": _decode,
          "pipeline": _pipeline, "compressed": _compressed, "train": _train,
-         "tp": _tp}
+         "tp": _tp, "tp_train": _tp_train}
 #: the parts of ``experiments/sharding/reference.json``'s mesh cases before
 #: serving on blocks (``tp``, run on its own)
 BASE_PARTS = ("blocks", "ep", "decode", "pipeline", "compressed", "train")

@@ -3,12 +3,20 @@ blocks they name.
 
 The port of the JAX package's ``sharding/partition.py``. The activation
 context lets model code find the plan without threading it through every
-call: the steps set it (`activation_ctx`), `current_plan` reads it.
-`maybe_constrain` returns its input: ``with_sharding_constraint`` changes
-no values, and the port's activations have no placement to constrain. The
+call: the steps set it (`activation_ctx`), `current_plan` reads it. The
 context also says whether this rank's activations are its block of the
 batch over ``plan.batch_axes`` (``split_batch``, set by the steps that
-split it) or the whole batch.
+split it) or the whole batch, and whether the training forward keeps its
+residual stream sequence-parallel (``seq``, set by the sharded train step
+of a `tensor_parallel` config). ``with_sharding_constraint`` changes no
+values, so the JAX ``maybe_constrain`` has no counterpart; the one
+constraint that moves data, the sequence-parallel stream, is made by the
+code that makes the stream: there the embedding and each layer's output
+are this rank's block of the sequence over ``plan.seq_axis`` where the
+sequence divides it (`seq_axis_for`, the JAX ``maybe_constrain`` rule),
+the carry between the layers. The layers gather the sequence back (`seq_gather`) into attention
+and the MLP and reduce their partial sums onto the block (`psum_rule`
+with ``seq``: a ``psum_scatter``).
 
 The spec builders return trees of `rules.P` where the JAX package returns
 ``NamedSharding``s of the same specs. `shard_tree` is the executable
@@ -23,8 +31,9 @@ Serving under a plan (the port of the JAX package's serving steps run on
 partitions) needs three more seams, used by the layer code:
 `rule_of_block` (the mesh axes a leaf's dimension is a block along),
 `psum_rule` (the sum of a partial product over them) and `gather_leaf`'s
-``keep`` (the per-layer FSDP gather over the axes other than ``model``).
-`tensor_parallel` says which configs are served on blocks;
+``keep`` (the per-layer FSDP gather over the axes other than ``model``;
+`tp_keep`). Training under a plan computes on the same blocks.
+`tensor_parallel` says which configs are served and trained on blocks;
 `serving_shardings` / `serving_cache_shardings` give the blocks a rank
 holds.
 """
@@ -40,29 +49,35 @@ from ..models import steps as steps_mod
 from ..models.common import tree_map
 
 __all__ = [
-    "activation_ctx", "current_plan", "maybe_constrain", "split_batch",
+    "activation_ctx", "current_plan", "split_batch",
     "batch_axis", "rebatch", "train_state_shardings", "batch_shardings",
     "decode_input_shardings", "params_only_shardings", "shard_tree",
     "gather_tree", "block", "gather_leaf", "holds_blocks", "rule_of_block",
     "psum_rule", "tensor_parallel", "serving_shardings",
     "serving_cache_shardings", "cache_seq_sharded", "block_shape",
+    "seq_axis_for", "seq_block", "seq_gather", "tp_keep",
 ]
 
-_ACT: Tuple[Optional[ShardingPlan], bool, bool] = (None, False, False)
+_ACT: Tuple[Optional[ShardingPlan], bool, bool, bool] = (None, False, False,
+                                                         False)
 
 
 @contextmanager
 def activation_ctx(plan: Optional[ShardingPlan], split_batch: bool = False,
-                   blocks: bool = False):
+                   blocks: bool = False, seq: bool = False):
     """Make ``plan`` the current one; ``split_batch``: this rank's
     activations are its block of the batch over ``plan.batch_axes``;
     ``blocks``: the model running holds this rank's blocks of its weights
     and caches (`serving_shardings`, `serving_cache_shardings`; set by a
-    ``models.transformer.Transformer`` built on them)."""
+    ``models.transformer.Transformer`` built on them); ``seq``: the
+    training forward keeps its residual stream as this rank's block of the
+    sequence over ``plan.seq_axis`` (`seq_axis_for`; set by the sharded
+    train step of a `tensor_parallel` config, live through its backward,
+    where the remat recomputes the layers)."""
     global _ACT
     prev = _ACT
     _ACT = (plan, bool(split_batch and plan is not None),
-            bool(blocks and plan is not None))
+            bool(blocks and plan is not None), bool(seq and plan is not None))
     try:
         yield
     finally:
@@ -104,12 +119,28 @@ def rule_of_block(rule: str, local: int, whole: int):
     return axes
 
 
-def psum_rule(x: torch.Tensor, axes) -> torch.Tensor:
+def psum_rule(x: torch.Tensor, axes, seq=None) -> torch.Tensor:
     """The sum over the mesh ``axes`` (a rule's entry, from
     `rule_of_block`; None gives ``x``) of this rank's partial ``x``, a
     product over its block of a contracted axis. A bf16 partial is summed
     in float32 and rounded once: XLA's CPU all-reduce promotes a bf16 sum
-    so (``add.clone_promoted``), where gloo would add in bf16."""
+    so (``add.clone_promoted``), where gloo would add in bf16.
+
+    ``seq`` (the stream's sequence axis, `seq_axis_for`; ``x`` a
+    ``(B, S, D)`` product over the whole sequence): this rank's sequence
+    block of that sum, where the sequence-parallel stream goes on. Over the
+    same axis that is ``comm.psum_scatter`` along dim 1 (a bf16 partial
+    again summed in float32 and rounded once, as XLA's CPU reduce-scatter
+    promotes it); a whole ``x`` (``axes`` None: the heads or the MLP not
+    split) is the same on every rank, and the rank keeps its block."""
+    if seq is not None:
+        from ..launch.mesh import axes_tuple
+
+        if axes is not None and axes_tuple(axes) == axes_tuple(seq):
+            from .comm import psum_scatter
+
+            return psum_scatter(x, current_plan().mesh, seq, 1)
+        return seq_block(psum_rule(x, axes), seq)
     if axes is None:
         return x
     from .comm import psum
@@ -120,9 +151,34 @@ def psum_rule(x: torch.Tensor, axes) -> torch.Tensor:
     return psum(x, mesh, axes)
 
 
-def maybe_constrain(x: torch.Tensor, kind: str = "hidden") -> torch.Tensor:
-    """``with_sharding_constraint`` under a plan: the values unchanged."""
-    return x
+def seq_axis_for(s: int):
+    """The mesh axis the training forward's residual stream of ``s``
+    positions shards its sequence over: ``plan.seq_axis`` under a context
+    with ``seq`` set where ``s`` divides it (the JAX ``maybe_constrain``
+    rule), else None (the stream whole)."""
+    plan = current_plan()
+    if not _ACT[3] or plan is None or plan.seq_axis is None:
+        return None
+    n = plan.axis_size(plan.seq_axis)
+    return plan.seq_axis if n > 1 and s % n == 0 else None
+
+
+def seq_block(x: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's block of a whole ``(B, S, ...)`` ``x`` along dim 1 over
+    ``axis`` (a copy: the whole is freed once its last user is done)."""
+    mesh = current_plan().mesh
+    s = x.shape[1] // mesh.axis_size(axis)
+    return x.narrow(1, mesh.axis_index(axis) * s, s).clone(
+        memory_format=torch.contiguous_format)
+
+
+def seq_gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """The whole sequence from this rank's block (``all_gather`` over
+    ``axis`` along dim 1); its backward, the reduce-scatter of the
+    cotangent, sums a bf16 one in float32 (``comm.psum_scatter``)."""
+    from .comm import all_gather
+
+    return all_gather(x, current_plan().mesh, axis, 1)
 
 
 def batch_axis(plan: ShardingPlan, b: int):
@@ -285,6 +341,19 @@ def tensor_parallel(cfg) -> bool:
     their weights whole on every rank."""
     return (not cfg.is_encdec and not cfg.n_prefix_tokens
             and all(m == "attn" for m, _ in cfg.layer_kinds()))
+
+
+def tp_keep(name: str, key: str, layer_spec: Dict) -> Tuple[str, ...]:
+    """``gather_leaf``'s ``keep`` for leaf ``key`` of part ``name`` of a
+    tensor-parallel layer (``layer_spec``: the layer's per-layer specs by
+    part): its ``model`` block stays the rank's, but an MoE layer's router
+    and, where ``model`` does not split the experts, its experts, which the
+    JAX ``shard_map`` takes whole (``in_specs`` ``P(None, None)``,
+    ``P(None, None, None)``)."""
+    if name == "moe" and (key == "router"
+                          or layer_spec["moe"]["wi"][0] != "model"):
+        return ()
+    return ("model",)
 
 
 def serving_shardings(cfg, plan: ShardingPlan) -> Any:

@@ -52,16 +52,29 @@ def ref():
     return json.loads(REFERENCE.read_text())["cells"]
 
 
-_RECS = {}
+_RECS, _OPS = {}, {}
 
 
 def _rec(key):
-    """The port's record of one cell, traced once per module."""
+    """The port's record of one cell, traced once per module (`run_cell`'s;
+    every collective of the trace in ``_OPS``, where the record lists the
+    first 200)."""
     if key not in _RECS:
+        import time
+
         from repro_torch.launch import dryrun
 
         arch, shape, mesh = key.split("__")
-        _RECS[key] = dryrun.run_cell(arch, shape, MESHES[mesh], save=False)
+        t0 = time.time()
+        try:
+            tr, mesh_shape, cfg, sh, meta = dryrun.lower_cell(
+                arch, shape, MESHES[mesh])
+        except dryrun.SkipCell:
+            _RECS[key] = dryrun.run_cell(arch, shape, MESHES[mesh],
+                                         save=False)
+        else:
+            _OPS[key] = tr["ops"]
+            _RECS[key] = dryrun._finish(tr, mesh_shape, cfg, sh, meta, t0)
     return _RECS[key]
 
 
@@ -177,7 +190,55 @@ def test_port_notes_name_every_form_the_port_lacks():
                                "16x16"))["port_notes"])
     assert "weights whole" in notes and "cache_pos" in notes
     assert "decode caches" in notes
-    assert _rec(_key("gemma-2b", "train_4k", "16x16"))["port_notes"] == []
+    # gemma-2b trains on its blocks: only attention, whole on every model
+    # rank where its one kv head leaves the heads replicated, remains
+    notes = _rec(_key("gemma-2b", "train_4k", "16x16"))["port_notes"]
+    assert len(notes) == 1 and notes[0].startswith(
+        "train: the heads replicated (8 q / 1 kv do not divide model=16)")
+    assert "gathered whole" not in notes[0]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "whisper-tiny",
+                                  "jamba-1.5-large-398b", "paligemma-3b"])
+def test_train_notes_name_the_whole_layer_gather(arch):
+    """The SSM, hybrid, encoder-decoder and prefix configs keep the layers
+    gathered whole under a plan; their train records say so (whisper-tiny's
+    traced record too), and a dense config's says nothing of it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import make_plan
+
+    plan = make_plan(get_config(arch), _Shape({"data": 16, "model": 16}))
+    notes = " ".join(dryrun.train_notes(get_config(arch), plan))
+    assert "the layers gathered whole over every axis, model included" \
+        in notes
+    if arch == "whisper-tiny":
+        assert notes in _rec(_key(arch, "train_4k", "16x16"))["port_notes"]
+    phi3 = get_config("phi3-mini-3.8b")
+    assert dryrun.train_notes(phi3, make_plan(phi3, _Shape(
+        {"data": 16, "model": 16}))) == []
+
+
+def test_tensor_parallel_train_record_computes_on_the_blocks():
+    """gemma-2b's train_4k step on 16x16 (its blocks, the sequence-parallel
+    stream, the vocab-parallel loss): every all-gather over model is the
+    stream's sequence ((16, 4096, 2048) bf16: the data rank's batch),
+    none a parameter leaf; its temp bytes are under 20 GiB (86.18 GiB when
+    every rank gathered each layer whole; XLA's 3.57 GiB)."""
+    from repro_torch.launch import dryrun
+
+    key = _key("gemma-2b", "train_4k", "16x16")
+    rec = _rec(key)
+    stream = 16 * 4096 * 2048 * 2
+    model_gathers = [op for op in _OPS[key] if op.kind == "all-gather"
+                     and "model" in op.axes]
+    assert model_gathers and {op.result_bytes for op in model_gathers} == {
+        stream}
+    # the layers' FSDP gathers stay over data
+    assert any(op.axes == ("data",) for op in _OPS[key])
+    assert rec["memory"]["temp_bytes"] < 20 * 2**30
+    assert dryrun.compare_to_reference(rec, json.loads(
+        REFERENCE.read_text())["cells"][key]) == []
 
 
 #: serving cells of dense configs, which serve on the rank's blocks: the

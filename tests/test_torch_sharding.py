@@ -167,16 +167,24 @@ def test_decode_specs_spread_the_long_cache_over_every_axis():
     assert kv and all(s[2] is not None for s in kv), kv
 
 
-def test_maybe_constrain_returns_its_input():
-    import torch
-
-    x = torch.ones(2, 4, 8)
-    plan, _ = _plans("gemma-2b", "16x16")
-    with partition.activation_ctx(plan):
-        assert partition.current_plan() is plan
-        for kind in ("hidden", "tokens", "chunks", "moe_buf"):
-            assert partition.maybe_constrain(x, kind) is x
+def test_seq_axis_for_is_the_jax_maybe_constrain_rule():
+    """The JAX ``maybe_constrain(x, "hidden")`` shards a stream's sequence
+    over ``plan.seq_axis`` where the sequence divides it; the port's
+    training forward takes the same axis (`seq_axis_for`) under a context
+    with ``seq`` set, and keeps the stream whole elsewhere (serving)."""
+    for arch in ("gemma-2b", "granite-moe-1b-a400m"):
+        plan, jplan = _plans(arch, "16x16")
+        assert plan.seq_axis == jplan.seq_axis == "model"
+        n = jplan.axis_size(jplan.seq_axis)
+        for s in (4096, 4095, 48, 30):
+            want = jplan.seq_axis if s % n == 0 else None
+            with partition.activation_ctx(plan, seq=True):
+                assert partition.current_plan() is plan
+                assert partition.seq_axis_for(s) == want, (arch, s)
+            with partition.activation_ctx(plan):
+                assert partition.seq_axis_for(s) is None
     assert partition.current_plan() is None
+    assert partition.seq_axis_for(4096) is None
 
 
 # -- specs ---------------------------------------------------------------------

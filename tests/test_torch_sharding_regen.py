@@ -91,3 +91,26 @@ def test_the_port_gives_the_files_plans_and_costs(ref):
             for chips in ("256", "512"):
                 assert _round_trip(analytic_cost(cfg, sh, int(chips))
                                    .to_dict()) == rec[chips]
+
+
+def test_tp_train_keys_are_the_recipes(make_ref, ref):
+    """The file's ``tp_train`` part holds, for each case the port trains on
+    its blocks (``mesh_cases.TP_TRAIN``), the first step's loss, nll and
+    every gradient leaf, each step's metrics and the params after the
+    steps; ``tests/test_torch_sharding_tp.py`` recomputes the arrays in a
+    JAX subprocess and holds them to the file entry by entry."""
+    from repro_torch.sharding import mesh_cases as MC
+
+    assert make_ref.TP_TRAIN == MC.TP_TRAIN
+    assert ref["tp_train"] == list(MC.TP_TRAIN)
+    want = set()
+    for case in MC.TP_TRAIN:
+        cfg = make_ref.tp_config(case)
+        paths = make_ref.leaves(make_ref.steps.model_param_specs(cfg))
+        key = f"tp_train/{case}"
+        want |= {f"{key}/loss", f"{key}/nll"}
+        want |= {f"{key}/{t}/{m}" for t in range(make_ref.STEPS)
+                 for m in ("loss", "nll", "grad_norm", "lr")}
+        want |= {f"{key}/{part}/{p}" for part in ("grad", "params")
+                 for p in paths}
+    assert want == {k for k in ref["mesh"] if k.startswith("tp_train/")}

@@ -1,13 +1,15 @@
-"""Serving under a sharding plan: the port's prefill and decode steps on
-each rank's blocks of the weights and caches, on four gloo CPU ranks,
+"""Serving and training under a sharding plan: the port's prefill and
+decode steps on each rank's blocks of the weights and caches, and its
+train step on each rank's blocks of the state, on four gloo CPU ranks,
 against the JAX package's steps jitted with the dry run's shardings on four
 fake CPU devices (``experiments/sharding/reference.json``'s ``tp/...``
 arrays, from ``experiments/sharding/make_reference.py``) and against the
 port's own unsharded steps on the whole weights.
 
 One module fixture spawns the four ranks once (``launch_mesh(
-sharding.mesh_cases.run, 4, ("tp",))``); beside them one JAX subprocess
-(``make_reference.py --npz PATH tp``) recomputes the file's ``tp`` part.
+sharding.mesh_cases.run, 4, ("tp", "tp_train"))``); beside them two JAX
+subprocesses (``make_reference.py --npz PATH tp`` and ``... tp_train``)
+recompute the file's ``tp`` and ``tp_train`` parts.
 Each case of ``mesh_cases.TP_CASES`` (``.reduced()``, two layers, float32)
 prefills an 8-token prompt of a batch of 2, pads the caches to a 16-slot
 window (in float32) and takes 8 teacher-forced decode steps, once from its
@@ -39,6 +41,30 @@ decode step's collectives are counted by kind and axes
 after attention (heads over model) and one after the MLP a layer, and the
 logits' ``all_gather``; the MoE's two ``all_to_all`` instead of the MLP's
 reduce; over ``data``, the per-layer FSDP gathers.
+
+Training (``mesh_cases.TP_TRAIN``: the cases but mqa_sharded_1x4, through
+the ``train/...`` recipe, float32, a batch of 4 x 32): the first step's
+loss, nll and every gradient leaf, and two steps' metrics and params,
+against the JAX sharded step at ``test_sharded_train_steps_match_jax``'s
+tolerances (``tests/test_torch_sharding_mesh.py``); the gradients against
+the port's form that gathers every leaf whole, on the same blocks (1e-5 x
+the leaf's largest |g|; the two lie ~1e-6 apart: float32 sums in another
+order); a step's collectives with the remat off: over ``model`` exactly
+the sequence-parallel seams (the embedding's sum reduce-scattered onto the
+sequence block, a ``seq_gather`` into attention and the MLP, a
+``psum_scatter`` after each where its weights are blocks, the MoE's
+router gathered whole as the JAX ``shard_map`` takes it, one gather of
+the sequence before the loss) and their adjoints, so no other parameter
+leaf is gathered over ``model``; the tensors autograd keeps between the
+layers are the rank's block of the sequence (the whole stream is kept
+only as the loss chunk's input); ``build_trainer``'s leaf-by-leaf state
+is the rank's blocks of the whole draw, bit for bit; and the
+vocab-parallel cross-entropy equals the whole vocabulary's (padded rows,
+a softcap, labels on every rank's block and -1) within 2e-6 relative.
+Where a rule does not divide model (a 30-position sequence, a 510-row
+vocabulary, ``mesh_cases.TP_FALLBACK``) the stream or the vocabulary
+stays whole and the gradients are still the gather-whole form's; the
+heads' fallback is the MQA case.
 """
 import base64
 import collections
@@ -66,28 +92,35 @@ CASES = list(MC.TP_CASES)
 
 @pytest.fixture(scope="module")
 def jax_live(tmp_path_factory):
-    """The JAX subprocess, started at once and read on first use."""
-    out = tmp_path_factory.mktemp("jax_tp") / "tp.npz"
+    """The JAX subprocesses, one a part, started at once and read on first
+    use."""
+    tmp = tmp_path_factory.mktemp("jax_tp")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.Popen([sys.executable, str(SCRIPT), "--npz", str(out),
-                             "tp"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    procs = {}
+    for part in ("tp", "tp_train"):
+        out = tmp / f"{part}.npz"
+        procs[out] = subprocess.Popen(
+            [sys.executable, str(SCRIPT), "--npz", str(out), part], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
     got = {}
 
     def read():
         if not got:
-            _, err = proc.communicate(timeout=TIMEOUT)
-            assert proc.returncode == 0, err[-4000:]
-            got.update(np.load(out))
+            for out, proc in procs.items():
+                _, err = proc.communicate(timeout=TIMEOUT)
+                assert proc.returncode == 0, err[-4000:]
+                got.update(np.load(out))
         return got
 
     yield read
-    if proc.poll() is None:
-        proc.kill()
-    proc.communicate()
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
 
 
 def _decode(rec):
@@ -105,8 +138,9 @@ def ref():
 @pytest.fixture(scope="module")
 def port(jax_live, ref):
     torch.set_num_threads(1)
-    out, _walls = D.launch_mesh(MC.run, 4, ("tp",), MC.tp_start_caches(ref),
-                                device="cpu", timeout_s=TIMEOUT)
+    out, _walls = D.launch_mesh(MC.run, 4, ("tp", "tp_train"),
+                                MC.tp_start_caches(ref), device="cpu",
+                                timeout_s=TIMEOUT)
     return out
 
 
@@ -261,3 +295,158 @@ def test_a_decode_step_issues_the_plans_collectives(port, case):
     for k in (k for k in port if k.startswith(f"tp_ops/{case}/")):
         got = collections.Counter(tuple(str(op).split(" ")) for op in port[k])
         assert got == want, (k, got, want)
+
+
+# -- training on the rank's blocks ---------------------------------------------
+
+TRAIN_CASES = list(MC.TP_TRAIN)
+LR = 3e-4
+
+
+def _paths(arrays, prefix):
+    return sorted(k[len(prefix):] for k in arrays if k.startswith(prefix))
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_tp_train_step_matches_the_jax_sharded_step(port, jax_live, case):
+    ref = jax_live()
+    k = f"tp_train/{case}"
+    np.testing.assert_allclose(port[f"{k}/loss"], ref[f"{k}/loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(port[f"{k}/nll"], ref[f"{k}/nll"], rtol=1e-5)
+    paths = _paths(ref, f"{k}/grad/")
+    assert paths == _paths(port, f"{k}/grad/") and len(paths) > 5
+    for p in paths:
+        want, got = ref[f"{k}/grad/{p}"], port[f"{k}/grad/{p}"]
+        assert np.abs(got - want).max() <= 5e-4 * np.abs(want).max(), p
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_tp_train_steps_metrics_and_params_match_jax(port, jax_live, case):
+    ref = jax_live()
+    k = f"tp_train/{case}"
+    for t in range(MC.STEPS):
+        for m in ("loss", "nll", "grad_norm", "lr"):
+            np.testing.assert_allclose(port[f"{k}/{t}/{m}"],
+                                       ref[f"{k}/{t}/{m}"], rtol=1e-4,
+                                       err_msg=f"{t} {m}")
+    paths = _paths(ref, f"{k}/params/")
+    assert paths == _paths(port, f"{k}/params/")
+    for p in paths:
+        np.testing.assert_allclose(port[f"{k}/params/{p}"],
+                                   ref[f"{k}/params/{p}"], rtol=0.0,
+                                   atol=2 * LR * MC.STEPS + 1e-6, err_msg=p)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_tp_train_gradients_match_the_gather_whole_form(port, case):
+    k, w = f"tp_train/{case}", f"tp_train_whole/{case}"
+    np.testing.assert_allclose(port[f"{k}/loss"], port[f"{w}/loss"],
+                               rtol=1e-6)
+    paths = _paths(port, f"{w}/grad/")
+    assert paths == _paths(port, f"{k}/grad/")
+    for p in paths:
+        want, got = port[f"{w}/grad/{p}"], port[f"{k}/grad/{p}"]
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), p
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_tp_train_step_gathers_no_parameter_over_model(port, case):
+    lists = [port[k] for k in port if k.startswith(f"tp_train_ops/{case}/")]
+    assert len(lists) == 4
+    # the embedding's reduce onto the sequence block, each layer's gathers
+    # of the sequence and reduces after its model blocks (an MoE router
+    # gathered whole), the gather before the loss; each one's adjoint
+    want = MC.seq_seams(case)
+    assert want == 2 + MC.tp_config(case).n_layers * {
+        "mha_1x4": 4, "mha_2x2": 4, "gqa_bias_2x2": 4, "mqa_gathered_1x4": 3,
+        "moe_2x2": 3}[case]
+    for ops in lists:
+        assert list(ops) == list(lists[0])    # every rank, the same order
+        got = collections.Counter(str(op) for op in ops)
+        assert got["all-gather model"] == want, got
+        assert got["reduce-scatter model"] == want, got
+        # the FSDP gathers of the layers' leaves stay over data
+        if _plan(case).mesh.shape["data"] > 1:
+            assert got["all-gather data"] > 0
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_tp_train_carry_is_the_sequence_block(port, case):
+    cfg = MC.tp_config(case)
+    shape = dict(zip(("data", "model"), MC.TP_CASES[case][1]))
+    b = MC.DATA["batch"] // shape["data"]
+    s, d = MC.DATA["seq"], cfg.d_model
+    whole, block = f"{b}x{s}x{d}", f"{b}x{s // shape['model']}x{d}"
+    for k in (k for k in port if k.startswith(f"tp_train_saved/{case}/")):
+        saved = [str(x) for x in port[k]]
+        # one loss chunk (its input, the gathered sequence) ...
+        assert saved.count(whole) == 1, (k, saved.count(whole))
+        # ... and each layer's input: the rank's block of the sequence
+        assert saved.count(block) >= cfg.n_layers, (k, saved)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_build_trainer_draws_each_rank_its_blocks(port, case):
+    got = {k: bool(v) for k, v in port.items()
+           if k.startswith(f"tp_train_init/{case}/")}
+    assert len(got) == 4 and all(got.values()), got
+
+
+@pytest.mark.parametrize("form", ["tied", "untied"])
+def test_vocab_parallel_cross_entropy_is_the_whole_vocabularys(port, form):
+    k = f"tp_xent/{form}"
+    assert float(port[f"{k}/vp/count"]) == float(port[f"{k}/whole/count"])
+    np.testing.assert_allclose(port[f"{k}/vp/loss"], port[f"{k}/whole/loss"],
+                               rtol=2e-6)
+    for g in ("grad_h", "grad_w"):
+        want, got = port[f"{k}/whole/{g}"], port[f"{k}/vp/{g}"]
+        assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max(), g
+
+
+@pytest.mark.parametrize("case", sorted(MC.TP_FALLBACK))
+def test_tp_train_falls_back_where_a_rule_does_not_divide(port, case):
+    """A sequence that does not divide model keeps the stream whole (no
+    gather or reduce-scatter over model: the layers' partial sums are
+    all-reduced); a vocabulary that does not divide it keeps the
+    embedding and the logits whole (the stream's seams only); either way
+    the gradients are the gather-whole form's on the same blocks."""
+    k = f"tp_fallback/{case}"
+    np.testing.assert_allclose(port[f"{k}/tp/loss"], port[f"{k}/whole/loss"],
+                               rtol=1e-6)
+    paths = _paths(port, f"{k}/whole/grad/")
+    assert paths == _paths(port, f"{k}/tp/grad/") and len(paths) > 5
+    for p in paths:
+        want, got = port[f"{k}/whole/grad/{p}"], port[f"{k}/tp/grad/{p}"]
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), p
+    lists = [port[x] for x in port if x.startswith(f"tp_fallback_ops/{case}/")]
+    assert len(lists) == 4
+    got = collections.Counter(str(op) for op in lists[0])
+    if case == "seq_30":
+        assert got["all-gather model"] == got["reduce-scatter model"] == 0
+        assert got["all-reduce model"] > 0
+    else:
+        # gemma's one kv head: per layer the sequence gathered into
+        # attention and the MLP, the MLP's output reduce-scattered; the
+        # gather before the loss; no embedding reduce (its rows whole)
+        n = 1 + 3 * 2
+        assert got["all-gather model"] == got["reduce-scatter model"] == n
+
+
+def test_reference_tp_train_part_is_the_jax_packages(jax_live):
+    """The file's ``tp_train`` entries are what the JAX package computes
+    now, encoded by the reference script's rule (whole arrays bit for bit,
+    the larger ones' norm, entries and sketch)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("sharding_make_ref_tp",
+                                                  SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mesh = json.loads(REFERENCE.read_text())["mesh"]
+    want = {k: v for k, v in mesh.items() if k.startswith("tp_train/")}
+    live = {k: v for k, v in jax_live().items()
+            if k.startswith("tp_train/")}
+    assert sorted(live) == sorted(want) and len(want) > 100
+    for k, v in live.items():
+        assert json.loads(json.dumps(mod.encode(k, v))) == want[k], k

@@ -187,13 +187,16 @@ bytes each collective moved, and claims no speed (the ranks share one
 card). Phase 18, on the same ranks, serves under a plan on each rank's
 blocks of the weights and caches (tensor parallelism over model): (a)
 ``sharding.mesh_cases``' ``tp`` cases (MHA, GQA with qkv bias, MQA under
-both decode forms, MoE; ``.reduced()``) held to the reference's JAX
-sharded steps and to the port's unsharded steps, each rank's storage to
-its blocks' bytes; (b) phi3-mini-3.8b at full width on (data, model) =
-(1, 4) and (c) yi-34b at full width cut to 8 of its 60 layers on (2, 2)
-(FSDP over data): a 64-token prefill, then 64 and 16 decode steps, each
-rank's weights and caches held to its blocks' bytes and layer 0's
-prefill caches to rank 0's whole-model oracle; times, peaks and each
+both decode forms, MoE, SSM, the hybrid, the prefix; ``.reduced()``) held
+to the reference's JAX sharded steps and to the port's unsharded steps,
+each rank's storage to its blocks' bytes; (b) phi3-mini-3.8b at full
+width on (data, model) = (1, 4), (c) yi-34b at full width cut to 8 of
+its 60 layers on (2, 2) (FSDP over data), (d) mamba2-370m (its SSM heads
+and inner width over model) and (e) paligemma-3b after 256 prefix
+embeddings, both on (1, 4): a 64-token prefill, then 16, 2, 16 and 16
+decode steps, each rank's weights and caches held to its blocks' bytes
+and layer 0's prefill caches (or SSM state and conv tail) to rank 0's
+whole-model oracle, the deepest layer's printed; times, peaks and each
 collective's bytes and wall a step printed. Phase 19, on the same ranks,
 trains under a plan on each rank's blocks (tensor parallelism over model,
 the sequence-parallel residual stream, the vocab-parallel loss): (a)
@@ -201,16 +204,19 @@ the sequence-parallel residual stream, the vocab-parallel loss): (a)
 held to the reference's JAX sharded step and to the port's form that
 gathers every leaf whole, their collectives over model the sequence
 seams only, ``build_trainer``'s state the blocks of the whole draw and
-the vocab-parallel cross-entropy the whole vocabulary's; (b) gemma-2b at
-full width on (1, 4), one step of 1 x 2048 tokens, its loss, gradient norm
-and layer 0's and the embedding's gradient blocks held to the
-gather-whole form on the same blocks within the bf16 gap, its time, each
-rank's peak beside its state's bytes, its collectives and its largest
-loss-chunk logits printed.
+the vocab-parallel cross-entropy the whole vocabulary's; (b) gemma-2b,
+(c) mamba2-370m and (d) paligemma-3b (256 prefix embeddings and 1792
+tokens) at full width on (1, 4), one step of 1 x 2048 positions each, its
+loss, gradient norm and layer 0's and the embedding's gradient blocks
+held to the gather-whole form on the same blocks within the bf16 gap
+(mamba2's gradient blocks by their distance from that form run in
+float32), its time, each rank's peak beside its state's bytes, its
+collectives and (gemma-2b's) largest loss-chunk logits printed.
 Phase 17 runs the dry run and the autotuner (``launch.dryrun``,
 ``kernels.autotune``): (a) in a child process that sees no card, phase
-16's three cells, 18b's decode and 19b's train step traced on meta
-tensors in a fake process group of their meshes' ranks, each collective
+16's three cells, 18b's, 18d's and 18e's decode and 19b's, 19c's and
+19d's train steps traced on meta tensors in a fake process group of
+their meshes' ranks, each collective
 kind's bytes a step held equal to what phases 16, 18 and 19 measured on
 rank 0, the argument
 bytes to the step's resident
@@ -5905,14 +5911,27 @@ def _shard_compressed(dev, spec=SHARD_COMPRESSED, run=TRAIN_100M_RUN,
 #: 18b: phi3-mini-3.8b as configured on (data, model) = (1, 4): pure tensor
 #: parallelism (8 q and 8 kv heads, d_ff 2048 and 8032 vocabulary rows a
 #: rank); a batch of 4, a 64-token prefill padded to a 256-slot window,
-#: then 64 decode steps
+#: then 16 decode steps
 TP_FULL = {"arch": "phi3-mini-3.8b", "mesh": (1, 4), "batch": 4,
-           "prompt": 64, "max_len": 256, "steps": 64, "seed": 1}
+           "prompt": 64, "max_len": 256, "steps": 16, "seed": 1}
 #: 18c: yi-34b at full width cut to 8 of its 60 layers, on (2, 2): FSDP
 #: over data on embed, GQA over model (28 q and 4 kv heads a rank); a batch
-#: of 2, a 64-token prefill padded to a 256-slot window, 16 decode steps
+#: of 2, a 64-token prefill padded to a 256-slot window, 2 decode steps
 TP_FSDP = {"arch": "yi-34b", "n_layers": 8, "mesh": (2, 2), "batch": 2,
-           "prompt": 64, "max_len": 256, "steps": 16, "seed": 2}
+           "prompt": 64, "max_len": 256, "steps": 2, "seed": 2}
+#: 18d: mamba2-370m as configured on (1, 4): its 32 SSM heads 8 a rank
+#: (the inner width's 512 columns, the state's heads), the conv tail and
+#: the 50,304-row vocabulary's 12,576 rows a rank; a batch of 4, a
+#: 64-token prefill, 16 decode steps (the SSM has no window: its state)
+TP_SSM = {"arch": "mamba2-370m", "mesh": (1, 4), "batch": 4, "prompt": 64,
+          "max_len": 128, "steps": 16, "seed": 3}
+#: 18e: paligemma-3b as configured on (1, 4): gemma's backbone (its one kv
+#: head leaves the heads whole, the cache's sequence over model, the MLP
+#: and 64,320 vocabulary rows a rank); a batch of 4, 256 seeded prefix
+#: embeddings and a 64-token prompt prefilled into a window of 256 + 128
+#: slots, 16 decode steps
+TP_PREFIX = {"arch": "paligemma-3b", "mesh": (1, 4), "batch": 4,
+             "prompt": 64, "max_len": 128, "steps": 16, "seed": 4}
 
 
 def _tp_config(spec):
@@ -5926,13 +5945,46 @@ def _tp_config(spec):
     return cfg
 
 
+def _layer_share(layer) -> dict:
+    """The widths of a layer's (or a pattern element's stacked) blocks
+    this rank holds, by kind: heads and kv heads, the SSM's heads and
+    inner width, the MLP's hidden width."""
+    def part(name):
+        return (layer.get(name) if isinstance(layer, dict)
+                else getattr(layer, name, None))
+
+    out = {}
+    attn, ssm, mlp = part("attn"), part("ssm"), part("mlp")
+    if attn is not None:
+        out["heads"] = attn["wq"].shape[-2]
+        out["kv heads"] = attn["wk"].shape[-2]
+    if ssm is not None:
+        out["SSM heads"] = ssm["wdt"].shape[-1]
+        out["inner width"] = ssm["wx"].shape[-1]
+    if mlp is not None:
+        out["d_ff"] = mlp["wo"].shape[-2]
+    return out
+
+
+def _prefix_batch(cfg, b, gen, dev) -> dict:
+    """A prefix config's seeded bf16 prefix embeddings (b, P, d_model)
+    drawn on ``dev`` (what the JAX package feeds its prefix configs); {}
+    for the others."""
+    if not cfg.n_prefix_tokens:
+        return {}
+    return {"prefix_embeds": torch.randn(
+        (b, cfg.n_prefix_tokens, cfg.d_model), generator=gen, device=dev,
+        dtype=torch.float32).to(torch.bfloat16)}
+
+
 def _tp_serve(mesh, dev, spec):
-    """18b / 18c on this rank: the model on its blocks (drawn leaf by leaf
-    and cut), the prefill of its block of the batch, the caches padded to
+    """18b-18e on this rank: the model on its blocks (drawn leaf by leaf
+    and cut), the prefill of its block of the batch (after a prefix
+    config's seeded prefix embeddings), the attention caches padded to
     the window, the teacher-forced decode steps, each timed with its
     collectives' bytes and wall; then, on rank 0 only, the whole model as
     the oracle on the whole batch: layer 0's prefill caches held, the
-    logits' gaps printed."""
+    deepest layer's and the logits' gaps printed."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -5947,6 +5999,7 @@ def _tp_serve(mesh, dev, spec):
     m = make_debug_mesh(spec["mesh"], device=dev)
     plan = make_plan(cfg, m)
     b, pr, n = spec["batch"], spec["prompt"], spec["steps"]
+    p0 = cfg.n_prefix_tokens
     _reset_peak(dev)
     t0 = time.perf_counter()
     model, held, whole_bytes = _rank_model(cfg, m, plan, dev, spec["seed"])
@@ -5959,41 +6012,48 @@ def _tp_serve(mesh, dev, spec):
            "block_bytes": held,
            "whole_bytes": whole_bytes,
            "params_bytes": _storage_bytes(list(model.parameters())),
-           "heads": model.layers[0].attn["wq"].shape[1],
-           "kv_heads": model.layers[0].attn["wk"].shape[1],
-           "d_ff": model.layers[0].mlp["wo"].shape[0],
+           "share": _layer_share(model.layers[0]),
            "vocab_rows": (model.embed.shape[0] if cfg.tie_embeddings
                           else model.lm_head.shape[1]),
            "ms": [], "bytes": [], "step_mem": []}
     gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 100)
     toks = torch.randint(0, cfg.vocab_size, (b, pr + n), generator=gen,
                          device=dev, dtype=torch.int32)
+    extra = _prefix_batch(cfg, b, gen, dev)
     split = batch_axis(plan, b) is not None
     bspec = P(plan.batch_axes if split else None, None)
     mine = block(toks, bspec, m)
+    mine_extra = {k: block(v, P(bspec[0], None, None), m)
+                  for k, v in extra.items()}
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_decode_step(cfg)
-    prompt_caches = TT.init_decode_caches(cfg, b, pr, device="meta")
-    pspec = serving_cache_shardings(cfg, plan, prompt_caches, split)["l0"]
-    window = TT.init_decode_caches(cfg, b, spec["max_len"], device="meta")
+    prompt_caches = TT.init_decode_caches(cfg, b, p0 + pr, device="meta")
+    pspec = serving_cache_shardings(cfg, plan, prompt_caches, split)
+    window = TT.init_decode_caches(cfg, b, p0 + spec["max_len"],
+                                   device="meta")
     wspec = decode_input_shardings(cfg, plan, {"caches": window})["caches"]
     rec["cache_block_bytes"] = sum(
-        2 * math.prod(t.shape) // math.prod(
+        t.element_size() * math.prod(t.shape) // math.prod(
             m.axis_size(e) for e in wspec[name][k] if e is not None)
         for name, c in window.items() for k, t in c.items())
+    last = f"l{len(pspec) - 1}"
     with activation_ctx(plan, split):
         before = _mesh_bytes()
         tdist.barrier()
         t0 = time.perf_counter()
-        logits, caches = prefill(model, {"tokens": mine[:, :pr]})
+        logits, caches = prefill(model, {"tokens": mine[:, :pr],
+                                         **mine_extra})
         _sync(dev)
         rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
         rec["prefill_bytes"] = {k: v - before[k]
                                 for k, v in _mesh_bytes().items()}
         pre_logits = gather_leaf(logits, P(bspec[0], None, None), m)
-        pre_l0 = {k: gather_leaf(caches["l0"][k][0], P(*pspec[k][1:]), m)
-                  for k in ("k", "v")}
-        caches = model.pad_caches(caches, spec["max_len"])
+        # copies: the decode writes an SSM layer's caches in place
+        pre_l0, pre_last = (
+            {k: gather_leaf(t[r], P(*pspec[name][k][1:]), m).clone()
+             for k, t in caches[name].items()}
+            for name, r in (("l0", 0), (last, -1)))
+        caches = model.pad_caches(caches, p0 + spec["max_len"])
         rec["cache_bytes"] = _storage_bytes(caches)
         rec["resident"] = (rec["params_bytes"] + rec["cache_bytes"]
                            + mine[:, :1].numel() * mine.element_size())
@@ -6004,7 +6064,7 @@ def _tp_serve(mesh, dev, spec):
             tdist.barrier()
             t0 = time.perf_counter()
             _, logits, caches = decode(model, mine[:, pr + t:pr + t + 1],
-                                       caches, pr + t)
+                                       caches, p0 + pr + t)
             _sync(dev)
             rec["ms"].append(1e3 * (time.perf_counter() - t0))
             rec["step_mem"].append((start, _step_growth(dev, start)))
@@ -6023,23 +6083,25 @@ def _tp_serve(mesh, dev, spec):
         rec["oracle_peak_gib"] = _peak_gib(dev)
         with torch.no_grad():
             t0 = time.perf_counter()
-            lo, co = prefill(oracle, {"tokens": toks[:, :pr]})
+            lo, co = prefill(oracle, {"tokens": toks[:, :pr], **extra})
             _sync(dev)
             rec["oracle_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
-            rec["layer0"] = {}
-            for k in ("k", "v"):
-                want = co["l0"][k][0].float()
-                err = float((pre_l0[k].float() - want).abs().max())
-                rec["layer0"][k] = (err, float(want.abs().max()))
+            rec["layer0"], rec["deepest"] = {}, {}
+            for key, got_of, name, r in (("layer0", pre_l0, "l0", 0),
+                                         ("deepest", pre_last, last, -1)):
+                for k, got in got_of.items():
+                    want = co[name][k][r].float()
+                    err = float((got.float() - want).abs().max())
+                    rec[key][k] = (err, float(want.abs().max()))
             rec["prefill_logits_gap"] = float(
                 (pre_logits.float() - lo.float()).abs().max())
             rec["logits_max"] = float(lo.float().abs().max())
-            co = oracle.pad_caches(co, spec["max_len"])
+            co = oracle.pad_caches(co, p0 + spec["max_len"])
             rec["oracle_ms"], rec["step_gaps"], rec["top1"] = [], [], []
             for t in range(n):
                 t0 = time.perf_counter()
                 _, lg, co = decode(oracle, toks[:, pr + t:pr + t + 1], co,
-                                   pr + t)
+                                   p0 + pr + t)
                 _sync(dev)
                 rec["oracle_ms"].append(1e3 * (time.perf_counter() - t0))
                 got = step_logits[t].float()
@@ -6067,6 +6129,20 @@ def _mc():
 
 # -- phase 19: training on the rank's blocks (tensor parallelism over model) --
 
+#: 19c / 19d: mamba2-370m (its SSM heads and inner width over model, the
+#: stream's sequence over model around each SSD) and paligemma-3b (256
+#: seeded prefix embeddings and 1792 tokens, the P + S stream cut by the
+#: same rule) as configured on (1, 4), one train step of 1 x 2048 each, on
+#: 19b's pattern (19b alone probes the loss chunk's logits). mamba2's
+#: gradient blocks are held by their distance from the gather-whole form
+#: run in float32 (each bf16 form's relative L2; `BF16_NOISE_MULTIPLE`):
+#: its SSD's sums over 2048 positions leave two bf16 programs' layer-0
+#: blocks up to 0.18 of max |g| apart where their loss and norm agree to
+#: 6e-4, past 19b's max-entry rule
+TP_TRAIN_SSM = {"arch": "mamba2-370m", "mesh": (1, 4), "batch": 1,
+                "seq": 2048, "seed": 10, "probe": False, "f32_oracle": True}
+TP_TRAIN_PREFIX = {"arch": "paligemma-3b", "mesh": (1, 4), "batch": 1,
+                   "seq": 2048, "seed": 11, "probe": False}
 #: 19b: gemma-2b as configured (18 layers, full width) on (data, model) =
 #: (1, 4): one train step of 1 x 2048 tokens (14c's shape) on each rank's
 #: blocks of the state (the vocabulary's 64,000 rows and a quarter of each
@@ -6144,14 +6220,19 @@ def _tp_train_full(mesh, dev, spec):
            "block_params": sum(t.numel() for _, t in _flat_leaves(master)),
            "whole_params": cfg.param_count(),
            "vocab_rows": master["embed"].shape[0],
-           "d_ff": master["layers"]["l0"]["mlp"]["wo"].shape[1],
-           "heads": master["layers"]["l0"]["attn"]["wq"].shape[2]}
-    data = _train_batches(cfg, spec, 1)[0]
+           "share": _layer_share(master["layers"]["l0"])}
+    data = dict(_train_batches(cfg, spec, 1)[0])
+    if cfg.n_prefix_tokens:
+        # P seeded prefix embeddings and the first seq - P tokens; the
+        # labels cover all P + S positions
+        data["tokens"] = data["tokens"][:, :spec["seq"] - cfg.n_prefix_tokens]
+        data.update(_prefix_batch(cfg, spec["batch"], torch.Generator(
+            device=dev).manual_seed(spec["seed"] + 100), dev))
     batch, split = steps._batch_block(data, plan, dev)
     rec["split"] = split
 
-    def grads(tp, probe=None):
-        fn = steps._mesh_grad_fn(cfg, plan, specs, tp=tp)
+    def grads(tp, probe=None, run_cfg=cfg):
+        fn = steps._mesh_grad_fn(run_cfg, plan, specs, tp=tp)
         _reset_peak(dev)
         before = _mesh_bytes()
         tdist.barrier()
@@ -6172,16 +6253,28 @@ def _tp_train_full(mesh, dev, spec):
     rec["whole"] = grads(False)
     rec["tp"] = grads(True)
     b = batch["tokens"].shape[0]
-    probe = _logits_probe((b, min(spec["seq"], cfg.loss_chunk // b)),
-                          cfg.padded_vocab // m.axis_size("model"),
-                          cfg.padded_vocab)
-    rec["tp_probe_ms"] = grads(True, probe)["ms"]
-    rec["logits"] = probe.most
+    if spec.get("probe", True):
+        probe = _logits_probe((b, min(spec["seq"], cfg.loss_chunk // b)),
+                              cfg.padded_vocab // m.axis_size("model"),
+                              cfg.padded_vocab)
+        rec["tp_probe_ms"] = grads(True, probe)["ms"]
+        rec["logits"] = probe.most
     rec["gaps"] = {}
     for path, want in rec["whole"]["parts"].items():
         got = rec["tp"]["parts"][path]
         rec["gaps"][path] = float((got - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
+    if spec.get("f32_oracle"):
+        # the gather-whole form in float32: each bf16 form's relative L2
+        # distance from it, (tensor-parallel, gather-whole) by leaf
+        rec["f32"] = grads(False, run_cfg=dataclasses.replace(
+            cfg, param_dtype="float32"))
+        rec["f32_dist"] = {
+            path: tuple(float((rec[form]["parts"][path] - want).norm())
+                        / max(float(want.norm()), 1e-30)
+                        for form in ("tp", "whole"))
+            for path, want in rec["f32"]["parts"].items()}
+        del rec["f32"]["parts"]
     for form in ("whole", "tp"):
         del rec[form]["parts"]
     # one train step on the state (master, m, v) in the tensor-parallel form
@@ -6222,7 +6315,9 @@ def _tp_train_reference(mesh):
 SHARD_SIZES = {"train": SHARD_TRAIN, "serve": SHARD_SERVE,
                "compressed": SHARD_COMPRESSED, "run": TRAIN_100M_RUN,
                "overrides": TRAIN_100M, "tp_full": TP_FULL,
-               "tp_fsdp": TP_FSDP, "tp_train_full": TP_TRAIN_FULL}
+               "tp_fsdp": TP_FSDP, "tp_ssm": TP_SSM, "tp_prefix": TP_PREFIX,
+               "tp_train_full": TP_TRAIN_FULL, "tp_train_ssm": TP_TRAIN_SSM,
+               "tp_train_prefix": TP_TRAIN_PREFIX}
 
 
 def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
@@ -6231,8 +6326,10 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
     reference's gradients (ranks 0-1), (16b) granite-moe-1b-a400m's
     sharded training, (16c) gemma-2b's seq-sharded decode on its blocks,
     (16d) the compressed step; (18a) ``mesh_cases.run``'s ``tp`` part,
-    (18b) phi3-mini-3.8b and (18c) yi-34b served on their blocks; (19a)
-    its ``tp_train`` part, (19b) gemma-2b trained on its blocks. Every
+    (18b) phi3-mini-3.8b, (18c) yi-34b, (18d) mamba2-370m and (18e)
+    paligemma-3b served on their blocks; (19a) its ``tp_train`` part,
+    (19b) gemma-2b, (19c) mamba2-370m and (19d) paligemma-3b trained on
+    their blocks. Every
     rank's record goes to rank 0, which returns them with 16a's, 18a's
     and 19a's arrays."""
     import torch.distributed as tdist
@@ -6252,7 +6349,7 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
     rec["cuda_init_s"] = time.perf_counter() - t0
     # ``sizes["parts"]``: the labels to run (a driver iterating on some)
     parts = sizes.get("parts", ("a", "b", "c", "d", "18a", "18b", "18c",
-                                "19a", "19b"))
+                                "18d", "18e", "19a", "19b", "19c", "19d"))
     arrays = exch = None
     pods = make_debug_mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
     if "a" in parts:
@@ -6270,9 +6367,15 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
             ("18a", lambda: _tp_reference(mesh, tp_start)),
             ("18b", lambda: _tp_serve(mesh, dev, sizes["tp_full"])),
             ("18c", lambda: _tp_serve(mesh, dev, sizes["tp_fsdp"])),
+            ("18d", lambda: _tp_serve(mesh, dev, sizes["tp_ssm"])),
+            ("18e", lambda: _tp_serve(mesh, dev, sizes["tp_prefix"])),
             ("19a", lambda: _tp_train_reference(mesh)),
             ("19b", lambda: _tp_train_full(mesh, dev,
-                                           sizes["tp_train_full"]))):
+                                           sizes["tp_train_full"])),
+            ("19c", lambda: _tp_train_full(mesh, dev,
+                                           sizes["tp_train_ssm"])),
+            ("19d", lambda: _tp_train_full(mesh, dev,
+                                           sizes["tp_train_prefix"]))):
         if label not in parts:
             continue
         _sync(dev)
@@ -6630,7 +6733,7 @@ def sharding_phase(ref, device="cuda", sizes=SHARD_SIZES):
     return ranks
 
 
-#: 18a / 18b-c: a bf16 prefill cache entry may sit one bf16 rounding from
+#: 18a / 18b-e: a bf16 prefill cache entry may sit one bf16 rounding from
 #: the other program's (a float32 gap of ~1e-7 crossing a rounding)
 TP_ATOL = 5e-5
 TP_BF16_RTOL = 2.0 ** -7
@@ -6646,17 +6749,19 @@ def _tp_tolerance(key):
 def tp_serving_phase(ref, ranks, sizes=SHARD_SIZES):
     """Phase 18 from the ranks' records: (a) the ``tp`` cases against
     ``experiments/sharding/reference.json`` and the port's unsharded
-    steps, each rank's storage against its blocks; (b) phi3-mini-3.8b and
-    (c) yi-34b on their blocks: prefill and decode times, each rank's peak
-    beside its blocks' bytes, the collectives' bytes and wall a step,
-    layer 0 against rank 0's whole-model oracle."""
+    steps, each rank's storage against its blocks; (b) phi3-mini-3.8b,
+    (c) yi-34b, (d) mamba2-370m and (e) paligemma-3b on their blocks:
+    prefill and decode times, each rank's peak beside its blocks' bytes,
+    the collectives' bytes and wall a step, layer 0 against rank 0's
+    whole-model oracle."""
     MC = _mc()
     fails = []
     if "18a" in ranks[0]:
         fails += _tp_reference_check(ref, ranks, MC)
-    for label, spec in (("18b", sizes["tp_full"]), ("18c", sizes["tp_fsdp"])):
+    for label, key in (("18b", "tp_full"), ("18c", "tp_fsdp"),
+                       ("18d", "tp_ssm"), ("18e", "tp_prefix")):
         if label in ranks[0]:
-            fails += _tp_serve_report(label, spec, ranks)
+            fails += _tp_serve_report(label, sizes[key], ranks)
     check(not fails, "; ".join(fails))
 
 
@@ -6714,9 +6819,9 @@ def _tp_reference_check(ref, ranks, MC) -> list:
                 plan.axis_size(e) for e in spec_of[p] if e is not None)
                 for p, t in sorted_leaves(tree))
 
-        window = TT.init_decode_caches(cfg, MC.TP["batch"],
-                                       MC.TP["max_len"], dtype=torch.float32,
-                                       device="meta")
+        window = TT.init_decode_caches(
+            cfg, MC.TP["batch"], cfg.n_prefix_tokens + MC.TP["max_len"],
+            dtype=torch.float32, device="meta")
         want = (blocks(abstract_params_tree(cfg),
                        params_only_shardings(cfg, plan)),
                 blocks(window, decode_input_shardings(
@@ -6740,7 +6845,7 @@ def _tp_reference_check(ref, ranks, MC) -> list:
 
 
 def _tp_serve_report(label, spec, ranks) -> list:
-    """18b / 18c: each rank's storage against its blocks, layer 0 against
+    """18b-18e: each rank's storage against its blocks, layer 0 against
     rank 0's oracle; the times, peaks and collectives printed. Returns the
     failures."""
     fails = []
@@ -6767,21 +6872,28 @@ def _tp_serve_report(label, spec, ranks) -> list:
     cut = (f", cut to {cfg.n_layers} of "
            f"{_tp_config(dict(spec, n_layers=0)).n_layers} layers"
            if spec.get("n_layers") else "")
+    p0 = cfg.n_prefix_tokens
     print(f"[18 tp serving] {label}: {cfg.arch} at full width{cut} on "
-          f"(data, model) = {spec['mesh']}: {r0['heads']} q and "
-          f"{r0['kv_heads']} kv heads, d_ff {r0['d_ff']}, "
-          f"{r0['vocab_rows']} vocabulary rows a rank; batch "
-          f"{spec['batch']}, {spec['prompt']}-token prefill into a "
-          f"{spec['max_len']}-slot window, {spec['steps']} decode steps")
+          f"(data, model) = {spec['mesh']}: layer 0's "
+          + ", ".join(f"{k} {v}" for k, v in r0["share"].items())
+          + f", {r0['vocab_rows']} vocabulary rows a rank; batch "
+          f"{spec['batch']}, "
+          + (f"{p0} prefix embeddings and " if p0 else "")
+          + f"{spec['prompt']}-token prefill into a "
+          f"{p0 + spec['max_len']}-slot window, {spec['steps']} decode "
+          f"steps")
     print(f"  rank 0: prefill {r0['prefill_ms']:.1f} ms; decode step "
           f"median {statistics.median(r0['ms']):.1f} ms (min "
           f"{min(r0['ms']):.1f}, max {max(r0['ms']):.1f}); the whole "
           f"model on one rank (oracle): prefill "
           f"{r0['oracle_prefill_ms']:.1f} ms, decode median "
           f"{statistics.median(r0['oracle_ms']):.1f} ms")
-    print(f"  layer 0's prefill k, v against the oracle: " + ", ".join(
+    print(f"  layer 0's prefill caches against the oracle: " + ", ".join(
         f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
-        r0["layer0"].items()) + f" (held within 2^-7); prefill logits "
+        r0["layer0"].items()) + f" (held within 2^-7); the deepest "
+        f"layer's: " + ", ".join(
+            f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
+            r0["deepest"].items()) + f" (printed); prefill logits "
         f"{r0['prefill_logits_gap']:.4g} apart (max |logit| "
         f"{r0['logits_max']:.4g}); decode logits apart by step: "
         + " ".join(f"{g:.3g}" for g in r0["step_gaps"][:8])
@@ -6816,6 +6928,9 @@ def _tp_serve_report(label, spec, ranks) -> list:
 #: (``tests/test_torch_sharding_tp.py``'s rules)
 TP_TRAIN_FORMS = 1e-5
 TP_XENT_RTOL = 2e-6
+#: 19c: a leaf's relative L2 distance from the float32 form may exceed
+#: BF16_NOISE_MULTIPLE x the bf16 gather-whole form's by one bf16 rounding
+BF16_EPS = 2.0 ** -8
 #: 19b: the one-rank full-width train step's peak (14c, gemma-2b, 1 x 2048)
 TRAIN_ONE_RANK_PEAK_GIB = 48.90
 
@@ -6825,16 +6940,19 @@ def tp_training_phase(ref, ranks, sizes=SHARD_SIZES):
     ``experiments/sharding/reference.json`` (the CPU tests' tolerances),
     their gradients against the gather-whole form's, the collectives over
     model, the saved carry, the leaf-by-leaf init and the vocab-parallel
-    cross-entropy; (b) gemma-2b trained on its blocks at full width: the
-    loss, gradient norm and layer 0's and the embedding's gradient blocks
+    cross-entropy; (b) gemma-2b, (c) mamba2-370m and (d) paligemma-3b
+    trained on their blocks at full width: the loss, gradient norm and
+    layer 0's and the embedding's gradient blocks
     against the gather-whole form on the same blocks, the step's time,
     each rank's peak beside its state's bytes, the collectives and the
     largest loss-chunk logits."""
     fails = []
     if "19a" in ranks[0]:
         fails += _tp_train_reference_check(ref, ranks)
-    if "19b" in ranks[0]:
-        fails += _tp_train_full_report(sizes["tp_train_full"], ranks)
+    for label, key in (("19b", "tp_train_full"), ("19c", "tp_train_ssm"),
+                       ("19d", "tp_train_prefix")):
+        if label in ranks[0]:
+            fails += _tp_train_full_report(label, sizes[key], ranks)
     check(not fails, "; ".join(fails))
 
 
@@ -6868,7 +6986,9 @@ def _tp_train_reference_check(ref, ranks) -> list:
                          f"{forms[case]:.3g} apart")
         inits = [bool(v) for k, v in arrays.items()
                  if k.startswith(f"tp_train_init/{case}/")]
-        if len(inits) != 4 or not all(inits):
+        # build_trainer refuses a prefix config (its data has no prefix)
+        want_inits = 0 if MC.tp_config(case).n_prefix_tokens else 4
+        if len(inits) != want_inits or not all(inits):
             fails.append(f"19a {case}: build_trainer's state is not the "
                          f"ranks' blocks of the whole draw")
         ops = [list(v) for k, v in arrays.items()
@@ -6919,62 +7039,86 @@ def _tp_train_reference_check(ref, ranks) -> list:
     return fails
 
 
-def _tp_train_full_report(spec, ranks) -> list:
+def _tp_train_full_report(label, spec, ranks) -> list:
     cfg = _tp_config(spec)
-    r0 = ranks[0]["19b"]
+    r0 = ranks[0][label]
     fails = []
     for rec in ranks:
-        r = rec["19b"]
+        r = rec[label]
         for form in ("whole", "tp"):
             if not (np.isfinite(r[form]["loss"])
                     and np.isfinite(r[form]["gnorm"])):
-                fails.append(f"19b rank {rec['rank']}: {form} loss or "
+                fails.append(f"{label} rank {rec['rank']}: {form} loss or "
                              f"gradient norm not finite")
         for what in ("loss", "gnorm"):
             want, got = r["whole"][what], r["tp"][what]
             if abs(got - want) > BF16_TOL * abs(want):
-                fails.append(f"19b rank {rec['rank']}: {what} {got} "
+                fails.append(f"{label} rank {rec['rank']}: {what} {got} "
                              f"against the gather-whole form's {want}")
+        for path, (tp, whole) in r.get("f32_dist", {}).items():
+            lim = min(BF16_NOISE_MULTIPLE * whole + BF16_EPS, BF16_GRAD_RTOL)
+            if tp > lim:
+                fails.append(f"{label} rank {rec['rank']}: {path}'s gradient "
+                             f"block {tp:.4g} (relative L2) from the float32 "
+                             f"form's where the bf16 gather-whole form's is "
+                             f"{whole:.4g} (limit {lim:.4g})")
         for path, gap in r["gaps"].items():
-            if gap > BF16_TOL:
-                fails.append(f"19b rank {rec['rank']}: {path}'s gradient "
+            if "f32_dist" not in r and gap > BF16_TOL:
+                fails.append(f"{label} rank {rec['rank']}: {path}'s gradient "
                              f"block {gap:.4g} of its max |g| off the "
                              f"gather-whole form's")
         if not np.isfinite(r["step_loss"][0]):
-            fails.append(f"19b rank {rec['rank']}: the step's loss")
+            fails.append(f"{label} rank {rec['rank']}: the step's loss")
     m = spec["mesh"][1]
     c_s = min(spec["seq"], cfg.loss_chunk // spec["batch"])
     want_logits = spec["batch"] * c_s * (cfg.padded_vocab // m) * 4
-    if r0["logits"][0] != want_logits:
-        fails.append(f"19b: the largest loss-chunk logits {r0['logits']} "
+    if "logits" in r0 and r0["logits"][0] != want_logits:
+        fails.append(f"{label}: the largest loss-chunk logits {r0['logits']} "
                      f"where {want_logits} B were expected")
     worst = max(((g, p, rec["rank"]) for rec in ranks
-                 for p, g in rec["19b"]["gaps"].items()))
-    print(f"[19 tp training] 19b: {cfg.arch} at full width ({cfg.n_layers} "
+                 for p, g in rec[label]["gaps"].items()))
+    print(f"[19 tp training] {label}: {cfg.arch} at full width ({cfg.n_layers} "
           f"layers) on (data, model) = {spec['mesh']}, {spec['batch']} x "
           f"{spec['seq']} tokens: {r0['block_params']:,} of "
           f"{r0['whole_params']:,} parameters a rank ({r0['vocab_rows']} "
-          f"vocabulary rows, d_ff {r0['d_ff']} of {cfg.d_ff}, "
-          f"{r0['heads']} heads); rank 0's loss {r0['tp']['loss']:.6g} "
+          f"vocabulary rows; layer 0's "
+          + ", ".join(f"{k} {v}" for k, v in r0["share"].items())
+          + f"); rank 0's loss {r0['tp']['loss']:.6g} "
           f"(gather-whole form {r0['whole']['loss']:.6g}), gradient norm "
           f"{r0['tp']['gnorm']:.6g} ({r0['whole']['gnorm']:.6g}); the "
           f"gradient blocks of layer 0 and the embedding within "
-          f"{worst[0]:.4g} of max |g| (limit {BF16_TOL}; the largest "
-          f"{worst[1]} on rank {worst[2]}) on every rank")
+          f"{worst[0]:.4g} of max |g| ("
+          + ("printed; held by their distance from the float32 form"
+             if "f32_dist" in r0 else f"limit {BF16_TOL}")
+          + f"; the largest {worst[1]} on rank {worst[2]}) on every rank")
+    if "f32_dist" in r0:
+        far = max(((tp, whole, p, rec["rank"]) for rec in ranks
+                   for p, (tp, whole) in rec[label]["f32_dist"].items()))
+        print(f"  relative L2 from the float32 gather-whole form "
+              f"({r0['f32']['ms']:.1f} ms, loss {r0['f32']['loss']:.6g}, "
+              f"gradient norm {r0['f32']['gnorm']:.6g}), tensor-parallel "
+              f"against gather-whole, rank 0: " + ", ".join(
+                  f"{p.rsplit('/', 1)[-1]} {tp:.4g} / {whole:.4g}"
+                  for p, (tp, whole) in r0["f32_dist"].items())
+              + f"; the farthest {far[2]} on rank {far[3]} ({far[0]:.4g} "
+              f"against {far[1]:.4g}; limit {BF16_NOISE_MULTIPLE} x + "
+              f"{BF16_EPS}, at most {BF16_GRAD_RTOL})")
     print(f"  rank 0: the tensor-parallel step {r0['ms'][0]:.1f} ms "
           f"(gradients alone {r0['tp']['ms']:.1f} ms); the gather-whole "
           f"form's gradients {r0['whole']['ms']:.1f} ms; the step's loss "
-          f"{r0['step_loss'][0]:.6g}, grad_norm {r0['step_gnorm']:.6g}; the "
-          f"largest loss-chunk logits a rank allocates {r0['logits'][0]} B "
-          f"{r0['logits'][1]} (c_s x {cfg.padded_vocab // m} x 4; the "
-          f"gather-whole form's c_s x {cfg.padded_vocab} x 4 = "
-          f"{want_logits * m} B)")
+          f"{r0['step_loss'][0]:.6g}, grad_norm {r0['step_gnorm']:.6g}"
+          + (f"; the largest loss-chunk logits a rank allocates "
+             f"{r0['logits'][0]} B {r0['logits'][1]} (c_s x "
+             f"{cfg.padded_vocab // m} x 4; the gather-whole form's c_s x "
+             f"{cfg.padded_vocab} x 4 = {want_logits * m} B)"
+             if "logits" in r0 else ""))
     for rec in ranks:
-        r = rec["19b"]
+        r = rec[label]
         print(f"  rank {rec['rank']}: step peak {r['peak_gib']:.2f} GiB "
-              f"beside its state's {r['state_bytes'] / 2**30:.2f} GiB (the "
-              f"whole model on one rank, 14c: {TRAIN_ONE_RANK_PEAK_GIB} "
-              f"GiB); gradients' peak {r['tp']['peak_gib']:.2f} GiB (the "
+              f"beside its state's {r['state_bytes'] / 2**30:.2f} GiB"
+              + (f" (the whole model on one rank, 14c: "
+                 f"{TRAIN_ONE_RANK_PEAK_GIB} GiB)" if label == "19b" else "")
+              + f"; gradients' peak {r['tp']['peak_gib']:.2f} GiB (the "
               f"gather-whole form's {r['whole']['peak_gib']:.2f}); init "
               f"{r['init_s']:.2f} s (peak {r['init_peak_gib']:.2f} GiB); the "
               f"step's collectives (bytes in, wall us): "
@@ -6990,7 +7134,7 @@ def _tp_train_full_report(spec, ranks) -> list:
 #: 17a: a dry run's predicted step peak (arguments + temp) within these
 #: factors of the peak phase 16 measured for the step alone
 DRYRUN_PEAK = (0.8, 1.25)
-#: 17a/17b's child process: its wall limit
+#: 17a/17b's child process: how long phase 17 waits for it
 DRYRUN_TIMEOUT_S = 600
 #: 17b: production cells held to experiments/dryrun/reference.json (the
 #: grid's gemma-2b train and decode on 16x16, hill-climb's podfsdp)
@@ -7008,8 +7152,8 @@ _KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
 
 def dryrun_cells(sizes) -> dict:
     """17a and 17b in this process (a child with no card): phase 16's three
-    cells, 18b's decode and 19b's train step dry-run on meta in fake groups
-    of their meshes' ranks, then the
+    cells, 18b's, 18d's and 18e's decode and 19b's, 19c's and 19d's train
+    steps dry-run on meta in fake groups of their meshes' ranks, then the
     production cells through ``launch.dryrun.run_cell``. Returns
     {"a": {"b"|"c"|"d": trace summary}, "b": {key: record}}."""
     from repro_torch.configs import get_config
@@ -7039,10 +7183,18 @@ def dryrun_cells(sizes) -> dict:
     cells["18b"] = (_tp_config(full), ShapeSpec(
         "18b", full["max_len"], full["batch"], "decode"), full["mesh"],
         ("data", "model"))
-    tpt = sizes["tp_train_full"]
-    cells["19b"] = (_tp_config(tpt), ShapeSpec("19b", tpt["seq"],
-                                               tpt["batch"], "train"),
-                    tpt["mesh"], ("data", "model"))
+    for label, key in (("18d", "tp_ssm"), ("18e", "tp_prefix")):
+        spec = sizes[key]
+        cfg = _tp_config(spec)
+        cells[label] = (cfg, ShapeSpec(
+            label, cfg.n_prefix_tokens + spec["max_len"], spec["batch"],
+            "decode"), spec["mesh"], ("data", "model"))
+    for label, key in (("19b", "tp_train_full"), ("19c", "tp_train_ssm"),
+                       ("19d", "tp_train_prefix")):
+        tpt = sizes[key]
+        cells[label] = (_tp_config(tpt), ShapeSpec(label, tpt["seq"],
+                                                   tpt["batch"], "train"),
+                        tpt["mesh"], ("data", "model"))
     out = {"a": {}, "b": {}}
     for label, (cfg, shape, mesh, axes) in cells.items():
         t0 = time.perf_counter()
@@ -7062,43 +7214,81 @@ def dryrun_cells(sizes) -> dict:
     return out
 
 
-def _dryrun_child(sizes):
-    """``dryrun_cells`` in a child process that sees no card."""
-    import tempfile
+class DryrunChild:
+    """``dryrun_cells`` in a child process that sees no card and runs one
+    thread, started at once (it needs nothing of the card's phases:
+    ``main`` starts it before phase 13) and read by `result`; its output
+    goes to files, and it is killed at exit if still running."""
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    with tempfile.TemporaryDirectory() as tmp:
-        spec, out = pathlib.Path(tmp) / "sizes.json", pathlib.Path(tmp) / "out.json"
-        spec.write_text(json.dumps(sizes))
-        res = subprocess.run(
+    def __init__(self, sizes):
+        import atexit
+        import tempfile
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src")
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        env["OMP_NUM_THREADS"] = "1"
+        self.tmp = tempfile.TemporaryDirectory()
+        tmp = pathlib.Path(self.tmp.name)
+        (tmp / "sizes.json").write_text(json.dumps(sizes))
+        self.out = tmp / "out.json"
+        self.log = open(tmp / "log.txt", "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
-             str(spec), str(out)], env=env, capture_output=True, text=True,
-            timeout=DRYRUN_TIMEOUT_S)
-        check(res.returncode == 0, f"17: the dry-run child failed:\n"
-                                   f"{res.stdout[-3000:]}{res.stderr[-6000:]}")
-        return json.loads(out.read_text())
+             str(tmp / "sizes.json"), str(self.out)], env=env,
+            stdout=self.log, stderr=subprocess.STDOUT, text=True)
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.tmp.cleanup()
+
+    def result(self):
+        """(the cells' records, the child's wall seconds from its start)."""
+        try:
+            self.proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.perf_counter() - self.t0
+        try:
+            self.log.seek(0)
+            tail = self.log.read()[-8000:]
+            check(self.proc.returncode == 0,
+                  f"17: the dry-run child failed or ran {DRYRUN_TIMEOUT_S} "
+                  f"s past the call for its result:\n{tail}")
+            return json.loads(self.out.read_text()), wall
+        finally:
+            self.stop()
 
 
-def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES):
+def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES, child=None):
     """Phase 17a-b: the dry run of phase 16's three cells against what
     phase 16 measured on rank 0 (each collective kind's bytes a step equal
     exactly, the argument bytes equal to the step's resident state and
     batch, the predicted peak within DRYRUN_PEAK of the step's own), then
-    the production cells against experiments/dryrun/reference.json."""
+    the production cells against experiments/dryrun/reference.json.
+    ``child``: a `DryrunChild` started earlier (else one starts now)."""
     from repro_torch.launch import dryrun
 
-    t0 = time.perf_counter()
-    got = _dryrun_child(sizes)
-    wall = time.perf_counter() - t0
+    got, wall = (child or DryrunChild(sizes)).result()
     r0 = ranks[0]
     names = {"b": "16b granite-moe-1b-a400m train (2, 2)",
              "c": "16c gemma-2b seq-sharded decode (1, 4)",
              "d": "16d compressed 110M step (2, 1, 1)",
              "18b": "18b phi3-mini-3.8b decode on its blocks (1, 4)",
-             "19b": "19b gemma-2b train step on its blocks (1, 4)"}
+             "18d": "18d mamba2-370m decode on its blocks (1, 4)",
+             "18e": "18e paligemma-3b decode after its prefix on its "
+                    "blocks (1, 4)",
+             "19b": "19b gemma-2b train step on its blocks (1, 4)",
+             "19c": "19c mamba2-370m train step on its blocks (1, 4)",
+             "19d": "19d paligemma-3b train step on its blocks (1, 4)"}
     for label, name in names.items():
+        if label not in r0:       # a driver ran some of the parts
+            continue
         pred, meas = got["a"][label], r0[label]
         mem = pred["memory"]
         for i, step in enumerate(meas["bytes"]):
@@ -7155,7 +7345,7 @@ def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES):
                           rec["collective_bytes"].items() if v)
               + f"; traced flops {r['traced_flops']:.4g}")
     print(f"[17 dryrun] 17a-b in a child process with no card: "
-          f"{wall:.2f} s")
+          f"{wall:.2f} s from its start")
 
 
 def autotune_phase(S, ops):
@@ -7437,6 +7627,11 @@ def main() -> int:
     mesh_counts = mesh_phase(D, full, dragonfly_row, dragonfly)
     wall("12", t_ph)
 
+    # phase 17a-b's dry run needs no card and nothing the card measures:
+    # it traces in a one-thread child beside phases 13-15 (one process on
+    # the card, host-bound), before phase 16's ranks need the host's cores
+    dry_child = DryrunChild(SHARD_SIZES)
+
     # 13. the serving path: the reference configs, then gemma-2b at full width
     check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "bf16 GEMMs would reduce in bf16")
@@ -7533,37 +7728,39 @@ def main() -> int:
 
     # 18. serving on the rank's blocks (the same ranks: 18a the tp cases
     # against the reference, 18b phi3-mini-3.8b on (1, 4), 18c yi-34b cut
-    # to 8 layers on (2, 2))
+    # to 8 layers on (2, 2), 18d mamba2-370m and 18e paligemma-3b on (1, 4))
+    serve_parts = ("18a", "18b", "18c", "18d", "18e")
     t0 = time.perf_counter()
     print(f"[18 tp serving] the ranks of phase 16 ({smi}); their walls: "
           + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"
-                      for k in ("18a", "18b", "18c")))
+                      for k in serve_parts))
     tp_serving_phase(shref, shard_ranks)
     print(f"[18 tp serving] {time.perf_counter() - t0:.2f} s to check; none "
           f"of the 11 kernels launched")
     phase_walls["18 (ranks)"] = sum(
-        max(r["walls"][k] for r in shard_ranks) for k in ("18a", "18b",
-                                                          "18c"))
+        max(r["walls"][k] for r in shard_ranks) for k in serve_parts)
 
     # 19. training on the rank's blocks (the same ranks: 19a the tp_train
-    # cases against the reference, 19b gemma-2b at full width on (1, 4)
-    # against the gather-whole form on the same blocks)
+    # cases against the reference, 19b gemma-2b, 19c mamba2-370m and 19d
+    # paligemma-3b at full width on (1, 4) against the gather-whole form on
+    # the same blocks)
+    train_parts = ("19a", "19b", "19c", "19d")
     t0 = time.perf_counter()
     print(f"[19 tp training] the ranks of phase 16 ({smi}); their walls: "
           + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"
-                      for k in ("19a", "19b")))
+                      for k in train_parts))
     tp_training_phase(shref, shard_ranks)
     print(f"[19 tp training] {time.perf_counter() - t0:.2f} s to check; none "
           f"of the 11 kernels launched")
     phase_walls["19 (ranks)"] = sum(
-        max(r["walls"][k] for r in shard_ranks) for k in ("19a", "19b"))
+        max(r["walls"][k] for r in shard_ranks) for k in train_parts)
 
     # 17. the dry run (phase 16's cells on meta, production cells against
     # experiments/dryrun/reference.json) and the autotuner on the card
     t0 = time.perf_counter()
     print(f"[17 dryrun] one rank's step on meta in a fake process group; "
           f"17c tunes on the card ({smi})")
-    dryrun_phase(shard_ranks)
+    dryrun_phase(shard_ranks, child=dry_child)
     autotune_phase(S, ops)
     wall("17", t0)
     print("[wall] " + ", ".join(f"{k} {v:.1f}" for k, v in
@@ -7642,6 +7839,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-child"]:
         sys.path.insert(0, str(ROOT / "src"))
+        torch.set_num_threads(1)
         sizes = json.loads(pathlib.Path(sys.argv[2]).read_text())
         pathlib.Path(sys.argv[3]).write_text(json.dumps(dryrun_cells(sizes)))
         sys.exit(0)

@@ -60,19 +60,27 @@ Writes ``experiments/sharding/reference.json``. Its parts:
     further than its float32), then ``TP["steps"]`` teacher-forced
     ``steps.make_decode_step`` calls jitted with
     ``decode_input_shardings``, each step's logits and the written window
-    of the caches (``decode/...``). ``tp_plain/<case>/...`` is the same
-    run jitted with no shardings on one device: XLA against itself, the
-    scale of what reordering the partial sums moves once the caches round
-    to bf16.
+    of the caches (``decode/...``; an SSM layer's state and conv tail
+    whole, the attention caches' slots only). ``tp_plain/<case>/...`` is
+    the same run jitted with no shardings on one device: XLA against
+    itself, the scale of what reordering the partial sums moves once the
+    caches round to bf16. The cases cover MHA, GQA with qkv bias, MQA,
+    MoE, the SSM (mamba2-370m), the hybrid (jamba-1.5-large-398b's
+    8-layer period) and the prefix (paligemma-3b, 8 seeded prefix
+    embeddings before the prompt, the decode from the slot after them).
 
   - ``tp_train/<case>/...``: training under a plan, each ``TP_TRAIN``
     config (the ``TP_CASES`` but ``mqa_sharded_1x4``; ``.reduced()``,
     float32, the conditioned weights) on its own (data, model) mesh
     through the ``train/...`` recipe: the first batch's ``value_and_grad``
-    and ``STEPS`` steps, their metrics and the params after them.
+    and ``STEPS`` steps, their metrics and the params after them (a
+    prefix config's batches: P seeded prefix embeddings and the first
+    ``seq - P`` tokens, the labels over all P + S positions).
 
-  In the file an array of up to 4096 entries is whole (float32, or int for
-  integer arrays, little-endian, base64); a larger one keeps its L2 norm,
+  In the file an array of up to 4096 entries, and every ``tp/`` and
+  ``tp_plain/`` array (a decode starts from their prefill caches), is
+  whole (float32, or int for integer arrays, little-endian, base64); a
+  larger one keeps its L2 norm,
   largest |entry|, 8 entries and a 64-row Gaussian sketch (as
   ``experiments/train``). `cases` returns every array whole, which
   ``tests/test_torch_sharding_mesh.py`` compares from a subprocess.
@@ -146,6 +154,9 @@ TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
 #: serving on blocks: a batch of 2, an 8-token prompt prefilled, padded to
 #: a 16-slot window, then 8 teacher-forced decode steps
 TP = {"batch": 2, "prompt": 8, "max_len": 16, "steps": 8, "seed": 7}
+#: the cache leaves with a slot per position (the others: an SSM's state
+#: and conv tail)
+KV = ("k", "v", "k_scale", "v_scale")
 #: case: (arch, (data, model), overrides of its ``.reduced()`` config)
 TP_CASES = {
     "mha_1x4": ("phi3-mini-3.8b", (1, 4), {"n_layers": 2, "n_kv_heads": 4}),
@@ -156,7 +167,15 @@ TP_CASES = {
                                              "decode_attention": "sharded"}),
     "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
                                                  "capacity_factor": 8.0}),
+    "ssm_1x4": ("mamba2-370m", (1, 4), {"n_layers": 2}),
+    "ssm_2x2": ("mamba2-370m", (2, 2), {"n_layers": 2}),
+    "hybrid_2x2": ("jamba-1.5-large-398b", (2, 2), {"capacity_factor": 8.0}),
+    "hybrid_1x4": ("jamba-1.5-large-398b", (1, 4), {"capacity_factor": 8.0}),
+    "prefix_1x4": ("paligemma-3b", (1, 4), {"n_layers": 2}),
 }
+#: a prefix config's seeded prefix embeddings: ``default_rng([PREFIX_SEED,
+#: i])``, i the train batch's index or ``TP["seed"]`` for serving
+PREFIX_SEED = 5
 #: training on blocks: the TP_CASES configs but mqa_sharded_1x4 (its decode
 #: form changes nothing in training), through the train recipe
 TP_TRAIN = tuple(c for c in TP_CASES if c != "mqa_sharded_1x4")
@@ -213,12 +232,32 @@ def train_weights(arch: str) -> dict:
     return _layers_rule()(train_config(arch), SEED)
 
 
+def prefix_embeds(cfg, batch: int, i: int) -> dict:
+    """``{"prefix_embeds": (batch, P, d_model)}`` of a prefix config,
+    standard normal float32 from ``default_rng([PREFIX_SEED, i])``; {} for
+    the others."""
+    if not cfg.n_prefix_tokens:
+        return {}
+    rng = np.random.default_rng([PREFIX_SEED, i])
+    return {"prefix_embeds": rng.standard_normal(
+        (batch, cfg.n_prefix_tokens, cfg.d_model), np.float32)}
+
+
 def train_batches(cfg, n: int = STEPS) -> list:
+    """SyntheticLM's batches; a prefix config's take P prefix embeddings
+    and the first ``seq - P`` tokens (the labels cover all P + S hidden
+    positions, as ``configs.specs.input_specs`` has them)."""
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                  seq_len=DATA["seq"],
                                  global_batch=DATA["batch"],
                                  seed=DATA["seed"]))
-    return [src.batch_at(i) for i in range(n)]
+    out = [src.batch_at(i) for i in range(n)]
+    if cfg.n_prefix_tokens:
+        cut = DATA["seq"] - cfg.n_prefix_tokens
+        out = [dict(b, tokens=b["tokens"][:, :cut],
+                    **prefix_embeds(cfg, DATA["batch"], i))
+               for i, b in enumerate(out)]
+    return out
 
 
 def ep_config(case: str):
@@ -496,11 +535,16 @@ def tp_tokens(cfg) -> np.ndarray:
 
 
 def _serve(cfg, params, toks, out, key, plan=None):
-    """Prefill, the caches padded to the window, the teacher-forced decode
-    steps; jitted with the dry run's shardings under ``plan``, else with
+    """Prefill (after a prefix config's seeded prefix embeddings), the
+    attention caches padded to the window (the SSM states as the prefill
+    leaves them), the teacher-forced decode steps from the slot after the
+    prompt; jitted with the dry run's shardings under ``plan``, else with
     none."""
     pr, n = TP["prompt"], TP["steps"]
-    batch = {"tokens": jnp.asarray(toks[:, :pr])}
+    p0 = cfg.n_prefix_tokens
+    batch = {"tokens": jnp.asarray(toks[:, :pr]),
+             **{k: jnp.asarray(v) for k, v in
+                prefix_embeds(cfg, TP["batch"], TP["seed"]).items()}}
     prefill_step = steps.make_prefill_step(cfg)
     decode_step = steps.make_decode_step(cfg)
     if plan is None:
@@ -520,13 +564,14 @@ def _serve(cfg, params, toks, out, key, plan=None):
     for path, v in leaves(caches).items():
         out[f"{key}/prefill/{path}"] = np.asarray(v.astype(jnp.float32))
     pad = TP["max_len"] - pr
-    # the decode window in float32 (the port's cases do the same)
-    caches = jax.tree.map(lambda c: jnp.pad(
-        c, ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0))).astype(jnp.float32),
-        caches)
+    # the decode window in float32 (the port's cases do the same); only
+    # the attention caches have slots
+    caches = {name: {k: (jnp.pad(c, ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0)))
+                         if k in KV else c).astype(jnp.float32)
+                     for k, c in sub.items()} for name, sub in caches.items()}
     if plan is not None:
         inputs = {"token": jnp.asarray(toks[:, pr:pr + 1]), "caches": caches,
-                  "cache_pos": jnp.int32(pr)}
+                  "cache_pos": jnp.int32(p0 + pr)}
         dec_sh = decode_input_shardings(cfg, plan, inputs)
         decode = jax.jit(decode_step, in_shardings=(
             p_sh, dec_sh["token"], dec_sh["caches"], dec_sh["cache_pos"]),
@@ -535,11 +580,12 @@ def _serve(cfg, params, toks, out, key, plan=None):
         with activation_ctx(plan):
             _, logits, caches = decode(
                 params, jnp.asarray(toks[:, pr + t:pr + t + 1]), caches,
-                jnp.int32(pr + t))
+                jnp.int32(p0 + pr + t))
         out[f"{key}/decode/{t}/logits"] = np.asarray(logits)
     for path, v in leaves(caches).items():
-        out[f"{key}/decode/{path}"] = np.asarray(
-            v[:, :, pr:pr + n].astype(jnp.float32))
+        if path.rsplit("/", 1)[-1] in KV:
+            v = v[:, :, p0 + pr:p0 + pr + n]
+        out[f"{key}/decode/{path}"] = np.asarray(v.astype(jnp.float32))
 
 
 def _tp_train(out: dict):
@@ -648,7 +694,7 @@ def encode(key: str, a: np.ndarray) -> dict:
     a = np.asarray(a)
     if a.dtype.kind in "US":
         return {"sha256": str(a)}
-    if a.size <= WHOLE:
+    if a.size <= WHOLE or key.startswith(("tp/", "tp_plain/")):
         kind = "<i4" if a.dtype.kind in "iu" else "<f4"
         b = np.ascontiguousarray(a.astype(kind))
         return {"shape": list(a.shape), "dtype": kind,
@@ -667,7 +713,7 @@ def header() -> dict:
             "data": DATA, "steps": STEPS, "train_archs": list(TRAIN_ARCHS),
             "tp": TP, "tp_cases": {k: [a, list(m), o] for k, (a, m, o)
                                    in TP_CASES.items()},
-            "tp_train": list(TP_TRAIN),
+            "tp_train": list(TP_TRAIN), "prefix_seed": PREFIX_SEED,
             "whole": WHOLE, "entries": ENTRIES, "sketch": SKETCH,
             "sketch_seed": SKETCH_SEED, "jax": jax.__version__}
 

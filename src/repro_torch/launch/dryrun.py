@@ -16,20 +16,21 @@ storage, no arithmetic) exactly as the port runs it under a plan:
 
 * **train**: ``steps.make_train_step(cfg, plan=, accum_steps=,
   accum_dtype=)`` on the rank's blocks of the train state
-  (``train_state_shardings``): for the dense and MoE configs the layers
-  compute on the rank's ``model`` blocks with the residual stream its
-  block of the sequence and the loss vocab-parallel, the other kinds
-  gather each layer whole; or ``make_compressed_train_step`` where
+  (``train_state_shardings``): for every decoder-only config (dense, MoE,
+  SSM, hybrid, prefix) the layers compute on the rank's ``model`` blocks
+  with the residual stream its block of the sequence and the loss
+  vocab-parallel, the encoder-decoder gathers each layer whole; or
+  ``make_compressed_train_step`` where
   ``grad_compression == "int8_pod"`` on the multi-pod mesh;
 * **decode** and **prefill**: the steps on the rank's blocks of the
   weights (``partition.serving_shardings``: the JAX step's
-  ``params_only_shardings`` for the dense and MoE configs) and of the
+  ``params_only_shardings`` for every decoder-only config) and of the
   caches (``partition.serving_cache_shardings``: its kv heads or its slots
-  of the sequence), the stream the rank's block of the batch
-  (``activation_ctx(plan, True)``) where the batch divides its axes; the
-  SSM, hybrid, encoder-decoder and prefix configs keep their weights whole
-  on every rank and their caches' batch block only (the seq-sharded
-  flash-decode's blocks under ``decode_attention="sharded"``).
+  of the sequence, an SSM layer's state heads and its conv tail whole),
+  the stream the rank's block of the batch (``activation_ctx(plan,
+  True)``) where the batch divides its axes; the encoder-decoder keeps
+  its weights whole on every rank and its caches' batch block only (the
+  seq-sharded flash-decode's blocks under ``decode_attention="sharded"``).
 
 Where the port's form differs from the JAX step's, the record says so in
 ``port_notes``. A record holds:
@@ -308,8 +309,9 @@ def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
 
     out = _map_path(note, caches, want)
     why = ("the stream is the whole batch" if tensor_parallel(cfg) else
-           "no head-parallel or gathered-sequence decode for this layer "
-           "kind in the port: every head and slot of the rank's batch")
+           "no head-parallel or gathered-sequence decode for the "
+           "encoder-decoder in the port: every head and slot of the "
+           "rank's batch")
     for (jax_spec, mine), paths in sorted(changed.items()):
         notes.append(f"decode caches {', '.join(paths)}: the port holds "
                      f"{mine} where the JAX step shards {jax_spec} ({why})")
@@ -319,7 +321,7 @@ def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
 def train_notes(cfg, plan) -> list:
     """What the port's sharded train step on ``plan`` does otherwise than
     the JAX step, which XLA partitions by ``train_state_shardings``: the
-    layer kinds the port trains on whole layers; for the dense and MoE
+    encoder-decoder, which the port trains on whole layers; for the other
     configs (their ``model`` blocks, the sequence-parallel stream, the
     vocab-parallel loss) attention run whole where its heads are
     replicated."""
@@ -328,10 +330,10 @@ def train_notes(cfg, plan) -> list:
         return ["train: the layers gathered whole over every axis, model "
                 "included, on every rank, with the residual stream whole "
                 "and the loss over the whole vocabulary, as the port "
-                "trains the SSM, hybrid, encoder-decoder and prefix "
-                "configs under a plan (the JAX step partitions them by "
-                "train_state_shardings)"]
-    if msize > 1 and plan.rules.get("heads") is None:
+                "trains the encoder-decoder under a plan (the JAX step "
+                "partitions it by train_state_shardings)"]
+    if (msize > 1 and plan.rules.get("heads") is None
+            and any(m == "attn" for m, _ in cfg.layer_kinds())):
         return [f"train: the heads replicated ({cfg.n_heads} q / "
                 f"{cfg.n_kv_heads} kv do not divide model={msize}): "
                 f"attention runs whole on every model rank from the "
@@ -404,10 +406,9 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
                                          + list(model.buffers()))
         if not tp:
             notes.append(f"{kind}: the weights whole ({cfg.param_dtype}) on "
-                         f"every rank, as the port serves the SSM, hybrid, "
-                         f"encoder-decoder and prefix configs under a plan "
-                         f"(the JAX step shards them by "
-                         f"params_only_shardings)")
+                         f"every rank, as the port serves the "
+                         f"encoder-decoder under a plan (the JAX step "
+                         f"shards them by params_only_shardings)")
         if kind == "decode":
             b = inputs["token"].shape[0]
             split = batch_axis(plan, b) is not None and not replicate_stream

@@ -30,14 +30,15 @@ to ``cfg.param_dtype`` and gathers each cast leaf over its spec's axes
 before use (the bf16 cast, not the float32 master, as the reference pins
 the cast copy to the master's sharding): the top-level leaves once, each
 layer's inside its remat (`transformer.forward`'s ``gather_layer``). A
-dense or MoE config (``partition.tensor_parallel``) gathers over every
-axis but ``model`` (FSDP's ``embed``) and computes on its ``model``
-blocks, as XLA partitions the reference under ``train_state_shardings``:
-heads, the MLP and the experts over ``model``, their partial sums reduced,
-the residual stream between the layers the rank's block of the sequence
-over ``plan.seq_axis`` (``partition.seq_axis_for``), the loss
-vocab-parallel. The other kinds gather each leaf whole (the experts of an
-expert-parallel layer stay this rank's). The loss and nll are
+decoder-only config (``partition.tensor_parallel``: dense, MoE, SSM,
+hybrid, prefix) gathers over every axis but ``model`` (FSDP's ``embed``)
+and computes on its ``model`` blocks, as XLA partitions the reference
+under ``train_state_shardings``: heads, the MLP, the SSD's heads and
+inner width and the experts over ``model``, their partial sums reduced,
+the residual stream between the layers (a prefix's positions included)
+the rank's block of the sequence over ``plan.seq_axis``
+(``partition.seq_axis_for``), the loss vocab-parallel. The
+encoder-decoder gathers each leaf whole. The loss and nll are
 global-batch means on every rank; the gradients follow
 ``sharding.comm``'s partial convention (the loss over ``mesh.size``, then
 each leaf summed over the axes its spec does not name), so each rank ends
@@ -78,11 +79,11 @@ def model_param_specs(cfg):
 def make_model(cfg, params: Dict, plan=None):
     """The serving module for ``cfg`` over a parameter tree of tensors: an
     `encdec.EncDec` for an encoder-decoder, else a
-    `transformer.Transformer`. Under a sharding ``plan`` a dense or MoE
+    `transformer.Transformer`. Under a sharding ``plan`` a decoder-only
     config's ``params`` are this rank's blocks
     (``partition.shard_tree(params, partition.serving_shardings(cfg,
     plan), mesh)``: the JAX serving steps' ``params_only_shardings``) and
-    the model runs only under that plan; the other kinds take their
+    the model runs only under that plan; the encoder-decoder takes its
     weights whole."""
     if cfg.is_encdec:
         return encdec.EncDec(cfg, params)

@@ -38,19 +38,21 @@ only the decode scores are (``attention.decode_attention``). MoE layers
 drop their aux loss in decode and prefill.
 
 Under a sharding plan (``Transformer(cfg, params, plan)``, what
-``steps.make_model(cfg, params, plan)`` builds) a dense or MoE model
-(``sharding.partition.tensor_parallel``) holds only this rank's blocks of
-its weights (``partition.serving_shardings``: the JAX serving steps'
+``steps.make_model(cfg, params, plan)`` builds) every decoder-only model
+(``sharding.partition.tensor_parallel``: dense, MoE, SSM, hybrid and
+prefix configs) holds only this rank's blocks of its weights
+(``partition.serving_shardings``: the JAX serving steps'
 ``params_only_shardings``) and decodes into this rank's cache blocks
 (``init_decode_caches(..., plan=)``, `Transformer.prefill`'s output:
-``decode_input_shardings``' blocks). Each layer gathers its leaves over
-the axes other than ``model`` (FSDP's ``embed``) just before it runs and
-computes its share: attention and the MLP on their ``model`` blocks with
-their partial sums reduced (``models.attention``, ``models.mlp``), the
-MoE on its experts' block (``moe._moe_ep``). The embedding is
-vocab-parallel (ids outside the rank's rows look up zero, the sum over
-``model``, then the scale) and the logits are gathered over the vocabulary.
-The other layer kinds keep their weights whole under a plan.
+``decode_input_shardings``' blocks: an SSM layer's state its heads, its
+conv tail whole). Each layer gathers its leaves over the axes other than
+``model`` (FSDP's ``embed``) just before it runs and computes its share:
+attention, the SSD and the MLP on their ``model`` blocks with their
+partial sums reduced (``models.attention``, ``models.ssm``,
+``models.mlp``), the MoE on its experts' block (``moe._moe_ep``). The
+embedding is vocab-parallel (ids outside the rank's rows look up zero,
+the sum over ``model``, then the scale) and the logits are gathered over
+the vocabulary. A prefix goes in front of the summed embeddings.
 """
 from __future__ import annotations
 
@@ -186,30 +188,34 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # -- one layer, and the training forward ---------------------------------------
 
 def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-                  prefix_len: int = 0, need_aux: bool = True, seq=None):
+                  prefix_len: int = 0, need_aux: bool = True, seq=None,
+                  want_cache: bool = True):
     """One layer over its parameter dict ``lp``, whose keys name its kind:
     ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
     ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
     otherwise, or without ``need_aux``), and attention's (k, v) or the
-    SSM's decode state.
+    SSM's decode state (None without ``want_cache``).
 
     ``seq`` (the sequence-parallel training forward's axis,
     ``partition.seq_axis_for``): ``x`` is this rank's block of the
     sequence; each norm runs on it, the sequence is gathered back into
-    attention and the MLP (``partition.seq_gather``) and their outputs are
-    reduced onto the block (``partition.psum_rule``'s ``seq``); the MoE
-    takes the block as its tokens."""
+    attention, the SSD and the MLP (``partition.seq_gather``) and their
+    outputs are reduced onto the block (``partition.psum_rule``'s
+    ``seq``); the MoE takes the block as its tokens."""
     from ..sharding.partition import seq_gather
 
     h = _apply_norm(lp["norm1"], x, cfg)
+    if seq is not None:
+        h = seq_gather(h, seq)
     if "attn" in lp:
-        if seq is not None:
-            h = seq_gather(h, seq)
         y, cache = attention.self_attention(lp["attn"], h, positions, cfg,
                                             causal=True,
                                             prefix_len=prefix_len, seq=seq)
+    elif want_cache:
+        y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True,
+                                   seq=seq)
     else:
-        y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True)
+        y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, seq=seq), None
     x, aux = _ffn(lp, x + y, cfg, need_aux, seq)
     return x, aux, cache
 
@@ -239,7 +245,8 @@ def _layer(lp, x, positions, cfg, prefix_len, gather=None, seq=None):
     gathers again instead of keeping them); ``seq``: `layer_forward`'s."""
     if gather is not None:
         lp = gather(lp)
-    return layer_forward(lp, x, positions, cfg, prefix_len, seq=seq)[:2]
+    return layer_forward(lp, x, positions, cfg, prefix_len, seq=seq,
+                         want_cache=False)[:2]
 
 
 def _saves_dots(ctx, op, *args, **kwargs):
@@ -353,18 +360,25 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
     counterpart of the ZeRO-3 gather inside the reference's layer scan.
 
     In the sequence-parallel training forward (``partition.activation_ctx
-    (..., seq=True)``, the sharded train step of a tensor-parallel config,
-    no prefix) the stream is this rank's block of the sequence over
+    (..., seq=True)``, the sharded train step of a tensor-parallel config)
+    the stream is this rank's block of the sequence over
     ``plan.seq_axis`` from the embedding on (``partition.seq_axis_for``:
-    where the sequence divides it): the carry between the layers (what
+    where the P + S positions divide it, the JAX ``maybe_constrain`` rule
+    on the concatenated stream; a prefix and the token embeddings are cut
+    together, after the concatenation): the carry between the layers (what
     their remat keeps) and the final norm's input; the hidden states
     returned are that block (`lm_loss_sums` gathers them)."""
-    from ..sharding.partition import seq_axis_for
+    from ..sharding.partition import seq_axis_for, seq_block
 
-    seq = None if prefix_embeds is not None else seq_axis_for(
-        tokens.shape[1])
-    x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg, seq),
-                                 prefix_embeds)
+    n_prefix = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    seq = seq_axis_for(n_prefix + tokens.shape[1])
+    if prefix_embeds is None:
+        x, prefix_len = embed_tokens(params, tokens, cfg, seq), 0
+    else:
+        x, prefix_len = _with_prefix(embed_tokens(params, tokens, cfg),
+                                     prefix_embeds)
+        if seq is not None:
+            x = seq_block(x, seq)
     positions = torch.arange(prefix_len + tokens.shape[1], device=x.device)
     (pattern, repeats), = cfg.layer_groups()
     layers = [_unbind_layers(params["layers"][f"l{i}"])
@@ -550,19 +564,17 @@ class Transformer(nn.Module):
     the order they run (repeat ``r``'s element ``i`` at ``r * len(pattern)
     + i``). The parameters do not require gradients (serving only).
 
-    With ``plan`` and a `partition.tensor_parallel` config, ``params`` is
-    this rank's blocks under ``partition.serving_shardings`` (each leaf's
-    shape is checked), and the model runs only under that plan (the
-    module docstring); the other configs' ``params`` stay whole."""
+    With ``plan`` (every config here is `partition.tensor_parallel`),
+    ``params`` is this rank's blocks under ``partition.serving_shardings``
+    (each leaf's shape is checked), and the model runs only under that
+    plan (the module docstring)."""
 
     def __init__(self, cfg, params: Dict, plan=None):
         super().__init__()
-        from ..sharding.partition import (block_shape, params_only_shardings,
-                                          tensor_parallel)
+        from ..sharding.partition import block_shape, params_only_shardings
 
         self.cfg = cfg
-        self.plan = plan if plan is not None and tensor_parallel(cfg) \
-            else None
+        self.plan = plan
         specs = (None if self.plan is None else
                  params_only_shardings(cfg, self.plan))
         if specs is not None:

@@ -15,11 +15,12 @@ partitioner, so it runs SPMD by hand, each rank one process of a
   the subgroup of the named axis (`comm`), differentiable, its backward
   the exact adjoint.
 
-Compute outside the ``shard_map`` regions is partitioned by hand: a dense
-or MoE config (`partition.tensor_parallel`) serves and trains on the
-rank's ``model`` blocks, each layer gathering its leaves over the other
-axes (FSDP) before use and reducing its partial sums over ``model``; the
-other layer kinds gather each parameter whole over its spec's axes.
+Compute outside the ``shard_map`` regions is partitioned by hand: every
+decoder-only config (`partition.tensor_parallel`: dense, MoE, SSM, hybrid
+and prefix) serves and trains on the rank's ``model`` blocks, each layer
+gathering its leaves over the other axes (FSDP) before use and reducing
+its partial sums over ``model``; the encoder-decoder gathers each
+parameter whole over its spec's axes.
 """
 from .rules import P, ShardingPlan, make_plan, param_shardings, spec_to_pspec  # noqa: F401
 from .partition import (  # noqa: F401

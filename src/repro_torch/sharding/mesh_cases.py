@@ -17,7 +17,10 @@ storage bytes (``tp_bytes/...``) and one decode step's collectives
 blocks: each `TP_TRAIN` config through the ``train`` recipe
 (``tp_train/...``) beside the gather-whole form's gradients, a step's
 collectives, the saved carry's shapes, ``build_trainer``'s state and the
-vocab-parallel cross-entropy (`_tp_train`).
+vocab-parallel cross-entropy (`_tp_train`); in the ``ssd`` part, the SSD
+on this rank's blocks against the whole-weight SSD (``ssd/...``, `_ssd`).
+A prefix config's cases carry seeded prefix embeddings (`prefix_embeds`)
+and decode from the slot after them.
 Outputs and gradients are gathered whole; rank 0 returns them with each
 part's wall time. `pod_exchange` runs `steps.pod_reduce` on given
 gradients and errors (one pod a rank). ``tests/test_torch_sharding_mesh.py``
@@ -39,7 +42,8 @@ import torch.distributed as tdist
 __all__ = ["run", "pod_exchange", "EP_X", "DECODE", "PIPELINE",
            "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED",
            "TP", "TP_CASES", "TP_TRAIN", "TP_XENT", "tp_config", "tp_tokens",
-           "tp_start_caches", "seq_seams", "TP_FALLBACK"]
+           "tp_start_caches", "seq_seams", "TP_FALLBACK", "SSD",
+           "PREFIX_SEED", "prefix_embeds"]
 
 SEED = 0
 EP_CUT = dict(d_model=64, moe_d_ff=32)
@@ -62,7 +66,12 @@ TP = {"batch": 2, "prompt": 8, "max_len": 16, "steps": 8, "seed": 7}
 #: with FSDP on (2, 2)); GQA with qkv bias: qwen's 4 q / 2 kv heads on
 #: (2, 2); MQA: gemma's one kv head, heads replicated and the cache's
 #: sequence over model under each decode form; MoE: granite's 4 experts
-#: over model (no drops at capacity factor 8), FSDP over data
+#: over model (no drops at capacity factor 8), FSDP over data; SSM:
+#: mamba2's 16 heads, 4 a rank on (1, 4), with FSDP on (2, 2); hybrid:
+#: jamba's whole 8-layer period (SSM heads, kv heads and experts over model
+#: on (2, 2); its 2 kv heads replicated and the cache's sequence sharded on
+#: (1, 4)); prefix: paligemma (MQA) with 8 seeded prefix embeddings before
+#: the prompt
 TP_CASES = {
     "mha_1x4": ("phi3-mini-3.8b", (1, 4), {"n_layers": 2, "n_kv_heads": 4}),
     "mha_2x2": ("phi3-mini-3.8b", (2, 2), {"n_layers": 2, "n_kv_heads": 4}),
@@ -72,7 +81,22 @@ TP_CASES = {
                                              "decode_attention": "sharded"}),
     "moe_2x2": ("granite-moe-1b-a400m", (2, 2), {"n_layers": 2,
                                                  "capacity_factor": 8.0}),
+    "ssm_1x4": ("mamba2-370m", (1, 4), {"n_layers": 2}),
+    "ssm_2x2": ("mamba2-370m", (2, 2), {"n_layers": 2}),
+    "hybrid_2x2": ("jamba-1.5-large-398b", (2, 2), {"capacity_factor": 8.0}),
+    "hybrid_1x4": ("jamba-1.5-large-398b", (1, 4), {"capacity_factor": 8.0}),
+    "prefix_1x4": ("paligemma-3b", (1, 4), {"n_layers": 2}),
 }
+#: the SSD on blocks against the whole-weight SSD: mamba2-370m's
+#: ``.reduced()`` (16 heads, 2 chunks of 32), a 64-position forward and its
+#: gradient, then 4 decode steps
+SSD = {"arch": "mamba2-370m", "batch": 2, "seq": 64, "decode": 4, "seed": 9}
+#: a prefix config's seeded prefix embeddings: ``default_rng([PREFIX_SEED,
+#: i])``, i the train batch's index or ``TP["seed"]`` for serving
+PREFIX_SEED = 5
+#: the cache leaves with a slot per position (the others: an SSM's state
+#: and conv tail)
+KV = ("k", "v", "k_scale", "v_scale")
 #: training on blocks: the `TP_CASES` configs through the `train` recipe
 #: (`DATA`'s batch of 4 x 32, `STEPS` steps); the decode form of
 #: mqa_sharded_1x4 changes nothing in training
@@ -211,14 +235,34 @@ def train_weights(arch: str) -> Dict:
     return convert.conditioned_params(train_config(arch), SEED)
 
 
+def prefix_embeds(cfg, batch: int, i: int) -> Dict:
+    """``{"prefix_embeds": (batch, P, d_model)}`` of a prefix config,
+    standard normal float32 from ``default_rng([PREFIX_SEED, i])``; {} for
+    the others."""
+    if not cfg.n_prefix_tokens:
+        return {}
+    rng = np.random.default_rng([PREFIX_SEED, i])
+    return {"prefix_embeds": rng.standard_normal(
+        (batch, cfg.n_prefix_tokens, cfg.d_model), np.float32)}
+
+
 def train_batches(cfg, n: int = STEPS) -> list:
+    """SyntheticLM's batches; a prefix config's take P prefix embeddings
+    and the first ``seq - P`` tokens (the labels cover all P + S hidden
+    positions)."""
     from ..data import DataConfig, SyntheticLM
 
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                  seq_len=DATA["seq"],
                                  global_batch=DATA["batch"],
                                  seed=DATA["seed"]))
-    return [src.batch_at(i) for i in range(n)]
+    out = [src.batch_at(i) for i in range(n)]
+    if cfg.n_prefix_tokens:
+        cut = DATA["seq"] - cfg.n_prefix_tokens
+        out = [dict(b, tokens=b["tokens"][:, :cut],
+                    **prefix_embeds(cfg, DATA["batch"], i))
+               for i, b in enumerate(out)]
+    return out
 
 
 # -- helpers -------------------------------------------------------------------------
@@ -480,7 +524,8 @@ def _tp_train(out, dev):
     the shapes autograd saved outside the remat in the first step
     (``tp_train_saved/<case>/<c>``) and whether
     ``launch.train.build_trainer``'s state is this rank's blocks of the
-    whole draw, bit for bit (``tp_train_init/<case>/<c>``). Then the
+    whole draw, bit for bit (``tp_train_init/<case>/<c>``; but a prefix
+    config, whose batches its synthetic data cannot make). Then the
     vocab-parallel cross-entropy against the whole-vocabulary one
     (``tp_xent/...``, `_tp_xent`) and each rule's fallback
     (``tp_fallback/...``, `_tp_fallback`)."""
@@ -507,7 +552,9 @@ def _tp_train(out, dev):
         c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
         mine[f"tp_train_ops/{case}/{c}"] = probes["ops"]
         mine[f"tp_train_saved/{case}/{c}"] = probes["saved"]
-        mine[f"tp_train_init/{case}/{c}"] = _init_is_blocks(cfg, mesh, dev)
+        if not cfg.n_prefix_tokens:     # build_trainer refuses a prefix
+            mine[f"tp_train_init/{case}/{c}"] = _init_is_blocks(cfg, mesh,
+                                                                dev)
     _tp_xent(out, dev)
     _tp_fallback(out, mine, dev)
     everyone = [None] * tdist.get_world_size()
@@ -559,11 +606,12 @@ def _tp_fallback(out, mine, dev):
 def seq_seams(case: str) -> int:
     """A `TP_TRAIN` case's all-gathers over model in a train step with the
     remat off, and as many reduce-scatters (each the other's adjoint): the
-    embedding's vocab-parallel sum reduced onto the sequence block, each
-    layer's gathers of the sequence into attention and the MLP and a
-    reduce after each whose weights are model blocks (an MoE's router
-    gathered whole instead of its MLP's), the gather before the loss. No
-    parameter leaf is gathered over model but the router."""
+    embedding's vocab-parallel sum reduced onto the sequence block (a
+    prefix config sums it whole, then cuts the P + S stream), each
+    layer's gathers of the sequence into attention, the SSD and the MLP
+    and a reduce after each whose weights are model blocks (an MoE's
+    router gathered whole instead of its MLP's), the gather before the
+    loss. No parameter leaf is gathered over model but the router."""
     from . import make_plan
 
     class Shape:
@@ -573,10 +621,12 @@ def seq_seams(case: str) -> int:
     cfg = tp_config(case)
     plan = make_plan(cfg, Shape(dict(zip(("data", "model"),
                                          TP_CASES[case][1]))))
-    n = 1 + (plan.rules["vocab"] is not None)
-    for _mixer, ffn in cfg.layer_kinds():
-        n += 1 + (plan.rules["heads"] is not None)
-        n += 1 if ffn == "moe" else 1 + (plan.rules["mlp"] is not None)
+    n = 1 + (plan.rules["vocab"] is not None and not cfg.n_prefix_tokens)
+    for mixer, ffn in cfg.layer_kinds():
+        n += 1 + (plan.rules["heads" if mixer == "attn" else "ssm_inner"]
+                  is not None)
+        if ffn != "none":
+            n += 1 if ffn == "moe" else 1 + (plan.rules["mlp"] is not None)
     return n
 
 
@@ -660,12 +710,15 @@ def _tp_xent(out, dev):
 class _Serving:
     """One case's steps on one model (this rank's blocks under ``plan``,
     or the whole model with ``plan`` None), recording whole arrays
-    (gathered over the batch and the cache blocks)."""
+    (gathered over the batch and the cache blocks). ``extra``: the
+    prefill's prefix embeddings (the same block of the batch as
+    ``toks``)."""
 
-    def __init__(self, cfg, model, toks, plan, out):
+    def __init__(self, cfg, model, toks, plan, out, extra=None):
         self.cfg, self.model, self.plan, self.out = cfg, model, plan, out
         self.split = plan is not None and toks.shape[0] < TP["batch"]
-        self.toks = toks
+        self.toks, self.extra = toks, extra or {}
+        self.p0 = cfg.n_prefix_tokens
 
     def _specs(self, length):
         from ..models import transformer
@@ -673,10 +726,12 @@ class _Serving:
 
         return serving_cache_shardings(
             self.cfg, self.plan, transformer.init_decode_caches(
-                self.cfg, TP["batch"], length, device="meta"), self.split)
+                self.cfg, TP["batch"], self.p0 + length, device="meta"),
+            self.split)
 
     def whole(self, caches, length):
-        """The global caches from this rank's blocks."""
+        """The global caches (``length`` slots after the prefix) from this
+        rank's blocks."""
         from .partition import gather_leaf
 
         if self.plan is None:
@@ -687,7 +742,8 @@ class _Serving:
 
     def window(self, prompt_caches):
         """This rank's blocks of the decode window (float32, ``max_len``
-        slots) holding the given global prompt caches (a tree of arrays)."""
+        slots after the prefix) holding the given global prompt caches (a
+        tree of arrays; an SSM's state and conv tail as they are)."""
         from .partition import block
 
         dev = self.toks.device
@@ -697,9 +753,9 @@ class _Serving:
         for name, c in prompt_caches.items():
             out[name] = {}
             for k, t in c.items():
-                w = torch.nn.functional.pad(
-                    torch.from_numpy(np.array(t, np.float32)).to(dev),
-                    (0, 0, 0, 0, 0, pad))
+                w = torch.from_numpy(np.array(t, np.float32)).to(dev)
+                if k in KV:
+                    w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad))
                 out[name][k] = (w if specs is None else
                                 block(w, specs[name][k], self.plan.mesh))
         return out
@@ -720,7 +776,8 @@ class _Serving:
 
         with activation_ctx(self.plan, self.split):
             logits, caches = steps.make_prefill_step(self.cfg)(
-                self.model, {"tokens": self.toks[:, :TP["prompt"]]})
+                self.model, {"tokens": self.toks[:, :TP["prompt"]],
+                             **self.extra})
             self.out[f"{key}/prefill/logits"] = _np(self._batch(logits))
             for name, c in self.whole(caches, TP["prompt"]).items():
                 for k, t in c.items():
@@ -734,11 +791,11 @@ class _Serving:
         from .comm import record_collectives
         from .partition import activation_ctx
 
-        pr, n = TP["prompt"], TP["steps"]
+        pr, n = self.p0 + TP["prompt"], TP["steps"]
         step = steps.make_decode_step(self.cfg)
         with activation_ctx(self.plan, self.split):
             for t in range(n):
-                tok = self.toks[:, pr + t:pr + t + 1]
+                tok = self.toks[:, TP["prompt"] + t:TP["prompt"] + t + 1]
                 if t == 0 and rec_ops is not None:
                     with record_collectives() as rec:
                         _, logits, caches = step(self.model, tok, caches, pr)
@@ -748,7 +805,8 @@ class _Serving:
                 self.out[f"{key}/{t}/logits"] = _np(self._batch(logits))
             for name, c in self.whole(caches, TP["max_len"]).items():
                 for k, t in c.items():
-                    self.out[f"{key}/{name}/{k}"] = _np(t[:, :, pr:pr + n])
+                    self.out[f"{key}/{name}/{k}"] = _np(
+                        t[:, :, pr:pr + n] if k in KV else t)
         return caches
 
 
@@ -778,17 +836,19 @@ def _tp(out, dev, start=None):
         model = steps.make_model(
             cfg, shard_tree(whole, serving_shardings(cfg, plan), mesh), plan)
         toks = torch.from_numpy(tp_tokens(cfg)).to(dev)
+        extra = _t(prefix_embeds(cfg, TP["batch"], TP["seed"]), dev)
         split = batch_axis(plan, toks.shape[0]) is not None
-        tp = _Serving(cfg, model, block(
-            toks, P(plan.batch_axes if split else None, None), mesh), plan,
-            out)
+        cut = P(plan.batch_axes if split else None)
+        tp = _Serving(cfg, model, block(toks, cut, mesh), plan, out,
+                      {k: block(v, cut, mesh) for k, v in extra.items()})
         key = f"tp/{case}"
         prompt = tp.prefill(key)
         own = tree_map(lambda t: t.detach().float().cpu().numpy(),
                        tp.whole(prompt, TP["prompt"]))
         ops = []
         caches = tp.decode(tree_map(lambda t: t.float(), model.pad_caches(
-            prompt, TP["max_len"])), f"{key}/continued", ops)
+            prompt, cfg.n_prefix_tokens + TP["max_len"])),
+            f"{key}/continued", ops)
         if start is not None:
             tp.decode(tp.window(start[case]), f"{key}/decode")
         c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
@@ -801,12 +861,90 @@ def _tp(out, dev, start=None):
         del model, caches
         if mesh.rank == 0:
             plain = _Serving(cfg, steps.make_model(cfg, whole), toks, None,
-                             out)
+                             out, extra)
             key = f"tp_plain/{case}"
             plain.prefill(key)
             plain.decode(plain.window(own), f"{key}/continued")
             if start is not None:
                 plain.decode(plain.window(start[case]), f"{key}/decode")
+    everyone = [None] * tdist.get_world_size()
+    tdist.all_gather_object(everyone, mine)
+    for rec in everyone:
+        for k, v in rec.items():
+            out[k] = np.array(v)
+
+
+def _ssd(out, dev):
+    """The SSD on this rank's blocks on (1, 4) (`SSD`'s config: 4 of 16
+    heads a rank) against the whole-weight SSD on the same inputs, every
+    rank: ``ssd/<what>/<c>`` holds (largest |error|, largest |whole|) of
+    the forward's output, its state (the rank's heads block of the
+    whole's), its conv tail (whole), the gradient of every leaf (the
+    rank's block of the whole gradient) and, after each of `SSD`'s decode
+    steps from that state, the output and the new state and tail; and of
+    the gated RMSNorm's statistic over the rank's columns summed over the
+    ranks against the mean over the whole width."""
+    from ..configs import get_config
+    from ..models import ssm
+    from . import comm, make_plan
+    from .partition import activation_ctx, block
+    from .rules import P, param_shardings
+
+    cfg = dataclasses.replace(get_config(SSD["arch"]).reduced(),
+                              param_dtype="float32")
+    mesh = _mesh((1, 4), ("data", "model"), dev)
+    plan = make_plan(cfg, mesh)
+    specs = param_shardings(ssm.param_specs(cfg), plan)
+    whole = _t(numpy_tree(ssm.param_specs(cfg)), dev)
+    rng = np.random.default_rng(SSD["seed"])
+    b, s, d = SSD["batch"], SSD["seq"], cfg.d_model
+    u = torch.from_numpy(rng.standard_normal((b, s, d), np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((b, s, d), np.float32)).to(dev)
+    steps_u = torch.from_numpy(rng.standard_normal(
+        (SSD["decode"], b, 1, d), np.float32)).to(dev)
+    c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
+    heads = P(None, "model", None, None)
+    mine = {}
+
+    def held(what, got, want):
+        mine[f"ssd/{what}/{c}"] = (float((got - want).detach().abs().max()),
+                                   float(want.detach().abs().max()))
+
+    names = sorted(whole)
+    wl = {k: whole[k].clone().requires_grad_() for k in names}
+    yw, stw = ssm.ssd_forward(wl, u, cfg, return_state=True)
+    gw = dict(zip(names, torch.autograd.grad(torch.sum(yw * w),
+                                             [wl[k] for k in names])))
+    bl = {k: block(whole[k], specs[k], mesh).requires_grad_()
+          for k in names}
+    with activation_ctx(plan):
+        y, st = ssm.ssd_forward(bl, u, cfg, return_state=True)
+        g = torch.autograd.grad(torch.sum(y * w) * (1.0 / mesh.size),
+                                [bl[k] for k in names])
+    g = comm.reduce_grads(dict(zip(names, g)), specs, mesh)
+    held("forward/out", y.detach(), yw.detach())
+    held("forward/ssm", st["ssm"].detach(), block(stw["ssm"], heads, mesh))
+    held("forward/conv", st["conv"].float(), stw["conv"].float())
+    for k in names:
+        held(f"grad/{k}", g[k], block(gw[k], specs[k], mesh))
+    with torch.no_grad():
+        bl = {k: v.detach() for k, v in bl.items()}
+        stw = {k: v.detach() for k, v in stw.items()}
+        st = {k: v.detach() for k, v in st.items()}
+        for t in range(SSD["decode"]):
+            yw, stw = ssm.ssd_decode(whole, steps_u[t], stw, cfg)
+            with activation_ctx(plan):
+                y, st = ssm.ssd_decode(bl, steps_u[t], st, cfg)
+            held(f"decode/{t}/out", y, yw)
+            held(f"decode/{t}/ssm", st["ssm"], block(stw["ssm"], heads,
+                                                     mesh))
+            held(f"decode/{t}/conv", st["conv"].float(), stw["conv"].float())
+        yy = torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.ssm_d_inner), np.float32)).to(dev)
+        with activation_ctx(plan):
+            split = ssm.sq_mean(block(yy, P(None, None, "model"), mesh),
+                                "model", cfg)
+        held("norm/stat", split, ssm.sq_mean(yy, None, cfg))
     everyone = [None] * tdist.get_world_size()
     tdist.all_gather_object(everyone, mine)
     for rec in everyone:
@@ -823,7 +961,7 @@ def _storage_bytes(tensors) -> int:
 
 PARTS = {"blocks": _blocks, "ep": _ep, "decode": _decode,
          "pipeline": _pipeline, "compressed": _compressed, "train": _train,
-         "tp": _tp, "tp_train": _tp_train}
+         "tp": _tp, "tp_train": _tp_train, "ssd": _ssd}
 #: the parts of ``experiments/sharding/reference.json``'s mesh cases before
 #: serving on blocks (``tp``, run on its own)
 BASE_PARTS = ("blocks", "ep", "decode", "pipeline", "compressed", "train")

@@ -33,7 +33,8 @@ partitions) needs three more seams, used by the layer code:
 `psum_rule` (the sum of a partial product over them) and `gather_leaf`'s
 ``keep`` (the per-layer FSDP gather over the axes other than ``model``;
 `tp_keep`). Training under a plan computes on the same blocks.
-`tensor_parallel` says which configs are served and trained on blocks;
+`tensor_parallel` says which configs are served and trained on blocks
+(every one but the encoder-decoder);
 `serving_shardings` / `serving_cache_shardings` give the blocks a rank
 holds.
 """
@@ -335,21 +336,21 @@ def gather_tree(tree: Any, spec_tree: Any, mesh, keep=()) -> Any:
 # -- serving on blocks ---------------------------------------------------------
 
 def tensor_parallel(cfg) -> bool:
-    """Whether the port serves ``cfg`` under a plan on this rank's blocks
-    (`serving_shardings`): the dense decoder-only and MoE configs. The SSM
-    and hybrid stacks, the encoder-decoder and the prefix configs keep
-    their weights whole on every rank."""
-    return (not cfg.is_encdec and not cfg.n_prefix_tokens
-            and all(m == "attn" for m, _ in cfg.layer_kinds()))
+    """Whether the port serves and trains ``cfg`` under a plan on this
+    rank's blocks (`serving_shardings`, ``train_state_shardings``): every
+    decoder-only config (dense, MoE, SSM, hybrid, prefix). The
+    encoder-decoder keeps its weights whole on every rank."""
+    return not cfg.is_encdec
 
 
 def tp_keep(name: str, key: str, layer_spec: Dict) -> Tuple[str, ...]:
     """``gather_leaf``'s ``keep`` for leaf ``key`` of part ``name`` of a
     tensor-parallel layer (``layer_spec``: the layer's per-layer specs by
-    part): its ``model`` block stays the rank's, but an MoE layer's router
-    and, where ``model`` does not split the experts, its experts, which the
-    JAX ``shard_map`` takes whole (``in_specs`` ``P(None, None)``,
-    ``P(None, None, None)``)."""
+    part): its ``model`` block stays the rank's (an SSM's ``ssm_inner``
+    and ``ssm_heads`` leaves; ``wB``, ``wC`` and the conv have none and
+    arrive whole), but an MoE layer's router and, where ``model`` does not
+    split the experts, its experts, which the JAX ``shard_map`` takes
+    whole (``in_specs`` ``P(None, None)``, ``P(None, None, None)``)."""
     if name == "moe" and (key == "router"
                           or layer_spec["moe"]["wi"][0] != "model"):
         return ()
@@ -381,22 +382,23 @@ def serving_cache_shardings(cfg, plan: ShardingPlan, caches: Any,
     the global tree) when its stream is its block of the batch
     (``split``) or the whole batch: `decode_input_shardings`' for a
     `tensor_parallel` config (kv heads over ``model``, or the sequence
-    over ``plan.cache_seq_axis``), with the batch entry dropped where the
-    stream is whole; for the other configs the batch entry only, but the
-    seq-sharded flash-decode's (``decode_attention="sharded"``), which
-    takes `decode_input_shardings`' whole."""
+    over ``plan.cache_seq_axis``; an SSM layer's state its heads over
+    ``ssm_heads``, its conv tail whole over ``model``), with the batch
+    entry dropped where the stream is whole; for the other configs the
+    batch entry only, but the seq-sharded flash-decode's
+    (``decode_attention="sharded"``), which takes `decode_input_shardings`'
+    whole."""
     want = decode_input_shardings(cfg, plan, {"caches": caches})["caches"]
     tp = tensor_parallel(cfg)
 
     def one(path, spec):
-        if (path[-1] in ("k", "v", "k_scale", "v_scale")
-                and cfg.decode_attention == "sharded"
-                and plan.cache_seq_axis):
+        kv = path[-1] in ("k", "v", "k_scale", "v_scale")
+        if kv and cfg.decode_attention == "sharded" and plan.cache_seq_axis:
             return spec
         if not tp:
             return P(None, spec[1] if split else None,
                      *([None] * (len(spec) - 2)))
-        if isinstance(spec[2], tuple):
+        if kv and isinstance(spec[2], tuple):
             raise ValueError(
                 f"the cache spreads its sequence over {spec[2]} (a batch "
                 f"that does not divide {plan.batch_axes}): the port's "

@@ -201,19 +201,27 @@ def test_port_notes_name_every_form_the_port_lacks():
 @pytest.mark.parametrize("arch", ["mamba2-370m", "whisper-tiny",
                                   "jamba-1.5-large-398b", "paligemma-3b"])
 def test_train_notes_name_the_whole_layer_gather(arch):
-    """The SSM, hybrid, encoder-decoder and prefix configs keep the layers
-    gathered whole under a plan; their train records say so (whisper-tiny's
-    traced record too), and a dense config's says nothing of it."""
+    """Only the encoder-decoder keeps the layers gathered whole under a
+    plan; its train records say so (whisper-tiny's traced record too).
+    The SSM, hybrid and prefix configs compute on their blocks: their
+    notes name at most attention run whole where its heads are replicated
+    (none for the attention-free SSM stack), as a dense config's do."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.sharding import make_plan
 
-    plan = make_plan(get_config(arch), _Shape({"data": 16, "model": 16}))
-    notes = " ".join(dryrun.train_notes(get_config(arch), plan))
-    assert "the layers gathered whole over every axis, model included" \
-        in notes
+    cfg = get_config(arch)
+    plan = make_plan(cfg, _Shape({"data": 16, "model": 16}))
+    notes = " ".join(dryrun.train_notes(cfg, plan))
+    gathered = "the layers gathered whole over every axis, model included"
     if arch == "whisper-tiny":
+        assert gathered in notes
         assert notes in _rec(_key(arch, "train_4k", "16x16"))["port_notes"]
+    elif arch == "mamba2-370m":
+        assert notes == ""
+    else:
+        assert gathered not in notes
+        assert notes.startswith("train: the heads replicated (")
     phi3 = get_config("phi3-mini-3.8b")
     assert dryrun.train_notes(phi3, make_plan(phi3, _Shape(
         {"data": 16, "model": 16}))) == []

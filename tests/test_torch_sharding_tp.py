@@ -7,9 +7,9 @@ arrays, from ``experiments/sharding/make_reference.py``) and against the
 port's own unsharded steps on the whole weights.
 
 One module fixture spawns the four ranks once (``launch_mesh(
-sharding.mesh_cases.run, 4, ("tp", "tp_train"))``); beside them two JAX
-subprocesses (``make_reference.py --npz PATH tp`` and ``... tp_train``)
-recompute the file's ``tp`` and ``tp_train`` parts.
+sharding.mesh_cases.run, 4, ("tp", "tp_train", "ssd"))``); beside them two
+JAX subprocesses (``make_reference.py --npz PATH tp`` and ``...
+tp_train``) recompute the file's ``tp`` and ``tp_train`` parts.
 Each case of ``mesh_cases.TP_CASES`` (``.reduced()``, two layers, float32)
 prefills an 8-token prompt of a batch of 2, pads the caches to a 16-slot
 window (in float32) and takes 8 teacher-forced decode steps, once from its
@@ -23,7 +23,13 @@ caches gathered whole):
   data); GQA with qkv bias (qwen) on (2, 2); MQA (gemma: one kv head, the
   heads replicated, the cache's sequence over model) under both
   ``decode_attention`` forms on (1, 4); MoE (granite, experts over model,
-  capacity factor 8) on (2, 2).
+  capacity factor 8) on (2, 2);
+* SSM (mamba2: 16 heads, 4 a rank, the state its heads, the conv tail
+  whole) on (1, 4) and (2, 2); the hybrid (jamba's whole 8-layer period:
+  SSM heads, kv heads and experts over model on (2, 2), its 2 kv heads
+  replicated and the cache's sequence sharded on (1, 4)); the prefix
+  (paligemma, MQA, 8 seeded prefix embeddings before the prompt, the
+  decode from the slot after them) on (1, 4).
 
 Tolerances (phase 16a's decode rule, ``tests/test_torch_sharding_mesh.py``):
 logits atol 5e-5 (prefill and every step); the decode window's caches
@@ -32,6 +38,13 @@ one bf16 rounding of the larger entry (a float32 gap of ~1e-7 moves a
 rounding by a step; the two packages' programs round 1-6 of 2048-4096
 entries a leaf apart). XLA's own sharded and unsharded programs lie up to
 2.1e-5 apart in these logits.
+
+The SSD alone (``mesh_cases.SSD``: ``ssm.ssd_forward`` and four
+``ssd_decode`` steps on (1, 4)) matches the whole-weight SSD on the same
+inputs within 1e-5 of the largest |entry| (the output, the state as the
+rank's heads block, the conv tail whole, the gradient of every leaf as the
+rank's block); the gated RMSNorm's statistic, the rank's sum of squares
+summed over the ranks, is the whole mean within 8 float32 roundings.
 
 Each rank's storage is its blocks: the model's parameters are the bytes of
 its ``params_only_shardings`` blocks, its caches those of its
@@ -138,7 +151,7 @@ def ref():
 @pytest.fixture(scope="module")
 def port(jax_live, ref):
     torch.set_num_threads(1)
-    out, _walls = D.launch_mesh(MC.run, 4, ("tp", "tp_train"),
+    out, _walls = D.launch_mesh(MC.run, 4, ("tp", "tp_train", "ssd"),
                                 MC.tp_start_caches(ref), device="cpu",
                                 timeout_s=TIMEOUT)
     return out
@@ -159,6 +172,14 @@ def _held(got, want, what):
         f"{lim.reshape(-1)[np.argmax(err - lim)]:.3g})")
 
 
+def _n_cache_leaves(case):
+    from repro_torch.models import transformer
+    from repro_torch.models.common import sorted_leaves
+
+    return len(list(sorted_leaves(transformer.init_decode_caches(
+        MC.tp_config(case), 1, 1, device="meta"))))
+
+
 def _keys(arrays, case, part=""):
     return sorted(k[len(f"tp/{case}"):] for k in arrays
                   if k.startswith(f"tp/{case}/{part}"))
@@ -170,7 +191,8 @@ def test_tp_steps_match_the_jax_sharded_steps(port, ref, case):
     (where the JAX decode starts)."""
     keys = _keys(ref, case)
     # prefill logits and caches, each step's logits, the decode window
-    assert len(keys) == 1 + 2 + MC.TP["steps"] + 2
+    n = _n_cache_leaves(case)
+    assert len(keys) == 1 + n + MC.TP["steps"] + n
     assert keys == [k for k in _keys(port, case)
                     if not k.startswith("/continued/")]
     for k in keys:
@@ -183,7 +205,8 @@ def test_tp_steps_match_the_unsharded_port(port, case):
     the decode continued from the blocks' own prefill caches (the whole
     model's from the same caches gathered whole)."""
     keys = _keys(port, case)
-    assert len(_keys(port, case, "continued/")) == MC.TP["steps"] + 2
+    assert len(_keys(port, case, "continued/")) == (MC.TP["steps"]
+                                                    + _n_cache_leaves(case))
     for k in keys:
         _held(port[f"tp/{case}{k}"], port[f"tp_plain/{case}{k}"],
               f"{case}{k} (unsharded port)")
@@ -238,8 +261,8 @@ def test_each_rank_holds_only_its_blocks(port, case):
     params = _block_bytes(abstract_params_tree(cfg),
                           params_only_shardings(cfg, plan), plan)
     caches = transformer.init_decode_caches(
-        cfg, MC.TP["batch"], MC.TP["max_len"], dtype=torch.float32,
-        device="meta")
+        cfg, MC.TP["batch"], cfg.n_prefix_tokens + MC.TP["max_len"],
+        dtype=torch.float32, device="meta")
     cache_bytes = _block_bytes(caches, decode_input_shardings(
         cfg, plan, {"caches": caches})["caches"], plan)
     whole = sum(math.prod(t.shape) * t.element_size()
@@ -258,16 +281,19 @@ def _expected_ops(case):
     from repro_torch.sharding import params_only_shardings
 
     cfg, plan = MC.tp_config(case), _plan(case)
-    n_layers = cfg.n_layers
     specs = dict(sorted_leaves(params_only_shardings(cfg, plan)))
+    (pattern, repeats), = cfg.layer_groups()
     # the FSDP gathers: each leaf with a block along data, once a step
     # (a stacked leaf once a layer)
-    fsdp = sum(("data" in s) * (n_layers if p.startswith("layers/") else 1)
+    fsdp = sum(("data" in s) * (repeats if p.startswith("layers/") else 1)
                for p, s in specs.items())
     want = collections.Counter({("all-reduce", "model"): 1,    # embedding
                                 ("all-gather", "model"): 1})   # logits
     if fsdp:
         want[("all-gather", "data")] = fsdp
+    if case.startswith(("ssm", "hybrid", "prefix")):
+        return want + _layer_ops(cfg, plan, pattern, repeats)
+    n_layers = cfg.n_layers
     if case.startswith("mqa_gathered"):
         # the softmax's max and sum and the weights-times-values partial
         # over the cache's sequence; the MLP's reduce
@@ -286,6 +312,36 @@ def _expected_ops(case):
         want[("all-gather", "data")] += 2 * n_layers
     else:
         want[("all-reduce", "model")] += 2 * n_layers
+    return want
+
+
+def _layer_ops(cfg, plan, pattern, repeats):
+    """{(HLO kind, axes): count} of the layers of one decode step, by
+    kind: an SSM layer's gather of the new token's ``x`` columns (the conv
+    tail whole), its gated RMSNorm's statistic and ``wo``'s partial sum;
+    attention's reduce where its heads are blocks, else the gathered
+    decode's maximum, sum and weights-times-values partial over the
+    cache's sequence; the MLP's reduce; the MoE's router gathered whole
+    and its expert exchange there and back (and, with FSDP over data, the
+    expert FFN's two sums and its gathers of the tokens and the output
+    over data)."""
+    want = collections.Counter()
+    for mixer, ffn in pattern:
+        if mixer == "ssm":
+            want[("all-gather", "model")] += repeats
+            want[("all-reduce", "model")] += 2 * repeats
+        elif plan.rules["heads"] is not None:
+            want[("all-reduce", "model")] += repeats
+        else:
+            want[("all-reduce", "model")] += 3 * repeats
+        if ffn == "mlp":
+            want[("all-reduce", "model")] += repeats
+        elif ffn == "moe":
+            want[("all-gather", "model")] += repeats
+            want[("all-to-all", "model")] += 2 * repeats
+            if plan.mesh.shape["data"] > 1:
+                want[("all-reduce", "data")] += 2 * repeats
+                want[("all-gather", "data")] += 2 * repeats
     return want
 
 
@@ -358,9 +414,16 @@ def test_tp_train_step_gathers_no_parameter_over_model(port, case):
     # of the sequence and reduces after its model blocks (an MoE router
     # gathered whole), the gather before the loss; each one's adjoint
     want = MC.seq_seams(case)
-    assert want == 2 + MC.tp_config(case).n_layers * {
-        "mha_1x4": 4, "mha_2x2": 4, "gqa_bias_2x2": 4, "mqa_gathered_1x4": 3,
-        "moe_2x2": 3}[case]
+    # 2 (the embedding's and the loss's) + per layer: attention or the SSD
+    # 2 (1 where the heads are replicated), the MLP 2, the MoE 1; a prefix
+    # puts the embedding's sum before the cut (an all-reduce)
+    assert want == {
+        "mha_1x4": 2 + 2 * 4, "mha_2x2": 2 + 2 * 4, "gqa_bias_2x2": 2 + 2 * 4,
+        "mqa_gathered_1x4": 2 + 2 * 3, "moe_2x2": 2 + 2 * 3,
+        "ssm_1x4": 2 + 2 * 2, "ssm_2x2": 2 + 2 * 2,
+        "hybrid_2x2": 2 + 4 * (2 + 2) + 4 * (2 + 1),
+        "hybrid_1x4": 2 + 3 * (2 + 2) + (1 + 2) + 4 * (2 + 1),
+        "prefix_1x4": 1 + 2 * 3}[case]
     for ops in lists:
         assert list(ops) == list(lists[0])    # every rank, the same order
         got = collections.Counter(str(op) for op in ops)
@@ -386,7 +449,8 @@ def test_tp_train_carry_is_the_sequence_block(port, case):
         assert saved.count(block) >= cfg.n_layers, (k, saved)
 
 
-@pytest.mark.parametrize("case", TRAIN_CASES)
+@pytest.mark.parametrize("case", [c for c in TRAIN_CASES
+                                  if not MC.tp_config(c).n_prefix_tokens])
 def test_build_trainer_draws_each_rank_its_blocks(port, case):
     got = {k: bool(v) for k, v in port.items()
            if k.startswith(f"tp_train_init/{case}/")}
@@ -450,3 +514,28 @@ def test_reference_tp_train_part_is_the_jax_packages(jax_live):
     assert sorted(live) == sorted(want) and len(want) > 100
     for k, v in live.items():
         assert json.loads(json.dumps(mod.encode(k, v))) == want[k], k
+
+
+# -- the SSD on the rank's blocks ----------------------------------------------
+
+SSD_PARTS = (["forward/out", "forward/ssm", "forward/conv"]
+             + [f"grad/{k}" for k in ("A_log", "D", "conv_b", "conv_w",
+                                      "dt_bias", "norm_w", "wB", "wC",
+                                      "wdt", "wo", "wx", "wz")]
+             + [f"decode/{t}/{k}" for t in range(MC.SSD["decode"])
+                for k in ("out", "ssm", "conv")])
+
+
+@pytest.mark.parametrize("what", SSD_PARTS)
+def test_ssd_on_blocks_matches_the_whole_weight_ssd(port, what):
+    got = {k: port[k] for k in port if k.startswith(f"ssd/{what}/")}
+    assert len(got) == 4, sorted(got)
+    for k, (err, scale) in got.items():
+        assert scale > 0 and err <= 1e-5 * scale, (k, err, scale)
+
+
+def test_ssd_split_norm_statistic_is_the_whole_mean(port):
+    got = {k: port[k] for k in port if k.startswith("ssd/norm/stat/")}
+    assert len(got) == 4
+    for k, (err, scale) in got.items():
+        assert err <= 8 * np.finfo(np.float32).eps * scale, (k, err, scale)

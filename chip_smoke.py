@@ -187,17 +187,20 @@ bytes each collective moved, and claims no speed (the ranks share one
 card). Phase 18, on the same ranks, serves under a plan on each rank's
 blocks of the weights and caches (tensor parallelism over model): (a)
 ``sharding.mesh_cases``' ``tp`` cases (MHA, GQA with qkv bias, MQA under
-both decode forms, MoE, SSM, the hybrid, the prefix; ``.reduced()``) held
-to the reference's JAX sharded steps and to the port's unsharded steps,
-each rank's storage to its blocks' bytes; (b) phi3-mini-3.8b at full
-width on (data, model) = (1, 4), (c) yi-34b at full width cut to 8 of
-its 60 layers on (2, 2) (FSDP over data), (d) mamba2-370m (its SSM heads
-and inner width over model) and (e) paligemma-3b after 256 prefix
-embeddings, both on (1, 4): a 64-token prefill, then 16, 2, 16 and 16
-decode steps, each rank's weights and caches held to its blocks' bytes
-and layer 0's prefill caches (or SSM state and conv tail) to rank 0's
-whole-model oracle, the deepest layer's printed; times, peaks and each
-collective's bytes and wall a step printed. Phase 19, on the same ranks,
+both decode forms, MoE, SSM, the hybrid, the prefix, the encoder-decoder;
+``.reduced()``) held to the reference's JAX sharded steps and to the
+port's unsharded steps, each rank's storage to its blocks' bytes; (b)
+phi3-mini-3.8b at full width on (data, model) = (1, 4), (c) yi-34b at
+full width cut to 4 of its 60 layers on (2, 2) (FSDP over data), (d)
+mamba2-370m (its SSM heads and inner width over model), (e) paligemma-3b
+after 256 prefix embeddings and (f) whisper-tiny over 1500 encoded frames
+(its cross caches 375 frames a rank), all on (1, 4) but (c): a 64-token
+prefill, then 8, 2, 8, 16 and 16 decode steps, each rank's weights and
+caches held to its blocks' bytes and layer 0's prefill caches (or SSM
+state and conv tail; whisper's cross caches against the oracle's
+``memory_kv`` of the rank's encoder output) to rank 0's whole-model
+oracle, the deepest layer's printed; times, peaks and each collective's
+bytes and wall a step printed. Phase 19, on the same ranks,
 trains under a plan on each rank's blocks (tensor parallelism over model,
 the sequence-parallel residual stream, the vocab-parallel loss): (a)
 ``sharding.mesh_cases``' ``tp_train`` cases (``.reduced()``, float32)
@@ -205,8 +208,10 @@ held to the reference's JAX sharded step and to the port's form that
 gathers every leaf whole, their collectives over model the sequence
 seams only, ``build_trainer``'s state the blocks of the whole draw and
 the vocab-parallel cross-entropy the whole vocabulary's; (b) gemma-2b,
-(c) mamba2-370m and (d) paligemma-3b (256 prefix embeddings and 1792
-tokens) at full width on (1, 4), one step of 1 x 2048 positions each, its
+(c) mamba2-370m cut to 24 of its 48 layers and (d) paligemma-3b (256
+prefix embeddings and 1792 tokens) cut to 9 of its 18, at full width on
+(1, 4), one step of 1 x 2048 positions each, and (e) whisper-tiny on
+(2, 2), one step of 2 x (1500 frames and 448 tokens); each its
 loss, gradient norm and layer 0's and the embedding's gradient blocks
 held to the gather-whole form on the same blocks within the bf16 gap
 (mamba2's gradient blocks by their distance from that form run in
@@ -214,8 +219,8 @@ float32), its time, each rank's peak beside its state's bytes, its
 collectives and (gemma-2b's) largest loss-chunk logits printed.
 Phase 17 runs the dry run and the autotuner (``launch.dryrun``,
 ``kernels.autotune``): (a) in a child process that sees no card, phase
-16's three cells, 18b's, 18d's and 18e's decode and 19b's, 19c's and
-19d's train steps traced on meta tensors in a fake process group of
+16's three cells, 18b's and 18d-f's decode and 19b-e's train steps
+traced on meta tensors in a fake process group of
 their meshes' ranks, each collective
 kind's bytes a step held equal to what phases 16, 18 and 19 measured on
 rank 0, the argument
@@ -5911,20 +5916,22 @@ def _shard_compressed(dev, spec=SHARD_COMPRESSED, run=TRAIN_100M_RUN,
 #: 18b: phi3-mini-3.8b as configured on (data, model) = (1, 4): pure tensor
 #: parallelism (8 q and 8 kv heads, d_ff 2048 and 8032 vocabulary rows a
 #: rank); a batch of 4, a 64-token prefill padded to a 256-slot window,
-#: then 16 decode steps
+#: then 8 decode steps (16 before 18f came: the script's wall)
 TP_FULL = {"arch": "phi3-mini-3.8b", "mesh": (1, 4), "batch": 4,
-           "prompt": 64, "max_len": 256, "steps": 16, "seed": 1}
-#: 18c: yi-34b at full width cut to 8 of its 60 layers, on (2, 2): FSDP
-#: over data on embed, GQA over model (28 q and 4 kv heads a rank); a batch
-#: of 2, a 64-token prefill padded to a 256-slot window, 2 decode steps
-TP_FSDP = {"arch": "yi-34b", "n_layers": 8, "mesh": (2, 2), "batch": 2,
+           "prompt": 64, "max_len": 256, "steps": 8, "seed": 1}
+#: 18c: yi-34b at full width cut to 4 of its 60 layers (8 before 18f
+#: came), on (2, 2): FSDP over data on embed, GQA over model (28 q and 4 kv
+#: heads a rank); a batch of 2, a 64-token prefill padded to a 256-slot
+#: window, 2 decode steps
+TP_FSDP = {"arch": "yi-34b", "n_layers": 4, "mesh": (2, 2), "batch": 2,
            "prompt": 64, "max_len": 256, "steps": 2, "seed": 2}
 #: 18d: mamba2-370m as configured on (1, 4): its 32 SSM heads 8 a rank
 #: (the inner width's 512 columns, the state's heads), the conv tail and
 #: the 50,304-row vocabulary's 12,576 rows a rank; a batch of 4, a
-#: 64-token prefill, 16 decode steps (the SSM has no window: its state)
+#: 64-token prefill, 8 decode steps (16 before 18f came: the script's
+#: wall; the SSM has no window: its state)
 TP_SSM = {"arch": "mamba2-370m", "mesh": (1, 4), "batch": 4, "prompt": 64,
-          "max_len": 128, "steps": 16, "seed": 3}
+          "max_len": 128, "steps": 8, "seed": 3}
 #: 18e: paligemma-3b as configured on (1, 4): gemma's backbone (its one kv
 #: head leaves the heads whole, the cache's sequence over model, the MLP
 #: and 64,320 vocabulary rows a rank); a batch of 4, 256 seeded prefix
@@ -5932,6 +5939,13 @@ TP_SSM = {"arch": "mamba2-370m", "mesh": (1, 4), "batch": 4, "prompt": 64,
 #: slots, 16 decode steps
 TP_PREFIX = {"arch": "paligemma-3b", "mesh": (1, 4), "batch": 4,
              "prompt": 64, "max_len": 128, "steps": 16, "seed": 4}
+#: 18f: whisper-tiny as configured on (1, 4): its 6 heads replicated (6 do
+#: not divide 4), the MLP's 1536 and the vocabulary over model, the self
+#: caches' 256 slots and the cross caches' 1500 frames 64 and 375 a rank; a
+#: batch of 4 with 1500 seeded frames encoded, a 64-token prompt prefilled
+#: into a 256-slot window, 16 decode steps
+TP_ENCDEC = {"arch": "whisper-tiny", "mesh": (1, 4), "batch": 4,
+             "prompt": 64, "max_len": 256, "steps": 16, "seed": 5}
 
 
 def _tp_config(spec):
@@ -5966,6 +5980,32 @@ def _layer_share(layer) -> dict:
     return out
 
 
+def _frames_batch(cfg, b, gen, dev) -> dict:
+    """An encoder-decoder's seeded bf16 frames (b, enc_seq, d_model) drawn
+    on ``dev``; {} for the others."""
+    if not cfg.is_encdec:
+        return {}
+    return {"frames": torch.randn(
+        (b, cfg.enc_seq, cfg.d_model), generator=gen, device=dev,
+        dtype=torch.float32).to(torch.bfloat16)}
+
+
+def _cache_probes(cfg, pspec) -> dict:
+    """The prefill caches 18b-f compare with the oracle's, by label
+    (cache name, leaf, layer): layer 0's (held) and the deepest layer's
+    (printed); an encoder-decoder's self caches at layer 0 (its cross
+    caches come from the whole encoder: held against the oracle's
+    ``memory_kv`` of the rank's own encoder output instead)."""
+    if cfg.is_encdec:
+        return {"layer0": {f"self {k}": ("self", k, 0) for k in ("k", "v")},
+                "deepest": {f"{n} {k}": (n, k, -1) for n in ("self", "cross")
+                            for k in ("k", "v")},
+                "cross0": {f"cross {k}": ("cross", k, 0) for k in ("k", "v")}}
+    last = f"l{len(pspec) - 1}"
+    return {"layer0": {k: ("l0", k, 0) for k in pspec["l0"]},
+            "deepest": {k: (last, k, -1) for k in pspec[last]}}
+
+
 def _prefix_batch(cfg, b, gen, dev) -> dict:
     """A prefix config's seeded bf16 prefix embeddings (b, P, d_model)
     drawn on ``dev`` (what the JAX package feeds its prefix configs); {}
@@ -5978,17 +6018,19 @@ def _prefix_batch(cfg, b, gen, dev) -> dict:
 
 
 def _tp_serve(mesh, dev, spec):
-    """18b-18e on this rank: the model on its blocks (drawn leaf by leaf
+    """18b-18f on this rank: the model on its blocks (drawn leaf by leaf
     and cut), the prefill of its block of the batch (after a prefix
-    config's seeded prefix embeddings), the attention caches padded to
-    the window, the teacher-forced decode steps, each timed with its
-    collectives' bytes and wall; then, on rank 0 only, the whole model as
-    the oracle on the whole batch: layer 0's prefill caches held, the
-    deepest layer's and the logits' gaps printed."""
+    config's seeded prefix embeddings, or over an encoder-decoder's seeded
+    frames), the attention caches padded to the window, the
+    teacher-forced decode steps, each timed with its collectives' bytes
+    and wall; then, on rank 0 only, the whole model as the oracle on the
+    whole batch: layer 0's prefill caches held (an encoder-decoder's cross
+    caches against the oracle's ``memory_kv`` of the rank's encoder
+    output), the deepest layer's and the logits' gaps printed."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import steps, transformer as TT
+    from repro_torch.models import attention, steps
     from repro_torch.sharding import make_plan
     from repro_torch.sharding.partition import (
         activation_ctx, batch_axis, block, decode_input_shardings,
@@ -6012,14 +6054,16 @@ def _tp_serve(mesh, dev, spec):
            "block_bytes": held,
            "whole_bytes": whole_bytes,
            "params_bytes": _storage_bytes(list(model.parameters())),
-           "share": _layer_share(model.layers[0]),
+           "share": _layer_share((model.dec_layers if cfg.is_encdec
+                                  else model.layers)[0]),
            "vocab_rows": (model.embed.shape[0] if cfg.tie_embeddings
                           else model.lm_head.shape[1]),
            "ms": [], "bytes": [], "step_mem": []}
     gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 100)
     toks = torch.randint(0, cfg.vocab_size, (b, pr + n), generator=gen,
                          device=dev, dtype=torch.int32)
-    extra = _prefix_batch(cfg, b, gen, dev)
+    extra = {**_prefix_batch(cfg, b, gen, dev),
+             **_frames_batch(cfg, b, gen, dev)}
     split = batch_axis(plan, b) is not None
     bspec = P(plan.batch_axes if split else None, None)
     mine = block(toks, bspec, m)
@@ -6027,16 +6071,16 @@ def _tp_serve(mesh, dev, spec):
                   for k, v in extra.items()}
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_decode_step(cfg)
-    prompt_caches = TT.init_decode_caches(cfg, b, p0 + pr, device="meta")
+    prompt_caches = _mc().decode_caches(cfg, b, p0 + pr, device="meta")
     pspec = serving_cache_shardings(cfg, plan, prompt_caches, split)
-    window = TT.init_decode_caches(cfg, b, p0 + spec["max_len"],
-                                   device="meta")
+    window = _mc().decode_caches(cfg, b, p0 + spec["max_len"],
+                                 device="meta")
     wspec = decode_input_shardings(cfg, plan, {"caches": window})["caches"]
     rec["cache_block_bytes"] = sum(
         t.element_size() * math.prod(t.shape) // math.prod(
             m.axis_size(e) for e in wspec[name][k] if e is not None)
         for name, c in window.items() for k, t in c.items())
-    last = f"l{len(pspec) - 1}"
+    probes = _cache_probes(cfg, pspec)
     with activation_ctx(plan, split):
         before = _mesh_bytes()
         tdist.barrier()
@@ -6049,10 +6093,14 @@ def _tp_serve(mesh, dev, spec):
                                 for k, v in _mesh_bytes().items()}
         pre_logits = gather_leaf(logits, P(bspec[0], None, None), m)
         # copies: the decode writes an SSM layer's caches in place
-        pre_l0, pre_last = (
-            {k: gather_leaf(t[r], P(*pspec[name][k][1:]), m).clone()
-             for k, t in caches[name].items()}
-            for name, r in (("l0", 0), (last, -1)))
+        pre = {label: {key: gather_leaf(caches[name][k][r],
+                                        P(*pspec[name][k][1:]), m).clone()
+                       for key, (name, k, r) in probe.items()}
+               for label, probe in probes.items()}
+        if cfg.is_encdec:
+            # the encoder's output (whole on every rank of a batch block)
+            mem = gather_leaf(model.encode(mine_extra["frames"]),
+                              P(bspec[0], None, None), m)
         caches = model.pad_caches(caches, p0 + spec["max_len"])
         rec["cache_bytes"] = _storage_bytes(caches)
         rec["resident"] = (rec["params_bytes"] + rec["cache_bytes"]
@@ -6086,13 +6134,22 @@ def _tp_serve(mesh, dev, spec):
             lo, co = prefill(oracle, {"tokens": toks[:, :pr], **extra})
             _sync(dev)
             rec["oracle_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
-            rec["layer0"], rec["deepest"] = {}, {}
-            for key, got_of, name, r in (("layer0", pre_l0, "l0", 0),
-                                         ("deepest", pre_last, last, -1)):
-                for k, got in got_of.items():
-                    want = co[name][k][r].float()
-                    err = float((got.float() - want).abs().max())
-                    rec[key][k] = (err, float(want.abs().max()))
+            if cfg.is_encdec:
+                # the cross caches of layer 0 from the rank's own encoder
+                # output; that output against the oracle's
+                xattn = oracle.dec_layers[0].local_params()["xattn"]
+                xk, xv = attention.memory_kv(xattn, mem)
+                want_of = {"cross k": xk, "cross v": xv}
+                enc = oracle.encode(extra["frames"]).float()
+                rec["enc_gap"] = (float((mem.float() - enc).abs().max()),
+                                  float(enc.abs().max()))
+            for label, probe in probes.items():
+                rec[label] = {}
+                for key, (name, k, r) in probe.items():
+                    want = (want_of[key] if label == "cross0"
+                            else co[name][k][r]).float()
+                    err = float((pre[label][key].float() - want).abs().max())
+                    rec[label][key] = (err, float(want.abs().max()))
             rec["prefill_logits_gap"] = float(
                 (pre_logits.float() - lo.float()).abs().max())
             rec["logits_max"] = float(lo.float().abs().max())
@@ -6138,11 +6195,14 @@ def _mc():
 #: run in float32 (each bf16 form's relative L2; `BF16_NOISE_MULTIPLE`):
 #: its SSD's sums over 2048 positions leave two bf16 programs' layer-0
 #: blocks up to 0.18 of max |g| apart where their loss and norm agree to
-#: 6e-4, past 19b's max-entry rule
-TP_TRAIN_SSM = {"arch": "mamba2-370m", "mesh": (1, 4), "batch": 1,
-                "seq": 2048, "seed": 10, "probe": False, "f32_oracle": True}
-TP_TRAIN_PREFIX = {"arch": "paligemma-3b", "mesh": (1, 4), "batch": 1,
-                   "seq": 2048, "seed": 11, "probe": False}
+#: 6e-4, past 19b's max-entry rule. Both at full width cut in depth since
+#: 18f and 19e came (the script's wall): mamba2 to 24 of its 48 layers,
+#: paligemma to 9 of its 18
+TP_TRAIN_SSM = {"arch": "mamba2-370m", "n_layers": 24, "mesh": (1, 4),
+                "batch": 1, "seq": 2048, "seed": 10, "probe": False,
+                "f32_oracle": True}
+TP_TRAIN_PREFIX = {"arch": "paligemma-3b", "n_layers": 9, "mesh": (1, 4),
+                   "batch": 1, "seq": 2048, "seed": 11, "probe": False}
 #: 19b: gemma-2b as configured (18 layers, full width) on (data, model) =
 #: (1, 4): one train step of 1 x 2048 tokens (14c's shape) on each rank's
 #: blocks of the state (the vocabulary's 64,000 rows and a quarter of each
@@ -6154,6 +6214,13 @@ TP_TRAIN_PREFIX = {"arch": "paligemma-3b", "mesh": (1, 4), "batch": 1,
 #: programs' gradients stay comparable at full width
 TP_TRAIN_FULL = {"arch": "gemma-2b", "mesh": (1, 4), "batch": 1,
                  "seq": 2048, "seed": 9}
+#: 19e: whisper-tiny as configured on (2, 2): 3 of its 6 heads a rank (its
+#: kv heads too), FSDP over data on embed, the MLP and the vocabulary over
+#: model; one step of a batch of 2 (one sequence a data rank), each 1500
+#: seeded frames (the encoder's stream 750 a rank) and 448 decoder tokens
+#: (15c's whisper shape), on 19b's pattern
+TP_TRAIN_ENCDEC = {"arch": "whisper-tiny", "mesh": (2, 2), "batch": 2,
+                   "seq": 448, "seed": 12, "probe": False}
 
 
 def _logits_probe(lead, vocab, rows):
@@ -6180,11 +6247,13 @@ def _logits_probe(lead, vocab, rows):
 
 
 def _grad_parts(grads, spec_of):
-    """(layer 0's gradient blocks, the embedding's block), on the host."""
+    """(layer 0's gradient blocks (an encoder-decoder's encoder and
+    decoder layer 0), the embedding's block), on the host."""
     out = {}
     for path, g in _flat_leaves(grads):
-        if path == "embed" or path.startswith("layers/l0/"):
-            out[path] = (g[0] if path.startswith("layers/") else g).detach(
+        if path == "embed" or path.startswith(("layers/l0/", "enc_layers/",
+                                               "dec_layers/")):
+            out[path] = (g if path == "embed" else g[0]).detach(
             ).float().cpu()
     return out
 
@@ -6220,7 +6289,8 @@ def _tp_train_full(mesh, dev, spec):
            "block_params": sum(t.numel() for _, t in _flat_leaves(master)),
            "whole_params": cfg.param_count(),
            "vocab_rows": master["embed"].shape[0],
-           "share": _layer_share(master["layers"]["l0"])}
+           "share": _layer_share(master["dec_layers"] if cfg.is_encdec
+                                 else master["layers"]["l0"])}
     data = dict(_train_batches(cfg, spec, 1)[0])
     if cfg.n_prefix_tokens:
         # P seeded prefix embeddings and the first seq - P tokens; the
@@ -6228,6 +6298,8 @@ def _tp_train_full(mesh, dev, spec):
         data["tokens"] = data["tokens"][:, :spec["seq"] - cfg.n_prefix_tokens]
         data.update(_prefix_batch(cfg, spec["batch"], torch.Generator(
             device=dev).manual_seed(spec["seed"] + 100), dev))
+    data.update(_frames_batch(cfg, spec["batch"], torch.Generator(
+        device=dev).manual_seed(spec["seed"] + 100), dev))
     batch, split = steps._batch_block(data, plan, dev)
     rec["split"] = split
 
@@ -6317,7 +6389,8 @@ SHARD_SIZES = {"train": SHARD_TRAIN, "serve": SHARD_SERVE,
                "overrides": TRAIN_100M, "tp_full": TP_FULL,
                "tp_fsdp": TP_FSDP, "tp_ssm": TP_SSM, "tp_prefix": TP_PREFIX,
                "tp_train_full": TP_TRAIN_FULL, "tp_train_ssm": TP_TRAIN_SSM,
-               "tp_train_prefix": TP_TRAIN_PREFIX}
+               "tp_train_prefix": TP_TRAIN_PREFIX, "tp_encdec": TP_ENCDEC,
+               "tp_train_encdec": TP_TRAIN_ENCDEC}
 
 
 def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
@@ -6326,10 +6399,10 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
     reference's gradients (ranks 0-1), (16b) granite-moe-1b-a400m's
     sharded training, (16c) gemma-2b's seq-sharded decode on its blocks,
     (16d) the compressed step; (18a) ``mesh_cases.run``'s ``tp`` part,
-    (18b) phi3-mini-3.8b, (18c) yi-34b, (18d) mamba2-370m and (18e)
-    paligemma-3b served on their blocks; (19a) its ``tp_train`` part,
-    (19b) gemma-2b, (19c) mamba2-370m and (19d) paligemma-3b trained on
-    their blocks. Every
+    (18b) phi3-mini-3.8b, (18c) yi-34b, (18d) mamba2-370m, (18e)
+    paligemma-3b and (18f) whisper-tiny served on their blocks; (19a) its
+    ``tp_train`` part, (19b) gemma-2b, (19c) mamba2-370m, (19d)
+    paligemma-3b and (19e) whisper-tiny trained on their blocks. Every
     rank's record goes to rank 0, which returns them with 16a's, 18a's
     and 19a's arrays."""
     import torch.distributed as tdist
@@ -6349,7 +6422,8 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
     rec["cuda_init_s"] = time.perf_counter() - t0
     # ``sizes["parts"]``: the labels to run (a driver iterating on some)
     parts = sizes.get("parts", ("a", "b", "c", "d", "18a", "18b", "18c",
-                                "18d", "18e", "19a", "19b", "19c", "19d"))
+                                "18d", "18e", "18f", "19a", "19b", "19c",
+                                "19d", "19e"))
     arrays = exch = None
     pods = make_debug_mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
     if "a" in parts:
@@ -6369,13 +6443,16 @@ def sharding_rank(mesh, exchange, sizes=SHARD_SIZES, tp_start=None):
             ("18c", lambda: _tp_serve(mesh, dev, sizes["tp_fsdp"])),
             ("18d", lambda: _tp_serve(mesh, dev, sizes["tp_ssm"])),
             ("18e", lambda: _tp_serve(mesh, dev, sizes["tp_prefix"])),
+            ("18f", lambda: _tp_serve(mesh, dev, sizes["tp_encdec"])),
             ("19a", lambda: _tp_train_reference(mesh)),
             ("19b", lambda: _tp_train_full(mesh, dev,
                                            sizes["tp_train_full"])),
             ("19c", lambda: _tp_train_full(mesh, dev,
                                            sizes["tp_train_ssm"])),
             ("19d", lambda: _tp_train_full(mesh, dev,
-                                           sizes["tp_train_prefix"]))):
+                                           sizes["tp_train_prefix"])),
+            ("19e", lambda: _tp_train_full(mesh, dev,
+                                           sizes["tp_train_encdec"]))):
         if label not in parts:
             continue
         _sync(dev)
@@ -6743,14 +6820,16 @@ def _tp_tolerance(key):
     """(rtol, atol) of an 18a array: ``tests/test_torch_sharding_tp.py``'s
     rule (logits and the float32 decode window atol 5e-5; the bf16
     prefill caches plus one bf16 rounding)."""
-    return (TP_BF16_RTOL if "/prefill/l" in key else 0.0), TP_ATOL
+    bf16 = any(f"/prefill/{c}" in key for c in ("l", "self/", "cross/"))
+    return (TP_BF16_RTOL if bf16 else 0.0), TP_ATOL
 
 
 def tp_serving_phase(ref, ranks, sizes=SHARD_SIZES):
     """Phase 18 from the ranks' records: (a) the ``tp`` cases against
     ``experiments/sharding/reference.json`` and the port's unsharded
     steps, each rank's storage against its blocks; (b) phi3-mini-3.8b,
-    (c) yi-34b, (d) mamba2-370m and (e) paligemma-3b on their blocks:
+    (c) yi-34b, (d) mamba2-370m, (e) paligemma-3b and (f) whisper-tiny on
+    their blocks:
     prefill and decode times, each rank's peak beside its blocks' bytes,
     the collectives' bytes and wall a step, layer 0 against rank 0's
     whole-model oracle."""
@@ -6759,7 +6838,8 @@ def tp_serving_phase(ref, ranks, sizes=SHARD_SIZES):
     if "18a" in ranks[0]:
         fails += _tp_reference_check(ref, ranks, MC)
     for label, key in (("18b", "tp_full"), ("18c", "tp_fsdp"),
-                       ("18d", "tp_ssm"), ("18e", "tp_prefix")):
+                       ("18d", "tp_ssm"), ("18e", "tp_prefix"),
+                       ("18f", "tp_encdec")):
         if label in ranks[0]:
             fails += _tp_serve_report(label, sizes[key], ranks)
     check(not fails, "; ".join(fails))
@@ -6769,7 +6849,6 @@ def _tp_reference_check(ref, ranks, MC) -> list:
     """18a: the ``tp`` cases against the file and the port's unsharded
     steps, each rank's storage against its blocks. Returns the failures."""
     from repro_torch.configs.specs import abstract_params_tree
-    from repro_torch.models import transformer as TT
     from repro_torch.models.common import sorted_leaves
     from repro_torch.sharding import (decode_input_shardings, make_plan,
                                       params_only_shardings)
@@ -6819,7 +6898,7 @@ def _tp_reference_check(ref, ranks, MC) -> list:
                 plan.axis_size(e) for e in spec_of[p] if e is not None)
                 for p, t in sorted_leaves(tree))
 
-        window = TT.init_decode_caches(
+        window = MC.decode_caches(
             cfg, MC.TP["batch"], cfg.n_prefix_tokens + MC.TP["max_len"],
             dtype=torch.float32, device="meta")
         want = (blocks(abstract_params_tree(cfg),
@@ -6845,9 +6924,10 @@ def _tp_reference_check(ref, ranks, MC) -> list:
 
 
 def _tp_serve_report(label, spec, ranks) -> list:
-    """18b-18e: each rank's storage against its blocks, layer 0 against
-    rank 0's oracle; the times, peaks and collectives printed. Returns the
-    failures."""
+    """18b-18f: each rank's storage against its blocks, layer 0 against
+    rank 0's oracle (an encoder-decoder's cross caches against the
+    oracle's of the rank's encoder output); the times, peaks and
+    collectives printed. Returns the failures."""
     fails = []
     cfg = _tp_config(spec)
     r0 = ranks[0][label]
@@ -6864,7 +6944,7 @@ def _tp_serve_report(label, spec, ranks) -> list:
         if not (r["finite"] and r["shape_ok"]):
             fails.append(f"{label} rank {rec['rank']}: non-finite "
                          f"logits or a wrong shape")
-    for k, (err, top) in r0["layer0"].items():
+    for k, (err, top) in {**r0["layer0"], **r0.get("cross0", {})}.items():
         if err > PREFILL_DECODE_TOL * top:
             fails.append(f"{label}: layer 0's prefill {k} cache off the "
                          f"oracle by {err:.4g} (limit "
@@ -6879,6 +6959,8 @@ def _tp_serve_report(label, spec, ranks) -> list:
           + f", {r0['vocab_rows']} vocabulary rows a rank; batch "
           f"{spec['batch']}, "
           + (f"{p0} prefix embeddings and " if p0 else "")
+          + (f"{cfg.enc_seq} frames encoded ({cfg.n_enc_layers} encoder "
+             f"layers), " if cfg.is_encdec else "")
           + f"{spec['prompt']}-token prefill into a "
           f"{p0 + spec['max_len']}-slot window, {spec['steps']} decode "
           f"steps")
@@ -6890,7 +6972,15 @@ def _tp_serve_report(label, spec, ranks) -> list:
           f"{statistics.median(r0['oracle_ms']):.1f} ms")
     print(f"  layer 0's prefill caches against the oracle: " + ", ".join(
         f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
-        r0["layer0"].items()) + f" (held within 2^-7); the deepest "
+        r0["layer0"].items()) + f" (held within 2^-7); "
+        + ("the cross caches of layer 0 against the oracle's memory_kv of "
+           "the rank's encoder output: " + ", ".join(
+               f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
+               r0["cross0"].items())
+           + " (held within 2^-7); the rank's encoder output against the "
+           f"oracle's {r0['enc_gap'][0]:.4g} of max {r0['enc_gap'][1]:.4g} "
+           f"(printed); " if "cross0" in r0 else "")
+        + f"the deepest "
         f"layer's: " + ", ".join(
             f"{k} {e:.4g} of max {t:.4g}" for k, (e, t) in
             r0["deepest"].items()) + f" (printed); prefill logits "
@@ -6940,8 +7030,9 @@ def tp_training_phase(ref, ranks, sizes=SHARD_SIZES):
     ``experiments/sharding/reference.json`` (the CPU tests' tolerances),
     their gradients against the gather-whole form's, the collectives over
     model, the saved carry, the leaf-by-leaf init and the vocab-parallel
-    cross-entropy; (b) gemma-2b, (c) mamba2-370m and (d) paligemma-3b
-    trained on their blocks at full width: the loss, gradient norm and
+    cross-entropy; (b) gemma-2b, (c) mamba2-370m, (d) paligemma-3b and (e)
+    whisper-tiny trained on their blocks at full width: the loss, gradient
+    norm and
     layer 0's and the embedding's gradient blocks
     against the gather-whole form on the same blocks, the step's time,
     each rank's peak beside its state's bytes, the collectives and the
@@ -6950,7 +7041,8 @@ def tp_training_phase(ref, ranks, sizes=SHARD_SIZES):
     if "19a" in ranks[0]:
         fails += _tp_train_reference_check(ref, ranks)
     for label, key in (("19b", "tp_train_full"), ("19c", "tp_train_ssm"),
-                       ("19d", "tp_train_prefix")):
+                       ("19d", "tp_train_prefix"),
+                       ("19e", "tp_train_encdec")):
         if label in ranks[0]:
             fails += _tp_train_full_report(label, sizes[key], ranks)
     check(not fails, "; ".join(fails))
@@ -6986,8 +7078,10 @@ def _tp_train_reference_check(ref, ranks) -> list:
                          f"{forms[case]:.3g} apart")
         inits = [bool(v) for k, v in arrays.items()
                  if k.startswith(f"tp_train_init/{case}/")]
-        # build_trainer refuses a prefix config (its data has no prefix)
-        want_inits = 0 if MC.tp_config(case).n_prefix_tokens else 4
+        # build_trainer refuses a prefix config and the encoder-decoder
+        # (its data has neither prefix nor frames)
+        tcfg = MC.tp_config(case)
+        want_inits = 0 if tcfg.n_prefix_tokens or tcfg.is_encdec else 4
         if len(inits) != want_inits or not all(inits):
             fails.append(f"19a {case}: build_trainer's state is not the "
                          f"ranks' blocks of the whole draw")
@@ -7077,8 +7171,14 @@ def _tp_train_full_report(label, spec, ranks) -> list:
                      f"where {want_logits} B were expected")
     worst = max(((g, p, rec["rank"]) for rec in ranks
                  for p, g in rec[label]["gaps"].items()))
-    print(f"[19 tp training] {label}: {cfg.arch} at full width ({cfg.n_layers} "
-          f"layers) on (data, model) = {spec['mesh']}, {spec['batch']} x "
+    depth = (f"cut to {cfg.n_layers} of "
+             f"{_tp_config(dict(spec, n_layers=0)).n_layers} layers"
+             if spec.get("n_layers") else f"{cfg.n_layers} layers")
+    if cfg.is_encdec:
+        depth += (f" and {cfg.n_enc_layers} encoder layers over "
+                  f"{cfg.enc_seq} frames")
+    print(f"[19 tp training] {label}: {cfg.arch} at full width ({depth}) "
+          f"on (data, model) = {spec['mesh']}, {spec['batch']} x "
           f"{spec['seq']} tokens: {r0['block_params']:,} of "
           f"{r0['whole_params']:,} parameters a rank ({r0['vocab_rows']} "
           f"vocabulary rows; layer 0's "
@@ -7152,8 +7252,8 @@ _KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
 
 def dryrun_cells(sizes) -> dict:
     """17a and 17b in this process (a child with no card): phase 16's three
-    cells, 18b's, 18d's and 18e's decode and 19b's, 19c's and 19d's train
-    steps dry-run on meta in fake groups of their meshes' ranks, then the
+    cells, 18b's, 18d-f's decode and 19b-e's train steps dry-run on meta
+    in fake groups of their meshes' ranks, then the
     production cells through ``launch.dryrun.run_cell``. Returns
     {"a": {"b"|"c"|"d": trace summary}, "b": {key: record}}."""
     from repro_torch.configs import get_config
@@ -7183,20 +7283,27 @@ def dryrun_cells(sizes) -> dict:
     cells["18b"] = (_tp_config(full), ShapeSpec(
         "18b", full["max_len"], full["batch"], "decode"), full["mesh"],
         ("data", "model"))
-    for label, key in (("18d", "tp_ssm"), ("18e", "tp_prefix")):
+    for label, key in (("18d", "tp_ssm"), ("18e", "tp_prefix"),
+                       ("18f", "tp_encdec")):
         spec = sizes[key]
         cfg = _tp_config(spec)
         cells[label] = (cfg, ShapeSpec(
             label, cfg.n_prefix_tokens + spec["max_len"], spec["batch"],
             "decode"), spec["mesh"], ("data", "model"))
     for label, key in (("19b", "tp_train_full"), ("19c", "tp_train_ssm"),
-                       ("19d", "tp_train_prefix")):
+                       ("19d", "tp_train_prefix"),
+                       ("19e", "tp_train_encdec")):
         tpt = sizes[key]
         cells[label] = (_tp_config(tpt), ShapeSpec(label, tpt["seq"],
                                                    tpt["batch"], "train"),
                         tpt["mesh"], ("data", "model"))
     out = {"a": {}, "b": {}}
+    # ``sizes["parts"]`` (a script running some of the ranks' parts): only
+    # their cells, and no production cell
+    only = sizes.get("parts")
     for label, (cfg, shape, mesh, axes) in cells.items():
+        if only and label not in only:
+            continue
         t0 = time.perf_counter()
         tr = dryrun.dry_run(cfg, shape, mesh, axes)
         out["a"][label] = {"collective_bytes": tr["collective_bytes"],
@@ -7204,7 +7311,7 @@ def dryrun_cells(sizes) -> dict:
                            "n_collectives": len(tr["ops"]),
                            "port_notes": tr["port_notes"],
                            "trace_s": time.perf_counter() - t0}
-    for arch, shape, multi, overrides, tag in DRYRUN_PRODUCTION:
+    for arch, shape, multi, overrides, tag in () if only else DRYRUN_PRODUCTION:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, multi, save=False,
                               overrides=overrides, tag=tag)
@@ -7283,9 +7390,12 @@ def dryrun_phase(ranks, device="cuda", sizes=SHARD_SIZES, child=None):
              "18d": "18d mamba2-370m decode on its blocks (1, 4)",
              "18e": "18e paligemma-3b decode after its prefix on its "
                     "blocks (1, 4)",
+             "18f": "18f whisper-tiny decode over its frames on its "
+                    "blocks (1, 4)",
              "19b": "19b gemma-2b train step on its blocks (1, 4)",
              "19c": "19c mamba2-370m train step on its blocks (1, 4)",
-             "19d": "19d paligemma-3b train step on its blocks (1, 4)"}
+             "19d": "19d paligemma-3b train step on its blocks (1, 4)",
+             "19e": "19e whisper-tiny train step on its blocks (2, 2)"}
     for label, name in names.items():
         if label not in r0:       # a driver ran some of the parts
             continue
@@ -7728,8 +7838,9 @@ def main() -> int:
 
     # 18. serving on the rank's blocks (the same ranks: 18a the tp cases
     # against the reference, 18b phi3-mini-3.8b on (1, 4), 18c yi-34b cut
-    # to 8 layers on (2, 2), 18d mamba2-370m and 18e paligemma-3b on (1, 4))
-    serve_parts = ("18a", "18b", "18c", "18d", "18e")
+    # to 8 layers on (2, 2), 18d mamba2-370m, 18e paligemma-3b and 18f
+    # whisper-tiny on (1, 4))
+    serve_parts = ("18a", "18b", "18c", "18d", "18e", "18f")
     t0 = time.perf_counter()
     print(f"[18 tp serving] the ranks of phase 16 ({smi}); their walls: "
           + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"
@@ -7742,9 +7853,10 @@ def main() -> int:
 
     # 19. training on the rank's blocks (the same ranks: 19a the tp_train
     # cases against the reference, 19b gemma-2b, 19c mamba2-370m and 19d
-    # paligemma-3b at full width on (1, 4) against the gather-whole form on
-    # the same blocks)
-    train_parts = ("19a", "19b", "19c", "19d")
+    # paligemma-3b (both cut in depth) at full width on (1, 4) and 19e
+    # whisper-tiny on (2, 2) against the gather-whole form on the same
+    # blocks)
+    train_parts = ("19a", "19b", "19c", "19d", "19e")
     t0 = time.perf_counter()
     print(f"[19 tp training] the ranks of phase 16 ({smi}); their walls: "
           + ", ".join(f"{k} {max(r['walls'][k] for r in shard_ranks):.2f} s"

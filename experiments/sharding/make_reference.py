@@ -172,10 +172,14 @@ TP_CASES = {
     "hybrid_2x2": ("jamba-1.5-large-398b", (2, 2), {"capacity_factor": 8.0}),
     "hybrid_1x4": ("jamba-1.5-large-398b", (1, 4), {"capacity_factor": 8.0}),
     "prefix_1x4": ("paligemma-3b", (1, 4), {"n_layers": 2}),
+    "encdec_1x4": ("whisper-tiny", (1, 4), {"n_layers": 2}),
+    "encdec_2x2": ("whisper-tiny", (2, 2), {"n_layers": 2}),
 }
 #: a prefix config's seeded prefix embeddings: ``default_rng([PREFIX_SEED,
 #: i])``, i the train batch's index or ``TP["seed"]`` for serving
 PREFIX_SEED = 5
+#: an encoder-decoder's seeded frames, the same way
+FRAMES_SEED = 6
 #: training on blocks: the TP_CASES configs but mqa_sharded_1x4 (its decode
 #: form changes nothing in training), through the train recipe
 TP_TRAIN = tuple(c for c in TP_CASES if c != "mqa_sharded_1x4")
@@ -243,10 +247,22 @@ def prefix_embeds(cfg, batch: int, i: int) -> dict:
         (batch, cfg.n_prefix_tokens, cfg.d_model), np.float32)}
 
 
+def frames(cfg, batch: int, i: int) -> dict:
+    """``{"frames": (batch, enc_seq, d_model)}`` of an encoder-decoder,
+    standard normal float32 from ``default_rng([FRAMES_SEED, i])``; {} for
+    the others."""
+    if not cfg.is_encdec:
+        return {}
+    rng = np.random.default_rng([FRAMES_SEED, i])
+    return {"frames": rng.standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model), np.float32)}
+
+
 def train_batches(cfg, n: int = STEPS) -> list:
     """SyntheticLM's batches; a prefix config's take P prefix embeddings
     and the first ``seq - P`` tokens (the labels cover all P + S hidden
-    positions, as ``configs.specs.input_specs`` has them)."""
+    positions, as ``configs.specs.input_specs`` has them); an
+    encoder-decoder's take seeded frames."""
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                  seq_len=DATA["seq"],
                                  global_batch=DATA["batch"],
@@ -256,6 +272,9 @@ def train_batches(cfg, n: int = STEPS) -> list:
         cut = DATA["seq"] - cfg.n_prefix_tokens
         out = [dict(b, tokens=b["tokens"][:, :cut],
                     **prefix_embeds(cfg, DATA["batch"], i))
+               for i, b in enumerate(out)]
+    if cfg.is_encdec:
+        out = [dict(b, **frames(cfg, DATA["batch"], i))
                for i, b in enumerate(out)]
     return out
 
@@ -535,16 +554,18 @@ def tp_tokens(cfg) -> np.ndarray:
 
 
 def _serve(cfg, params, toks, out, key, plan=None):
-    """Prefill (after a prefix config's seeded prefix embeddings), the
-    attention caches padded to the window (the SSM states as the prefill
-    leaves them), the teacher-forced decode steps from the slot after the
+    """Prefill (after a prefix config's seeded prefix embeddings, or over an
+    encoder-decoder's seeded frames), the attention caches padded to the
+    window (the SSM states and the cross caches as the prefill leaves
+    them), the teacher-forced decode steps from the slot after the
     prompt; jitted with the dry run's shardings under ``plan``, else with
     none."""
     pr, n = TP["prompt"], TP["steps"]
     p0 = cfg.n_prefix_tokens
     batch = {"tokens": jnp.asarray(toks[:, :pr]),
              **{k: jnp.asarray(v) for k, v in
-                prefix_embeds(cfg, TP["batch"], TP["seed"]).items()}}
+                {**prefix_embeds(cfg, TP["batch"], TP["seed"]),
+                 **frames(cfg, TP["batch"], TP["seed"])}.items()}}
     prefill_step = steps.make_prefill_step(cfg)
     decode_step = steps.make_decode_step(cfg)
     if plan is None:
@@ -565,9 +586,11 @@ def _serve(cfg, params, toks, out, key, plan=None):
         out[f"{key}/prefill/{path}"] = np.asarray(v.astype(jnp.float32))
     pad = TP["max_len"] - pr
     # the decode window in float32 (the port's cases do the same); only
-    # the attention caches have slots
+    # the attention caches have slots, but the cross caches, whose slots
+    # are the encoder's frames
     caches = {name: {k: (jnp.pad(c, ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0)))
-                         if k in KV else c).astype(jnp.float32)
+                         if k in KV and name != "cross" else c
+                         ).astype(jnp.float32)
                      for k, c in sub.items()} for name, sub in caches.items()}
     if plan is not None:
         inputs = {"token": jnp.asarray(toks[:, pr:pr + 1]), "caches": caches,
@@ -583,7 +606,7 @@ def _serve(cfg, params, toks, out, key, plan=None):
                 jnp.int32(p0 + pr + t))
         out[f"{key}/decode/{t}/logits"] = np.asarray(logits)
     for path, v in leaves(caches).items():
-        if path.rsplit("/", 1)[-1] in KV:
+        if path.rsplit("/", 1)[-1] in KV and not path.startswith("cross/"):
             v = v[:, :, p0 + pr:p0 + pr + n]
         out[f"{key}/decode/{path}"] = np.asarray(v.astype(jnp.float32))
 
@@ -714,6 +737,7 @@ def header() -> dict:
             "tp": TP, "tp_cases": {k: [a, list(m), o] for k, (a, m, o)
                                    in TP_CASES.items()},
             "tp_train": list(TP_TRAIN), "prefix_seed": PREFIX_SEED,
+            "frames_seed": FRAMES_SEED,
             "whole": WHOLE, "entries": ENTRIES, "sketch": SKETCH,
             "sketch_seed": SKETCH_SEED, "jax": jax.__version__}
 

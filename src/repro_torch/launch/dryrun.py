@@ -16,21 +16,19 @@ storage, no arithmetic) exactly as the port runs it under a plan:
 
 * **train**: ``steps.make_train_step(cfg, plan=, accum_steps=,
   accum_dtype=)`` on the rank's blocks of the train state
-  (``train_state_shardings``): for every decoder-only config (dense, MoE,
-  SSM, hybrid, prefix) the layers compute on the rank's ``model`` blocks
-  with the residual stream its block of the sequence and the loss
-  vocab-parallel, the encoder-decoder gathers each layer whole; or
-  ``make_compressed_train_step`` where
+  (``train_state_shardings``): for every config (dense, MoE, SSM,
+  hybrid, prefix, encoder-decoder) the layers compute on the rank's
+  ``model`` blocks with each residual stream its block of the sequence
+  and the loss vocab-parallel; or ``make_compressed_train_step`` where
   ``grad_compression == "int8_pod"`` on the multi-pod mesh;
 * **decode** and **prefill**: the steps on the rank's blocks of the
   weights (``partition.serving_shardings``: the JAX step's
-  ``params_only_shardings`` for every decoder-only config) and of the
-  caches (``partition.serving_cache_shardings``: its kv heads or its slots
-  of the sequence, an SSM layer's state heads and its conv tail whole),
-  the stream the rank's block of the batch (``activation_ctx(plan,
-  True)``) where the batch divides its axes; the encoder-decoder keeps
-  its weights whole on every rank and its caches' batch block only (the
-  seq-sharded flash-decode's blocks under ``decode_attention="sharded"``).
+  ``params_only_shardings``) and of the caches
+  (``partition.serving_cache_shardings``: its kv heads or its slots of
+  the sequence, an encoder-decoder's cross caches too, an SSM layer's
+  state heads and its conv tail whole), the stream the rank's block of
+  the batch (``activation_ctx(plan, True)``) where the batch divides its
+  axes.
 
 Where the port's form differs from the JAX step's, the record says so in
 ``port_notes``. A record holds:
@@ -88,8 +86,7 @@ from ..sharding import (
     activation_ctx, batch_shardings, decode_input_shardings, make_plan,
     shard_tree, train_state_shardings,
 )
-from ..sharding.partition import (serving_cache_shardings, serving_shardings,
-                                  tensor_parallel)
+from ..sharding.partition import serving_cache_shardings, serving_shardings
 from ..sharding.comm import record_collectives
 from ..sharding.partition import batch_axis, block
 from ..sharding.rules import P
@@ -291,9 +288,7 @@ def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
     """The specs of the cache blocks the port's decode takes on this rank
     (``partition.serving_cache_shardings``), each difference from the JAX
     step's ``decode_input_shardings`` named in ``notes``: a whole batch
-    where the stream is replicated, and for the layer kinds the port
-    serves on whole weights every head and slot of the rank's batch
-    block."""
+    where the stream is replicated."""
     want = decode_input_shardings(cfg, plan, {"caches": caches})["caches"]
     ours = serving_cache_shardings(cfg, plan, caches, split)
     changed: Dict = {}
@@ -308,38 +303,36 @@ def _decode_cache_specs(cfg, plan, caches, split: bool, notes: list):
         return got
 
     out = _map_path(note, caches, want)
-    why = ("the stream is the whole batch" if tensor_parallel(cfg) else
-           "no head-parallel or gathered-sequence decode for the "
-           "encoder-decoder in the port: every head and slot of the "
-           "rank's batch")
     for (jax_spec, mine), paths in sorted(changed.items()):
         notes.append(f"decode caches {', '.join(paths)}: the port holds "
-                     f"{mine} where the JAX step shards {jax_spec} ({why})")
+                     f"{mine} where the JAX step shards {jax_spec} (the "
+                     f"stream is the whole batch)")
     return out
 
 
 def train_notes(cfg, plan) -> list:
     """What the port's sharded train step on ``plan`` does otherwise than
-    the JAX step, which XLA partitions by ``train_state_shardings``: the
-    encoder-decoder, which the port trains on whole layers; for the other
-    configs (their ``model`` blocks, the sequence-parallel stream, the
-    vocab-parallel loss) attention run whole where its heads are
-    replicated."""
+    the JAX step, which XLA partitions by ``train_state_shardings`` (every
+    config computes on its ``model`` blocks with the sequence-parallel
+    streams and the vocab-parallel loss): attention run whole where its
+    heads are replicated, and an encoder-decoder's encoder stream kept
+    whole where its frames do not divide the sequence axis."""
     msize = plan.mesh.shape.get("model", 1)
-    if not tensor_parallel(cfg):
-        return ["train: the layers gathered whole over every axis, model "
-                "included, on every rank, with the residual stream whole "
-                "and the loss over the whole vocabulary, as the port "
-                "trains the encoder-decoder under a plan (the JAX step "
-                "partitions it by train_state_shardings)"]
+    notes = []
     if (msize > 1 and plan.rules.get("heads") is None
             and any(m == "attn" for m, _ in cfg.layer_kinds())):
-        return [f"train: the heads replicated ({cfg.n_heads} q / "
-                f"{cfg.n_kv_heads} kv do not divide model={msize}): "
-                f"attention runs whole on every model rank from the "
-                f"gathered sequence, each rank keeping its block of the "
-                f"output (XLA partitions it itself)"]
-    return []
+        notes.append(f"train: the heads replicated ({cfg.n_heads} q / "
+                     f"{cfg.n_kv_heads} kv do not divide model={msize}): "
+                     f"attention runs whole on every model rank from the "
+                     f"gathered sequence, each rank keeping its block of "
+                     f"the output (XLA partitions it itself)")
+    n = plan.axis_size(plan.seq_axis)
+    if cfg.is_encdec and n > 1 and cfg.enc_seq % n:
+        notes.append(f"train: the encoder's {cfg.enc_seq} frames do not "
+                     f"divide {plan.seq_axis}={n}: its stream stays whole "
+                     f"between the layers, their partial sums all-reduced "
+                     f"(XLA places it itself)")
+    return notes
 
 
 def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
@@ -397,18 +390,11 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
         parts["opt"] = _storage_bytes(state["opt"])
         ctx = activation_ctx(None)
     else:
-        tp = tensor_parallel(cfg)
         ptree = shard_tree(placed(abstract_params_tree(cfg)),
-                           serving_shardings(cfg, plan), mesh) if tp \
-            else placed(abstract_params_tree(cfg))
+                           serving_shardings(cfg, plan), mesh)
         model = steps_mod.make_model(cfg, ptree, plan)
         parts["params"] = _storage_bytes(list(model.parameters())
                                          + list(model.buffers()))
-        if not tp:
-            notes.append(f"{kind}: the weights whole ({cfg.param_dtype}) on "
-                         f"every rank, as the port serves the "
-                         f"encoder-decoder under a plan (the JAX step "
-                         f"shards them by params_only_shardings)")
         if kind == "decode":
             b = inputs["token"].shape[0]
             split = batch_axis(plan, b) is not None and not replicate_stream
@@ -435,11 +421,6 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
             batch = _map_path(lambda p, t, s: block(t, s, mesh),
                               placed(inputs), bsh)
             parts["batch"] = _storage_bytes(batch)
-            if not tp:
-                notes.append("prefill: each rank runs the prefill on its "
-                             "block of the batch with the weights whole, and "
-                             "the caches it returns are that block's with "
-                             "every head and position")
             step = steps_mod.make_prefill_step(cfg)
             args = (model, batch)
         ctx = activation_ctx(plan, split)

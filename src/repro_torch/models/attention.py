@@ -15,7 +15,10 @@ reference's seq-sharded flash-decode on this rank's slice of the cache
 (FlashDecoding's split-K over the ranks of that axis: local partial
 softmax, then an LSE merge by ``all_reduce(MAX)`` and ``all_reduce(SUM)``).
 As in the reference, that path applies no logit softcap. ``cross_attention`` (the enc-dec decoder's, non-causal over the
-memory's k and v from ``memory_kv``) runs the same flash.
+memory's k and v from ``memory_kv``) runs the same flash; over a decode's
+cross caches whose sequence shards over ``plan.cache_seq_axis`` its
+softmax is partitioned over that axis (`_cross_attention_seq`), as
+`_decode_attention_seq`'s is.
 
 Under a plan, a model built on this rank's blocks
 (``sharding.partition.serving_shardings``, the JAX serving steps'
@@ -194,12 +197,58 @@ def self_attention(p, x, positions, cfg, *, causal=True, prefix_len=0,
     return _out_proj(out, p["wo"], cfg, seq), (k, v)
 
 
-def cross_attention(p, x, memory_kv, cfg):
-    """x: (B, Sq, D); memory_kv: (k, v) precomputed from encoder output."""
+def cross_attention(p, x, memory_kv, cfg, seq=None, kv_seq=None):
+    """x: (B, Sq, D); memory_kv: (k, v) precomputed from encoder output.
+    ``seq``: as `self_attention`'s (``x`` the gathered sequence, the
+    output this rank's block of it). ``kv_seq``: the mesh axis whose ranks
+    hold blocks of the memory's sequence (a decode's sequence-sharded
+    cross caches): the flash's softmax partitioned over it
+    (`_cross_attention_seq`)."""
     q = einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = memory_kv
-    out = _flash(q, k, v, causal=False, prefix_len=0, cfg=cfg)
-    return einsum("bshk,hkd->bsd", out, p["wo"])
+    if kv_seq is not None:
+        out = _cross_attention_seq(q, k, v, kv_seq)
+    else:
+        out = _flash(q, k, v, causal=False, prefix_len=0, cfg=cfg)
+    return _out_proj(out, p["wo"], cfg, seq)
+
+
+def _cross_attention_seq(q, k, v, ax):
+    """The non-causal flash over memory k, v (B, S / n, KV, D) whose
+    sequence shards over the mesh axis ``ax``, partitioned as XLA
+    partitions the reference's decode where the memory is one KV chunk
+    (``kv_chunk`` frames): the scores of this rank's slots, the maximum
+    over the axis (`_seq_exp`), then one sum over it of the row sums and
+    the float32 weights-times-values partials together; the output their
+    quotient, in q's dtype. (B, Sq, H, D). A longer memory is the same
+    softmax; there XLA re-cuts the blocks into the flash's chunks
+    instead."""
+    from ..sharding import comm
+    from ..sharding.partition import current_plan
+
+    mesh = current_plan().mesh
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    e = _seq_exp(einsum_f32("bqhgd,bkhd->bhgqk", qg, k) * (1.0 / math.sqrt(d)),
+                 mesh, ax)
+    both = comm.psum(torch.cat([torch.sum(e, dim=-1)[..., None],
+                                einsum_f32("bhgqk,bkhd->bhgqd",
+                                           e.to(v.dtype), v)], dim=-1),
+                     mesh, ax)
+    out = both[..., 1:] / torch.clamp_min(both[..., :1], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _seq_exp(s, mesh, ax):
+    """``exp(s - max)``, the maximum of the scores ``s`` (slots on the
+    last dimension) taken over this rank's slots and then the mesh axis
+    ``ax`` (``comm.pmax``): the numerators of a softmax partitioned over
+    the sequence."""
+    from ..sharding import comm
+
+    return torch.exp(s - comm.pmax(torch.amax(s, dim=-1, keepdim=True),
+                                   mesh, ax))
 
 
 def memory_kv(p, memory):
@@ -323,7 +372,7 @@ def _decode_attention_seq(p, q, k, v, cache, cache_pos: int, cfg, plan):
     decode there: the rank that owns slot ``cache_pos`` writes the new
     token into its block (in place); each rank scores its slots (the
     softcap and the mask as the gathered decode's); the softmax takes the
-    maximum and the sum over the axis (``comm.pmax``, ``comm.psum``); each
+    maximum and the sum over the axis (`_seq_exp`, then ``comm.psum``); each
     rank's weights times its values is a partial sum in V's dtype, summed
     over the axis (``partition.psum_rule``: a bf16 partial in float32, as
     XLA's CPU all-reduce promotes it). ``cache``: this rank's block
@@ -340,9 +389,7 @@ def _decode_attention_seq(p, q, k, v, cache, cache_pos: int, cfg, plan):
     if start <= pos < start + s_loc:
         _cache_write(cache, k, v, pos - start)
     ck, cv = _cache_read(cache)
-    s = _scores(q, ck, cache_pos, cfg, start)
-    e = torch.exp(s - comm.pmax(torch.amax(s, dim=-1, keepdim=True), mesh,
-                                ax))
+    e = _seq_exp(_scores(q, ck, cache_pos, cfg, start), mesh, ax)
     w = e / comm.psum(torch.sum(e, dim=-1, keepdim=True), mesh, ax)
     out = einsum("bhgqk,bkhd->bqhgd", w.to(cv.dtype), cv)
     out = psum_rule(out, ax).reshape(q.shape[0], 1, q.shape[2], q.shape[3])

@@ -10,30 +10,52 @@ output. Decode keeps a self-attention KV cache plus precomputed cross KV
 
 Training: `encode` and `forward` over a parameter tree, each layer under
 ``cfg.remat`` as ``transformer.forward`` runs its layers (the whole layer
-body, as the reference's ``jax.checkpoint`` wraps it). Serving: `EncDec`,
-frozen parameters beside ``transformer.Transformer``, with `encode`,
-`prefill(frames, tokens)` and `decode_step(token, caches, pos)`;
-`init_decode_caches` builds zeroed caches. Like ``Transformer``, `EncDec`
-slices its stacked layers once, at construction, into one parameter dict
-per layer. The reference's ``Server``
+body, as the reference's ``jax.checkpoint`` wraps it); an encoder layer is
+``transformer.layer_forward`` unmasked and without RoPE. Serving:
+`EncDec`, frozen parameters beside ``transformer.Transformer`` (both
+``transformer.OnBlocks``: one ``transformer.Block`` a layer), with
+`encode`, `prefill(frames, tokens)` and `decode_step(token, caches, pos)`;
+`init_decode_caches` builds zeroed caches. The reference's ``Server``
 feeds prompts through ``decode_step`` and never calls ``encode``, so its
 cross caches stay zero; the port's ``Server`` does the same.
+
+Under a sharding plan (``EncDec(cfg, params, plan)``, what
+``steps.make_model(cfg, params, plan)`` builds) the model holds this
+rank's blocks of its weights (``partition.serving_shardings``: the JAX
+serving steps' ``params_only_shardings``) and decodes into this rank's
+cache blocks (``partition.serving_cache_shardings``): the kv heads over
+``model``, or, where the heads stay whole, the sequence of the self caches
+and of the cross caches (the encoder's frames) over
+``plan.cache_seq_axis`` where it divides it (else whole). Each layer
+gathers its leaves over the axes other than ``model`` (FSDP's ``embed``)
+just before it runs; attention (the cross-attention's ``memory_kv`` too)
+runs on the rank's heads, or whole where they are replicated, the MLP on
+its ``d_ff`` block, the partial sums reduced over ``model``; the
+embedding is vocab-parallel and the logits gathered. The decode's
+cross-attention over a cross cache that shards its sequence partitions
+its softmax over it (``attention.cross_attention``'s ``kv_seq``). The
+sharded train step computes on the same blocks (`forward`'s
+``gather_layer``): each stream (the encoder's over its frames, the
+decoder's over its tokens) is this rank's block of the sequence over
+``plan.seq_axis`` where its length divides it, and the encoder's output
+is gathered whole for every decoder layer's ``memory_kv``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
-from torch import nn
 
 from . import attention, mlp
 from .common import Spec, layer_norm, sinusoidal_positions
-from .transformer import (_apply_norm, _frozen, _norm_specs, _remat, _stack,
-                          _unbind_layers, logits_from_hidden)
+from .transformer import (OnBlocks, _apply_norm, _ffn, _frozen, _norm_specs,
+                          _remat, _stack, _stacked, _unbind_layers,
+                          embed_tokens, layer_forward, logits_from_hidden,
+                          padded_window)
 
 __all__ = [
-    "param_specs", "encode", "forward", "prefill", "decode_step",
-    "init_decode_caches", "EncDec",
+    "param_specs", "encode", "forward", "init_decode_caches", "EncDec",
 ]
 
 
@@ -72,42 +94,48 @@ def param_specs(cfg) -> Dict:
 
 # -- layers -----------------------------------------------------------------
 
-def _enc_layer(lp, x, positions, cfg):
-    h = _apply_norm(lp["norm1"], x, cfg)
-    y, _ = attention.self_attention(lp["attn"], h, positions, cfg,
-                                    causal=False, use_rope=False)
-    x = x + y
-    h2 = _apply_norm(lp["norm2"], x, cfg)
-    return x + mlp.mlp(lp["mlp"], h2, cfg)
+def _enc_layer(lp, x, positions, cfg, gather=None, seq=None):
+    """One encoder layer; ``gather`` and ``seq`` as
+    ``transformer._layer``'s."""
+    if gather is not None:
+        lp = gather(lp)
+    return layer_forward(lp, x, positions, cfg, need_aux=False, seq=seq,
+                         want_cache=False, causal=False)[0]
 
 
-def _dec_layer(lp, x, positions, mem, cfg):
-    """One decoder layer over the encoder output ``mem``. Returns (x,
-    self k, self v, cross k, cross v)."""
+def _dec_layer(lp, x, positions, mem, cfg, seq=None):
+    """One decoder layer over the encoder output ``mem`` (whole). Returns
+    (x, self k, self v, cross k, cross v); ``seq`` as
+    ``transformer.layer_forward``'s."""
+    from ..sharding.partition import seq_gather
+
     h = _apply_norm(lp["norm1"], x, cfg)
+    if seq is not None:
+        h = seq_gather(h, seq)
     y, (k, v) = attention.self_attention(lp["attn"], h, positions, cfg,
-                                         causal=True)
+                                         causal=True, seq=seq)
     xk, xv = attention.memory_kv(lp["xattn"], mem)
-    return _dec_tail(lp, x + y, (xk, xv), cfg), k, v, xk, xv
+    return _dec_tail(lp, x + y, (xk, xv), cfg, seq), k, v, xk, xv
 
 
-def _dec_tail(lp, x, cross, cfg):
+def _dec_tail(lp, x, cross, cfg, seq=None, kv_seq=None):
     """A decoder layer after its self-attention: cross-attention into the
-    encoder's ``cross`` (k, v), then the MLP."""
+    encoder's ``cross`` (k, v), then the MLP (``transformer._ffn``);
+    ``kv_seq`` as ``attention.cross_attention``'s."""
+    from ..sharding.partition import seq_gather
+
     hx = _apply_norm(lp["norm_x"], x, cfg)
-    x = x + attention.cross_attention(lp["xattn"], hx, cross, cfg)
-    h2 = _apply_norm(lp["norm2"], x, cfg)
-    return x + mlp.mlp(lp["mlp"], h2, cfg)
+    if seq is not None:
+        hx = seq_gather(hx, seq)
+    x = x + attention.cross_attention(lp["xattn"], hx, cross, cfg, seq,
+                                      kv_seq)
+    return _ffn(lp, x, cfg, need_aux=False, seq=seq)[0]
 
 
-def _dec_train_layer(lp, x, positions, mem, cfg):
-    return _dec_layer(lp, x, positions, mem, cfg)[0]
-
-
-def _layer_list(tree) -> List[Dict]:
-    """The per-layer dicts of a stacked layer tree, or a list of them (the
-    serving module's) as it is."""
-    return tree if isinstance(tree, list) else _unbind_layers(tree)
+def _dec_train_layer(lp, x, positions, mem, cfg, gather=None, seq=None):
+    if gather is not None:
+        lp = gather(lp)
+    return _dec_layer(lp, x, positions, mem, cfg, seq)[0]
 
 
 def _positions(frames: torch.Tensor, cfg) -> torch.Tensor:
@@ -118,23 +146,47 @@ def _positions(frames: torch.Tensor, cfg) -> torch.Tensor:
 
 # -- training (functions of a parameter tree) ---------------------------------
 
-def encode(params: Dict, frames: torch.Tensor, cfg) -> torch.Tensor:
-    """frames: (B, S_enc, D) stubbed frontend output -> encoder hidden."""
+def encode(params: Dict, frames: torch.Tensor, cfg,
+           gather_layer=None) -> torch.Tensor:
+    """frames: (B, S_enc, D) stubbed frontend output -> encoder hidden
+    (whole). ``gather_layer`` as ``transformer.forward``'s (the stack
+    ``"enc_layers"``); in the sequence-parallel training forward the
+    stream between the layers is this rank's block of the frames, and the
+    output is gathered whole after the final norm."""
+    from ..sharding.partition import seq_axis_for, seq_block, seq_gather
+
     x = _positions(frames, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in _layer_list(params["enc_layers"]):
-        x = _remat(_enc_layer, cfg, lp, x, positions, cfg)
-    return layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"])
+    seq = seq_axis_for(x.shape[1])
+    if seq is not None:
+        x = seq_block(x, seq)
+    gather = (None if gather_layer is None else
+              functools.partial(gather_layer, "enc_layers"))
+    for lp in _unbind_layers(params["enc_layers"]):
+        x = _remat(_enc_layer, cfg, lp, x, positions, cfg, gather, seq)
+    x = layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"])
+    return x if seq is None else seq_gather(x, seq)
 
 
 def forward(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
-            cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward: returns (decoder hidden (B, S, D), aux=0)."""
-    mem = encode(params, frames, cfg)
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
-    for lp in _layer_list(params["dec_layers"]):
-        x = _remat(_dec_train_layer, cfg, lp, x, positions, mem, cfg)
+            cfg, *, gather_layer=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: returns (decoder hidden (B, S, D), aux=0).
+    ``gather_layer`` as ``transformer.forward``'s (the stacks
+    ``"enc_layers"`` and ``"dec_layers"``). In the sequence-parallel
+    training forward the decoder's stream is this rank's block of the
+    tokens from the (vocab-parallel) embedding on, and so are the hidden
+    states returned (``transformer.lm_loss_sums`` gathers them)."""
+    from ..sharding.partition import seq_axis_for
+
+    mem = encode(params, frames, cfg, gather_layer)
+    seq = seq_axis_for(tokens.shape[1])
+    x = embed_tokens(params, tokens, cfg, seq)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    gather = (None if gather_layer is None else
+              functools.partial(gather_layer, "dec_layers"))
+    for lp in _unbind_layers(params["dec_layers"]):
+        x = _remat(_dec_train_layer, cfg, lp, x, positions, mem, cfg, gather,
+                   seq)
     x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"])
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -153,103 +205,132 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "cross": {"k": zeros(cfg.enc_seq), "v": zeros(cfg.enc_seq)}}
 
 
-def prefill(params: Dict, frames: torch.Tensor, tokens: torch.Tensor, cfg):
-    """Encode + run the decoder prompt; return (last logits, caches: self
-    k/v sized to the prompt and cross k/v, bf16)."""
-    mem = encode(params, frames, cfg)
-    x = params["embed"][tokens]
-    positions = torch.arange(x.shape[1], device=x.device)
-    names = ("self_k", "self_v", "cross_k", "cross_v")
-    kept: Dict[str, List[torch.Tensor]] = {n: [] for n in names}
-    for lp in _layer_list(params["dec_layers"]):
-        x, *kvs = _dec_layer(lp, x, positions, mem, cfg)
-        for n, t in zip(names, kvs):
-            kept[n].append(t.to(torch.bfloat16))
-    x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"])
-    logits = logits_from_hidden(params, x[:, -1:, :], cfg)
-    st = {n: torch.stack(ts) for n, ts in kept.items()}
-    return logits, {"self": {"k": st["self_k"], "v": st["self_v"]},
-                    "cross": {"k": st["cross_k"], "v": st["cross_v"]}}
-
-
-def decode_step(params: Dict, token: torch.Tensor, caches: Dict,
-                cache_pos: int, cfg) -> Tuple[torch.Tensor, Dict]:
-    """token: (B, 1). caches: {"self": {k,v (L,B,S,KV,hd)}, "cross": ...};
-    the self caches are written in place at ``cache_pos``."""
-    x = params["embed"][token]
-    pos = int(cache_pos)
-    for i, lp in enumerate(_layer_list(params["dec_layers"])):
-        h = _apply_norm(lp["norm1"], x, cfg)
-        y, _ = attention.decode_attention(
-            lp["attn"], h, {k: t[i] for k, t in caches["self"].items()}, pos,
-            cfg)
-        cross = (caches["cross"]["k"][i], caches["cross"]["v"][i])
-        x = _dec_tail(lp, x + y, cross, cfg)
-    x = layer_norm(x, params["final_norm"]["w"], params["final_norm"]["b"])
-    return logits_from_hidden(params, x, cfg), caches
-
-
 # -- the serving model -------------------------------------------------------
 
-def _frozen_tree(tree: Dict) -> nn.Module:
-    if any(isinstance(v, dict) for v in tree.values()):
-        return nn.ModuleDict({k: _frozen_tree(v) for k, v in tree.items()})
-    return _frozen(tree)
-
-
-def _plain(mod) -> Dict:
-    """A `_frozen_tree` module back as a nested dict of tensors."""
-    if isinstance(mod, nn.ParameterDict):
-        return dict(mod)
-    return {k: _plain(v) for k, v in mod.items()}
-
-
-class EncDec(nn.Module):
+class EncDec(OnBlocks):
     """The encoder-decoder over a parameter tree in the JAX layout
-    (``param_specs``' nested dict, layers stacked on a leading axis),
-    each layer's slice of the stacked leaves held as its own parameters.
-    The parameters do not require gradients (serving only)."""
+    (``param_specs``' nested dict, layers stacked on a leading axis): one
+    ``transformer.Block`` a layer in ``enc_layers`` and ``dec_layers``.
+    The parameters do not require gradients (serving only). With
+    ``plan``, ``params`` is this rank's blocks (the module docstring)."""
 
-    def __init__(self, cfg, params: Dict):
-        super().__init__()
-        self.cfg = cfg
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        for name in ("enc_layers", "dec_layers"):
-            setattr(self, name, nn.ModuleList(
-                _frozen_tree(lp) for lp in _unbind_layers(params[name])))
+    def __init__(self, cfg, params: Dict, plan=None):
+        super().__init__(cfg, params, plan)
+        for name, n in (("enc_layers", cfg.n_enc_layers),
+                        ("dec_layers", cfg.n_layers)):
+            setattr(self, name, self._blocks(
+                params[name], self.specs and self.specs[name], n))
         self.enc_norm = _frozen(params["enc_norm"])
         self.final_norm = _frozen(params["final_norm"])
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.embed.dtype
-
-    def _tree(self) -> Dict:
-        """The parameters as the functions take them, layers as a list."""
+    def param_tree(self) -> Dict:
+        """The parameters as a tree in the JAX layout (layers stacked)."""
         return {"embed": self.embed,
-                "enc_layers": [_plain(m) for m in self.enc_layers],
-                "dec_layers": [_plain(m) for m in self.dec_layers],
+                "enc_layers": _stacked(list(self.enc_layers)),
+                "dec_layers": _stacked(list(self.dec_layers)),
                 "enc_norm": dict(self.enc_norm),
                 "final_norm": dict(self.final_norm)}
 
-    def param_tree(self) -> Dict:
-        """The parameters as a tree in the JAX layout (layers stacked)."""
-        tree = self._tree()
-        for name in ("enc_layers", "dec_layers"):
-            layers = tree[name]
-            tree[name] = {sub: {k: torch.stack([lp[sub][k] for lp in layers])
-                                for k in layers[0][sub]}
-                          for sub in layers[0]}
-        return tree
+    def _ctx(self):
+        from ..sharding.partition import activation_ctx, split_batch
+
+        return activation_ctx(self._plan(), split_batch(),
+                              self.plan is not None)
+
+    def _encode(self, frames):
+        x = _positions(frames, self.cfg)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for blk in self.enc_layers:
+            x = layer_forward(blk.local_params(), x, positions, self.cfg,
+                              need_aux=False, want_cache=False,
+                              causal=False)[0]
+        norm = self._gathered({"enc_norm": dict(self.enc_norm)})["enc_norm"]
+        return layer_norm(x, norm["w"], norm["b"])
+
+    def _top(self) -> Dict:
+        return self._gathered({"embed": self.embed,
+                               "final_norm": dict(self.final_norm)})
 
     @torch.no_grad()
     def encode(self, frames):
-        return encode(self._tree(), frames, self.cfg)
+        with self._ctx():
+            return self._encode(frames)
 
     @torch.no_grad()
     def prefill(self, frames, tokens):
-        return prefill(self._tree(), frames, tokens, self.cfg)
+        """Encode + run the decoder prompt; return (last logits, caches:
+        self k/v sized to the prompt and cross k/v, bf16). On a mesh
+        ``frames`` and ``tokens`` are this rank's block of the batch when
+        ``partition.split_batch()``, and the caches are this rank's
+        blocks (``partition.serving_cache_shardings``)."""
+        from ..sharding.partition import (block, cache_seq_sharded,
+                                          serving_cache_shardings,
+                                          split_batch)
+        from ..sharding.rules import P
+
+        cfg = self.cfg
+        with self._ctx():
+            mem = self._encode(frames)
+            top = self._top()
+            x = embed_tokens(top, tokens, cfg)
+            positions = torch.arange(x.shape[1], device=x.device)
+            kept = []
+            for blk in self.dec_layers:
+                x, *kvs = _dec_layer(blk.local_params(), x, positions, mem,
+                                     cfg)
+                kept.append([t.to(torch.bfloat16) for t in kvs])
+            x = layer_norm(x, top["final_norm"]["w"], top["final_norm"]["b"])
+            logits = logits_from_hidden(top, x[:, -1:, :], cfg)
+        st = [torch.stack(ts) for ts in zip(*kept)]
+        caches = {"self": {"k": st[0], "v": st[1]},
+                  "cross": {"k": st[2], "v": st[3]}}
+        if self.plan is not None and cache_seq_sharded(cfg, self.plan):
+            # the rank's block of each cache's slots, where its length
+            # divides the axis (the decode reads them so)
+            ax, mesh = self.plan.cache_seq_axis, self.plan.mesh
+            n = mesh.axis_size(ax)
+            if x.shape[1] % n:
+                raise ValueError(
+                    f"a {x.shape[1]}-token prompt does not divide the "
+                    f"cache's sequence axis {ax!r} ({n} ranks)")
+            split = split_batch()
+            b = tokens.shape[0] * (self.plan.axis_size(self.plan.batch_axes)
+                                   if split else 1)
+            specs = serving_cache_shardings(cfg, self.plan, init_decode_caches(
+                cfg, b, x.shape[1], device="meta"), split)
+            caches = {name: {k: block(t, P(None, None, specs[name][k][2]),
+                                      mesh) for k, t in c.items()}
+                      for name, c in caches.items()}
+        return logits, caches
 
     @torch.no_grad()
     def decode_step(self, token, caches: Dict, cache_pos: int):
-        return decode_step(self._tree(), token, caches, cache_pos, self.cfg)
+        """token: (B, 1); caches: {"self": {k,v (L,B,S,KV,hd)}, "cross":
+        ...}, this rank's blocks on a mesh (``token`` and the logits its
+        block of the batch when ``partition.split_batch()``); the self
+        caches are written in place at ``cache_pos``."""
+        cfg = self.cfg
+        kv_seq = None
+        if caches["cross"]["k"].shape[2] != cfg.enc_seq:
+            kv_seq = self.plan.cache_seq_axis
+        pos = int(cache_pos)
+        with self._ctx():
+            top = self._top()
+            x = embed_tokens(top, token, cfg)
+            for i, blk in enumerate(self.dec_layers):
+                # the cross caches hold what memory_kv made of wk and wv
+                p = blk.local_params(skip=(("xattn", "wk"), ("xattn", "wv")))
+                h = _apply_norm(p["norm1"], x, cfg)
+                y, _ = attention.decode_attention(
+                    p["attn"], h, {k: t[i] for k, t in caches["self"].items()},
+                    pos, cfg)
+                cross = (caches["cross"]["k"][i], caches["cross"]["v"][i])
+                x = _dec_tail(p, x + y, cross, cfg, kv_seq=kv_seq)
+            x = layer_norm(x, top["final_norm"]["w"], top["final_norm"]["b"])
+            return logits_from_hidden(top, x, cfg), caches
+
+    def pad_caches(self, caches: Dict, max_len: int) -> Dict:
+        """Prefill's self caches padded to ``max_len`` slots
+        (``transformer.padded_window``); the cross caches as they are."""
+        return {"self": padded_window(self, caches["self"], max_len),
+                "cross": caches["cross"]}

@@ -29,16 +29,17 @@ batch splits over ``plan.batch_axes``. The loss casts the master blocks
 to ``cfg.param_dtype`` and gathers each cast leaf over its spec's axes
 before use (the bf16 cast, not the float32 master, as the reference pins
 the cast copy to the master's sharding): the top-level leaves once, each
-layer's inside its remat (`transformer.forward`'s ``gather_layer``). A
-decoder-only config (``partition.tensor_parallel``: dense, MoE, SSM,
-hybrid, prefix) gathers over every axis but ``model`` (FSDP's ``embed``)
-and computes on its ``model`` blocks, as XLA partitions the reference
-under ``train_state_shardings``: heads, the MLP, the SSD's heads and
-inner width and the experts over ``model``, their partial sums reduced,
-the residual stream between the layers (a prefix's positions included)
-the rank's block of the sequence over ``plan.seq_axis``
-(``partition.seq_axis_for``), the loss vocab-parallel. The
-encoder-decoder gathers each leaf whole. The loss and nll are
+layer's inside its remat (`transformer.forward`'s and
+``encdec.forward``'s ``gather_layer``). Every config gathers over every
+axis but ``model`` (FSDP's ``embed``) and computes on its ``model``
+blocks, as XLA partitions the reference under ``train_state_shardings``:
+heads, the MLP, the SSD's heads and inner width and the experts over
+``model``, their partial sums reduced, each residual stream between the
+layers (a prefix's positions included; an encoder-decoder's encoder
+stream over its frames and decoder stream over its tokens) the rank's
+block of the sequence over ``plan.seq_axis``
+(``partition.seq_axis_for``), the loss vocab-parallel. The loss and nll
+are
 global-batch means on every rank; the gradients follow
 ``sharding.comm``'s partial convention (the loss over ``mesh.size``, then
 each leaf summed over the axes its spec does not name), so each rank ends
@@ -79,15 +80,13 @@ def model_param_specs(cfg):
 def make_model(cfg, params: Dict, plan=None):
     """The serving module for ``cfg`` over a parameter tree of tensors: an
     `encdec.EncDec` for an encoder-decoder, else a
-    `transformer.Transformer`. Under a sharding ``plan`` a decoder-only
-    config's ``params`` are this rank's blocks
-    (``partition.shard_tree(params, partition.serving_shardings(cfg,
-    plan), mesh)``: the JAX serving steps' ``params_only_shardings``) and
-    the model runs only under that plan; the encoder-decoder takes its
-    weights whole."""
-    if cfg.is_encdec:
-        return encdec.EncDec(cfg, params)
-    return transformer.Transformer(cfg, params, plan)
+    `transformer.Transformer`. Under a sharding ``plan`` ``params`` are
+    this rank's blocks (``partition.shard_tree(params,
+    partition.serving_shardings(cfg, plan), mesh)``: the JAX serving
+    steps' ``params_only_shardings``) and the model runs only under that
+    plan."""
+    return (encdec.EncDec if cfg.is_encdec else transformer.Transformer)(
+        cfg, params, plan)
 
 
 def exact_gemms(device) -> None:
@@ -192,26 +191,27 @@ def _value_and_grad(loss_fn) -> Callable:
 # -- training under a sharding plan ----------------------------------------------
 
 def _leaf_gather(cfg, plan, spec_of: Dict, tp: bool):
-    """(gather_top(path, t), gather_layer(i, lp)): a cast leaf from this
-    rank's block, gathered over its spec's axes: with ``tp`` (a
-    `partition.tensor_parallel` config) over all but ``model``, whose
-    blocks the layers compute on (``partition.tp_keep``: an MoE router, and
-    experts that ``model`` does not split, whole); else whole, but an
-    expert-parallel layer's experts, which stay this rank's block along
-    ``model``."""
+    """(gather_top(path, t), gather_layer(stack, lp)): a cast leaf from
+    this rank's block, gathered over its spec's axes: with ``tp`` over all
+    but ``model``, whose blocks the layers compute on
+    (``partition.tp_keep``: an MoE router, and experts that ``model`` does
+    not split, whole); else whole, but an expert-parallel layer's experts,
+    which stay this rank's block along ``model``. ``stack``: the path of
+    the layer's stacked leaves (``layers/l{i}``, ``enc_layers``,
+    ``dec_layers``)."""
     from ..sharding.partition import gather_leaf, tp_keep
     from ..sharding.rules import P
 
     mesh = plan.mesh
     ep = plan.mesh.shape.get("model", 1) > 1
-    # pattern element i's per-layer specs by part (the stacked spec without
-    # its layers entry)
+    # each stack's per-layer specs by part (the stacked spec without its
+    # layers entry)
     layer_specs: Dict = {}
     for path, sp in spec_of.items():
         parts = path.split("/")
-        if parts[0] == "layers" and len(parts) == 4:
-            layer_specs.setdefault(parts[1], {}).setdefault(
-                parts[2], {})[parts[3]] = P(*sp[1:])
+        if parts[0] in _STACKS:
+            layer_specs.setdefault("/".join(parts[:-2]), {}).setdefault(
+                parts[-2], {})[parts[-1]] = P(*sp[1:])
 
     def keep(ls: Dict, name: str, key: str) -> tuple:
         if tp:
@@ -224,8 +224,8 @@ def _leaf_gather(cfg, plan, spec_of: Dict, tp: bool):
     def gather_top(path, t):
         return gather_leaf(t, spec_of[path], mesh, ("model",) if tp else ())
 
-    def gather_layer(i, lp):
-        ls = layer_specs[f"l{i}"]
+    def gather_layer(stack, lp):
+        ls = layer_specs[stack]
         return {name: {k: gather_leaf(t, ls[name][k], mesh,
                                       keep(ls, name, k))
                        for k, t in sub.items()} for name, sub in lp.items()}
@@ -233,24 +233,26 @@ def _leaf_gather(cfg, plan, spec_of: Dict, tp: bool):
     return gather_top, gather_layer
 
 
-def _mesh_grad_fn(cfg, plan, spec_tree, outer=(), tp=None):
+#: the top-level keys of the stacked layer trees
+_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _mesh_grad_fn(cfg, plan, spec_tree, outer=(), tp=True):
     """grad_fn(blocks, batch, split) -> ((loss, nll), grads) on this rank:
     the global-batch loss and nll (``batch`` is this rank's block of the
     batch when ``split``), and this rank's block of the gradient. Axes in
     ``outer`` are left alone (the compressed step's ``pod``): the ranks
-    along them run their own programs. ``tp`` (by default whether ``cfg``
-    is ``partition.tensor_parallel``; False gives the form that gathers
-    every leaf whole, the oracle of the checks): the layers compute on the
-    rank's ``model`` blocks, the residual stream between them is the
-    rank's block of the sequence over ``plan.seq_axis`` and the loss is
-    vocab-parallel (``models.transformer``); a leaf whole along ``model``
+    along them run their own programs. ``tp`` (False gives the form that
+    gathers every leaf whole, the oracle of the checks): the layers
+    compute on the rank's ``model`` blocks, each residual stream between
+    them is the rank's block of the sequence over ``plan.seq_axis`` and
+    the loss is vocab-parallel (``models.transformer``,
+    ``models.encdec``); a leaf whole along ``model``
     (a norm, the router, replicated heads) is still summed over it by
     ``comm.reduce_grads``, a ``model`` block is not."""
     from ..sharding import comm
-    from ..sharding.partition import activation_ctx, tensor_parallel
+    from ..sharding.partition import activation_ctx
 
-    if tp is None:
-        tp = tensor_parallel(cfg)
     mesh = plan.mesh
     inner = tuple(a for a in mesh.axis_names if a not in outer)
     n_inner = mesh.axis_size(inner)
@@ -264,14 +266,13 @@ def _mesh_grad_fn(cfg, plan, spec_tree, outer=(), tp=None):
         return gather_top(path, v)
 
     def loss_sums(p, batch):
+        top = {k: v if k in _STACKS else gathered(k, v)
+               for k, v in p.items()}
         if cfg.is_encdec:
-            # the encoder-decoder's layers are gathered at the top
-            top = {k: gathered(k, v) for k, v in p.items()}
             hidden, aux = encdec.forward(top, batch["frames"],
-                                         batch["tokens"], cfg)
+                                         batch["tokens"], cfg,
+                                         gather_layer=gather_layer)
         else:
-            top = {k: v if k == "layers" else gathered(k, v)
-                   for k, v in p.items()}
             extra = ({"prefix_embeds": batch["prefix_embeds"]}
                      if cfg.n_prefix_tokens else {})
             hidden, aux = transformer.forward(top, batch["tokens"], cfg,

@@ -39,8 +39,8 @@ drop their aux loss in decode and prefill.
 
 Under a sharding plan (``Transformer(cfg, params, plan)``, what
 ``steps.make_model(cfg, params, plan)`` builds) every decoder-only model
-(``sharding.partition.tensor_parallel``: dense, MoE, SSM, hybrid and
-prefix configs) holds only this rank's blocks of its weights
+(dense, MoE, SSM, hybrid and prefix configs; `OnBlocks`, which
+``encdec.EncDec`` shares) holds only this rank's blocks of its weights
 (``partition.serving_shardings``: the JAX serving steps'
 ``params_only_shardings``) and decodes into this rank's cache blocks
 (``init_decode_caches(..., plan=)``, `Transformer.prefill`'s output:
@@ -189,12 +189,13 @@ def init_decode_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                   prefix_len: int = 0, need_aux: bool = True, seq=None,
-                  want_cache: bool = True):
+                  want_cache: bool = True, causal: bool = True):
     """One layer over its parameter dict ``lp``, whose keys name its kind:
     ``norm1`` and ``attn`` or ``ssm``, then ``norm2`` and ``mlp`` or
     ``moe`` (or neither). Returns (x, aux, cache): the MoE aux loss (0
     otherwise, or without ``need_aux``), and attention's (k, v) or the
-    SSM's decode state (None without ``want_cache``).
+    SSM's decode state (None without ``want_cache``). ``causal=False``:
+    attention bidirectional and without RoPE (an encoder layer's).
 
     ``seq`` (the sequence-parallel training forward's axis,
     ``partition.seq_axis_for``): ``x`` is this rank's block of the
@@ -209,7 +210,7 @@ def layer_forward(lp: Dict, x: torch.Tensor, positions: torch.Tensor, cfg,
         h = seq_gather(h, seq)
     if "attn" in lp:
         y, cache = attention.self_attention(lp["attn"], h, positions, cfg,
-                                            causal=True,
+                                            causal=causal, use_rope=causal,
                                             prefix_len=prefix_len, seq=seq)
     elif want_cache:
         y, cache = ssm.ssd_forward(lp["ssm"], h, cfg, return_state=True,
@@ -354,9 +355,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
     runs under ``cfg.remat`` (`_remat`). The aux sums each repeat's
     pattern, then the repeats.
 
-    ``gather_layer(i, lp)``, when given, turns pattern element ``i``'s
-    per-layer dict of blocks (a rank's share under a sharding plan) into
-    the parameters the layer computes on, inside each layer's remat: the
+    ``gather_layer(stack, lp)``, when given, turns a per-layer dict of
+    blocks (a rank's share under a sharding plan) of the stacked leaves
+    under ``stack`` (``"layers/l{i}"``, pattern element ``i``) into the
+    parameters the layer computes on, inside each layer's remat: the
     counterpart of the ZeRO-3 gather inside the reference's layer scan.
 
     In the sequence-parallel training forward (``partition.activation_ctx
@@ -388,7 +390,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg, *,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, per_layer in enumerate(layers):
             gather = (None if gather_layer is None else
-                      functools.partial(gather_layer, i))
+                      functools.partial(gather_layer, f"layers/l{i}"))
             x, a = _remat(_layer, cfg, per_layer[r], x, positions, cfg,
                           prefix_len, gather, seq)
             aux = aux + a
@@ -520,23 +522,23 @@ class Block(nn.Module):
             setattr(self, name,
                     _frozen({k: t[r] for k, t in layer[name].items()}))
 
-    def params(self) -> Dict:
-        return {name: getattr(self, name) for name in self.names}
-
-    def local_params(self) -> Dict:
+    def local_params(self, skip=()) -> Dict:
         """What the layer computes on: its parameters, or on a mesh its
         blocks gathered just in time over every axis but ``model`` (the
         FSDP ``embed`` gather); an MoE layer's router whole, its experts
         this rank's block where ``model`` shards the experts (else whole,
-        as the train step gathers them)."""
+        as the train step gathers them). ``skip``: (part, leaf) pairs left
+        out (leaves a step never reads)."""
         from ..sharding.partition import gather_leaf, tp_keep
 
+        out = {name: {k: t for k, t in getattr(self, name).items()
+                      if (name, k) not in skip} for name in self.names}
         if self.spec is None:
-            return self.params()
+            return out
         return {name: {k: gather_leaf(t, self.spec[name][k], self.mesh,
                                       tp_keep(name, k, self.spec))
-                       for k, t in getattr(self, name).items()}
-                for name in self.names}
+                       for k, t in sub.items()}
+                for name, sub in out.items()}
 
     def forward(self, x, positions, cfg, prefix_len=0):
         return layer_forward(self.local_params(), x, positions, cfg,
@@ -557,30 +559,35 @@ class Block(nn.Module):
         return _ffn(p, x + y, cfg, need_aux=False)[0]
 
 
-class Transformer(nn.Module):
-    """The decoder-only LM over a parameter tree in the JAX layout
-    (``param_specs``' nested dict of tensors, each pattern element's layers
-    stacked on a leading axis). ``layers`` holds one `Block` per layer in
-    the order they run (repeat ``r``'s element ``i`` at ``r * len(pattern)
-    + i``). The parameters do not require gradients (serving only).
+def _stacked(blocks: List["Block"]) -> Dict:
+    """The layers of ``blocks`` (one stack's, in order) as the stacked
+    leaves of the JAX layout."""
+    return {name: {k: torch.stack([getattr(b, name)[k] for b in blocks])
+                   for k in getattr(blocks[0], name)}
+            for name in blocks[0].names}
 
-    With ``plan`` (every config here is `partition.tensor_parallel`),
-    ``params`` is this rank's blocks under ``partition.serving_shardings``
-    (each leaf's shape is checked), and the model runs only under that
-    plan (the module docstring)."""
+
+class OnBlocks(nn.Module):
+    """What a serving model shares with its kin (`Transformer`,
+    ``encdec.EncDec``): under a ``plan`` its parameters are this rank's
+    blocks under ``partition.serving_shardings`` (each leaf's shape
+    checked, ``specs`` the spec tree), it runs only under that plan
+    (`_plan`) and gathers its top-level leaves over every axis but
+    ``model`` (`_gathered`); each stacked layer tree becomes one `Block`
+    a layer (`_blocks`)."""
 
     def __init__(self, cfg, params: Dict, plan=None):
         super().__init__()
         from ..sharding.partition import block_shape, params_only_shardings
+        from .steps import model_param_specs
 
         self.cfg = cfg
         self.plan = plan
-        specs = (None if self.plan is None else
-                 params_only_shardings(cfg, self.plan))
+        specs = None if plan is None else params_only_shardings(cfg, plan)
         if specs is not None:
             from .common import sorted_leaves
 
-            whole = dict(sorted_leaves(param_specs(cfg)))
+            whole = dict(sorted_leaves(model_param_specs(cfg)))
             for path, pspec in sorted_leaves(specs):
                 node = params
                 for key in path.split("/"):
@@ -593,42 +600,20 @@ class Transformer(nn.Module):
                         f"partition.shard_tree(params, serving_shardings("
                         f"cfg, plan), mesh))")
         self.specs = specs
-        mesh = None if specs is None else plan.mesh
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        (pattern, repeats), = cfg.layer_groups()
-        self.period = len(pattern)
 
-        def layer_spec(i):
-            if specs is None:
-                return None
-            return tree_map(lambda sp: type(sp)(*sp[1:]),
-                            specs["layers"][f"l{i}"])
-
-        self.layers = nn.ModuleList(
-            Block(params["layers"][f"l{i}"], r, layer_spec(i), mesh)
-            for r in range(repeats) for i in range(self.period))
-        self.final_norm = _frozen(params["final_norm"])
-        self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Parameter(params["lm_head"], requires_grad=False))
+    def _blocks(self, stacked: Dict, spec: Dict, n: int) -> nn.ModuleList:
+        """One `Block` for each of the ``n`` layers of ``stacked`` (a
+        stacked layer tree; ``spec`` its stacked specs, or None)."""
+        mesh = None
+        if self.specs is not None:
+            mesh = self.plan.mesh
+            spec = tree_map(lambda sp: type(sp)(*sp[1:]), spec)
+        return nn.ModuleList(Block(stacked, r, spec, mesh) for r in range(n))
 
     @property
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
-
-    def param_tree(self) -> Dict:
-        """The parameters as a tree in the JAX layout (layers stacked)."""
-        layers = {}
-        for i in range(self.period):
-            blocks = list(self.layers)[i::self.period]
-            layers[f"l{i}"] = {
-                name: {k: torch.stack([getattr(b, name)[k] for b in blocks])
-                       for k in getattr(blocks[0], name)}
-                for name in blocks[0].names}
-        tree = {"embed": self.embed, "layers": layers,
-                "final_norm": dict(self.final_norm)}
-        if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
-        return tree
 
     def _plan(self):
         """The current plan, checked to be this model's where it holds
@@ -644,17 +629,58 @@ class Transformer(nn.Module):
                              "split))")
         return plan
 
+    def _gathered(self, top: Dict) -> Dict:
+        """Top-level leaves (a subtree of the parameters) as the step
+        computes on them: on a mesh gathered over every axis but
+        ``model``."""
+        if self.specs is None:
+            return top
+        from ..sharding.partition import gather_tree
+
+        return gather_tree(top, self.specs, self.plan.mesh, ("model",))
+
+
+class Transformer(OnBlocks):
+    """The decoder-only LM over a parameter tree in the JAX layout
+    (``param_specs``' nested dict of tensors, each pattern element's layers
+    stacked on a leading axis). ``layers`` holds one `Block` per layer in
+    the order they run (repeat ``r``'s element ``i`` at ``r * len(pattern)
+    + i``). The parameters do not require gradients (serving only).
+
+    With ``plan``, ``params`` is this rank's blocks under
+    ``partition.serving_shardings`` (`OnBlocks`), and the model runs only
+    under that plan (the module docstring)."""
+
+    def __init__(self, cfg, params: Dict, plan=None):
+        super().__init__(cfg, params, plan)
+        (pattern, repeats), = cfg.layer_groups()
+        self.period = len(pattern)
+        per = [self._blocks(params["layers"][f"l{i}"],
+                            self.specs and self.specs["layers"][f"l{i}"],
+                            repeats) for i in range(self.period)]
+        self.layers = nn.ModuleList(per[i][r] for r in range(repeats)
+                                    for i in range(self.period))
+        self.final_norm = _frozen(params["final_norm"])
+        self.lm_head = (None if cfg.tie_embeddings else
+                        nn.Parameter(params["lm_head"], requires_grad=False))
+
+    def param_tree(self) -> Dict:
+        """The parameters as a tree in the JAX layout (layers stacked)."""
+        layers = {f"l{i}": _stacked(list(self.layers)[i::self.period])
+                  for i in range(self.period)}
+        tree = {"embed": self.embed, "layers": layers,
+                "final_norm": dict(self.final_norm)}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
     def _top(self) -> Dict:
         """The embedding, the final norm and the head the step computes
         on: on a mesh gathered over every axis but ``model``."""
         top = {"embed": self.embed, "final_norm": dict(self.final_norm)}
         if self.lm_head is not None:
             top["lm_head"] = self.lm_head
-        if self.specs is None:
-            return top
-        from ..sharding.partition import gather_tree
-
-        return gather_tree(top, self.specs, self.plan.mesh, ("model",))
+        return self._gathered(top)
 
     def embed_tokens(self, tokens):
         return embed_tokens(self._top(), tokens, self.cfg)
@@ -767,27 +793,31 @@ class Transformer(nn.Module):
     def pad_caches(self, caches: Dict, max_len: int) -> Dict:
         """Prefill's attention caches (sized to the prompt) with zero
         slots appended up to ``max_len``, as serving code pads them to its
-        decode window (``jnp.pad`` in the reference). Where the caches
-        shard their sequence (a model on its blocks), each block becomes
-        its part of the padded whole: gathered over
-        ``plan.cache_seq_axis``, padded, cut again."""
-        from ..sharding.comm import all_gather
-        from ..sharding.partition import block, cache_seq_sharded
-        from ..sharding.rules import P
+        decode window (``jnp.pad`` in the reference); `padded_window`."""
+        return {name: padded_window(self, c, max_len)
+                for name, c in caches.items()}
 
-        seq = self.plan is not None and cache_seq_sharded(self.cfg,
-                                                          self.plan)
-        out = {}
-        for name, c in caches.items():
-            out[name] = {}
-            for k, t in c.items():
-                if k in ("k", "v", "k_scale", "v_scale"):
-                    if seq:
-                        t = all_gather(t, self.plan.mesh,
-                                       self.plan.cache_seq_axis, 2)
-                    t = F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
-                    if seq:
-                        t = block(t, P(None, None, self.plan.cache_seq_axis,
-                                       None, None), self.plan.mesh)
-                out[name][k] = t
-        return out
+
+def padded_window(model: OnBlocks, cache: Dict, max_len: int) -> Dict:
+    """One layer kind's prefill caches (``cache``: its leaves, stacked
+    over the layers) with the slots of its attention leaves padded with
+    zeros to ``max_len``. Where ``model`` holds blocks of caches that
+    shard their sequence, each block becomes its part of the padded
+    whole: gathered over ``plan.cache_seq_axis``, padded, cut again."""
+    from ..sharding.comm import all_gather
+    from ..sharding.partition import block, cache_seq_sharded
+    from ..sharding.rules import P
+
+    plan = model.plan
+    seq = plan is not None and cache_seq_sharded(model.cfg, plan)
+    out = {}
+    for k, t in cache.items():
+        if k in ("k", "v", "k_scale", "v_scale"):
+            if seq:
+                t = all_gather(t, plan.mesh, plan.cache_seq_axis, 2)
+            t = F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+            if seq:
+                t = block(t, P(None, None, plan.cache_seq_axis, None, None),
+                          plan.mesh)
+        out[k] = t
+    return out

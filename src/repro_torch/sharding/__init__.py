@@ -8,19 +8,18 @@ partitioner, so it runs SPMD by hand, each rank one process of a
 * a ``NamedSharding`` becomes the rank's own block of the tensor
   (`partition.shard_tree`; `partition.gather_tree` rebuilds the whole);
 * ``with_sharding_constraint`` changes no values, so it has no
-  counterpart (the training forward of a tensor-parallel config makes its
-  residual stream the rank's block of the sequence where it makes the
-  stream: `partition.seq_axis_for`);
+  counterpart (the sharded training forward makes its residual streams
+  the rank's block of the sequence where it makes them:
+  `partition.seq_axis_for`);
 * a ``shard_map`` collective becomes a ``torch.distributed`` collective on
   the subgroup of the named axis (`comm`), differentiable, its backward
   the exact adjoint.
 
 Compute outside the ``shard_map`` regions is partitioned by hand: every
-decoder-only config (`partition.tensor_parallel`: dense, MoE, SSM, hybrid
-and prefix) serves and trains on the rank's ``model`` blocks, each layer
-gathering its leaves over the other axes (FSDP) before use and reducing
-its partial sums over ``model``; the encoder-decoder gathers each
-parameter whole over its spec's axes.
+config (dense, MoE, SSM, hybrid, prefix and the encoder-decoder) serves
+and trains on the rank's ``model`` blocks, each layer gathering its
+leaves over the other axes (FSDP) before use and reducing its partial
+sums over ``model``.
 """
 from .rules import P, ShardingPlan, make_plan, param_shardings, spec_to_pspec  # noqa: F401
 from .partition import (  # noqa: F401

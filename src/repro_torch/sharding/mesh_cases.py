@@ -20,7 +20,8 @@ collectives, the saved carry's shapes, ``build_trainer``'s state and the
 vocab-parallel cross-entropy (`_tp_train`); in the ``ssd`` part, the SSD
 on this rank's blocks against the whole-weight SSD (``ssd/...``, `_ssd`).
 A prefix config's cases carry seeded prefix embeddings (`prefix_embeds`)
-and decode from the slot after them.
+and decode from the slot after them; an encoder-decoder's, seeded frames
+(`frames`), and its cross caches keep the encoder's slots.
 Outputs and gradients are gathered whole; rank 0 returns them with each
 part's wall time. `pod_exchange` runs `steps.pod_reduce` on given
 gradients and errors (one pod a rank). ``tests/test_torch_sharding_mesh.py``
@@ -43,7 +44,8 @@ __all__ = ["run", "pod_exchange", "EP_X", "DECODE", "PIPELINE",
            "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED",
            "TP", "TP_CASES", "TP_TRAIN", "TP_XENT", "tp_config", "tp_tokens",
            "tp_start_caches", "seq_seams", "TP_FALLBACK", "SSD",
-           "PREFIX_SEED", "prefix_embeds"]
+           "PREFIX_SEED", "prefix_embeds", "FRAMES_SEED", "frames",
+           "decode_caches"]
 
 SEED = 0
 EP_CUT = dict(d_model=64, moe_d_ff=32)
@@ -71,7 +73,10 @@ TP = {"batch": 2, "prompt": 8, "max_len": 16, "steps": 8, "seed": 7}
 #: jamba's whole 8-layer period (SSM heads, kv heads and experts over model
 #: on (2, 2); its 2 kv heads replicated and the cache's sequence sharded on
 #: (1, 4)); prefix: paligemma (MQA) with 8 seeded prefix embeddings before
-#: the prompt
+#: the prompt; encoder-decoder: whisper over 64 seeded frames, its 4 q / 2
+#: kv heads replicated and the self (16 slots) and cross (64 frames)
+#: caches' sequence over model on (1, 4), the heads (2 q and 1 kv a rank)
+#: and both caches' kv heads over model with FSDP on (2, 2)
 TP_CASES = {
     "mha_1x4": ("phi3-mini-3.8b", (1, 4), {"n_layers": 2, "n_kv_heads": 4}),
     "mha_2x2": ("phi3-mini-3.8b", (2, 2), {"n_layers": 2, "n_kv_heads": 4}),
@@ -86,6 +91,8 @@ TP_CASES = {
     "hybrid_2x2": ("jamba-1.5-large-398b", (2, 2), {"capacity_factor": 8.0}),
     "hybrid_1x4": ("jamba-1.5-large-398b", (1, 4), {"capacity_factor": 8.0}),
     "prefix_1x4": ("paligemma-3b", (1, 4), {"n_layers": 2}),
+    "encdec_1x4": ("whisper-tiny", (1, 4), {"n_layers": 2}),
+    "encdec_2x2": ("whisper-tiny", (2, 2), {"n_layers": 2}),
 }
 #: the SSD on blocks against the whole-weight SSD: mamba2-370m's
 #: ``.reduced()`` (16 heads, 2 chunks of 32), a 64-position forward and its
@@ -94,6 +101,8 @@ SSD = {"arch": "mamba2-370m", "batch": 2, "seq": 64, "decode": 4, "seed": 9}
 #: a prefix config's seeded prefix embeddings: ``default_rng([PREFIX_SEED,
 #: i])``, i the train batch's index or ``TP["seed"]`` for serving
 PREFIX_SEED = 5
+#: an encoder-decoder's seeded frames, the same way
+FRAMES_SEED = 6
 #: the cache leaves with a slot per position (the others: an SSM's state
 #: and conv tail)
 KV = ("k", "v", "k_scale", "v_scale")
@@ -246,10 +255,30 @@ def prefix_embeds(cfg, batch: int, i: int) -> Dict:
         (batch, cfg.n_prefix_tokens, cfg.d_model), np.float32)}
 
 
+def frames(cfg, batch: int, i: int) -> Dict:
+    """``{"frames": (batch, enc_seq, d_model)}`` of an encoder-decoder,
+    standard normal float32 from ``default_rng([FRAMES_SEED, i])``; {} for
+    the others."""
+    if not cfg.is_encdec:
+        return {}
+    rng = np.random.default_rng([FRAMES_SEED, i])
+    return {"frames": rng.standard_normal(
+        (batch, cfg.enc_seq, cfg.d_model), np.float32)}
+
+
+def decode_caches(cfg, batch: int, length: int, **kw) -> Dict:
+    """``init_decode_caches`` of ``cfg``'s model (``length`` self slots;
+    an encoder-decoder's cross caches ``enc_seq``)."""
+    from ..models import encdec, transformer
+
+    return (encdec if cfg.is_encdec else transformer).init_decode_caches(
+        cfg, batch, length, **kw)
+
+
 def train_batches(cfg, n: int = STEPS) -> list:
     """SyntheticLM's batches; a prefix config's take P prefix embeddings
     and the first ``seq - P`` tokens (the labels cover all P + S hidden
-    positions)."""
+    positions); an encoder-decoder's take seeded frames."""
     from ..data import DataConfig, SyntheticLM
 
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -261,6 +290,9 @@ def train_batches(cfg, n: int = STEPS) -> list:
         cut = DATA["seq"] - cfg.n_prefix_tokens
         out = [dict(b, tokens=b["tokens"][:, :cut],
                     **prefix_embeds(cfg, DATA["batch"], i))
+               for i, b in enumerate(out)]
+    if cfg.is_encdec:
+        out = [dict(b, **frames(cfg, DATA["batch"], i))
                for i, b in enumerate(out)]
     return out
 
@@ -525,7 +557,8 @@ def _tp_train(out, dev):
     (``tp_train_saved/<case>/<c>``) and whether
     ``launch.train.build_trainer``'s state is this rank's blocks of the
     whole draw, bit for bit (``tp_train_init/<case>/<c>``; but a prefix
-    config, whose batches its synthetic data cannot make). Then the
+    config and the encoder-decoder, whose batches its synthetic data
+    cannot make). Then the
     vocab-parallel cross-entropy against the whole-vocabulary one
     (``tp_xent/...``, `_tp_xent`) and each rule's fallback
     (``tp_fallback/...``, `_tp_fallback`)."""
@@ -552,7 +585,8 @@ def _tp_train(out, dev):
         c = "".join(str(mesh.coords[a]) for a in mesh.axis_names)
         mine[f"tp_train_ops/{case}/{c}"] = probes["ops"]
         mine[f"tp_train_saved/{case}/{c}"] = probes["saved"]
-        if not cfg.n_prefix_tokens:     # build_trainer refuses a prefix
+        if not (cfg.n_prefix_tokens or cfg.is_encdec):
+            # build_trainer refuses a prefix config and the encoder-decoder
             mine[f"tp_train_init/{case}/{c}"] = _init_is_blocks(cfg, mesh,
                                                                 dev)
     _tp_xent(out, dev)
@@ -611,7 +645,10 @@ def seq_seams(case: str) -> int:
     layer's gathers of the sequence into attention, the SSD and the MLP
     and a reduce after each whose weights are model blocks (an MoE's
     router gathered whole instead of its MLP's), the gather before the
-    loss. No parameter leaf is gathered over model but the router."""
+    loss. An encoder-decoder's encoder layers likewise (attention and the
+    MLP), the encoder's output gathered whole once, each decoder layer's
+    self-attention, cross-attention and MLP. No parameter leaf is
+    gathered over model but the router."""
     from . import make_plan
 
     class Shape:
@@ -622,6 +659,11 @@ def seq_seams(case: str) -> int:
     plan = make_plan(cfg, Shape(dict(zip(("data", "model"),
                                          TP_CASES[case][1]))))
     n = 1 + (plan.rules["vocab"] is not None and not cfg.n_prefix_tokens)
+    heads = plan.rules["heads"] is not None
+    if cfg.is_encdec:
+        mlp = 1 + (plan.rules["mlp"] is not None)
+        return (n + cfg.n_enc_layers * (1 + heads + mlp) + 1
+                + cfg.n_layers * (2 * (1 + heads) + mlp))
     for mixer, ffn in cfg.layer_kinds():
         n += 1 + (plan.rules["heads" if mixer == "attn" else "ssm_inner"]
                   is not None)
@@ -707,11 +749,17 @@ def _tp_xent(out, dev):
                     out[f"tp_xent/{form}/{tag}/{k}"] = _np(t)
 
 
+def _slots(name: str, key: str) -> bool:
+    """Whether cache leaf ``name/key`` has a slot per decoded position
+    (an attention cache's, but the cross caches')."""
+    return key in KV and name != "cross"
+
+
 class _Serving:
     """One case's steps on one model (this rank's blocks under ``plan``,
     or the whole model with ``plan`` None), recording whole arrays
     (gathered over the batch and the cache blocks). ``extra``: the
-    prefill's prefix embeddings (the same block of the batch as
+    prefill's prefix embeddings or frames (the same block of the batch as
     ``toks``)."""
 
     def __init__(self, cfg, model, toks, plan, out, extra=None):
@@ -721,11 +769,10 @@ class _Serving:
         self.p0 = cfg.n_prefix_tokens
 
     def _specs(self, length):
-        from ..models import transformer
         from .partition import serving_cache_shardings
 
         return serving_cache_shardings(
-            self.cfg, self.plan, transformer.init_decode_caches(
+            self.cfg, self.plan, decode_caches(
                 self.cfg, TP["batch"], self.p0 + length, device="meta"),
             self.split)
 
@@ -743,7 +790,8 @@ class _Serving:
     def window(self, prompt_caches):
         """This rank's blocks of the decode window (float32, ``max_len``
         slots after the prefix) holding the given global prompt caches (a
-        tree of arrays; an SSM's state and conv tail as they are)."""
+        tree of arrays; an SSM's state and conv tail, and the cross
+        caches, as they are)."""
         from .partition import block
 
         dev = self.toks.device
@@ -754,7 +802,7 @@ class _Serving:
             out[name] = {}
             for k, t in c.items():
                 w = torch.from_numpy(np.array(t, np.float32)).to(dev)
-                if k in KV:
+                if _slots(name, k):
                     w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad))
                 out[name][k] = (w if specs is None else
                                 block(w, specs[name][k], self.plan.mesh))
@@ -806,7 +854,7 @@ class _Serving:
             for name, c in self.whole(caches, TP["max_len"]).items():
                 for k, t in c.items():
                     self.out[f"{key}/{name}/{k}"] = _np(
-                        t[:, :, pr:pr + n] if k in KV else t)
+                        t[:, :, pr:pr + n] if _slots(name, k) else t)
         return caches
 
 
@@ -836,7 +884,8 @@ def _tp(out, dev, start=None):
         model = steps.make_model(
             cfg, shard_tree(whole, serving_shardings(cfg, plan), mesh), plan)
         toks = torch.from_numpy(tp_tokens(cfg)).to(dev)
-        extra = _t(prefix_embeds(cfg, TP["batch"], TP["seed"]), dev)
+        extra = _t({**prefix_embeds(cfg, TP["batch"], TP["seed"]),
+                    **frames(cfg, TP["batch"], TP["seed"])}, dev)
         split = batch_axis(plan, toks.shape[0]) is not None
         cut = P(plan.batch_axes if split else None)
         tp = _Serving(cfg, model, block(toks, cut, mesh), plan, out,
@@ -992,8 +1041,9 @@ def run(mesh, parts=BASE_PARTS, tp_start=None) -> Dict:
 
 def tp_start_caches(arrays: Dict) -> Dict:
     """{case: the reference's prefill caches, whole} from its ``tp/<case>/
-    prefill/<l>/<k>`` arrays (``experiments/sharding/reference.json``'s
-    mesh part, decoded): `run`'s ``tp_start``."""
+    prefill/<name>/<k>`` arrays (``experiments/sharding/reference.json``'s
+    mesh part, decoded; an encoder-decoder's ``self`` and ``cross``
+    caches): `run`'s ``tp_start``."""
     from ..models.common import unflatten
 
     out = {}

@@ -7,8 +7,8 @@ call: the steps set it (`activation_ctx`), `current_plan` reads it. The
 context also says whether this rank's activations are its block of the
 batch over ``plan.batch_axes`` (``split_batch``, set by the steps that
 split it) or the whole batch, and whether the training forward keeps its
-residual stream sequence-parallel (``seq``, set by the sharded train step
-of a `tensor_parallel` config). ``with_sharding_constraint`` changes no
+residual stream sequence-parallel (``seq``, set by the sharded train
+step). ``with_sharding_constraint`` changes no
 values, so the JAX ``maybe_constrain`` has no counterpart; the one
 constraint that moves data, the sequence-parallel stream, is made by the
 code that makes the stream: there the embedding and each layer's output
@@ -32,9 +32,8 @@ partitions) needs three more seams, used by the layer code:
 `rule_of_block` (the mesh axes a leaf's dimension is a block along),
 `psum_rule` (the sum of a partial product over them) and `gather_leaf`'s
 ``keep`` (the per-layer FSDP gather over the axes other than ``model``;
-`tp_keep`). Training under a plan computes on the same blocks.
-`tensor_parallel` says which configs are served and trained on blocks
-(every one but the encoder-decoder);
+`tp_keep`). Training under a plan computes on the same blocks. Every
+config is served and trained on blocks, the encoder-decoder too;
 `serving_shardings` / `serving_cache_shardings` give the blocks a rank
 holds.
 """
@@ -54,7 +53,7 @@ __all__ = [
     "batch_axis", "rebatch", "train_state_shardings", "batch_shardings",
     "decode_input_shardings", "params_only_shardings", "shard_tree",
     "gather_tree", "block", "gather_leaf", "holds_blocks", "rule_of_block",
-    "psum_rule", "tensor_parallel", "serving_shardings",
+    "psum_rule", "serving_shardings",
     "serving_cache_shardings", "cache_seq_sharded", "block_shape",
     "seq_axis_for", "seq_block", "seq_gather", "tp_keep",
 ]
@@ -73,8 +72,8 @@ def activation_ctx(plan: Optional[ShardingPlan], split_batch: bool = False,
     ``models.transformer.Transformer`` built on them); ``seq``: the
     training forward keeps its residual stream as this rank's block of the
     sequence over ``plan.seq_axis`` (`seq_axis_for`; set by the sharded
-    train step of a `tensor_parallel` config, live through its backward,
-    where the remat recomputes the layers)."""
+    train step, live through its backward, where the remat recomputes the
+    layers)."""
     global _ACT
     prev = _ACT
     _ACT = (plan, bool(split_batch and plan is not None),
@@ -335,14 +334,6 @@ def gather_tree(tree: Any, spec_tree: Any, mesh, keep=()) -> Any:
 
 # -- serving on blocks ---------------------------------------------------------
 
-def tensor_parallel(cfg) -> bool:
-    """Whether the port serves and trains ``cfg`` under a plan on this
-    rank's blocks (`serving_shardings`, ``train_state_shardings``): every
-    decoder-only config (dense, MoE, SSM, hybrid, prefix). The
-    encoder-decoder keeps its weights whole on every rank."""
-    return not cfg.is_encdec
-
-
 def tp_keep(name: str, key: str, layer_spec: Dict) -> Tuple[str, ...]:
     """``gather_leaf``'s ``keep`` for leaf ``key`` of part ``name`` of a
     tensor-parallel layer (``layer_spec``: the layer's per-layer specs by
@@ -359,18 +350,14 @@ def tp_keep(name: str, key: str, layer_spec: Dict) -> Tuple[str, ...]:
 
 def serving_shardings(cfg, plan: ShardingPlan) -> Any:
     """The specs of the weights a rank serves ``cfg`` on: the JAX serving
-    steps' `params_only_shardings` for a `tensor_parallel` config, every
-    leaf whole for the others."""
-    specs = params_only_shardings(cfg, plan)
-    if tensor_parallel(cfg):
-        return specs
-    return tree_map(lambda s: P(*([None] * len(s))), specs)
+    steps' `params_only_shardings`."""
+    return params_only_shardings(cfg, plan)
 
 
 def cache_seq_sharded(cfg, plan: ShardingPlan) -> bool:
-    """Whether a `tensor_parallel` config's attention caches shard their
-    sequence over ``plan.cache_seq_axis`` (the heads stay whole: the kv
-    heads do not divide ``model``)."""
+    """Whether the attention caches shard their sequence over
+    ``plan.cache_seq_axis`` (the heads stay whole: the kv heads do not
+    divide ``model``)."""
     kvr = plan.rules.get("kv_heads")
     heads = bool(kvr) and cfg.n_kv_heads % plan.axis_size(kvr) == 0
     return plan.cache_seq_axis is not None and not heads
@@ -380,24 +367,19 @@ def serving_cache_shardings(cfg, plan: ShardingPlan, caches: Any,
                             split: bool) -> Any:
     """The specs of the cache blocks a rank's decode takes (``caches``:
     the global tree) when its stream is its block of the batch
-    (``split``) or the whole batch: `decode_input_shardings`' for a
-    `tensor_parallel` config (kv heads over ``model``, or the sequence
-    over ``plan.cache_seq_axis``; an SSM layer's state its heads over
-    ``ssm_heads``, its conv tail whole over ``model``), with the batch
-    entry dropped where the stream is whole; for the other configs the
-    batch entry only, but the seq-sharded flash-decode's
-    (``decode_attention="sharded"``), which takes `decode_input_shardings`'
-    whole."""
+    (``split``) or the whole batch: `decode_input_shardings`' (kv heads
+    over ``model``, or the sequence over ``plan.cache_seq_axis`` where it
+    divides it, else whole: an encoder-decoder's cross caches too; an SSM
+    layer's state its heads over ``ssm_heads``, its conv tail whole over
+    ``model``), with the batch entry dropped where the stream is whole;
+    but the seq-sharded flash-decode's (``decode_attention="sharded"``),
+    which takes `decode_input_shardings`' whole."""
     want = decode_input_shardings(cfg, plan, {"caches": caches})["caches"]
-    tp = tensor_parallel(cfg)
 
     def one(path, spec):
         kv = path[-1] in ("k", "v", "k_scale", "v_scale")
         if kv and cfg.decode_attention == "sharded" and plan.cache_seq_axis:
             return spec
-        if not tp:
-            return P(None, spec[1] if split else None,
-                     *([None] * (len(spec) - 2)))
         if kv and isinstance(spec[2], tuple):
             raise ValueError(
                 f"the cache spreads its sequence over {spec[2]} (a batch "

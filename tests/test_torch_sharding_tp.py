@@ -29,11 +29,17 @@ caches gathered whole):
   SSM heads, kv heads and experts over model on (2, 2), its 2 kv heads
   replicated and the cache's sequence sharded on (1, 4)); the prefix
   (paligemma, MQA, 8 seeded prefix embeddings before the prompt, the
-  decode from the slot after them) on (1, 4).
+  decode from the slot after them) on (1, 4);
+* the encoder-decoder (whisper over 64 seeded frames: its heads
+  replicated, the self and cross caches' sequence over model on (1, 4);
+  the heads and both caches' kv heads over model, FSDP over data, on
+  (2, 2)); the decode starts from the reference's prefill ``self`` and
+  ``cross`` caches.
 
 Tolerances (phase 16a's decode rule, ``tests/test_torch_sharding_mesh.py``):
 logits atol 5e-5 (prefill and every step); the decode window's caches
-(float32) atol 5e-5; the prefill's caches are bf16, so within 5e-5 plus
+(float32) atol 5e-5; the prefill's caches (an encoder-decoder's cross
+caches too) are bf16, so within 5e-5 plus
 one bf16 rounding of the larger entry (a float32 gap of ~1e-7 moves a
 rounding by a step; the two packages' programs round 1-6 of 2048-4096
 entries a leaf apart). XLA's own sharded and unsharded programs lie up to
@@ -53,7 +59,10 @@ decode step's collectives are counted by kind and axes
 (``record_collectives``): over ``model``, the embedding's reduce, one reduce
 after attention (heads over model) and one after the MLP a layer, and the
 logits' ``all_gather``; the MoE's two ``all_to_all`` instead of the MLP's
-reduce; over ``data``, the per-layer FSDP gathers.
+reduce; an encoder-decoder's decoder layer adds its cross-attention (its
+reduce, or over a sequence-sharded cross cache the softmax's maximum and
+one sum of the row sums and the partials) and runs no encoder; over
+``data``, the per-layer FSDP gathers of the leaves the step reads.
 
 Training (``mesh_cases.TP_TRAIN``: the cases but mqa_sharded_1x4, through
 the ``train/...`` recipe, float32, a batch of 4 x 32): the first step's
@@ -70,8 +79,11 @@ router gathered whole as the JAX ``shard_map`` takes it, one gather of
 the sequence before the loss) and their adjoints, so no other parameter
 leaf is gathered over ``model``; the tensors autograd keeps between the
 layers are the rank's block of the sequence (the whole stream is kept
-only as the loss chunk's input); ``build_trainer``'s leaf-by-leaf state
-is the rank's blocks of the whole draw, bit for bit; and the
+only as the loss chunk's input; an encoder-decoder's encoder stream is
+its block of the frames, its output kept whole only as each decoder
+layer's memory); ``build_trainer``'s leaf-by-leaf state is the rank's
+blocks of the whole draw, bit for bit (it refuses the prefix and
+encoder-decoder configs); and the
 vocab-parallel cross-entropy equals the whole vocabulary's (padded rows,
 a softcap, labels on every rank's block and -1) within 2e-6 relative.
 Where a rule does not divide model (a 30-position sequence, a 510-row
@@ -163,7 +175,7 @@ def _held(got, want, what):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     lim = np.full(want.shape, ATOL)
-    if "/prefill/l" in what:
+    if any(f"/prefill/{c}" in what for c in ("l", "self/", "cross/")):
         big = np.maximum(np.abs(got), np.abs(want)).astype(np.float32)
         lim = lim + np.spacing(big).astype(np.float64) * 2.0 ** 16
     err = np.abs(got - want)
@@ -173,10 +185,9 @@ def _held(got, want, what):
 
 
 def _n_cache_leaves(case):
-    from repro_torch.models import transformer
     from repro_torch.models.common import sorted_leaves
 
-    return len(list(sorted_leaves(transformer.init_decode_caches(
+    return len(list(sorted_leaves(MC.decode_caches(
         MC.tp_config(case), 1, 1, device="meta"))))
 
 
@@ -252,7 +263,6 @@ def _block_bytes(tree, specs, plan):
 @pytest.mark.parametrize("case", CASES)
 def test_each_rank_holds_only_its_blocks(port, case):
     from repro_torch.configs.specs import abstract_params_tree
-    from repro_torch.models import transformer
     from repro_torch.models.common import sorted_leaves
     from repro_torch.sharding import (decode_input_shardings,
                                       params_only_shardings)
@@ -260,7 +270,7 @@ def test_each_rank_holds_only_its_blocks(port, case):
     cfg, plan = MC.tp_config(case), _plan(case)
     params = _block_bytes(abstract_params_tree(cfg),
                           params_only_shardings(cfg, plan), plan)
-    caches = transformer.init_decode_caches(
+    caches = MC.decode_caches(
         cfg, MC.TP["batch"], cfg.n_prefix_tokens + MC.TP["max_len"],
         dtype=torch.float32, device="meta")
     cache_bytes = _block_bytes(caches, decode_input_shardings(
@@ -283,12 +293,14 @@ def _expected_ops(case):
     cfg, plan = MC.tp_config(case), _plan(case)
     specs = dict(sorted_leaves(params_only_shardings(cfg, plan)))
     (pattern, repeats), = cfg.layer_groups()
+    want = collections.Counter({("all-reduce", "model"): 1,    # embedding
+                                ("all-gather", "model"): 1})   # logits
+    if cfg.is_encdec:
+        return want + _encdec_ops(cfg, plan, specs)
     # the FSDP gathers: each leaf with a block along data, once a step
     # (a stacked leaf once a layer)
     fsdp = sum(("data" in s) * (repeats if p.startswith("layers/") else 1)
                for p, s in specs.items())
-    want = collections.Counter({("all-reduce", "model"): 1,    # embedding
-                                ("all-gather", "model"): 1})   # logits
     if fsdp:
         want[("all-gather", "data")] = fsdp
     if case.startswith(("ssm", "hybrid", "prefix")):
@@ -312,6 +324,31 @@ def _expected_ops(case):
         want[("all-gather", "data")] += 2 * n_layers
     else:
         want[("all-reduce", "model")] += 2 * n_layers
+    return want
+
+
+def _encdec_ops(cfg, plan, specs):
+    """{(HLO kind, axes): count} of an encoder-decoder's decode step but
+    the embedding's and the logits': per decoder layer, self-attention's
+    reduce where its heads are blocks, else the gathered decode's maximum,
+    sum and weights-times-values partial over the cache's sequence; the
+    cross-attention's reduce, else the maximum and one sum of the row sums
+    and the partials over the cross cache's sequence; the MLP's reduce.
+    The FSDP gathers over data of the leaves the step reads: the
+    embedding and the final norm once, each decoder layer's but the
+    cross-attention's k and v projections (its cross caches hold them),
+    no encoder's."""
+    heads = plan.rules["heads"] is not None
+    per_layer = (1 if heads else 3) + (1 if heads else 2) + 1
+    want = collections.Counter({("all-reduce", "model"):
+                                cfg.n_layers * per_layer})
+    read = [p for p in specs if p in ("embed", "final_norm/w", "final_norm/b")
+            or p.startswith("dec_layers/") and p not in (
+                "dec_layers/xattn/wk", "dec_layers/xattn/wv")]
+    fsdp = sum(("data" in specs[p]) * (cfg.n_layers if p.startswith(
+        "dec_layers/") else 1) for p in read)
+    if fsdp:
+        want[("all-gather", "data")] = fsdp
     return want
 
 
@@ -423,7 +460,13 @@ def test_tp_train_step_gathers_no_parameter_over_model(port, case):
         "ssm_1x4": 2 + 2 * 2, "ssm_2x2": 2 + 2 * 2,
         "hybrid_2x2": 2 + 4 * (2 + 2) + 4 * (2 + 1),
         "hybrid_1x4": 2 + 3 * (2 + 2) + (1 + 2) + 4 * (2 + 1),
-        "prefix_1x4": 1 + 2 * 3}[case]
+        "prefix_1x4": 1 + 2 * 3,
+        # the embedding's and the loss's; the encoder's 2 layers: attention
+        # 1 (2 with its heads over model), the MLP 2; the encoder's output
+        # gathered once; the decoder's 2 layers: self- and cross-attention
+        # 1 each (2), the MLP 2
+        "encdec_1x4": 2 + 2 * 3 + 1 + 2 * 4,
+        "encdec_2x2": 2 + 2 * 4 + 1 + 2 * 6}[case]
     for ops in lists:
         assert list(ops) == list(lists[0])    # every rank, the same order
         got = collections.Counter(str(op) for op in ops)
@@ -443,14 +486,28 @@ def test_tp_train_carry_is_the_sequence_block(port, case):
     whole, block = f"{b}x{s}x{d}", f"{b}x{s // shape['model']}x{d}"
     for k in (k for k in port if k.startswith(f"tp_train_saved/{case}/")):
         saved = [str(x) for x in port[k]]
+        once = 1
+        if cfg.is_encdec:
+            enc = f"{b}x{cfg.enc_seq // shape['model']}x{d}"
+            # the encoder's stream: each layer's input the rank's block of
+            # the frames; its output whole only as each decoder layer's
+            # memory
+            assert saved.count(enc) >= cfg.n_enc_layers, (k, saved)
+            assert saved.count(f"{b}x{cfg.enc_seq}x{d}") == cfg.n_layers
+            if enc == whole:
+                # (2, 2): the encoder's block of the 64 frames has the
+                # decoder stream's whole shape; each stream of two layers
+                # keeps its block as often
+                once += saved.count(block)
         # one loss chunk (its input, the gathered sequence) ...
-        assert saved.count(whole) == 1, (k, saved.count(whole))
+        assert saved.count(whole) == once, (k, saved.count(whole))
         # ... and each layer's input: the rank's block of the sequence
         assert saved.count(block) >= cfg.n_layers, (k, saved)
 
 
 @pytest.mark.parametrize("case", [c for c in TRAIN_CASES
-                                  if not MC.tp_config(c).n_prefix_tokens])
+                                  if not (MC.tp_config(c).n_prefix_tokens
+                                          or MC.tp_config(c).is_encdec)])
 def test_build_trainer_draws_each_rank_its_blocks(port, case):
     got = {k: bool(v) for k, v in port.items()
            if k.startswith(f"tp_train_init/{case}/")}

@@ -79,7 +79,8 @@ from .engine_select import _mesh_shards
 from .wavefront import pad_block, pad_operand, resolve_device
 
 __all__ = ["ROW_AXIS", "RowMesh", "device_mesh", "default_mesh",
-           "best_shard_count", "launch_mesh", "gather_rows",
+           "best_shard_count", "launch_mesh", "start_mesh", "MeshRun",
+           "gather_rows",
            "pad_block_sharded", "dist_mult_sharded", "sharded_dist_mult",
            "ecmp_loads_sharded", "composed_dist_mult_tiles",
            "tiled_dist_mult", "tiled_dist_mult_tiles", "tiled_summary",
@@ -304,59 +305,116 @@ def launch_mesh(fn: Callable, num_shards, *args, device="cuda",
     ``fn(None, *args)`` here.
     """
     dev = resolve_device(device)
-    named = None
-    if isinstance(num_shards, (tuple, list)):
-        from ...launch.mesh import MESH_AXES
-
-        named = (tuple(num_shards), tuple(axes or MESH_AXES))
-        num_shards = int(np.prod(named[0]))
+    size, named = _shards(num_shards, axes)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
             "MASTER_ADDR" in os.environ and not tdist.is_initialized():
         _join_torchrun(dev, timeout_s)
     if tdist.is_available() and tdist.is_initialized():
-        return fn(_rank_mesh(num_shards, named, dev), *args)
-    if num_shards <= 1:
-        return fn(_rank_mesh(num_shards, named, dev) if named else None,
-                  *args)
+        return fn(_rank_mesh(size, named, dev), *args)
+    if size <= 1:
+        return fn(_rank_mesh(size, named, dev) if named else None, *args)
+    return start_mesh(fn, num_shards, *args, device=device,
+                      timeout_s=timeout_s, axes=axes).result()
+
+
+def _shards(num_shards, axes):
+    """(the rank count, (shape, axes) of a named-axis mesh or None)."""
+    if isinstance(num_shards, (tuple, list)):
+        from ...launch.mesh import MESH_AXES
+
+        named = (tuple(num_shards), tuple(axes or MESH_AXES))
+        return int(np.prod(named[0])), named
+    return num_shards, None
+
+
+class MeshRun:
+    """Ranks spawned by `start_mesh`: `result` lets them run ``fn`` and
+    returns rank 0's result. Ranks never let run are killed at exit."""
+
+    def __init__(self, procs, tmp, go, timeout_s):
+        import atexit
+
+        self.procs, self.tmp, self.go = procs, tmp, go
+        self.timeout_s = timeout_s
+        self.t_go = None
+        atexit.register(self._kill)
+
+    def _kill(self):
+        import shutil
+
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def result(self):
+        """Rank 0's result; a rank that raises or a run past ``timeout_s``
+        (from this call) raises here."""
+        import atexit
+
+        tmp = self.tmp
+        try:
+            self.t_go = time.time()
+            self.go.set()
+            failed = _join(self.procs, time.monotonic() + self.timeout_s)
+            if failed is not None:
+                # the first traceback written is the cause: a rank whose
+                # peer left mid-handshake may exit before the peer that
+                # raised
+                errs = sorted((os.path.getmtime(os.path.join(tmp, f)), f)
+                              for f in os.listdir(tmp) if f.endswith(".err"))
+                if errs:
+                    failed = int(errs[0][1][4:-4])
+                err = os.path.join(tmp, f"rank{failed}.err")
+                why = (open(err).read() if os.path.exists(err) else
+                       f"exit code {self.procs[failed].exitcode}")
+                raise RuntimeError(f"rank {failed} of {len(self.procs)} "
+                                   f"failed:\n{why}")
+            if any(proc.exitcode != 0 for proc in self.procs):
+                raise TimeoutError(f"a mesh of {len(self.procs)} ranks ran "
+                                   f"past {self.timeout_s} s; its ranks were "
+                                   f"killed")
+            with open(os.path.join(tmp, "result.pkl"), "rb") as fh:
+                return pickle.load(fh)  # written by rank 0 of this call
+        finally:
+            self._kill()
+            atexit.unregister(self._kill)
+
+
+def start_mesh(fn: Callable, num_shards, *args, device="cuda",
+               timeout_s: float = 900.0, axes=None) -> MeshRun:
+    """Spawn `launch_mesh`'s ranks (``num_shards`` of them, each on the
+    card or the CPU as there) and return at once. Each rank joins the
+    group, makes its mesh (its CUDA context included) and waits until
+    `MeshRun.result` is called before it runs ``fn``: a caller starts the
+    ranks (their ``import torch`` takes seconds each) beside other work."""
+    dev = resolve_device(device)
+    num_shards, named = _shards(num_shards, axes)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = "nccl" if 0 < num_shards <= cards else "gloo"
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     ids = (visible.split(",") if visible else
            [str(i) for i in range(cards)])
     ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="repro_mesh_") as tmp:
-        procs = [ctx.Process(target=_rank_main,
-                             args=(rank, num_shards, backend, dev.type, tmp,
-                                   timeout_s, fn, args, named))
-                 for rank in range(num_shards)]
-        try:
-            for rank, proc in enumerate(procs):
-                if cards:
-                    # the rank inherits the environment it starts with
-                    os.environ["CUDA_VISIBLE_DEVICES"] = ids[rank % cards]
-                proc.start()
-        finally:
-            if visible is None:
-                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
-            else:
-                os.environ["CUDA_VISIBLE_DEVICES"] = visible
-        failed = _join(procs, time.monotonic() + timeout_s)
-        if failed is not None:
-            # the first traceback written is the cause: a rank whose peer
-            # left mid-handshake may exit before the peer that raised
-            errs = sorted((os.path.getmtime(os.path.join(tmp, f)), f)
-                          for f in os.listdir(tmp) if f.endswith(".err"))
-            if errs:
-                failed = int(errs[0][1][4:-4])
-            err = os.path.join(tmp, f"rank{failed}.err")
-            why = (open(err).read() if os.path.exists(err) else
-                   f"exit code {procs[failed].exitcode}")
-            raise RuntimeError(f"rank {failed} of {num_shards} failed:\n{why}")
-        if any(proc.exitcode != 0 for proc in procs):
-            raise TimeoutError(f"a mesh of {num_shards} ranks ran past "
-                               f"{timeout_s} s; its ranks were killed")
-        with open(os.path.join(tmp, "result.pkl"), "rb") as fh:
-            return pickle.load(fh)  # written by rank 0 of this call
+    go = ctx.Event()
+    tmp = tempfile.mkdtemp(prefix="repro_mesh_")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(rank, num_shards, backend, dev.type, tmp,
+                               timeout_s, fn, args, go, named))
+             for rank in range(num_shards)]
+    try:
+        for rank, proc in enumerate(procs):
+            if cards:
+                # the rank inherits the environment it starts with
+                os.environ["CUDA_VISIBLE_DEVICES"] = ids[rank % cards]
+            proc.start()
+    finally:
+        if visible is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    return MeshRun(procs, tmp, go, timeout_s)
 
 
 def _join_torchrun(dev: torch.device, timeout_s: float) -> None:
@@ -408,13 +466,23 @@ def _rank_mesh(size: int, named, device):
     return make_debug_mesh(named[0], named[1], device=device)
 
 
+def _wait_for(go) -> None:
+    """Wait for the event ``go``; leave if the spawning process has gone."""
+    import multiprocessing
+
+    parent = multiprocessing.parent_process()
+    while not go.wait(5.0):
+        if parent is not None and not parent.is_alive():
+            raise RuntimeError("the caller left before it let the ranks run")
+
+
 def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
-               timeout_s: float, fn: Callable, args: tuple,
+               timeout_s: float, fn: Callable, args: tuple, go,
                named=None) -> None:
-    """One spawned rank: join the group, run ``fn`` on the mesh, and (rank
-    0) leave its result beside the rendezvous file; a failure leaves its
-    traceback there, before the group is torn down (which fails the
-    peers)."""
+    """One spawned rank: join the group, make its mesh, wait for the event
+    ``go``, run ``fn`` on the mesh, and (rank 0) leave
+    its result beside the rendezvous file; a failure leaves its traceback
+    there, before the group is torn down (which fails the peers)."""
     err = os.path.join(tmp, f"rank{rank}.err")
 
     def leave_traceback():
@@ -430,7 +498,9 @@ def _rank_main(rank: int, size: int, backend: str, device: str, tmp: str,
             world_size=size, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = fn(_rank_mesh(size, named, device), *args)
+            mesh = _rank_mesh(size, named, device)
+            _wait_for(go)
+            out = fn(mesh, *args)
             if rank == 0:
                 path = os.path.join(tmp, "result.pkl")
                 with open(path + ".part", "wb") as fh:

@@ -20,7 +20,8 @@ storage, no arithmetic) exactly as the port runs it under a plan:
   hybrid, prefix, encoder-decoder) the layers compute on the rank's
   ``model`` blocks with each residual stream its block of the sequence
   and the loss vocab-parallel; or ``make_compressed_train_step`` where
-  ``grad_compression == "int8_pod"`` on the multi-pod mesh;
+  ``grad_compression == "int8_pod"`` on the multi-pod mesh, on the same
+  blocks with the float32 error tree in the params' blocks;
 * **decode** and **prefill**: the steps on the rank's blocks of the
   weights (``partition.serving_shardings``: the JAX step's
   ``params_only_shardings``) and of the caches
@@ -82,6 +83,7 @@ from ..configs.specs import (
 )
 from ..models import steps as steps_mod
 from ..models.common import sorted_leaves, tree_map
+from ..optim.compression import init_error_state
 from ..sharding import (
     activation_ctx, batch_shardings, decode_input_shardings, make_plan,
     shard_tree, train_state_shardings,
@@ -365,27 +367,21 @@ def trace_rank(cfg, kind: str, inputs: Dict, mesh, *, fsdp=True,
         batch = placed(inputs)
         parts["batch"] = _block_bytes(
             batch, batch_shardings(cfg, plan, batch), mesh)
+        st_sh = train_state_shardings(cfg, plan)
+        state = shard_tree(placed(abstract_train_state(cfg)), st_sh, mesh)
         if compressed:
-            state = placed(abstract_train_state(cfg))
-            err = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                           state["params"])
+            err = init_error_state(state["params"])
             step = steps_mod.make_compressed_train_step(cfg, plan)
             args = (state, batch, err)
             parts["err"] = _storage_bytes(err)
-            notes.append("train: the compressed step holds the state and "
-                         "the error whole on every rank (the JAX step "
-                         "shards them by train_state_shardings)")
         else:
-            st_sh = train_state_shardings(cfg, plan)
-            state = shard_tree(placed(abstract_train_state(cfg)), st_sh,
-                               mesh)
             accum_steps, accum_dtype = accum
             step = steps_mod.make_train_step(
                 cfg, plan=plan, accum_steps=accum_steps,
                 accum_dtype=(torch.bfloat16 if accum_dtype
                              else torch.float32))
             args = (state, batch)
-            notes.extend(train_notes(cfg, plan))
+        notes.extend(train_notes(cfg, plan))
         parts["params"] = _storage_bytes(state["params"])
         parts["opt"] = _storage_bytes(state["opt"])
         ctx = activation_ctx(None)

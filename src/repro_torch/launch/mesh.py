@@ -36,7 +36,7 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["make_production_mesh", "make_debug_mesh", "MESH_AXES", "Mesh",
-           "axes_tuple"]
+           "axes_tuple", "spec_axes"]
 
 MESH_AXES = ("data", "model")
 
@@ -48,6 +48,11 @@ def axes_tuple(axes: Optional[Axes]) -> Tuple[str, ...]:
     if axes is None:
         return ()
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a partition spec names, over all its entries."""
+    return tuple(a for entry in spec for a in axes_tuple(entry))
 
 
 class Mesh:

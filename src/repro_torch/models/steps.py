@@ -307,13 +307,13 @@ def _block_norm(grads: Dict, spec_tree, mesh) -> torch.Tensor:
     """The global gradient's norm from this rank's blocks: each block's
     sum of squares counted once (by the rank at index 0 of the axes its
     spec does not name), summed over the mesh."""
-    from ..launch.mesh import axes_tuple
+    from ..launch.mesh import spec_axes
     from ..sharding import comm
 
     spec_of = dict(sorted_leaves(spec_tree))
     total = torch.zeros((), dtype=torch.float32, device=mesh.device)
     for path, g in sorted_leaves(grads):
-        named = {a for e in spec_of[path] for a in axes_tuple(e)}
+        named = spec_axes(spec_of[path])
         if all(mesh.coords[a] == 0 for a in mesh.axis_names
                if a not in named):
             total = total + torch.sum(torch.square(g.float()))
@@ -414,19 +414,24 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None,
     return train_step
 
 
-def pod_reduce(g: torch.Tensor, e: torch.Tensor, mesh):
+def pod_reduce(g: torch.Tensor, e: torch.Tensor, mesh, axes=()):
     """One leaf of the compressed exchange over ``pod``: (the pods' mean
     gradient in ``g``'s dtype, the new error, this pod's int8 codes and
     scale, every pod's codes). ``g + e`` is quantized to int8 with one
     float32 scale; the codes and scales are all-gathered (int8 on the
-    wire), dequantized and summed, then divided by the pod count."""
+    wire), dequantized and summed, then divided by the pod count.
+
+    ``g`` and ``e`` may be this rank's block of the leaf over ``axes``
+    (the mesh axes its spec names): the scale then takes the largest
+    ``|g + e|`` over them (``comm.pmax``), so it is the whole leaf's and
+    the codes are the block of the whole leaf's codes."""
     from ..optim.compression import quantize_int8
     from ..sharding import comm
     from .common import div
 
     n_pods = mesh.shape.get("pod", 1)
     gf = g.float() + e
-    q8, s = quantize_int8(gf)
+    q8, s = quantize_int8(gf, lambda amax: comm.pmax(amax, mesh, axes))
     new_e = gf - q8.float() * s
     allq = comm.all_gather(q8[None], mesh, "pod", 0)
     alls = comm.all_gather(s[None], mesh, "pod", 0)
@@ -440,62 +445,79 @@ def make_compressed_train_step(cfg, plan, opt_cfg: Optional[AdamWConfig] = None,
                                ) -> Callable:
     """Train step with int8 error-feedback gradient compression across the
     ``pod`` axis: each pod computes gradients on its share of the batch
-    (its ranks along the other axes as in the sharded step, the state
-    whole on every rank), quantizes (grad + carried error) to int8
-    (``optim.compression.quantize_int8``), all-gathers the int8 codes and
-    the scales over ``pod``, and averages the dequantized gradients; the
-    quantization residual is the new pod-local error.
+    (its ranks along the other axes as in the sharded step, each on its
+    blocks of ``train_state_shardings``), quantizes (grad + carried
+    error) to int8 (`pod_reduce`; the scale the whole leaf's),
+    all-gathers the int8 codes and the scales over ``pod``, and averages
+    the dequantized gradients; the quantization residual is the new
+    pod-local error.
 
-    Returns train_step(state, batch, err) -> (state, metrics, new err),
-    ``err`` a float32 tree shaped as the params
-    (``compression.init_error_state``); loss and nll are averaged over
-    ``pod``. The state is updated in place, as `make_train_step`'s."""
+    Returns train_step(state, batch, err, probe=None) -> (state, metrics,
+    new err): ``state`` this rank's blocks (as `make_train_step`'s under
+    a plan), ``err`` a float32 tree of the params' blocks
+    (``compression.init_error_state`` of them); loss and nll are averaged
+    over ``pod``. The state is updated in place, as `make_train_step`'s.
+    ``probe(path, g + e, codes, scale)``, where given, sees each leaf's
+    blocks as they are exchanged. A plan whose FSDP names ``pod``
+    (``fsdp="pod_data"``) is refused: the JAX step gathers such a leaf
+    over ``pod`` at its region's edge, which this step does not do."""
+    from ..launch.mesh import spec_axes
     from ..sharding import comm
-    from ..sharding.partition import batch_axis, rebatch
-    from ..sharding.rules import P
+    from ..sharding.partition import train_state_shardings
 
     import dataclasses as _dc
 
     opt_cfg = _opt_cfg(cfg, opt_cfg)
     mesh = plan.mesh
     n_pods = mesh.shape.get("pod", 1)
+    spec_tree = train_state_shardings(cfg, plan)["params"]
+    axes_of = {path: spec_axes(sp) for path, sp in sorted_leaves(spec_tree)}
+    on_pod = sorted(p for p, axes in axes_of.items() if "pod" in axes)
+    if on_pod:
+        raise ValueError(
+            f"make_compressed_train_step: the plan shards {len(on_pod)} "
+            f"leaves over pod (fsdp='pod_data'; {on_pod[0]}, ...); the "
+            f"compressed step exchanges whole-pod gradients, so its FSDP "
+            f"must not name pod")
     # inside a pod the batch is already pod-split: the inner plan's batch
     # axes name only the others
     inner_plan = _dc.replace(
         plan, batch_axes=tuple(a for a in plan.batch_axes if a != "pod"))
-    rep = tree_map(lambda s: P(), model_param_specs(cfg))
-    grad_fn = _mesh_grad_fn(cfg, inner_plan, rep, outer=("pod",), tp=False)
+    grad_fn = _mesh_grad_fn(cfg, inner_plan, spec_tree, outer=("pod",))
 
-    def train_step(state: Dict, batch: Dict, err: Dict):
+    def train_step(state: Dict, batch: Dict, err: Dict, probe=None):
         params = state["params"]
         device = state["opt"]["step"].device
         exact_gemms(device)
         # each pod takes its share of the batch, split again over the
         # pod's own batch axes
-        batch = _on_device(batch, device)
         bp = next(iter(batch.values())).shape[0] // n_pods
         pi = mesh.axis_index("pod")
-        split = batch_axis(inner_plan, bp) is not None
-        batch = {k: rebatch(v[pi * bp:(pi + 1) * bp], inner_plan, False,
-                            split) for k, v in batch.items()}
+        batch, split = _batch_block(
+            {k: v[pi * bp:(pi + 1) * bp] for k, v in batch.items()},
+            inner_plan, device)
         (loss, nll), grads = grad_fn(params, batch, split)
         errors = dict(sorted_leaves(err))
         red, new_e = {}, {}
         with torch.no_grad():
             for path, g in sorted_leaves(grads):
-                red[path], new_e[path] = pod_reduce(g, errors[path],
-                                                    mesh)[:2]
+                out = pod_reduce(g, errors[path], mesh, axes_of[path])
+                red[path], new_e[path] = out[:2]
+                if probe is not None:
+                    probe(path, g.float() + errors[path], out[2], out[3])
         del grads
         grads = unflatten(red)
         loss = comm.pmean(loss, mesh, "pod")
         nll = comm.pmean(nll, mesh, "pod")
-        gnorm = adamw.global_norm(grads)
+        # the reduced gradient is equal on every pod: each block counted
+        # once, by pod 0
+        gnorm = _block_norm(grads, spec_tree, mesh)
         if lr_schedule is None:
             lr = torch.full((), opt_cfg.lr, dtype=torch.float32, device=device)
         else:
             lr = lr_schedule(state["opt"]["step"])
         new_params, new_opt = adamw.apply_updates(params, grads, state["opt"],
-                                                  opt_cfg, lr=lr)
+                                                  opt_cfg, lr=lr, norm=gnorm)
         metrics = {"loss": loss, "nll": nll, "grad_norm": gnorm, "lr": lr}
         return {"params": new_params, "opt": new_opt}, metrics, \
             unflatten(new_e)

@@ -22,10 +22,20 @@ __all__ = ["quantize_int8", "dequantize_int8", "compressed_reduce",
            "init_error_state"]
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8 quantization; returns (q, scale)."""
+def quantize_int8(x: torch.Tensor,
+                  whole_max: Optional[Callable[[torch.Tensor],
+                                               torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization; returns (q, scale).
+
+    ``whole_max`` takes the largest ``|x|`` of this tensor to the whole
+    tensor's, where ``x`` is a rank's block of it (``comm.pmax`` over the
+    axes its spec names): a maximum is exact, so the scale is the whole
+    tensor's and the codes are the block of the whole tensor's codes."""
     xf = x.float()
     amax = torch.amax(torch.abs(xf))
+    if whole_max is not None:
+        amax = whole_max(amax)
     scale = torch.clamp_min(div(amax, 127.0), 1e-12)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as tdist
 
 from .. import obs
-from ..launch.mesh import Axes, Mesh, axes_tuple
+from ..launch.mesh import Axes, Mesh, axes_tuple, spec_axes
 
 __all__ = ["psum", "pmean", "pmax", "all_gather", "psum_scatter",
            "all_to_all", "ppermute", "reduce_grads", "record_collectives",
@@ -386,7 +386,7 @@ def reduce_grads(grads, specs, mesh: Mesh, outer=()):
     spec_of = dict(sorted_leaves(specs))
     out = {}
     for path, g in sorted_leaves(grads):
-        named = {a for entry in spec_of[path] for a in axes_tuple(entry)}
+        named = spec_axes(spec_of[path])
         rest = tuple(a for a in mesh.axis_names
                      if a not in named and a not in outer)
         out[path] = psum(g, mesh, rest) if rest else g

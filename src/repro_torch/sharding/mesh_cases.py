@@ -7,7 +7,8 @@ uses, the arrays of every case: the blocks' sha256 (``blocks/...``), the
 expert-parallel MoE and its gradients (``ep/...``), the seq-sharded decode
 and the gathered decode on the same inputs (``decode/...``,
 ``decode_gathered/...``), ``pipeline_apply`` and its gradients
-(``pipeline/...``), two compressed steps (``compressed/...``), two
+(``pipeline/...``), two compressed steps on each of
+`COMPRESSED_MESHES`, on the ranks' blocks (``compressed/<tag>/...``), two
 sharded train steps with the first step's gradients (``train/...``) and,
 in the ``tp`` part, serving on this rank's blocks: each `TP_CASES`
 config's prefill and decode steps (``tp/...``) beside the port's
@@ -24,8 +25,10 @@ and decode from the slot after them; an encoder-decoder's, seeded frames
 (`frames`), and its cross caches keep the encoder's slots.
 Outputs and gradients are gathered whole; rank 0 returns them with each
 part's wall time. `pod_exchange` runs `steps.pod_reduce` on given
-gradients and errors (one pod a rank). ``tests/test_torch_sharding_mesh.py``
-holds them to the JAX package on the CPU, ``chip_smoke.py`` phase 16a to
+gradients and errors (whole, or the rank's blocks of them), and
+`pod_exchanges` on each of `COMPRESSED_MESHES`.
+``tests/test_torch_sharding_mesh.py`` holds them to the JAX package on
+the CPU, ``chip_smoke.py`` phase 16a to
 ``experiments/sharding/reference.json`` on the card. The inputs are the
 reference's: the constants and numpy rules below are copies of its.
 """
@@ -40,8 +43,11 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-__all__ = ["run", "pod_exchange", "EP_X", "DECODE", "PIPELINE",
-           "COMPRESSED_CUT", "DATA", "STEPS", "TRAIN_ARCHS", "EP_CUT", "SEED",
+__all__ = ["run", "pod_exchange", "pod_exchanges", "EP_X", "DECODE",
+           "PIPELINE", "COMPRESSED_CUT", "COMPRESSED_AXES",
+           "COMPRESSED_MESHES", "compressed_tag", "compressed_specs",
+           "reference_key", "block_of", "scale_leaf", "DATA", "STEPS",
+           "TRAIN_ARCHS", "EP_CUT", "SEED",
            "TP", "TP_CASES", "TP_TRAIN", "TP_XENT", "tp_config", "tp_tokens",
            "tp_start_caches", "seq_seams", "TP_FALLBACK", "SSD",
            "PREFIX_SEED", "prefix_embeds", "FRAMES_SEED", "frames",
@@ -56,6 +62,11 @@ PIPELINE = {"stages_micro": (6, 3, 16), "meshes": {"4x1": (4, 1),
                                                    "2x2": (2, 2)}}
 COMPRESSED_CUT = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=128,
                       param_dtype="float32")
+#: the compressed step's meshes over (pod, data, model): ranks 0-1 on the
+#: first, all four on the others (each rank's blocks of the state); every
+#: mesh is held to the reference's one whole-tree recipe
+COMPRESSED_AXES = ("pod", "data", "model")
+COMPRESSED_MESHES = ((2, 1, 1), (2, 1, 2), (2, 2, 1))
 DATA = {"seed": 3, "batch": 4, "seq": 32}
 STEPS = 2
 TRAIN_ARCHS = ("gemma-2b", "granite-moe-1b-a400m")
@@ -457,28 +468,131 @@ def _pipeline(out, dev):
                                                          mesh))
 
 
+def compressed_tag(shape) -> str:
+    """The name of a `COMPRESSED_MESHES` entry in the port's keys: its
+    arrays are ``compressed/<tag>/...``, held to the reference's
+    ``compressed/...``."""
+    return "x".join(map(str, shape))
+
+
+def reference_key(key: str) -> str:
+    """The reference's name of a port key: ``compressed/<tag>/...`` loses
+    its mesh tag (every mesh is held to the same whole-tree recipe)."""
+    part = key.split("/")
+    if part[0] == "compressed":
+        return "/".join(part[:1] + part[2:])
+    return key
+
+
+class _Shape:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+def compressed_specs(shape) -> Dict:
+    """{path: spec} of `compressed_config`'s params under
+    ``train_state_shardings`` on a (pod, data, model) mesh of ``shape``."""
+    from . import make_plan
+    from .partition import train_state_shardings
+
+    cfg = compressed_config()
+    plan = make_plan(cfg, _Shape(dict(zip(COMPRESSED_AXES, shape))))
+    return _flat(train_state_shardings(cfg, plan)["params"])
+
+
+def block_of(a: np.ndarray, spec, coords: Dict, shape: Dict) -> np.ndarray:
+    """``partition.block`` in numpy: the block of ``a`` under ``spec`` of
+    the rank at ``coords`` on a mesh of ``shape`` ({axis: size})."""
+    from ..launch.mesh import axes_tuple
+
+    for dim, entry in enumerate(spec):
+        axes = axes_tuple(entry)
+        if not axes:
+            continue
+        n, i = 1, 0
+        for ax in axes:
+            n, i = n * shape[ax], i * shape[ax] + coords[ax]
+        size = a.shape[dim] // n
+        a = np.take(a, range(i * size, (i + 1) * size), axis=dim)
+    return a
+
+
+def _everyone(mine):
+    """Every rank's ``mine`` (None off a mesh), in rank order."""
+    got = [None] * tdist.get_world_size()
+    tdist.all_gather_object(got, mine)
+    return got
+
+
 def _compressed(out, dev):
+    """The compressed step on each of `COMPRESSED_MESHES`, on this rank's
+    blocks: `STEPS` steps' metrics and the params after them, gathered
+    whole (``compressed/<tag>/...``); every rank's block shapes of the
+    params, moments and error after them (``compressed_blocks/<tag>/
+    <rank>/...``); and one leaf whose largest ``|x|`` lies on one rank's
+    block, through `steps.pod_reduce` (``compressed_scale/<tag>/<rank>/
+    ...``: its codes and scale on each rank, `scale_leaf`)."""
     from ..models import steps
+    from ..models.common import unflatten
     from ..optim import AdamWConfig, adamw
     from ..optim.compression import init_error_state
     from . import make_plan
+    from .partition import block, gather_tree, shard_tree
 
-    mesh = _mesh((2, 1, 1), ("pod", "data", "model"), dev)
-    if mesh is None:  # ranks past the mesh's two
-        return
     cfg = compressed_config()
-    params = _t(numpy_tree(steps.model_param_specs(cfg)), dev)
-    opt_cfg = AdamWConfig()
-    state = {"params": params, "opt": adamw.init_state(params, opt_cfg)}
-    err = init_error_state(params)
-    step = steps.make_compressed_train_step(cfg, make_plan(cfg, mesh),
-                                            opt_cfg)
-    for t, batch in enumerate(train_batches(cfg)):
-        state, m, err = step(state, batch, err)
-        for k in ("loss", "nll", "grad_norm"):
-            out[f"compressed/{t}/{k}"] = _np(m[k])
-    for path, v in _flat(state["params"]).items():
-        out[f"compressed/params/{path}"] = _np(v)
+    for shape in COMPRESSED_MESHES:
+        tag = compressed_tag(shape)
+        mesh = _mesh(shape, COMPRESSED_AXES, dev)
+        shapes = scaled = None
+        if mesh is not None:  # (2, 1, 1): ranks past its two wait below
+            specs = compressed_specs(shape)
+            spec_tree = unflatten(specs)
+            params = shard_tree(_t(numpy_tree(steps.model_param_specs(cfg)),
+                                   dev), spec_tree, mesh)
+            opt_cfg = AdamWConfig()
+            state = {"params": params,
+                     "opt": adamw.init_state(params, opt_cfg)}
+            err = init_error_state(params)
+            step = steps.make_compressed_train_step(
+                cfg, make_plan(cfg, mesh), opt_cfg)
+            for t, batch in enumerate(train_batches(cfg)):
+                state, m, err = step(state, batch, err)
+                for k in ("loss", "nll", "grad_norm"):
+                    out[f"compressed/{tag}/{t}/{k}"] = _np(m[k])
+            whole = gather_tree(state["params"], spec_tree, mesh)
+            for path, v in _flat(whole).items():
+                out[f"compressed/{tag}/params/{path}"] = _np(v)
+            shapes = {f"{name}/{path}": np.array(v.shape) for name, tree in
+                      (("params", state["params"]), ("m", state["opt"]["m"]),
+                       ("v", state["opt"]["v"]), ("err", err))
+                      for path, v in _flat(tree).items()}
+            shapes["coords"] = np.array([mesh.coords[a]
+                                         for a in COMPRESSED_AXES])
+            x, spec = scale_leaf(mesh.coords["pod"])
+            with torch.no_grad():
+                blk = block(torch.from_numpy(x).to(dev), spec, mesh)
+                got = steps.pod_reduce(blk, torch.zeros_like(blk), mesh,
+                                       ("data", "model"))
+            scaled = {"codes": _np(got[2]), "scale": _np(got[3]),
+                      "coords": shapes["coords"]}
+        for r, (sh, sc) in enumerate(zip(_everyone(shapes),
+                                         _everyone(scaled))):
+            for k, v in (sh or {}).items():
+                out[f"compressed_blocks/{tag}/{r}/{k}"] = v
+            for k, v in (sc or {}).items():
+                out[f"compressed_scale/{tag}/{r}/{k}"] = v
+
+
+def scale_leaf(pod: int):
+    """(pod ``pod``'s (8, 16) float32 leaf, its spec over ``data`` and
+    ``model``): its largest ``|x|`` lies in the last rank's block; the
+    pods' leaves differ."""
+    from .rules import P
+
+    rng = np.random.default_rng([SEED, pod])
+    x = rng.standard_normal((8, 16), np.float32)
+    x[-1, -1] = np.float32(-40.0 - 8.0 * pod)
+    return x, P("data", "model")
 
 
 def _train_on(out, key, cfg, mesh, weights, dev, probes=None):
@@ -1056,11 +1170,15 @@ def tp_start_caches(arrays: Dict) -> Dict:
     return out
 
 
-def pod_exchange(mesh, grads: Dict, errs: Dict) -> Dict:
+def pod_exchange(mesh, grads: Dict, errs: Dict, specs=None) -> list:
     """`steps.pod_reduce` on this pod's ``grads[pod]`` and ``errs[pod]``
-    (numpy trees by path); every pod's results come back from pod 0:
-    {pod: {path: (mean, new error, codes, scale, all codes)}}."""
+    (numpy trees by path), whole or, with ``specs`` ({path: spec}), this
+    rank's block of each leaf (its scale over the axes the spec names);
+    every rank's results come back from each: [(coords, {path: (mean, new
+    error, codes, scale, all codes)})] in rank order over the mesh."""
+    from ..launch.mesh import spec_axes
     from ..models import steps
+    from .partition import block
 
     pod = mesh.coords["pod"]
     dev = mesh.device
@@ -1069,8 +1187,27 @@ def pod_exchange(mesh, grads: Dict, errs: Dict) -> Dict:
         for path in sorted(grads[pod]):
             g = torch.from_numpy(np.array(grads[pod][path])).to(dev)
             e = torch.from_numpy(np.array(errs[pod][path])).to(dev)
-            mine[path] = tuple(_np(t) for t in steps.pod_reduce(g, e, mesh))
-    everyone = [None] * mesh.shape["pod"]
-    group, _ = mesh.group("pod")
-    tdist.all_gather_object(everyone, mine, group=group)
-    return dict(enumerate(everyone))
+            axes = ()
+            if specs is not None:
+                g, e = block(g, specs[path], mesh), block(e, specs[path], mesh)
+                axes = spec_axes(specs[path])
+            mine[path] = tuple(_np(t) for t in steps.pod_reduce(g, e, mesh,
+                                                                axes))
+    everyone = [None] * mesh.size
+    group, _ = mesh.group(mesh.axis_names)
+    tdist.all_gather_object(everyone, (dict(mesh.coords), mine), group=group)
+    return everyone
+
+
+def pod_exchanges(mesh, grads: Dict, errs: Dict) -> Dict:
+    """One rank of four: `pod_exchange` on each of `COMPRESSED_MESHES`
+    (whole leaves on (2, 1, 1), the rank's blocks on the others); rank 0
+    returns {tag: its result}."""
+    out = {}
+    for shape in COMPRESSED_MESHES:
+        m = _mesh(shape, COMPRESSED_AXES, mesh.device)
+        specs = None if shape == COMPRESSED_MESHES[0] else \
+            compressed_specs(shape)
+        if m is not None:
+            out[compressed_tag(shape)] = pod_exchange(m, grads, errs, specs)
+    return out

@@ -398,6 +398,24 @@ def test_launch_mesh_raises_a_rank_failure(tmp_path):
                       device="cpu", timeout_s=TIMEOUT)
 
 
+def _clocks(mesh):
+    """Every rank's clock when its body began (a `start_mesh` body)."""
+    import torch.distributed as tdist
+
+    out = [None] * mesh.size
+    tdist.all_gather_object(out, time.time())
+    return out
+
+
+def test_started_ranks_wait_for_their_go():
+    # start_mesh's ranks join the group and wait: no rank's body begins
+    # before result() lets them run
+    run = D.start_mesh(_clocks, 2, device="cpu", timeout_s=TIMEOUT)
+    clocks = run.result()
+    assert len(clocks) == 2 and min(clocks) >= run.t_go
+    assert not any(proc.is_alive() for proc in run.procs)
+
+
 def test_launch_mesh_kills_ranks_past_the_timeout(tmp_path):
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="ran past"):

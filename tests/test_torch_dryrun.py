@@ -227,6 +227,47 @@ def test_train_notes_name_the_whole_layer_gather(arch):
         {"data": 16, "model": 16}))) == []
 
 
+def test_compressed_record_holds_the_ranks_blocks():
+    """The hill-climb's ``gradcomp`` cell (phi3-mini-3.8b ``train_4k`` on
+    2x16x16, int8 pod-compressed): the state and the float32 error tree
+    are the rank's blocks of ``train_state_shardings``, leaf by leaf, so
+    the argument bytes are ``_jax_argument_bytes(..., compressed=True)``
+    (61.14 GB when every rank held them whole); no note names a whole
+    state."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.specs import abstract_train_state, input_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import (batch_shardings, make_plan,
+                                      train_state_shardings)
+
+    rec = dryrun.run_cell("phi3-mini-3.8b", "train_4k", True, save=False,
+                          overrides={"grad_compression": "int8_pod"},
+                          tag="+gradcomp")
+    assert rec["status"] == "ok"
+    assert not tdist.is_initialized()
+    cfg = get_config("phi3-mini-3.8b")
+    mesh_shape = {"pod": 2, "data": 16, "model": 16}
+    plan = make_plan(cfg, _Shape(mesh_shape))
+    sh = train_state_shardings(cfg, plan)
+    state = abstract_train_state(cfg)
+
+    def held(tree, specs, dtype=None):
+        return sum(_blocks(t if dtype is None else t.to(dtype), sp,
+                           mesh_shape)
+                   for t, sp in zip(_tree_leaves(tree), _tree_leaves(specs)))
+
+    inputs = input_specs(cfg, "train_4k")
+    parts = rec["memory"]["argument_parts"]
+    assert parts == {
+        "params": held(state["params"], sh["params"]),
+        "opt": held(state["opt"], sh["opt"]),
+        "err": held(state["params"], sh["params"], torch.float32),
+        "batch": held(inputs, batch_shardings(cfg, plan, inputs))}
+    assert rec["memory"]["argument_bytes"] == \
+        rec["memory"]["jax_argument_bytes"] < 0.3e9
+    assert not any("whole" in n for n in rec["port_notes"])
+
+
 def test_tensor_parallel_train_record_computes_on_the_blocks():
     """gemma-2b's train_4k step on 16x16 (its blocks, the sequence-parallel
     stream, the vocab-parallel loss): every all-gather over model is the

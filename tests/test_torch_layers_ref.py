@@ -124,8 +124,8 @@ def test_phases_15b_15c_rehearsed_on_the_cpu(smoke, arch):
     if cfg.n_experts:
         assert 2 <= min(out["touched"]) <= max(out["touched"]) <= 4
     out = smoke.layers_train_full_width(
-        cfg, "SXM", device="cpu", run=dict(smoke.LAYERS_TRAIN, seq=64,
-                                           whisper_tokens=32))
+        cfg, "SXM", device="cpu", run=dict(smoke.LAYERS_TRAIN, steps=2,
+                                           seq=64, whisper_tokens=32))
     assert len(out["metrics"]) == 2 and out["bound_ms"] > 0
 
 

@@ -187,49 +187,160 @@ def _paths(ref, prefix):
     return sorted(k[len(prefix):] for k in ref if k.startswith(prefix))
 
 
-def test_compressed_exchange_on_jax_gradients(jax_ref):
-    """``steps.pod_reduce`` on two ranks, one pod each, fed the JAX recipe's
-    second-step gradients and carried errors."""
+@pytest.fixture(scope="module")
+def exchange(jax_ref):
+    """``steps.pod_reduce`` on each of ``MC.COMPRESSED_MESHES`` (one spawn
+    of four ranks), fed the JAX recipe's second-step gradients and carried
+    errors: {tag: every rank's (coords, results)}; also the leaves' paths
+    and the inputs."""
     ref = jax_ref.get()
     paths = _paths(ref, "compressed/1/grad/0/")
     grads = {p: {k: ref[f"compressed/1/grad/{p}/{k}"] for k in paths}
              for p in range(2)}
     errs = {p: {k: ref[f"compressed/0/err/{p}/{k}"] for k in paths}
             for p in range(2)}
-    got = D.launch_mesh(MC.pod_exchange, (2, 1, 1), grads, errs,
-                        axes=("pod", "data", "model"), device="cpu",
+    got = D.launch_mesh(MC.pod_exchanges, 4, grads, errs, device="cpu",
                         timeout_s=TIMEOUT)
-    for p in range(2):
+    return got, paths, grads, errs
+
+
+def _specs_of(shape, paths):
+    """{path: spec} of the compressed config on ``shape`` (None: whole)."""
+    if shape == MC.COMPRESSED_MESHES[0]:
+        return {k: () for k in paths}
+    return MC.compressed_specs(shape)
+
+
+@pytest.mark.parametrize("shape", MC.COMPRESSED_MESHES,
+                         ids=MC.compressed_tag)
+def test_compressed_exchange_on_jax_gradients(jax_ref, exchange, shape):
+    """On (2, 1, 1) each pod's rank holds whole leaves; on (2, 1, 2) and
+    (2, 2, 1) each rank its blocks of them: the codes are the blocks of
+    the file's codes, the scales the whole leaf's."""
+    ref = jax_ref.get()
+    got, paths, grads, errs = exchange
+    ranks = got[MC.compressed_tag(shape)]
+    assert len(ranks) == int(np.prod(shape))
+    specs = _specs_of(shape, paths)
+    sizes = dict(zip(MC.COMPRESSED_AXES, shape))
+    for coords, leaves in ranks:
+        p = coords["pod"]
+
+        def cut(a):
+            return MC.block_of(a, specs[k], coords, sizes)
+
         for k in paths:
-            red, new_e, q8, s, allq = got[p][k]
-            want_q = ref[f"compressed/1/q8/{p}/{k}"]
-            np.testing.assert_array_equal(q8, want_q)
+            red, new_e, q8, s, allq = leaves[k]
             np.testing.assert_array_equal(
-                allq, np.stack([ref[f"compressed/1/q8/{i}/{k}"]
+                q8, cut(ref[f"compressed/1/q8/{p}/{k}"]))
+            np.testing.assert_array_equal(
+                allq, np.stack([cut(ref[f"compressed/1/q8/{i}/{k}"])
                                 for i in range(2)]))
             assert float(s) == float(ref[f"compressed/1/scale/{p}/{k}"])
             gf = grads[p][k].astype(np.float32) + errs[p][k]
             ulp = np.spacing(np.float32(np.abs(gf).max()))
-            assert np.abs(new_e - ref[f"compressed/1/err/{p}/{k}"]).max() \
-                <= 2 * ulp, k
+            assert np.abs(new_e - cut(ref[f"compressed/1/err/{p}/{k}"])
+                          ).max() <= 2 * ulp, k
             mean = sum(ref[f"compressed/1/q8/{i}/{k}"].astype(np.float32)
                        * ref[f"compressed/1/scale/{i}/{k}"]
                        for i in range(2)) / 2
-            np.testing.assert_allclose(red, mean, rtol=1e-6, atol=1e-12)
+            np.testing.assert_allclose(red, cut(mean), rtol=1e-6, atol=1e-12)
 
 
-def test_compressed_steps_match_the_jax_recipe(port, jax_ref):
+@pytest.mark.parametrize("shape", MC.COMPRESSED_MESHES,
+                         ids=MC.compressed_tag)
+def test_compressed_steps_match_the_jax_recipe(port, jax_ref, shape):
     ref = jax_ref.get()
+    tag = MC.compressed_tag(shape)
     for t in range(MC.STEPS):
         for k in ("loss", "nll", "grad_norm"):
-            np.testing.assert_allclose(port[f"compressed/{t}/{k}"],
+            np.testing.assert_allclose(port[f"compressed/{tag}/{t}/{k}"],
                                        ref[f"compressed/{t}/{k}"], rtol=1e-4,
                                        err_msg=f"{t} {k}")
     paths = _paths(ref, "compressed/params/")
-    assert paths == _paths(port, "compressed/params/")
+    assert paths == _paths(port, f"compressed/{tag}/params/")
     for k in paths:
-        _close(port[f"compressed/params/{k}"], ref[f"compressed/params/{k}"],
-               0.0, 2 * LR * MC.STEPS + 1e-6, k)
+        _close(port[f"compressed/{tag}/params/{k}"],
+               ref[f"compressed/params/{k}"], 0.0, 2 * LR * MC.STEPS + 1e-6,
+               k)
+
+
+@pytest.mark.parametrize("shape", MC.COMPRESSED_MESHES,
+                         ids=MC.compressed_tag)
+def test_compressed_state_is_the_ranks_blocks(port, shape):
+    """After the steps each rank's params, AdamW moments and error tree
+    have the shapes of its ``train_state_shardings`` blocks (the error in
+    the params' specs)."""
+    tag = MC.compressed_tag(shape)
+    whole = _flat_shapes(MC.compressed_config())
+    specs = MC.compressed_specs(shape)
+    sizes = dict(zip(MC.COMPRESSED_AXES, shape))
+    n = int(np.prod(shape))
+    assert not _paths(port, f"compressed_blocks/{tag}/{n}/")
+    for r in range(n):
+        head = f"compressed_blocks/{tag}/{r}/"
+        coords = dict(zip(MC.COMPRESSED_AXES, port[head + "coords"]))
+        assert np.ravel_multi_index(tuple(port[head + "coords"]), shape) == r
+        for part in ("params", "m", "v", "err"):
+            got = {k: tuple(port[head + f"{part}/{k}"])
+                   for k in _paths(port, head + f"{part}/")}
+            assert sorted(got) == sorted(whole)
+            for k, shp in whole.items():
+                want = MC.block_of(np.empty(shp, np.int8), specs[k], coords,
+                                   sizes).shape
+                assert got[k] == want, (r, part, k)
+    if shape != MC.COMPRESSED_MESHES[0]:
+        # some leaf is cut on these meshes
+        assert any(any(e is not None for e in sp) for sp in specs.values())
+
+
+def _flat_shapes(cfg):
+    from repro_torch.models import steps
+    from repro_torch.models.common import sorted_leaves
+
+    return {k: tuple(v.shape) for k, v in
+            sorted_leaves(steps.model_param_specs(cfg))}
+
+
+@pytest.mark.parametrize("shape", MC.COMPRESSED_MESHES,
+                         ids=MC.compressed_tag)
+def test_compressed_scale_is_the_whole_leafs(port, shape):
+    """A leaf whose largest |x| lies on one rank's block: every rank of its
+    pod takes the whole leaf's scale (the JAX ``quantize_int8`` of the
+    whole leaf, jitted) and cuts the block of the whole leaf's codes; the
+    pods' scales differ."""
+    import jax
+    from repro.optim.compression import quantize_int8
+
+    tag = MC.compressed_tag(shape)
+    sizes = dict(zip(MC.COMPRESSED_AXES, shape))
+    scales = set()
+    for r in range(int(np.prod(shape))):
+        head = f"compressed_scale/{tag}/{r}/"
+        coords = dict(zip(MC.COMPRESSED_AXES, port[head + "coords"]))
+        x, spec = MC.scale_leaf(coords["pod"])
+        q, s = jax.jit(quantize_int8)(x)
+        assert float(port[head + "scale"]) == float(s), (r, coords)
+        np.testing.assert_array_equal(
+            port[head + "codes"],
+            MC.block_of(np.asarray(q), spec, coords, sizes))
+        scales.add(float(s))
+    assert len(scales) == 2
+
+
+def test_compressed_step_refuses_an_fsdp_over_pod():
+    """``fsdp="pod_data"`` shards the state over pod, where the JAX step
+    gathers it at its region's edge: refused by name."""
+    from repro_torch.models import steps
+    from repro_torch.sharding import make_plan
+
+    class Shape:
+        shape = {"pod": 2, "data": 1, "model": 1}
+
+    cfg = MC.compressed_config()
+    plan = make_plan(cfg, Shape(), fsdp="pod_data")
+    with pytest.raises(ValueError, match="pod_data"):
+        steps.make_compressed_train_step(cfg, plan)
 
 
 # -- sharded train steps ---------------------------------------------------------------
